@@ -1,0 +1,76 @@
+"""Turn fitted state of the JAX package, given as numpy arrays, into the port's.
+
+The JAX package's state is a pytree of arrays; ``np.asarray`` of each
+field gives what these functions take, so neither package imports the
+other. The transform is ``NSimplexTransform`` (``refs``, ``base.chol``,
+``base.diag_g``, ``base.d0``, ``k``, ``metric``, ``jitter``); the flat
+index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
+``row_ids``, ``n_valid``, ``storage``, ...). Feeding both packages one
+fitted state lets a test hold the search path to the reference without
+the fit's float noise in between.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.projection import NSimplexTransform
+from repro_torch.core.simplex import BaseSimplex
+from repro_torch.kernels import quantize as quant
+from repro_torch.launch.serve import ZenIndex
+
+
+def _tensor(a, dev, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+
+def transform_from_arrays(*, refs: Optional[np.ndarray], chol: np.ndarray,
+                          diag_g: np.ndarray, d0: np.ndarray, k: int,
+                          metric: str, jitter: float = 0.0,
+                          device=None) -> NSimplexTransform:
+    """The port's ``NSimplexTransform`` holding exactly these arrays."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    base = BaseSimplex(chol=_tensor(chol, dev, f32),
+                       diag_g=_tensor(diag_g, dev, f32),
+                       d0=_tensor(d0, dev, f32))
+    return NSimplexTransform(
+        k=int(k), metric=metric, jitter=float(jitter),
+        refs=None if refs is None else _tensor(refs, dev, f32), base=base)
+
+
+def _coords(coords: np.ndarray, storage: str, dev) -> torch.Tensor:
+    """Storage-dtype coordinates; bf16 travels as its 16-bit pattern (the
+    numpy bf16 dtype belongs to ml_dtypes, which the port does not use)."""
+    coords = np.asarray(coords)
+    if storage == "bfloat16":
+        bits = np.ascontiguousarray(coords).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    return _tensor(coords, dev, quant.torch_dtype(storage))
+
+
+def index_from_arrays(transform: NSimplexTransform, *, coords: np.ndarray,
+                      storage: str = "float32",
+                      coord_scales: Optional[np.ndarray] = None,
+                      row_ids: Optional[np.ndarray] = None,
+                      n_valid: Optional[int] = None, n_deleted: int = 0,
+                      corpus: Optional[np.ndarray] = None,
+                      generation: int = 0, device=None) -> ZenIndex:
+    """The port's flat ``ZenIndex`` holding exactly these arrays."""
+    dev = resolve_device(device)
+    quant.check_storage(storage)
+    return ZenIndex(
+        transform=transform,
+        coords=_coords(coords, storage, dev),
+        corpus=None if corpus is None else _tensor(corpus, dev,
+                                                   torch.float32),
+        n_valid=None if n_valid is None else int(n_valid),
+        row_ids=(None if row_ids is None
+                 else _tensor(row_ids, dev, torch.int32)),
+        n_deleted=int(n_deleted), storage=storage,
+        coord_scales=(None if coord_scales is None
+                      else _tensor(coord_scales, dev, torch.float32)),
+        generation=int(generation))

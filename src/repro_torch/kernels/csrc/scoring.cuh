@@ -1,0 +1,136 @@
+// Shared Zen/Lwb/Upb scoring and running top-k merge for the Hopper search
+// kernels: the CUDA counterpart of kernels/scoring.py (and of the JAX
+// package's kernels/scoring.py). The flat scan (zen_topk.cu) and the
+// clustered probe use the same estimator, the same id -1 mask and the same
+// (distance, id) merge, so they cannot drift apart numerically.
+//
+// A candidate is one 64-bit key: the distance's float bits above the row id.
+// Distances are >= +0.0 after sqrt(max(z2, 0)) + 0.0, and the bits of a
+// non-negative float order like the float itself, so comparing keys as
+// unsigned integers orders candidates ascending by (distance, id) -- the
+// order lax.top_k gives when the running best sits before newer (higher)
+// ids. An empty slot is (+inf, -1), which sorts after every real row.
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+
+namespace zen {
+
+enum Mode : int { kZen = 0, kLwb = 1, kUpb = 2 };
+
+constexpr uint64_t kEmptyKey = (uint64_t(0x7f800000u) << 32) | 0xffffffffu;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// Squared estimator from the full squared norms (altitude included), the
+// dot over the first k-1 columns and the two altitudes; f32 throughout. The
+// rounded intrinsics keep the compiler from contracting the expansion into
+// an FMA, so each step rounds where the plain PyTorch version rounds.
+__device__ __forceinline__ float estimate_sq(float nq, float nx, float dot,
+                                             float qa, float xa, int mode) {
+  float z2 = __fsub_rn(__fadd_rn(nq, nx), __fmul_rn(2.0f, dot));
+  if (mode != kZen) {
+    const float cross = __fmul_rn(__fmul_rn(2.0f, qa), xa);
+    z2 = (mode == kLwb) ? __fsub_rn(z2, cross) : __fadd_rn(z2, cross);
+  }
+  return z2;
+}
+
+// The distance sqrt(max(z2, 0)); + 0.0f folds a -0.0 into +0.0, whose bits
+// order correctly.
+__device__ __forceinline__ float distance(float z2) {
+  return __fadd_rn(sqrtf(fmaxf(z2, 0.0f)), 0.0f);
+}
+
+// A squared estimate above this bound cannot give a distance at or below
+// d (sqrt is correctly rounded; the 2^-20 margin covers the rounding of
+// d * d), so the sqrt and the key compare can be skipped.
+__device__ __forceinline__ float squared_bound(float d) {
+  return __fmul_rn(__fmul_rn(d, d), 1.0f + 0x1p-20f);
+}
+
+__device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
+
+// The -1 mask: a negative id (padding, tombstone, a row outside the range)
+// is never a candidate.
+__device__ __forceinline__ uint64_t make_key(float d, int32_t id) {
+  if (id < 0) return kEmptyKey;
+  return (uint64_t(__float_as_uint(d)) << 32) | uint32_t(id);
+}
+
+__device__ __forceinline__ float key_distance(uint64_t key) {
+  return __uint_as_float(uint32_t(key >> 32));
+}
+
+__device__ __forceinline__ int32_t key_id(uint64_t key) {
+  return int32_t(uint32_t(key & 0xffffffffu));
+}
+
+// Sorts `nseg` segments of `p` keys each (p a power of two, segment s at
+// a + s * stride) ascending with a bitonic network. Block-wide: every
+// thread of the block calls it.
+__device__ __forceinline__ void bitonic_sort_segments(uint64_t* a, int nseg,
+                                                      int p, int stride) {
+  const int half = p >> 1;
+  const int shift = log2_pow2(max(half, 1));
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < nseg * half; t += blockDim.x) {
+        const int seg = t >> shift, i = t & (half - 1);
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = lo + j;
+        uint64_t* s = a + seg * stride;
+        const uint64_t x = s[lo], y = s[hi];
+        const bool ascending = (lo & size) == 0;
+        if ((x > y) == ascending) {
+          s[lo] = y;
+          s[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Merges sorted runs: for each of `nseg` segments, l (w keys, ascending)
+// becomes the w smallest keys of l and b (b's first w keys, ascending).
+// min(l[i], b[w-1-i]) holds those w keys as a bitonic sequence, which a
+// half-cleaner cascade then sorts. Block-wide.
+__device__ __forceinline__ void merge_sorted_segments(uint64_t* l,
+                                                      int lstride,
+                                                      const uint64_t* b,
+                                                      int bstride, int nseg,
+                                                      int w) {
+  const int wshift = log2_pow2(w);
+  for (int t = threadIdx.x; t < nseg * w; t += blockDim.x) {
+    const int seg = t >> wshift, i = t & (w - 1);
+    const uint64_t x = l[seg * lstride + i];
+    const uint64_t y = b[seg * bstride + (w - 1 - i)];
+    l[seg * lstride + i] = x < y ? x : y;
+  }
+  __syncthreads();
+  const int half = w >> 1;
+  const int hshift = log2_pow2(max(half, 1));
+  for (int j = half; j > 0; j >>= 1) {
+    for (int t = threadIdx.x; t < nseg * half; t += blockDim.x) {
+      const int seg = t >> hshift, i = t & (half - 1);
+      const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+      uint64_t* s = l + seg * lstride;
+      const uint64_t x = s[lo], y = s[lo + j];
+      if (x > y) {
+        s[lo] = y;
+        s[lo + j] = x;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace zen

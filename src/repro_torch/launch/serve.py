@@ -1,0 +1,535 @@
+"""nSimplex-Zen retrieval serving on the flat index (PyTorch + CUDA).
+
+PyTorch counterpart of the flat half of ``repro.launch.serve``.
+
+Offline:  ``build_index`` fits the transform on references drawn from the
+          corpus (reference pdist -> Gram -> Cholesky), projects the corpus
+          to (N, k) apex coordinates (one batched triangular solve) and
+          stores them float32, bfloat16 or int8.
+Online:   ``ZenServer.query`` pads the batch to a power-of-two Q bucket,
+          projects it, runs the streaming fused top-k (the Hopper
+          ``zen_topk`` kernel on the card, its plain version on the CPU),
+          re-ranks the candidate pool exactly and maps row positions to
+          external ids.
+Churn:    ``upsert`` projects new rows with the fitted transform and writes
+          them into dead slots or grown capacity; ``delete`` tombstones rows
+          with a far sentinel; ``compact`` repacks the live rows.
+
+Not ported yet, and raising ``NotImplementedError`` that names the
+ROADMAP item: the IVF index (A5), snapshots (A6), the micro-batching
+frontend (A8), principled pivots (A9), the tiered store (A10), fault
+tolerance (A11) and mesh sharding (A12).
+
+CLI:  python -m repro_torch.launch.serve --n 20000 --dim 256 --k 16 \
+          --queries 64 [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import metrics as metrics_lib
+from repro_torch.core import zen as zen_lib
+from repro_torch.core.projection import NSimplexTransform, select_references
+from repro_torch.index.ivf import _check_ids, _dedupe_last_wins, exact_rerank
+from repro_torch.kernels import quantize as quant
+from repro_torch.kernels.scoring import mask_invalid
+from repro_torch.serving import (
+    DEFAULT_NEIGHBOR_MENU, bucket_neighbors, bucket_q,
+)
+
+Tensor = torch.Tensor
+
+#: coordinate sentinel written into tombstoned flat rows — far enough that a
+#: dead row can never win a top-k slot, small enough that f32 squared norms
+#: stay finite (1e15^2 * k << f32 max)
+_DEAD_COORD = 1.0e15
+#: flat capacity growth quantum
+_GROW_ROWS = 4096
+#: largest power-of-two Q bucket; longer batches round up to a multiple
+_MAX_BATCH = 64
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue A, "
+        f"item {item}); use the JAX package repro for it")
+
+
+@dataclasses.dataclass
+class ZenIndex:
+    """Serving-side flat index: fitted transform + searchable coordinates.
+
+    Attributes:
+      transform:  fitted ``NSimplexTransform``.
+      coords:     (cap, k) apex coordinates in the storage dtype. Rows beyond
+                  the live set (tombstones, growth slack) hold a far
+                  sentinel and never win a search.
+      corpus:     original vectors for exact re-ranking, row ``i`` holding
+                  the vector of external id ``i``; optional.
+      n_valid:    number of live rows; ``None`` means every row is live.
+      row_ids:    (cap,) int32 external id per row, ``-1`` for dead rows;
+                  ``None`` while ids equal row positions.
+      n_deleted:  tombstones since the last build/compact.
+      storage:    resident dtype of ``coords``, one of
+                  ``kernels.quantize.SCALAR_STORAGE_DTYPES``.
+      coord_scales: (cap, 1) f32 per-row int8 scales, else ``None``.
+      generation: churn counter, bumped by every change of the searchable
+                  state.
+
+    Mutations return a new ``ZenIndex`` and leave this one as it was.
+    """
+
+    transform: NSimplexTransform
+    coords: Tensor
+    corpus: Optional[Tensor]
+    n_valid: Optional[int] = None
+    row_ids: Optional[Tensor] = None
+    n_deleted: int = 0
+    storage: str = "float32"
+    coord_scales: Optional[Tensor] = None
+    generation: int = 0
+
+    @property
+    def size(self) -> int:
+        """Number of live (searchable) rows."""
+        if self.n_valid is not None:
+            return self.n_valid
+        return self.coords.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.coords.device
+
+    # -- storage helpers -----------------------------------------------------
+    @staticmethod
+    def _write_rows(vals: Tensor, scl: Optional[Tensor], where: Tensor,
+                    new_f32: Tensor) -> None:
+        """Write f32 rows into the storage tensors at ``where`` (in place).
+
+        int8 rows are quantised with their own fresh per-row scales;
+        f32/bf16 rows are plain casting assignments. Every other row keeps
+        its exact stored bytes.
+        """
+        if scl is None:
+            vals[where] = new_f32.to(vals.dtype)
+        else:
+            v, s = quant.encode_rows(new_f32, "int8")
+            vals[where] = v
+            scl[where] = s
+
+    @staticmethod
+    def _kill_rows(vals: Tensor, scl: Optional[Tensor], where) -> None:
+        """Stamp the far-sentinel dead-row pattern at ``where`` (in place)."""
+        if scl is None:
+            vals[where] = _DEAD_COORD
+        else:  # 127 * (sentinel / 127) dequantises to the exact sentinel
+            vals[where] = 127
+            scl[where] = _DEAD_COORD / 127.0
+
+    def _cloned_state(self) -> Tuple[Tensor, Optional[Tensor]]:
+        scl = None if self.coord_scales is None else self.coord_scales.clone()
+        return self.coords.clone(), scl
+
+    def _host_row_ids(self) -> np.ndarray:
+        if self.row_ids is None:
+            return np.arange(self.coords.shape[0], dtype=np.int64)
+        return self.row_ids.cpu().numpy().astype(np.int64)
+
+    def _on_device(self, rows: np.ndarray) -> Tensor:
+        return torch.as_tensor(rows, dtype=torch.long, device=self.device)
+
+    # -- mutation ------------------------------------------------------------
+    def delete(self, ids: Sequence[int]) -> "ZenIndex":
+        """Tombstone the given external ids; unknown ids are ignored."""
+        row_ids = self._host_row_ids()
+        mask = (row_ids >= 0) & np.isin(row_ids, np.asarray(ids, np.int64))
+        if not mask.any():
+            return self
+        row_ids[mask] = -1
+        coords, scl = self._cloned_state()
+        self._kill_rows(coords, scl, self._on_device(np.flatnonzero(mask)))
+        n_dead = int(mask.sum())
+        return dataclasses.replace(
+            self, coords=coords, coord_scales=scl,
+            row_ids=self._on_device(row_ids).to(torch.int32),
+            n_valid=self.size - n_dead, n_deleted=self.n_deleted + n_dead,
+            generation=self.generation + 1)
+
+    def upsert(self, ids: Sequence[int], coords_new: Tensor) -> "ZenIndex":
+        """Insert (or replace) projected rows keyed by external id.
+
+        Existing ids are replaced in place; duplicate ids in the batch keep
+        the last occurrence. New rows reuse tombstoned slots first; when
+        the capacity runs out it grows by multiples of ``_GROW_ROWS`` dead
+        rows.
+        """
+        ids_np = np.asarray(ids, np.int64).ravel()
+        _check_ids(ids_np)
+        if ids_np.size == 0:
+            return self
+        new = coords_new.to(device=self.device, dtype=torch.float32)
+        new = new.reshape(ids_np.size, -1)
+        ids_np, new = _dedupe_last_wins(ids_np, new)
+
+        row_ids = self._host_row_ids()
+        coords, scl = self._cloned_state()
+        # replace rows whose external id already exists
+        sorter = np.argsort(row_ids, kind="stable")
+        pos = np.searchsorted(row_ids, ids_np, sorter=sorter)
+        pos = np.clip(pos, 0, row_ids.size - 1)
+        hit = row_ids[sorter[pos]] == ids_np
+        if hit.any():
+            self._write_rows(coords, scl, self._on_device(sorter[pos[hit]]),
+                             new[self._on_device(np.flatnonzero(hit))])
+        miss = np.flatnonzero(~hit)
+        ids_np, new = ids_np[miss], new[self._on_device(miss)]
+        n_live = self.size + int(ids_np.size)
+        reclaimed = 0
+        if ids_np.size:
+            free = np.flatnonzero(row_ids < 0)[: ids_np.size]
+            reclaimed = int(free.size)  # dead slots this batch refills
+            if free.size < ids_np.size:  # grow capacity in fixed quanta
+                deficit = int(ids_np.size - free.size)
+                grow = -(-deficit // _GROW_ROWS) * _GROW_ROWS
+                cap = row_ids.size
+                row_ids = np.concatenate(
+                    [row_ids, np.full(grow, -1, np.int64)])
+                coords = torch.cat(
+                    [coords, coords.new_empty((grow, coords.shape[1]))])
+                if scl is not None:
+                    scl = torch.cat([scl, scl.new_empty((grow, 1))])
+                self._kill_rows(coords, scl, slice(cap, cap + grow))
+                free = np.concatenate([free, cap + np.arange(deficit)])
+            row_ids[free] = ids_np
+            self._write_rows(coords, scl, self._on_device(free), new)
+        return dataclasses.replace(
+            self, coords=coords, coord_scales=scl,
+            row_ids=self._on_device(row_ids).to(torch.int32),
+            n_valid=n_live, n_deleted=max(0, self.n_deleted - reclaimed),
+            generation=self.generation + 1)
+
+    def compact(self) -> "ZenIndex":
+        """Repack the live rows, dropping tombstones and growth slack.
+
+        Per-row scales ride with their rows: slicing is the whole repack,
+        with no dequantise/requantise cycle.
+        """
+        if self.row_ids is None:
+            return self
+        live = self.row_ids >= 0
+        return dataclasses.replace(
+            self, coords=self.coords[live], row_ids=self.row_ids[live],
+            coord_scales=(None if self.coord_scales is None
+                          else self.coord_scales[live]),
+            n_valid=int(live.sum()), n_deleted=0,
+            generation=self.generation + 1)
+
+    def needs_compact(self, max_tombstone_ratio: float = 0.2) -> bool:
+        """True when tombstones exceed ``max_tombstone_ratio`` of the rows
+        once live. Growth slack is not counted."""
+        return (self.n_deleted / max(self.size + self.n_deleted, 1)
+                > max_tombstone_ratio)
+
+
+def build_index(
+    corpus: Tensor,
+    k: int,
+    *,
+    metric: str = "euclidean",
+    index: str = "flat",
+    storage: str = "float32",
+    pivots: str = "random",
+    pivot_ids: Optional[Sequence[int]] = None,
+    generator: Optional[torch.Generator] = None,
+    keep_corpus: bool = True,
+    device=None,
+    mesh=None,
+    offload: bool = False,
+) -> ZenIndex:
+    """Fit on the corpus and project every row into a flat index.
+
+    Args:
+      corpus:    (N, m) raw vectors; moved to ``device``.
+      k:         number of references == projected width.
+      pivot_ids: explicit reference row ids (one fit, no redraw); else the
+                 paper's random redraw loop draws from ``generator``.
+      storage:   resident dtype of the coordinates: "float32",
+                 "bfloat16" (plain cast) or "int8" (per-row symmetric
+                 scales). Fit and query math stay f32.
+      device:    where the index lives; "cuda" by default, which raises
+                 when there is no card.
+    """
+    if index == "ivf":
+        raise _not_ported("index='ivf'", "A5")
+    if index != "flat":
+        raise ValueError(f"index must be 'flat' or 'ivf', got {index!r}")
+    if mesh is not None:
+        raise _not_ported("mesh sharding", "A12")
+    if offload:
+        raise _not_ported("offload (the tiered store)", "A10")
+    if pivots != "random":
+        raise _not_ported(f"pivots={pivots!r}", "A9")
+    quant.check_storage(storage)
+    dev = resolve_device(device)
+    corpus = corpus.to(dev)
+    tr = select_references(corpus, k, ids=pivot_ids, generator=generator,
+                           metric=metric)
+    coords, coord_scales = quant.encode_rows(tr.transform(corpus), storage)
+    return ZenIndex(transform=tr, coords=coords,
+                    corpus=corpus if keep_corpus else None, storage=storage,
+                    coord_scales=coord_scales)
+
+
+class ZenServer:
+    """Batched k-NN serving over a flat reduced index.
+
+    Every query is served at bucketed shapes — rows padded to a power-of-two
+    Q bucket (floor 2), ``n_neighbors`` rounded up to the width menu — and
+    sliced back, as in the JAX package. On the card the search is the
+    Hopper ``zen_topk`` kernel; on the CPU ``chunk`` picks the streaming
+    scan (index longer than ``chunk``) or the dense path.
+    """
+
+    def __init__(self, index: ZenIndex, *, mode: str = "zen",
+                 rerank_factor: int = 0, chunk: int = 8192,
+                 frontend: bool = False):
+        if frontend:
+            raise _not_ported("the micro-batching frontend", "A8")
+        if mode not in zen_lib.MODES:
+            raise ValueError(f"mode must be one of {zen_lib.MODES}, got "
+                             f"{mode!r}")
+        self.index = index
+        self.mode = mode
+        self.rerank_factor = rerank_factor
+        self.chunk = chunk
+        self._stats = {"queries": 0, "batches": 0, "latency_s": [],
+                       "upserts": 0, "deletes": 0}
+
+    # -- bucketed dispatch core ----------------------------------------------
+    def _query_geometry(self, n_neighbors: int) -> Tuple[int, int]:
+        """(n_bucket, fetch width) a request dispatches at."""
+        n_bucket = bucket_neighbors(n_neighbors, DEFAULT_NEIGHBOR_MENU)
+        width = bucket_neighbors(
+            n_neighbors * max(self.rerank_factor, 1), DEFAULT_NEIGHBOR_MENU)
+        return n_bucket, max(width, n_bucket)
+
+    def _query_block(self, queries: Tensor, width: int, n_bucket: int,
+                     index: Optional[ZenIndex] = None
+                     ) -> Tuple[Tensor, Tensor]:
+        """Serve one padded block: project, search, optional exact re-rank,
+        external-id mapping, and the (+inf, -1) fill for slots the index
+        cannot serve. Returns (distances, ids), each (Qp, n_bucket)."""
+        index = index if index is not None else self.index
+        if index.size == 0:  # fully deleted index: all slots unfilled
+            shape = (queries.shape[0], n_bucket)
+            return (torch.full(shape, float("inf"), device=queries.device),
+                    torch.full(shape, -1, dtype=torch.int32,
+                               device=queries.device))
+        qp = index.transform.transform(queries)
+        n_fetch = min(width, index.size)
+        d, ids = zen_lib.knn_search(
+            qp, index.coords, n_neighbors=n_fetch, mode=self.mode,
+            chunk=self.chunk if index.coords.shape[0] > self.chunk else 0,
+            scales=index.coord_scales)
+        d, ids = self._map_row_ids(d, ids, index)
+        if self.rerank_factor and index.corpus is not None:
+            d, ids = exact_rerank(queries, index.corpus, ids, n_bucket,
+                                  metric=index.transform.metric)
+        else:
+            d, ids = d[:, :n_bucket], ids[:, :n_bucket]
+        if d.shape[1] < n_bucket:  # fewer live rows than the bucket width
+            pad = n_bucket - d.shape[1]
+            d = torch.nn.functional.pad(d, (0, pad), value=float("inf"))
+            ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        return d, ids
+
+    def query(self, queries: Tensor, n_neighbors: int = 10
+              ) -> Tuple[Tensor, Tensor]:
+        """Serve one batch: (Q, m) raw queries -> (distances, ids).
+
+        Returns (distances, ids), each (Q, n_neighbors), ascending, on the
+        index's device. Ids are external ids; slots the index cannot fill
+        come back as (+inf, -1). The latency recorded in ``stats`` waits
+        for the device.
+        """
+        t0 = time.perf_counter()
+        dev = self.index.device
+        queries = torch.as_tensor(queries).to(device=dev,
+                                              dtype=torch.float32)
+        n_rows = int(queries.shape[0])
+        if n_rows == 0:
+            d = torch.full((0, n_neighbors), float("inf"), device=dev)
+            ids = torch.full((0, n_neighbors), -1, dtype=torch.int32,
+                             device=dev)
+        else:
+            n_bucket, width = self._query_geometry(n_neighbors)
+            if n_rows <= _MAX_BATCH:
+                qp_rows = bucket_q(n_rows)
+            else:  # round up to a multiple instead
+                qp_rows = -(-n_rows // _MAX_BATCH) * _MAX_BATCH
+            if qp_rows > n_rows:  # pad with copies of a real row
+                queries = torch.cat([queries, queries[:1].expand(
+                    qp_rows - n_rows, -1)])
+            d, ids = self._query_block(queries, width, n_bucket)
+            d, ids = d[:n_rows, :n_neighbors], ids[:n_rows, :n_neighbors]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self._stats["queries"] += n_rows
+        self._stats["batches"] += 1
+        self._stats["latency_s"].append(time.perf_counter() - t0)
+        return d, ids
+
+    @staticmethod
+    def _map_row_ids(d: Tensor, ids: Tensor, index: ZenIndex
+                     ) -> Tuple[Tensor, Tensor]:
+        """Map flat row positions to external ids; a dead id that reaches
+        an under-filled result is masked to (+inf, -1)."""
+        if index.row_ids is None:
+            return d, ids
+        ext = index.row_ids[torch.clamp_min(ids, 0).long()]
+        ext = torch.where(ids >= 0, ext, torch.full_like(ext, -1))
+        return mask_invalid(d, ext), ext
+
+    # -- mutable corpus lifecycle -------------------------------------------
+    def upsert(self, ids: Sequence[int], vectors: Tensor) -> None:
+        """Project and insert (or replace) raw vectors under external ids.
+
+        The fitted transform projects the batch (no refit); the re-rank
+        corpus, indexed densely by external id, grows or is overwritten at
+        the same ids.
+        """
+        ids_np = np.asarray(ids, np.int64).ravel()
+        vectors = torch.as_tensor(vectors).to(self.index.device)
+        new_index = self.index.upsert(
+            ids_np, self.index.transform.transform(vectors))
+        corpus = self.index.corpus
+        if corpus is not None and ids_np.size:
+            hi = int(ids_np.max()) + 1
+            if hi > corpus.shape[0]:
+                limit = max(2 * corpus.shape[0], corpus.shape[0] + 1_000_000)
+                if hi > limit:
+                    raise ValueError(
+                        f"upsert id {hi - 1} would grow the dense re-rank "
+                        f"corpus from {corpus.shape[0]} to {hi} rows; ids "
+                        "index the corpus by position — use dense ids or "
+                        "drop the corpus (keep_corpus=False)")
+                corpus = torch.cat([corpus, corpus.new_zeros(
+                    (hi - corpus.shape[0], corpus.shape[1]))])
+            else:
+                corpus = corpus.clone()
+            corpus[torch.as_tensor(ids_np, device=corpus.device)] = \
+                vectors.to(corpus.dtype)
+            new_index = dataclasses.replace(new_index, corpus=corpus)
+        self.index = new_index
+        self._stats["upserts"] += int(ids_np.size)
+
+    def delete(self, ids: Sequence[int]) -> None:
+        """Tombstone external ids (unknown ids are ignored)."""
+        before = self.index.size
+        self.index = self.index.delete(ids)
+        self._stats["deletes"] += before - self.index.size
+
+    def compact(self) -> None:
+        """Repack the index now (see ``ZenIndex.compact``)."""
+        self.index = self.index.compact()
+
+    def maybe_compact(self, max_tombstone_ratio: float = 0.2) -> bool:
+        """Compact iff tombstones crossed the threshold; True when it ran."""
+        if not self.index.needs_compact(max_tombstone_ratio):
+            return False
+        self.compact()
+        return True
+
+    def stats(self) -> dict:
+        """Serving counters: query/batch totals, latency percentiles, churn."""
+        lat = np.asarray(self._stats["latency_s"] or [0.0])
+        return {
+            "queries": self._stats["queries"],
+            "batches": self._stats["batches"],
+            "upserts": self._stats["upserts"],
+            "deletes": self._stats["deletes"],
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3),
+        }
+
+    # -- not ported yet ------------------------------------------------------
+    def enable_fault_tolerance(self, *args, **kwargs):
+        raise _not_ported("fault tolerance", "A11")
+
+    def save(self, directory: str) -> str:
+        raise _not_ported("server snapshots (save)", "A6")
+
+    @classmethod
+    def load(cls, directory: str, **kwargs) -> "ZenServer":
+        raise _not_ported("server snapshots (load)", "A6")
+
+
+def exact_topk(queries: Tensor, corpus: Tensor, n_neighbors: int,
+               metric: str = "euclidean") -> Tensor:
+    """(Q, n) ids of the exact nearest corpus rows (brute force, stable
+    ascending order): the recall yardstick of the CLI and the smoke run."""
+    d = metrics_lib.pairwise(metric, queries, corpus)
+    return torch.sort(d, dim=1, stable=True).indices[:, :n_neighbors]
+
+
+def recall(ids: Tensor, true_ids: Tensor) -> float:
+    """Mean fraction of each row's true ids found in ``ids``."""
+    hits = (ids.long()[:, :, None] == true_ids.long()[:, None, :]).any(-1)
+    return float(hits.sum(1).float().mean() / true_ids.shape[1])
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--n", type=int, default=20000)
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--k", type=int, default=16)
+    p.add_argument("--queries", type=int, default=64)
+    p.add_argument("--batches", type=int, default=4)
+    p.add_argument("--neighbors", type=int, default=10)
+    p.add_argument("--metric", default="euclidean")
+    p.add_argument("--rerank", type=int, default=4)
+    p.add_argument("--index", default="flat", choices=["flat", "ivf"])
+    p.add_argument("--storage", default="float32",
+                   choices=list(quant.SCALAR_STORAGE_DTYPES),
+                   help=quant.storage_help())
+    p.add_argument("--pivots", default="random",
+                   help="base-simplex selection strategy (only the paper's "
+                        "random redraw loop is ported)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    from repro_torch.data import synthetic as syn
+
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    corpus = syn.manifold_space(args.n, args.dim, args.dim // 8,
+                                generator=gen)
+    index = build_index(corpus, args.k, metric=args.metric, index=args.index,
+                        storage=args.storage, pivots=args.pivots,
+                        generator=torch.Generator().manual_seed(args.seed),
+                        device=dev)
+    server = ZenServer(index, rerank_factor=args.rerank)
+    print(f"index: {index.size} x {args.k} (from dim {args.dim}, "
+          f"storage={index.storage}, device={dev})")
+    recalls = []
+    for _ in range(args.batches):
+        q = syn.manifold_space(args.queries, args.dim, args.dim // 8,
+                               generator=gen)
+        _, ids = server.query(q, args.neighbors)
+        recalls.append(recall(ids, exact_topk(q, corpus, args.neighbors,
+                                              args.metric)))
+    print(f"recall@{args.neighbors}: {np.mean(recalls):.3f}")
+    print("latency:", server.stats())
+
+
+if __name__ == "__main__":
+    main()
