@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the Hopper
-kernels, holds each against its plain PyTorch version, serves the flat
-index end to end at full size, churns it, and times the kernel.
+kernels, holds each against its plain PyTorch version, serves the flat and
+the IVF index end to end at full size, churns both, and times the kernels.
 
     python3 chip_smoke.py            # the whole run, one card
-    python3 chip_smoke.py --quick    # build + kernel checks at one shape
+    python3 chip_smoke.py --quick    # build + kernel checks (phases 1-3, 7)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -19,14 +19,35 @@ Phases:
   5. churn: delete and upsert ids, query, compact, query; no deleted id
      may come back;
   6. time the kernel at the serving shape (Q = 64, N = 1e6, k = 16, n = 64)
-     with CUDA events beside its bound, the plain version and a library
-     composite (matmul-form distances + torch.topk).
+     with CUDA events, per call and queued back to back on the card,
+     beside its bound, the plain version and a library composite
+     (matmul-form distances + torch.topk);
+  7. ivf_probe and ivf_probe_pq against ivf_probe_scan and
+     ivf_probe_pq_scan on the card, on the phase-3 coordinates packed into
+     4,000 clusters of 128-row tiles: every mode x f32/bf16/int8 and PQ at
+     M = 4, Q in {2, 64}, n in {10, 64, 128}, nprobe in {1, 8, 64}, plus a
+     tombstoned index where query 0 probes clusters holding one live row;
+  8. IVF serving: build_index(index="ivf") on the 1,000,000 x 256 corpus
+     (4,000 clusters, 128-row tiles, nprobe 8, re-rank 4), f32 then PQ,
+     8 batches of 64 queries, recall@10 and p50/p99; the probe kernel's
+     launch count must advance. On a 20,000-row index nprobe = n_clusters
+     gives the flat zen_topk answer, and one index built on the card and
+     moved to the CPU serves the same answers on both;
+  9. IVF churn: delete (served ids too), upsert until T grows, query,
+     compact(), query, compact(recluster=True), query; no deleted id may
+     come back;
+ 10. time both probe kernels at the serving shape (Q = 64, nprobe 8, the
+     index's T, n = 64) beside their bounds, plain versions and library
+     composites (gather + matmul-form estimator or table gather +
+     torch.topk).
 
+Phase 7 runs right after phase 3 (so ``--quick`` covers every kernel).
 Prints one JSON line of kernel records, the nvidia-smi line, and last the
 device line. Any failed check exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,6 +65,9 @@ PEAK_F32_FLOPS = 67e12
 #: kernel vs plain tolerance: both evaluate the same f32 norm expansion,
 #: in another summation order (per-thread FMA chain vs cuBLAS f32 GEMM)
 RTOL = 1e-5
+#: the IVF configuration served at full size: ~4 sqrt(N) clusters of
+#: 128-row tiles, 8 probed per query (the JAX package's defaults)
+N_CLUSTERS, TILE_ROWS, NPROBE, PQ_M = 4_000, 128, 8, 4
 
 
 def log(*a):
@@ -64,6 +88,37 @@ def timed(fn, iters: int, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn`` (CUDA events) with the
+    host's launch overhead hidden: the ``iters`` calls are queued behind a
+    spin kernel that outlasts their enqueueing, so the card runs them back
+    to back. Unlike :func:`timed` it leaves out the host's gaps between
+    launches (launch gaps on the card stay in)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / start.elapsed_time(end)
+    torch.cuda._sleep(int(cycles_per_ms * (2e3 * enqueue_s + 1.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -98,6 +153,366 @@ def profile_serving(server, batches) -> None:
     for us, count, key in rows[:8]:
         log(f"      {us:9.1f} us  {us / max(busy, 1e-9):6.1%}  x{count:<4d} "
             f"{key[:90]}")
+
+def probe_cost(index, probes, n: int, luts=None):
+    """(bytes, f32 operations) the probe of ``probes`` (Q, P) over ``index``
+    must move and do, from this run's data: each probed cluster's ids and
+    live rows read once (a cluster probed by several queries counts once),
+    the queries or tables, and the (Q, n) result; 2 k operations per (query,
+    live probed row), or M table adds under PQ."""
+    import torch
+
+    nq, n_probe = probes.shape
+    T, rows = index.tiles_per_cluster, index.tile_rows
+    live = index.tile_ids.reshape(index.n_clusters, T * rows) >= 0
+    per_cluster = live.sum(1)
+    uniq = torch.unique(probes.long())
+    row_bytes = index.tile_coords.shape[-1] * index.tile_coords.element_size()
+    nbytes = (uniq.numel() * T * rows * 4 + int(per_cluster[uniq].sum())
+              * row_bytes + nq * n * 8)
+    rows_scored = int(per_cluster[probes.long()].sum())
+    if luts is not None:
+        nbytes += luts.numel() * 4
+        flops = rows_scored * index.tile_coords.shape[-1]
+    else:
+        nbytes += nq * index.dim * 4 + (0 if index.tile_scales is None
+                                        else uniq.numel() * 4)
+        flops = 2 * rows_scored * index.dim
+    return nbytes, flops
+
+
+def bound_of(nbytes: int, flops: int):
+    """(bound ms, what binds) on the published H100 peaks."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb > tf else "operations")
+
+
+def check_ivf_kernels(coords, queries, atol: float):
+    """Phase 7: both probe kernels against their plain versions on tiles
+    packed from ``coords``; returns the max |d - d_plain| of each."""
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import pq
+    from repro_torch.kernels import quantize as quant
+    from repro_torch.kernels.scoring import MODE_IDS
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    base = ivf.IVFZenIndex.build(coords, N_CLUSTERS, tile_rows=TILE_ROWS,
+                                 n_iters=5,
+                                 generator=torch.Generator().manual_seed(0))
+    C, T, k = base.n_clusters, base.tiles_per_cluster, base.dim
+    packed = base.tile_coords.reshape(C, T * TILE_ROWS, k)
+    layouts = {}
+    for st in quant.SCALAR_STORAGE_DTYPES:
+        values, scales = ivf._encode_packed(packed, st)
+        layouts[st] = dataclasses.replace(
+            base, tile_coords=values.reshape(C * T, TILE_ROWS, k),
+            storage=st, tile_scales=scales)
+    layouts["pq"] = ivf.IVFZenIndex.from_members(
+        *base._live_members(), base.centroids, C, TILE_ROWS, storage="pq",
+        pq_m=PQ_M)
+    # tombstones: every 7th id, and 64 clusters cut down to one live row
+    dead = list(range(0, coords.shape[0], 7))
+    tids = base.delete(dead).tile_ids.reshape(C, -1)
+    live = tids >= 0
+    sparse = torch.nonzero(live.sum(1) >= 2)[:64, 0]
+    rank = torch.cumsum(live[sparse].int(), 1)
+    dead += tids[sparse][live[sparse] & (rank > 1)].tolist()
+    churned = {st: idx.delete(dead) for st, idx in layouts.items()}
+    torch.cuda.synchronize()
+    log(f"[7] ivf_probe / ivf_probe_pq vs their plain versions on "
+        f"{coords.shape[0]:,} rows in {C} clusters, T = {T} tiles of "
+        f"{TILE_ROWS} rows (packed in {time.perf_counter() - t0:.1f} s); "
+        f"rtol {RTOL}, atol {atol:.3g}")
+    max_err = {"ivf_probe": 0.0, "ivf_probe_pq": 0.0}
+    n_cases = 0
+    dead_set = set(dead)
+    for st in (*quant.SCALAR_STORAGE_DTYPES, "pq"):
+        for mode in ("zen", "lwb", "upb"):
+            cases = [(False, nq, n, P) for nq in (2, 64) for n in (10, 64, 128)
+                     for P in (1, 8, 64)]
+            cases += [(True, 64, 128, P) for P in (1, 8, 64)]
+            for tomb, nq, n, P in cases:
+                idx = (churned if tomb else layouts)[st]
+                q = queries[:nq]
+                probes = idx.probe_clusters(q, P, mode)
+                if tomb:  # query 0 probes clusters holding one live row
+                    probes[0] = sparse[:P].to(probes.dtype)
+                if st == "pq":
+                    name = "ivf_probe_pq"
+                    luts = pq.build_luts(q, idx.centroids, idx.codebooks,
+                                         probes, MODE_IDS[mode])
+                    args = (idx.tile_coords, idx.tile_ids, probes, luts, n)
+                    kw = dict(tiles_per_cluster=idx.tiles_per_cluster)
+                    got = ip.ivf_probe_pq(*args, **kw)
+                    want = ip.ivf_probe_pq_scan(*args, **kw)
+                else:
+                    name = "ivf_probe"
+                    args = (q, idx.tile_coords, idx.tile_ids, probes, n, mode)
+                    kw = dict(tiles_per_cluster=idx.tiles_per_cluster,
+                              tile_scales=idx.tile_scales)
+                    got = ip.ivf_probe(*args, **kw)
+                    want = ip.ivf_probe_scan(*args, **kw)
+                torch.cuda.synchronize()
+                label = (f"{name} {st} {mode} Q={nq} n={n} nprobe={P}"
+                         + (" tombstoned" if tomb else ""))
+                msg = topk_mismatch(got[0], got[1], want[0], want[1],
+                                    rtol=RTOL, atol=atol)
+                if msg is not None:
+                    fail(f"{label} disagrees with its plain version: {msg}")
+                if tomb:
+                    ids = got[1]
+                    if set(ids.ravel().tolist()) & dead_set:
+                        fail(f"{label}: a tombstoned id came back")
+                    if int((ids[0] >= 0).sum()) != P or \
+                            not torch.isinf(got[0][0, P:]).all():
+                        fail(f"{label}: query 0 should get {P} rows, then "
+                             f"(+inf, -1)")
+                fin = torch.isfinite(want[0])
+                if fin.any():
+                    max_err[name] = max(max_err[name], float(
+                        (got[0] - want[0])[fin].abs().max()))
+                n_cases += 1
+    log(f"    {n_cases} cases agree (ids equal outside near-ties); max "
+        f"|d - d_plain| ivf_probe {max_err['ivf_probe']:.3g}, ivf_probe_pq "
+        f"{max_err['ivf_probe_pq']:.3g}; {time.perf_counter() - t0:.1f} s")
+    return max_err
+
+
+def serve_ivf(corpus, batches, k: int, storage: str):
+    """Phase 8: build the full-size IVF index in ``storage`` and serve the
+    batches; returns (server, launches of the probe kernel while serving)."""
+    import torch
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.launch import serve
+
+    kernel = ip.ivf_probe_pq if storage == "pq" else ip.ivf_probe
+    t0 = time.perf_counter()
+    index = serve.build_index(corpus, k, index="ivf", storage=storage,
+                              n_clusters=N_CLUSTERS, tile_rows=TILE_ROWS,
+                              generator=torch.Generator().manual_seed(0),
+                              device=corpus.device)
+    torch.cuda.synchronize()
+    iv = index.ivf
+    tile_bytes = (iv.tile_coords.numel() * iv.tile_coords.element_size()
+                  + iv.tile_ids.numel() * 4)
+    log(f"[8] build_index(index='ivf', storage={storage!r}): {index.size:,}"
+        f" rows, {iv.n_clusters} clusters, T = {iv.tiles_per_cluster} tiles "
+        f"of {iv.tile_rows} rows, tiles + ids {tile_bytes / 2**20:.1f} MiB; "
+        f"{time.perf_counter() - t0:.2f} s")
+    serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4).query(
+        batches[0], 10)  # warm-up
+    server = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4)
+    kernel.launches = 0
+    lat, recalls = [], []
+    for q in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, ids = server.query(q, 10)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        if d.shape != (64, 10) or not torch.isfinite(d).all():
+            fail(f"IVF ({storage}) served distances not finite of shape "
+                 f"(64, 10): {tuple(d.shape)}")
+        if ids.min() < 0 or ids.max() >= corpus.shape[0]:
+            fail(f"IVF ({storage}) served ids out of range")
+        recalls.append(serve.recall(ids, serve.exact_topk(q, corpus, 10)))
+    launches = kernel.launches
+    if launches == 0:
+        fail(f"the IVF ({storage}) serving path never launched "
+             f"{kernel.__name__}")
+    lat_ms = np.asarray(lat) * 1e3
+    log(f"    served {len(lat)} batches x 64 queries at nprobe {NPROBE}: "
+        f"recall@10 {np.mean(recalls):.4f} (min batch {np.min(recalls):.4f})"
+        f"; request latency p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.3f} ms; {kernel.__name__} launches "
+        f"{launches}")
+    sweep = []
+    for nprobe in (32, 128, 512):  # recall against probe depth
+        probe = serve.ZenServer(index, nprobe=nprobe, rerank_factor=4)
+        got = [serve.recall(probe.query(q, 10)[1],
+                            serve.exact_topk(q, corpus, 10))
+               for q in batches[1:3]]
+        sweep.append(f"nprobe {nprobe}: {np.mean(got):.4f}")
+    log(f"    recall@10 on 2 batches by depth: {'; '.join(sweep)}")
+    return server, launches
+
+
+def check_ivf_small(corpus, batches, k: int):
+    """Phase 8, small index: nprobe = n_clusters against the flat zen_topk
+    answer, and the card's served answers against the CPU's on one index
+    moved between devices."""
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import zen_topk as zt
+    from repro_torch.launch import serve
+    from repro_torch.testing import topk_mismatch
+
+    small = corpus[:20_000]
+    pivots = [int(i) for i in torch.randperm(
+        20_000, generator=torch.Generator().manual_seed(1))[:k]]
+    flat = serve.build_index(small, k, pivot_ids=pivots, device=small.device)
+    qp = flat.transform.transform(batches[1])
+    scale = float(flat.coords.norm(dim=1).median())
+    full = ivf.IVFZenIndex.build(flat.coords, 566, tile_rows=TILE_ROWS,
+                                 generator=torch.Generator().manual_seed(0))
+    for mode in ("zen", "lwb", "upb"):
+        before = ip.ivf_probe.launches
+        got = full.search(qp, 64, nprobe=full.n_clusters, mode=mode)
+        want = zt.zen_topk(qp, flat.coords, 64, mode)
+        torch.cuda.synchronize()
+        if ip.ivf_probe.launches != before + 1:
+            fail("IVF search did not launch ivf_probe")
+        msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=RTOL,
+                            atol=RTOL * scale)
+        if msg is not None:
+            fail(f"IVF at nprobe = n_clusters ({mode}) is not the flat "
+                 f"zen_topk answer: {msg}")
+    log(f"    20,000 rows, {full.n_clusters} clusters: nprobe = n_clusters "
+        f"gives the flat zen_topk answer (zen/lwb/upb, n = 64)")
+    for st in ("float32", "bfloat16", "int8", "pq"):
+        index = serve.build_index(
+            small, k, index="ivf", storage=st, pivot_ids=pivots,
+            device=small.device, generator=torch.Generator().manual_seed(0))
+        got = serve.ZenServer(index, nprobe=NPROBE,
+                              rerank_factor=4).query(batches[1], 10)
+        want = serve.ZenServer(index.to("cpu"), nprobe=NPROBE,
+                               rerank_factor=4).query(batches[1].cpu(), 10)
+        msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
+                            atol=1e-4)
+        if msg is not None:
+            fail(f"card and CPU IVF serving disagree ({st}): {msg}")
+    log("    one IVF index built on the card and moved to the CPU serves "
+        "the same answers on both (f32/bf16/int8/pq, nprobe 8, re-rank 4)")
+
+
+def churn_ivf(server, batches, gen, corpus_rows: int):
+    """Phase 9: delete, upsert until T grows, and both compactions, on the
+    served f32 IVF index; no deleted id may come back."""
+    import torch
+    from repro_torch.data import synthetic as syn
+
+    _, ids = server.query(batches[1], 10)
+    dead = sorted(set(ids[:, :3].ravel().tolist())
+                  | set(range(0, corpus_rows, 997)))
+    server.delete(dead)
+    T0 = server.index.ivf.tiles_per_cluster
+    # rows around one corpus vector land in one cluster and overflow it
+    base = server.index.corpus[dead[0]:dead[0] + 1]
+    fresh = base + 1e-3 * syn.manifold_space(4 * TILE_ROWS * T0, 256, 32,
+                                             generator=gen)
+    revive = dead[:500]
+    new_ids = list(range(corpus_rows,
+                         corpus_rows + fresh.shape[0] - len(revive))) + revive
+    server.upsert(new_ids, fresh)
+    T1 = server.index.ivf.tiles_per_cluster
+    if T1 <= T0:
+        fail(f"IVF upsert of {len(new_ids)} rows into one cluster did not "
+             f"grow T ({T0} -> {T1})")
+    revived = set(revive)
+    steps = []
+    for step in ("delete + upsert", "compact()", "compact(recluster=True)"):
+        if step == "compact()":
+            server.compact()
+        elif step == "compact(recluster=True)":
+            server.compact(recluster=True)
+        for q in batches[1:4]:
+            d, ids = server.query(q, 10)
+            back = (set(ids.ravel().tolist()) & set(dead)) - revived
+            if back or not torch.isfinite(d).all():
+                fail(f"IVF churn after {step}: deleted ids came back: "
+                     f"{sorted(back)[:10]}")
+        steps.append(f"T {server.index.ivf.tiles_per_cluster} after {step}")
+    log(f"[9] IVF churn: deleted {len(dead):,}, upserted {len(new_ids):,} "
+        f"({len(revived)} revived ids); no deleted id returned ("
+        f"T {T0} before; {', '.join(steps)}); {server.index.size:,} live "
+        f"rows")
+
+
+def time_ivf(index_f32, index_pq, queries, smi: str):
+    """Phase 10: both probe kernels at the serving shape; returns their
+    records for the kernels line."""
+    import torch
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import pq
+    from repro_torch.kernels.scoring import MODE_IDS
+
+    n, records = 64, {}
+    for name, index in (("ivf_probe", index_f32), ("ivf_probe_pq", index_pq)):
+        iv = index.ivf
+        qp = index.transform.transform(queries).contiguous()
+        probes = iv.probe_clusters(qp, NPROBE)
+        T, rows, C = iv.tiles_per_cluster, iv.tile_rows, iv.n_clusters
+        kw = dict(tiles_per_cluster=T)
+        if name == "ivf_probe_pq":
+            luts = pq.build_luts(qp, iv.centroids, iv.codebooks, probes,
+                                 MODE_IDS["zen"])
+            args = (iv.tile_coords, iv.tile_ids, probes, luts, n)
+            kernel, plain = ip.ivf_probe_pq, ip.ivf_probe_pq_scan
+
+            def library():
+                codes = iv.tile_coords.reshape(C, T * rows, -1)[probes.long()]
+                idx = codes.long().permute(0, 1, 3, 2)   # (Q, P, M, T*rows)
+                z2 = torch.gather(luts, 3, idx).sum(2)
+                d = torch.sqrt(torch.clamp_min(z2, 0.0))
+                ids = iv.tile_ids.reshape(C, -1)[probes.long()]
+                d = torch.where(ids >= 0, d, float("inf"))
+                return torch.topk(d.reshape(d.shape[0], -1), n, dim=1,
+                                  largest=False)
+            nbytes, flops = probe_cost(iv, probes, n, luts)
+        else:
+            args = (qp, iv.tile_coords, iv.tile_ids, probes, n, "zen")
+            kw["tile_scales"] = iv.tile_scales
+            kernel, plain = ip.ivf_probe, ip.ivf_probe_scan
+
+            def library():
+                x = iv.tile_coords.reshape(C, T * rows, -1)[probes.long()]
+                x = x.float()                         # (Q, P, T*rows, k)
+                z2 = ((qp * qp).sum(1)[:, None, None] + (x * x).sum(-1)
+                      - 2.0 * torch.einsum("qk,qprk->qpr", qp[:, :-1],
+                                           x[..., :-1]))
+                d = torch.sqrt(torch.clamp_min(z2, 0.0))
+                ids = iv.tile_ids.reshape(C, -1)[probes.long()]
+                d = torch.where(ids >= 0, d, float("inf"))
+                return torch.topk(d.reshape(d.shape[0], -1), n, dim=1,
+                                  largest=False)
+            nbytes, flops = probe_cost(iv, probes, n)
+        bound, bound_by = bound_of(nbytes, flops)
+        # the looser bound of what the blocks read as laid out: every probed
+        # (query, cluster) pair's T tiles of ids and rows, padding included,
+        # and the PQ tables
+        slots = probes.numel() * T * rows
+        read_bound, _ = bound_of(
+            slots * (4 + iv.tile_coords.shape[-1]
+                     * iv.tile_coords.element_size())
+            + (luts.numel() * 4 if iv.codebooks is not None else 0),
+            2 * slots * iv.dim)
+        before = kernel.launches
+        ms = timed(lambda: kernel(*args, **kw), 20)
+        ms2 = timed(lambda: kernel(*args, **kw), 20)
+        dev = queued_ms(lambda: kernel(*args, **kw), 20)
+        dev2 = queued_ms(lambda: kernel(*args, **kw), 20)
+        kernel.launches = before  # timing launches are not the path's
+        plain_ms = timed(lambda: plain(*args, **kw), 3, warmup=1)
+        lib = timed(library, 10)
+        lib_dev = queued_ms(library, 10)
+        records[name] = dict(ms=min(dev, dev2), plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=bound_by,
+                             library_ms=lib_dev)
+        log(f"[10] {name} at Q={qp.shape[0]}, nprobe={NPROBE}, T={T}, "
+            f"rows={rows}, n={n} ({iv.storage}): kernel device time "
+            f"{dev:.4f} / {dev2:.4f} ms (per call with the host "
+            f"{ms:.4f} / {ms2:.4f} ms), bound {bound:.4f} ms ({bound_by}; "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP) = "
+            f"{bound / min(dev, dev2):.1%} of bound (bound of the padded "
+            f"tiles as the blocks read them {read_bound:.4f} ms); plain "
+            f"{plain_ms:.3f} "
+            f"ms; library device time {lib_dev:.4f} ms (per call with the "
+            f"host {lib:.4f} ms); {smi}")
+    return records
 
 
 def main() -> None:
@@ -195,10 +610,11 @@ def main() -> None:
                 f"{st} N=50000 with {50_000 // 7 + 1} dead rows")
     log(f"    {n_checked} cases agree (ids equal outside near-ties); max "
         f"|d - d_plain| {max_err:.3g}; {time.perf_counter() - t0:.1f} s")
+    del encoded
+    ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
     if quick:
         log("quick run: stopping after the kernel checks")
         sys.exit(2)
-    del encoded
 
     # -- 4. serve end to end --------------------------------------------
     corpus = corpus[:1_000_000]
@@ -293,12 +709,11 @@ def main() -> None:
         nbytes = (qt.numel() * 4 + x.numel() * x.element_size()
                   + (0 if s is None else s.numel() * 4) + nq * n * 8)
         flops = 2 * nq * x.shape[0] * k
-        bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
-        bound_by = ("bytes" if nbytes / PEAK_BYTES_S
-                    > flops / PEAK_F32_FLOPS else "operations")
+        bound, bound_by = bound_of(nbytes, flops)
         before = zt.zen_topk.launches
         ms = timed(lambda: zt.zen_topk(qt, x, n, "zen", scales=s), 20)
         ms2 = timed(lambda: zt.zen_topk(qt, x, n, "zen", scales=s), 20)
+        dev = queued_ms(lambda: zt.zen_topk(qt, x, n, "zen", scales=s), 20)
         zt.zen_topk.launches = before  # timing launches are not the path's
         plain = timed(lambda: zt.zen_topk_scan(qt, x, n, "zen", scales=s),
                       3, warmup=1)
@@ -311,22 +726,48 @@ def main() -> None:
                               dim=1, largest=False)
 
         lib = timed(library, 10)
-        records[st] = dict(ms=min(ms, ms2), plain_ms=plain, bound_ms=bound,
-                           bound_by=bound_by, library_ms=lib)
-        log(f"    {st:8s}: kernel {ms:.4f} / {ms2:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP) = {bound / min(ms, ms2):.1%} of "
-            f"bound; plain {plain:.3f} ms; library {lib:.4f} ms")
+        lib_dev = queued_ms(library, 10)
+        records[st] = dict(ms=dev, plain_ms=plain, bound_ms=bound,
+                           bound_by=bound_by, library_ms=lib_dev)
+        log(f"    {st:8s}: kernel {ms:.4f} / {ms2:.4f} ms, device time "
+            f"{dev:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) = "
+            f"{bound / dev:.1%} of bound; plain {plain:.3f} ms; library "
+            f"{lib:.4f} ms, device time {lib_dev:.4f} ms")
     main_rec = records["float32"]
-    print(json.dumps({"kernels": [{
-        "name": "zen_topk", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/zen_topk.cu",
-        "replaces": "src/repro/kernels/zen_topk.py:92",
-        "launches": serve_launches, "max_abs_err": max_err,
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"]}]}), flush=True)
+    del coords, x32
+
+    # -- 8. IVF serving at full width --------------------------------------
+    ivf_server, ivf_launches = serve_ivf(corpus, batches, k, "float32")
+    ivf_index_f32 = ivf_server.index
+    profile_serving(ivf_server, batches[1:5])
+    pq_server, pq_launches = serve_ivf(corpus, batches, k, "pq")
+    ivf_index_pq = pq_server.index
+    profile_serving(pq_server, batches[1:5])
+    del pq_server
+    check_ivf_small(corpus, batches, k)
+
+    # -- 9. IVF churn ------------------------------------------------------
+    churn_ivf(ivf_server, batches, gen, corpus.shape[0])
+    del ivf_server
+
+    # -- 10. timing of the probes at the serving shape ---------------------
+    ivf_records = time_ivf(ivf_index_f32, ivf_index_pq, batches[1], smi)
+
+    kernels = [dict(name="zen_topk", route="cuda",
+                    source="src/repro_torch/kernels/csrc/zen_topk.cu",
+                    replaces="src/repro/kernels/zen_topk.py:92",
+                    launches=serve_launches, max_abs_err=max_err,
+                    **main_rec)]
+    for kname, line, launches in (("ivf_probe", 94, ivf_launches),
+                                  ("ivf_probe_pq", 296, pq_launches)):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="src/repro_torch/kernels/csrc/ivf_probe.cu",
+            replaces=f"src/repro/kernels/ivf_probe.py:{line}",
+            launches=launches, max_abs_err=ivf_err[kname],
+            **ivf_records[kname]))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,9 +5,11 @@ field gives what these functions take, so neither package imports the
 other. The transform is ``NSimplexTransform`` (``refs``, ``base.chol``,
 ``base.diag_g``, ``base.d0``, ``k``, ``metric``, ``jitter``); the flat
 index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
-``row_ids``, ``n_valid``, ``storage``, ...). Feeding both packages one
-fitted state lets a test hold the search path to the reference without
-the fit's float noise in between.
+``row_ids``, ``n_valid``, ``storage``, ...); the clustered index is
+``index.IVFZenIndex`` (``centroids``, ``tile_coords``, ``tile_ids``,
+``tile_scales``, ``codebooks``, ...). Feeding both packages one fitted
+state lets a test hold the search path to the reference without the fit's
+float noise (or the k-means draws) in between.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
+from repro_torch.index.ivf import IVFZenIndex
 from repro_torch.kernels import quantize as quant
 from repro_torch.launch.serve import ZenIndex
 
@@ -74,3 +77,36 @@ def index_from_arrays(transform: NSimplexTransform, *, coords: np.ndarray,
         coord_scales=(None if coord_scales is None
                       else _tensor(coord_scales, dev, torch.float32)),
         generation=int(generation))
+
+
+def ivf_index_from_arrays(transform: NSimplexTransform, *,
+                          centroids: np.ndarray, tile_coords: np.ndarray,
+                          tile_ids: np.ndarray, tiles_per_cluster: int,
+                          tile_rows: int, n_valid: int, n_deleted: int = 0,
+                          storage: str = "float32",
+                          tile_scales: Optional[np.ndarray] = None,
+                          codebooks: Optional[np.ndarray] = None,
+                          generation: int = 0,
+                          corpus: Optional[np.ndarray] = None,
+                          device=None) -> ZenIndex:
+    """The port's ``ZenIndex`` around an ``IVFZenIndex`` holding exactly
+    these arrays (a bf16 ``tile_coords`` travels as its 16-bit pattern)."""
+    dev = resolve_device(device)
+    quant.check_storage(storage)
+    f32 = torch.float32
+    n_clusters = int(np.asarray(centroids).shape[0])
+    ivf = IVFZenIndex(
+        centroids=_tensor(centroids, dev, f32),
+        tile_coords=_coords(tile_coords, storage, dev),
+        tile_ids=_tensor(tile_ids, dev, torch.int32),
+        n_clusters=n_clusters, tiles_per_cluster=int(tiles_per_cluster),
+        tile_rows=int(tile_rows), n_valid=int(n_valid),
+        n_deleted=int(n_deleted), storage=storage,
+        tile_scales=(None if tile_scales is None
+                     else _tensor(tile_scales, dev, f32)),
+        codebooks=None if codebooks is None else _tensor(codebooks, dev, f32),
+        generation=int(generation))
+    return ZenIndex(
+        transform=transform, coords=None,
+        corpus=None if corpus is None else _tensor(corpus, dev, f32),
+        storage=storage, generation=int(generation), ivf=ivf)

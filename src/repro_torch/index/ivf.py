@@ -1,16 +1,51 @@
-"""Index helpers of ``repro.index.ivf`` that the flat serving path uses.
+"""IVFZenIndex — clustered (inverted-file) retrieval over apex coordinates.
 
-The clustered index (``IVFZenIndex``) is not ported yet; what is here are
-the id checks every mutable layout shares and the exact re-rank.
+PyTorch counterpart of ``repro.index.ivf``. A k-means coarse quantizer
+(``index.kmeans``) partitions the (N, k) apex coordinates, and each query
+scores only the members of its ``nprobe`` estimator-nearest clusters.
+``nprobe = n_clusters`` recovers the flat result.
+
+Padded tile layout: members are sorted by cluster and written into ``T``
+fixed ``tile_rows``-row tiles per cluster,
+
+  tile_coords : (C*T, tile_rows, k)   cluster c owns blocks c*T .. c*T+T-1
+  tile_ids    : (C*T, tile_rows)      global row ids, -1 marks padding
+
+with ``T`` sized by the largest cluster; under ``storage="pq"`` the tiles
+hold (C*T, tile_rows, M) uint8 codes instead. ``search`` probes through
+``kernels.ops.ivf_probe`` / ``ivf_probe_pq``: the Hopper kernels for a
+CUDA index, their plain versions on the CPU.
+
+Mutable corpus: ``upsert`` assigns new rows to their nearest centroid and
+writes them into free slots of that cluster (growing every cluster by whole
+tiles when one fills); ``delete`` tombstones rows by rewriting their id to
+``-1``, which the probes mask like padding; ``compact`` repacks the live
+rows (``recluster=True`` refits the quantizer first). Mutations run on the
+index's device and return a new index: the tensors are cloned, then
+written in place, and ``self`` is left as it was. The bytes they leave are
+the JAX package's.
+
+``ShardedIVFZenIndex`` (ROADMAP A12), ``TieredIVFZenIndex`` (A10) and
+snapshots (A6) are not ported: the two classes, and
+``launch.serve.build_index`` asked for them, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import not_ported
 from repro_torch.core import metrics as metrics_lib
+from repro_torch.core import zen as zen_lib
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import pq as pq_lib
+from repro_torch.kernels import quantize as quant
+from repro_torch.kernels.scoring import MODE_IDS
+
+from .kmeans import kmeans_assign, kmeans_fit
 
 Tensor = torch.Tensor
 
@@ -36,6 +71,593 @@ def _dedupe_last_wins(
     _, first_of_rev = np.unique(ids[::-1], return_index=True)
     keep = np.sort(ids.size - 1 - first_of_rev)
     return ids[keep], rows[torch.as_tensor(keep, device=rows.device)]
+
+
+def _packed_scales(packed: Tensor) -> Tensor:
+    """(C, 1) per-cluster int8 scales of a packed f32 (C, rows, k) layout.
+
+    Equals ``quant.cluster_scales`` over the members (padding rows are zero
+    and cannot carry the absmax); stale tombstone coordinates can only keep
+    a scale larger than the live rows need, until the next compact.
+    """
+    return quant.symmetric_scales(
+        packed.to(torch.float32).abs().amax(dim=(1, 2)))[:, None]
+
+
+def _encode_packed(packed: Tensor,
+                   storage: str) -> Tuple[Tensor, Optional[Tensor]]:
+    """Encode a packed f32 (C, rows, k) layout into a scalar storage dtype:
+    ``(values, (C, 1) per-cluster scales or None)``."""
+    quant.check_storage(storage)
+    packed = packed.to(torch.float32)
+    if storage == "float32":
+        return packed, None
+    if storage == "bfloat16":
+        return packed.to(torch.bfloat16), None
+    scales = _packed_scales(packed)
+    return quant.quantize(packed, scales[:, :, None]), scales
+
+
+def _coerce_member_storage(
+    coords: Tensor,
+    assign: Tensor,
+    n_clusters: int,
+    storage: str,
+    scales: Optional[Tensor],
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """Member coords as restored or fresh -> (storage-dtype values, scales).
+
+    int8 values pass through with their persisted per-cluster ``scales``
+    (no dequantise/requantise cycle); f32 input under a narrow ``storage``
+    is encoded here, int8 with scales from the global assignment.
+    """
+    quant.check_storage(storage)
+    if storage == "pq":
+        raise ValueError("PQ members are packed by IVFZenIndex.from_members")
+    if coords.dtype == torch.int8:
+        if scales is None:
+            raise ValueError("int8 member coords need per-cluster scales")
+        return coords, scales.to(torch.float32)
+    if storage == "int8":
+        scales = quant.cluster_scales(coords, assign, n_clusters)
+        return quant.quantize(coords, scales[assign.long()]), scales
+    return coords.to(quant.torch_dtype(storage)), None
+
+
+def _pack_tiles(
+    coords: Tensor,
+    assign: Tensor,
+    ids: Tensor,
+    n_clusters: int,
+    tile_rows: int,
+    *,
+    min_tiles: int = 1,
+) -> Tuple[Tensor, Tensor, int]:
+    """Pack member rows into the padded inverted-list tile layout.
+
+    ``coords`` (n, width) in any storage dtype (packed as they are),
+    ``assign`` (n,) cluster ids, ``ids`` (n,) global ids. Members keep
+    their order within a cluster (a stable sort by cluster). Returns
+    ``(packed (C, T*tile_rows, width), out_ids (C, T*tile_rows) int32 with
+    -1 padding, T)``, on the device of ``coords``.
+    """
+    n, width = coords.shape
+    dev = coords.device
+    assign = assign.to(device=dev, dtype=torch.long)
+    counts = torch.bincount(assign, minlength=n_clusters)
+    cmax = int(counts.max()) if n else 0
+    per_cluster = max(min_tiles * tile_rows,
+                      -(-cmax // tile_rows) * tile_rows)
+    out_ids = torch.full((n_clusters, per_cluster), -1, dtype=torch.int32,
+                         device=dev)
+    packed = torch.zeros((n_clusters, per_cluster, width), dtype=coords.dtype,
+                         device=dev)
+    if n:
+        order = torch.argsort(assign, stable=True)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(n, device=dev) - torch.repeat_interleave(starts,
+                                                                    counts)
+        a = assign[order]
+        out_ids[a, pos] = ids.to(dev)[order].to(torch.int32)
+        packed[a, pos] = coords[order]
+    return packed, out_ids, per_cluster // tile_rows
+
+
+@dataclasses.dataclass
+class IVFZenIndex:
+    """Clustered Zen index: k-means centroids + padded inverted-list tiles.
+
+    Attributes:
+      centroids:   (C, k) f32 coarse-quantizer centroids.
+      tile_coords: (C*T, tile_rows, k) packed member coordinates in the
+                   ``storage`` dtype, or (C*T, tile_rows, M) uint8 PQ codes.
+      tile_ids:    (C*T, tile_rows) int32 global row ids; ``-1`` marks both
+                   padding and tombstones.
+      n_clusters:  C.
+      tiles_per_cluster: T (grows when ``upsert`` fills a list).
+      tile_rows:   rows per tile.
+      n_valid:     live (searchable) rows.
+      n_deleted:   tombstones since the last build/compact.
+      storage:     one of ``kernels.quantize.STORAGE_DTYPES``.
+      tile_scales: (C, 1) f32 per-cluster int8 scales, else ``None``.
+      codebooks:   (M, 256, ds) f32 PQ codebooks under "pq", else ``None``.
+      generation:  churn counter, bumped by every change of the searchable
+                   state.
+
+    Every tensor lies on one device (``device``); searches and mutations
+    run there.
+    """
+
+    centroids: Tensor
+    tile_coords: Tensor
+    tile_ids: Tensor
+    n_clusters: int
+    tiles_per_cluster: int
+    tile_rows: int
+    n_valid: int
+    n_deleted: int = 0
+    storage: str = "float32"
+    tile_scales: Optional[Tensor] = None
+    codebooks: Optional[Tensor] = None
+    generation: int = 0
+
+    @property
+    def size(self) -> int:
+        return self.n_valid
+
+    @property
+    def dim(self) -> int:
+        return int(self.centroids.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.tile_ids.device
+
+    def to(self, device) -> "IVFZenIndex":
+        """A copy of this index with every tensor on ``device``."""
+        def mv(t):
+            return None if t is None else t.to(device)
+        return dataclasses.replace(
+            self, centroids=mv(self.centroids),
+            tile_coords=mv(self.tile_coords), tile_ids=mv(self.tile_ids),
+            tile_scales=mv(self.tile_scales), codebooks=mv(self.codebooks))
+
+    # -- build ---------------------------------------------------------------
+    @classmethod
+    def build(
+        cls,
+        coords: Tensor,
+        n_clusters: int,
+        *,
+        ids: Optional[Sequence[int]] = None,
+        tile_rows: int = 128,
+        n_iters: int = 15,
+        chunk: int = 16384,
+        generator: Optional[torch.Generator] = None,
+        init: Optional[Tensor] = None,
+        storage: str = "float32",
+        pq_m: Optional[int] = None,
+    ) -> "IVFZenIndex":
+        """Cluster (N, k) apex coordinates and pack the inverted lists, on
+        the device of ``coords``.
+
+        Args:
+          n_clusters: requested C (clamped to [1, N]).
+          ids:        optional (N,) non-negative global ids (default
+                      ``arange(N)``).
+          tile_rows:  rows per packed tile.
+          n_iters:    Lloyd iterations of the quantizer fit (and of the PQ
+                      codebooks).
+          chunk:      row chunk of the k-means assignment passes.
+          generator:  k-means++ draws (and PQ codebook draws).
+          init:       (C, k) initial centroids instead of the seeding.
+          storage:    one of ``kernels.quantize.STORAGE_DTYPES``; the fit
+                      always runs on the f32 coordinates.
+          pq_m:       PQ subspace count M (``pq.default_m(k)`` by default).
+        """
+        quant.check_storage(storage)
+        n, kdim = coords.shape
+        n_clusters = max(1, min(n_clusters, n))
+        x = coords.to(torch.float32)
+        centroids, _ = kmeans_fit(x, n_clusters, generator=generator,
+                                  init=init, n_iters=n_iters, chunk=chunk)
+        assign = kmeans_assign(x, centroids, chunk=chunk)
+        ids_np = (np.arange(n, dtype=np.int64) if ids is None
+                  else np.asarray(ids, np.int64).reshape(n))
+        _check_ids(ids_np)
+        ids_t = torch.as_tensor(ids_np, device=x.device)
+        codebooks = scales = None
+        if storage == "pq":
+            residuals = x - centroids[assign.long()]
+            codebooks = pq_lib.train_codebooks(
+                residuals, pq_m or pq_lib.default_m(kdim),
+                generator=generator, n_iters=n_iters)
+            values, out_ids, T = _pack_tiles(
+                pq_lib.encode(residuals, codebooks), assign, ids_t,
+                n_clusters, tile_rows)
+        else:
+            packed, out_ids, T = _pack_tiles(x, assign, ids_t, n_clusters,
+                                             tile_rows)
+            values, scales = _encode_packed(packed, storage)
+        return cls(
+            centroids=centroids,
+            tile_coords=values.reshape(n_clusters * T, tile_rows, -1),
+            tile_ids=out_ids.reshape(n_clusters * T, tile_rows),
+            n_clusters=n_clusters, tiles_per_cluster=T, tile_rows=tile_rows,
+            n_valid=n, storage=storage, tile_scales=scales,
+            codebooks=codebooks)
+
+    @classmethod
+    def from_members(
+        cls,
+        coords: Tensor,
+        ids: Tensor,
+        assign: Tensor,
+        centroids: Tensor,
+        n_clusters: int,
+        tile_rows: int,
+        *,
+        storage: str = "float32",
+        scales: Optional[Tensor] = None,
+        codebooks: Optional[Tensor] = None,
+        pq_m: Optional[int] = None,
+        generation: int = 0,
+    ) -> "IVFZenIndex":
+        """Pack live members ``(coords (n, k), ids (n,), assign (n,))`` and
+        a fitted quantizer into a fresh index, on the device of
+        ``centroids``: no tombstones, minimal tiles per cluster.
+
+        ``coords`` already in the storage dtype (int8 with its ``scales``,
+        or uint8 PQ codes with their ``codebooks``) are packed as they are;
+        f32 ``coords`` under a narrow ``storage`` are encoded here (fresh
+        scales; for "pq" fresh codebooks unless given).
+        """
+        quant.check_storage(storage)
+        dev = centroids.device
+        coords, ids = coords.to(dev), ids.to(dev)
+        assign = assign.to(device=dev, dtype=torch.long)
+        if storage == "pq":
+            if coords.dtype == torch.uint8:  # codes: pack as they are
+                if codebooks is None:
+                    raise ValueError(
+                        "uint8 PQ member codes need their codebooks")
+                values = coords
+            else:
+                residuals = coords.to(torch.float32) - centroids[assign]
+                if codebooks is None:
+                    codebooks = pq_lib.train_codebooks(
+                        residuals, pq_m or pq_lib.default_m(coords.shape[1]))
+                values = pq_lib.encode(residuals, codebooks)
+            scales = None
+        else:
+            values, scales = _coerce_member_storage(
+                coords, assign, n_clusters, storage, scales)
+            codebooks = None
+        packed, out_ids, T = _pack_tiles(values, assign, ids, n_clusters,
+                                         tile_rows)
+        return cls(
+            centroids=centroids.to(torch.float32),
+            tile_coords=packed.reshape(n_clusters * T, tile_rows, -1),
+            tile_ids=out_ids.reshape(n_clusters * T, tile_rows),
+            n_clusters=n_clusters, tiles_per_cluster=T, tile_rows=tile_rows,
+            n_valid=int(values.shape[0]), storage=storage,
+            tile_scales=None if scales is None else scales.to(dev),
+            codebooks=None if codebooks is None else codebooks.to(dev),
+            generation=generation)
+
+    # -- mutation ------------------------------------------------------------
+    def delete(self, ids: Sequence[int]) -> "IVFZenIndex":
+        """Tombstone the given global ids (unknown ids are ignored): their
+        id slots become ``-1``, the value the probes already mask; the stale
+        coordinates stay until ``compact``. Returns a new index."""
+        ids_t = torch.as_tensor(np.unique(np.asarray(ids, np.int64).ravel()),
+                                device=self.device)
+        tids = self.tile_ids
+        mask = (tids >= 0) & torch.isin(tids.long(), ids_t)
+        removed = int(mask.sum())
+        if removed == 0:
+            return self
+        return dataclasses.replace(
+            self, tile_ids=torch.where(mask, -1, tids),
+            n_valid=self.n_valid - removed,
+            n_deleted=self.n_deleted + removed,
+            generation=self.generation + 1)
+
+    def upsert(self, ids: Sequence[int], coords: Tensor) -> "IVFZenIndex":
+        """Insert (or replace) rows keyed by global id; returns a new index.
+
+        An id already present is tombstoned first (it may move cluster);
+        duplicate ids in the batch keep the last occurrence. Each row goes
+        to its nearest centroid (the frozen quantizer) and takes that
+        cluster's lowest free slot, rows of one cluster in batch order. When
+        a cluster is full every cluster grows by whole tiles. int8 clusters
+        that receive rows are dequantised, written and requantised with a
+        fresh scale; PQ rows are encoded with the frozen codebooks.
+        """
+        ids_np = np.asarray(ids, np.int64).ravel()
+        _check_ids(ids_np)
+        dev = self.device
+        x = torch.as_tensor(coords).to(device=dev, dtype=torch.float32)
+        x = x.reshape(ids_np.size, self.dim)
+        if ids_np.size == 0:
+            return self
+        ids_np, x = _dedupe_last_wins(ids_np, x)
+
+        base = self.delete(ids_np)  # replaced rows become tombstones
+        C, T, rows = self.n_clusters, base.tiles_per_cluster, self.tile_rows
+        width = int(base.tile_coords.shape[-1])
+        tids = base.tile_ids.reshape(C, T * rows).clone()
+        tvals = base.tile_coords.reshape(C, T * rows, width).clone()
+        scl = None if base.tile_scales is None else base.tile_scales.clone()
+
+        assign = kmeans_assign(x, self.centroids).long()
+        counts = torch.bincount(assign, minlength=C)
+        deficit = int((counts - (tids < 0).sum(dim=1)).max())
+        if deficit > 0:  # grow-by-tile: append whole empty tiles
+            grow = -(-deficit // rows) * rows
+            tids = torch.cat([tids, tids.new_full((C, grow), -1)], dim=1)
+            tvals = torch.cat([tvals, tvals.new_zeros((C, grow, width))],
+                              dim=1)
+            T += grow // rows
+        # the r-th new row of cluster c (in batch order) takes the r-th
+        # free slot of c (ascending)
+        order = torch.argsort(assign, stable=True)
+        a = assign[order]
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(a.numel(), device=dev) - starts[a]
+        free = tids < 0
+        free_slot = free.nonzero(as_tuple=True)[1]   # row-major: by cluster
+        n_free = free.sum(dim=1)
+        slot = free_slot[(torch.cumsum(n_free, 0) - n_free)[a] + rank]
+        new_x = x[order]
+        tids[a, slot] = torch.as_tensor(ids_np, device=dev)[order].to(
+            torch.int32)
+        if self.codebooks is not None:
+            # residuals against each row's own centroid, frozen codebooks
+            tvals[a, slot] = pq_lib.encode(new_x - self.centroids[a],
+                                           self.codebooks)
+        elif scl is None:  # f32 / bf16: a plain (casting) write
+            tvals[a, slot] = new_x.to(tvals.dtype)
+        else:
+            # int8: dequantise each receiving cluster, write its rows,
+            # re-derive its scale from the whole block and requantise (the
+            # absmax pinning keeps untouched values when the scale holds)
+            touched, inv = torch.unique(a, return_inverse=True)
+            blk = quant.dequantize(tvals[touched], scl[touched][:, :, None])
+            blk[inv, slot] = new_x
+            s = quant.symmetric_scales(blk.abs().amax(dim=(1, 2)))
+            scl[touched, 0] = s
+            tvals[touched] = quant.quantize(blk, s[:, None, None])
+        return dataclasses.replace(
+            base,
+            tile_coords=tvals.reshape(C * T, rows, width),
+            tile_ids=tids.reshape(C * T, rows),
+            tiles_per_cluster=T,
+            n_valid=base.n_valid + int(ids_np.size),
+            # each insert refills a dead slot, reclaiming a tombstone
+            n_deleted=max(0, base.n_deleted - int(ids_np.size)),
+            tile_scales=scl,
+            generation=self.generation + 1)
+
+    @property
+    def tombstone_ratio(self) -> float:
+        """Fraction of once-live rows that are now tombstones."""
+        return self.n_deleted / max(self.n_valid + self.n_deleted, 1)
+
+    def cluster_sizes(self) -> np.ndarray:
+        """(C,) live member count per cluster."""
+        tids = self.tile_ids.reshape(self.n_clusters, -1)
+        return (tids >= 0).sum(dim=1).cpu().numpy()
+
+    @property
+    def imbalance(self) -> float:
+        """Max/mean live cluster load; 1.0 is perfectly balanced."""
+        sizes = self.cluster_sizes()
+        mean = float(sizes.mean())
+        return float(sizes.max()) / mean if mean > 0 else 0.0
+
+    def _tiles_needed(self) -> int:
+        return max(1, -(-int(self.cluster_sizes().max()) // self.tile_rows))
+
+    def needs_compact(
+        self,
+        *,
+        max_tombstone_ratio: float = 0.2,
+        max_tile_slack: float = 2.0,
+        max_imbalance: Optional[float] = None,
+    ) -> bool:
+        """True when more than ``max_tombstone_ratio`` of the once-live rows
+        are tombstones, when T is at least ``max_tile_slack`` times what the
+        largest list needs, or (if given) when :attr:`imbalance` exceeds
+        ``max_imbalance`` (that one calls for ``compact(recluster=True)``).
+        """
+        if self.tombstone_ratio > max_tombstone_ratio:
+            return True
+        if max_imbalance is not None and self.imbalance > max_imbalance:
+            return True
+        return self.tiles_per_cluster >= max_tile_slack * self._tiles_needed()
+
+    def compact(
+        self,
+        *,
+        recluster: bool = False,
+        n_clusters: Optional[int] = None,
+        n_iters: int = 15,
+        chunk: int = 16384,
+        generator: Optional[torch.Generator] = None,
+    ) -> "IVFZenIndex":
+        """Repack the live rows into a minimal tile layout; ids are kept.
+
+        Without ``recluster`` the quantizer and assignments stay (a pure
+        repack that drops tombstones and grow-by-tile slack). With
+        ``recluster=True`` or an explicit ``n_clusters`` the quantizer (and
+        under "pq" the codebooks) is refit on the live rows first. With
+        nothing to reclaim and no refit asked, returns ``self``.
+        """
+        if (not recluster and n_clusters is None and self.n_deleted == 0
+                and self.tiles_per_cluster == self._tiles_needed()):
+            return self
+        pq = self.storage == "pq"
+        refit = recluster or n_clusters is not None
+        # a pure pq repack moves the raw codes; only a refit decodes,
+        # because the residual anchors move
+        coords, ids, assign = self._live_members(raw=pq and not refit)
+        if refit:
+            n_clusters = n_clusters or self.n_clusters
+            n_clusters = max(1, min(n_clusters, max(len(ids), 1)))
+            if len(ids) == 0:
+                centroids = self.centroids[:n_clusters]
+            else:
+                centroids, _ = kmeans_fit(coords, n_clusters,
+                                          generator=generator,
+                                          n_iters=n_iters, chunk=chunk)
+                assign = kmeans_assign(coords, centroids, chunk=chunk)
+        else:
+            n_clusters, centroids = self.n_clusters, self.centroids
+        codebooks = scales = None
+        if pq:
+            codebooks = self.codebooks
+            if refit:
+                if len(ids):
+                    residuals = coords - centroids[assign.long()]
+                    codebooks = pq_lib.train_codebooks(
+                        residuals, codebooks.shape[0], generator=generator,
+                        n_iters=n_iters)
+                    coords = pq_lib.encode(residuals, codebooks)
+                else:  # emptied index: keep the old books, pack no codes
+                    coords = torch.zeros((0, codebooks.shape[0]),
+                                         dtype=torch.uint8,
+                                         device=self.device)
+            values, out_ids, T = _pack_tiles(coords, assign, ids, n_clusters,
+                                             self.tile_rows)
+        else:
+            packed, out_ids, T = _pack_tiles(coords, assign, ids, n_clusters,
+                                             self.tile_rows)
+            values, scales = _encode_packed(packed, self.storage)
+        return IVFZenIndex(
+            centroids=centroids,
+            tile_coords=values.reshape(n_clusters * T, self.tile_rows, -1),
+            tile_ids=out_ids.reshape(n_clusters * T, self.tile_rows),
+            n_clusters=n_clusters, tiles_per_cluster=T,
+            tile_rows=self.tile_rows, n_valid=len(ids),
+            storage=self.storage, tile_scales=scales, codebooks=codebooks,
+            generation=self.generation + 1)
+
+    def _host_tiles_f32(self) -> Tensor:
+        """(C*T, rows, k) dequantised (or decoded) f32 copy of the tiles, on
+        the index's device. Dead slots hold whatever their bytes decode to;
+        callers filter by ``tile_ids >= 0``."""
+        vals = self.tile_coords
+        if self.codebooks is not None:
+            ct = vals.shape[0]
+            flat = pq_lib.decode(vals.reshape(ct * self.tile_rows, -1),
+                                 self.codebooks, self.dim)
+            cents = torch.repeat_interleave(self.centroids,
+                                            self.tiles_per_cluster, dim=0)
+            return flat.reshape(ct, self.tile_rows, self.dim) + \
+                cents[:, None, :]
+        if self.tile_scales is not None:
+            per_block = torch.repeat_interleave(self.tile_scales[:, 0],
+                                                self.tiles_per_cluster)
+            return quant.dequantize(vals, per_block[:, None, None])
+        return vals.to(torch.float32)
+
+    def _live_members(self, *, raw: bool = False
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+        """The live rows as (coords (n, width), ids (n,) int64, assign (n,)
+        int64), ordered by cluster then slot; ``raw`` keeps the storage
+        dtype, the default dequantises (decodes) to f32."""
+        tids = self.tile_ids
+        valid = tids >= 0
+        block_cluster = torch.arange(tids.shape[0], device=self.device) \
+            // self.tiles_per_cluster
+        assign = block_cluster[:, None].expand_as(tids)[valid]
+        tiles = self.tile_coords if raw else self._host_tiles_f32()
+        return tiles[valid], tids[valid].long(), assign
+
+    # -- search --------------------------------------------------------------
+    def search(self, queries: Tensor, n_neighbors: int = 10, nprobe: int = 8,
+               mode: str = "zen") -> Tuple[Tensor, Tensor]:
+        """Probe the ``nprobe`` nearest clusters per query, return best-k.
+
+        Returns (distances, ids), each (Q, n_neighbors), ascending; ids are
+        the global ids stored with the rows. Slots the probed clusters
+        cannot fill are (+inf, -1); an emptied index keeps the full shape.
+        """
+        if n_neighbors <= 0:
+            raise ValueError(f"n_neighbors must be > 0, got {n_neighbors}")
+        if self.n_valid == 0:
+            return _empty_result(queries.shape[0], n_neighbors, self.device)
+        n_neighbors = min(n_neighbors, self.n_valid)
+        nprobe = max(1, min(nprobe, self.n_clusters))
+        return _ivf_search(self, queries, n_neighbors=n_neighbors,
+                           nprobe=nprobe, mode=mode)
+
+    def probe_clusters(self, queries: Tensor, nprobe: int,
+                       mode: str = "zen") -> Tensor:
+        """(Q, nprobe) ids of the clusters nearest each query."""
+        nprobe = max(1, min(nprobe, self.n_clusters))
+        return _probe_clusters(queries, self.centroids, nprobe, mode)
+
+
+class ShardedIVFZenIndex:
+    """The IVF index sharded over a device mesh: not ported yet (A12)."""
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("ShardedIVFZenIndex", "A12")
+
+    @classmethod
+    def build(cls, *args, **kwargs):
+        raise not_ported("ShardedIVFZenIndex", "A12")
+
+
+class TieredIVFZenIndex:
+    """The IVF index with a host-resident tile store: not ported yet
+    (A10)."""
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("TieredIVFZenIndex", "A10")
+
+    @classmethod
+    def from_index(cls, *args, **kwargs):
+        raise not_ported("TieredIVFZenIndex", "A10")
+
+
+def _empty_result(n_queries: int, n_neighbors: int,
+                  device) -> Tuple[Tensor, Tensor]:
+    """The all-unfilled search result: (Q, n_neighbors) of (+inf, -1)."""
+    return (torch.full((n_queries, n_neighbors), float("inf"),
+                       device=device),
+            torch.full((n_queries, n_neighbors), -1, dtype=torch.int32,
+                       device=device))
+
+
+def _probe_clusters(queries: Tensor, centroids: Tensor, nprobe: int,
+                    mode: str) -> Tensor:
+    """The ``nprobe`` estimator-nearest centroids per query, ascending by
+    distance, the lower centroid id first on ties (``lax.top_k``'s order:
+    a stable sort, since the probe kernels' tie order follows it)."""
+    cd = zen_lib.estimate_pdist(queries, centroids, mode)
+    order = torch.sort(cd, dim=1, stable=True).indices
+    return order[:, :nprobe].to(torch.int32)
+
+
+def _ivf_search(index: IVFZenIndex, queries: Tensor, *, n_neighbors: int,
+                nprobe: int, mode: str) -> Tuple[Tensor, Tensor]:
+    queries = queries.to(device=index.device, dtype=torch.float32)
+    probes = _probe_clusters(queries, index.centroids, nprobe, mode)
+    if index.codebooks is not None:
+        # fold the mode into per-(query, cluster) tables once, then stream
+        # the uint8 code tiles through the table-gather probe
+        luts = pq_lib.build_luts(queries, index.centroids, index.codebooks,
+                                 probes, MODE_IDS[mode])
+        return kernel_ops.ivf_probe_pq(
+            index.tile_coords, index.tile_ids, probes, luts, n_neighbors,
+            tiles_per_cluster=index.tiles_per_cluster)
+    return kernel_ops.ivf_probe(
+        queries, index.tile_coords, index.tile_ids, probes, n_neighbors,
+        mode, tiles_per_cluster=index.tiles_per_cluster,
+        tile_scales=index.tile_scales)
 
 
 def _batched_pdist(name: str, q: Tensor, c: Tensor) -> Tensor:

@@ -39,6 +39,18 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                              _P, _P, _P, _P], ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "ivf_probe": {
+        # queries, tiles, tile_ids, probes, scales, dtype, nq, n_probe,
+        # n_clusters, cluster_rows, k, n_out, w, mode, partial, out_d,
+        # out_i, stream
+        "ivf_probe_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
+                              _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
+        # codes, tile_ids, probes, luts, nq, n_probe, n_clusters,
+        # cluster_rows, m, n_out, w, partial, out_d, out_i, stream
+        "ivf_probe_pq_launch": ([_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+                                 _P, _P, _P, _P], ctypes.c_int),
+        "zen_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -4,12 +4,15 @@
 // clustered probe use the same estimator, the same id -1 mask and the same
 // (distance, id) merge, so they cannot drift apart numerically.
 //
-// A candidate is one 64-bit key: the distance's float bits above the row id.
-// Distances are >= +0.0 after sqrt(max(z2, 0)) + 0.0, and the bits of a
-// non-negative float order like the float itself, so comparing keys as
-// unsigned integers orders candidates ascending by (distance, id) -- the
-// order lax.top_k gives when the running best sits before newer (higher)
-// ids. An empty slot is (+inf, -1), which sorts after every real row.
+// A candidate is one 64-bit key: the distance's float bits above a 32-bit
+// tie word. Distances are >= +0.0 after sqrt(max(z2, 0)) + 0.0, and the
+// bits of a non-negative float order like the float itself, so comparing
+// keys as unsigned integers orders candidates ascending by (distance, tie)
+// -- the order lax.top_k gives when the running best sits before newer
+// candidates. The tie word is what "newer" means on each path: the row id
+// in the flat scan (rows are visited in id order), the visit position
+// (p * T + t) * rows + r in the clustered probe (tile ids are not sorted).
+// An empty slot is (+inf, 0xffffffff), which sorts after every real row.
 #pragma once
 
 #include <cstdint>
@@ -58,19 +61,21 @@ __device__ __forceinline__ float squared_bound(float d) {
 
 __device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
 
-// The -1 mask: a negative id (padding, tombstone, a row outside the range)
-// is never a candidate.
-__device__ __forceinline__ uint64_t make_key(float d, int32_t id) {
-  if (id < 0) return kEmptyKey;
-  return (uint64_t(__float_as_uint(d)) << 32) | uint32_t(id);
+// The key of a candidate; an invalid one (the -1 mask: padding, a
+// tombstone, a row outside the range) is the empty key and never enters a
+// result.
+__device__ __forceinline__ uint64_t make_key(float d, bool valid,
+                                             uint32_t tie) {
+  if (!valid) return kEmptyKey;
+  return (uint64_t(__float_as_uint(d)) << 32) | tie;
 }
 
 __device__ __forceinline__ float key_distance(uint64_t key) {
   return __uint_as_float(uint32_t(key >> 32));
 }
 
-__device__ __forceinline__ int32_t key_id(uint64_t key) {
-  return int32_t(uint32_t(key & 0xffffffffu));
+__device__ __forceinline__ uint32_t key_tie(uint64_t key) {
+  return uint32_t(key & 0xffffffffu);
 }
 
 // Sorts `nseg` segments of `p` keys each (p a power of two, segment s at

@@ -227,7 +227,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float z2 = zen::estimate_sq(qn[q], nx[r], dot[r][q], qa[q],
                                           xa[r], mode);
         if (z2 > bound[q]) continue;
-        const uint64_t key = zen::make_key(zen::distance(z2), id);
+        const uint64_t key =
+            zen::make_key(zen::distance(z2), id >= 0, uint32_t(id));
         if (key < best[q * w + n_out - 1]) {
           buf[q * kCap + atomicAdd(&cnt[q], 1)] = key;
         }
@@ -273,7 +274,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = threadIdx.x; t < n_out; t += blockDim.x) {
     const uint64_t key = lists[t];
     out_d[int64_t(q) * n_out + t] = zen::key_distance(key);
-    out_i[int64_t(q) * n_out + t] = zen::key_id(key);
+    out_i[int64_t(q) * n_out + t] = int32_t(zen::key_tie(key));
   }
 }
 

@@ -1,0 +1,279 @@
+"""Clustered (IVF) top-k probes: Hopper kernels + plain versions.
+
+PyTorch counterpart of ``repro.kernels.ivf_probe``. The clustered index
+(``index.ivf``) keeps each cluster's members in ``T`` fixed tiles,
+
+  tile_coords : (C*T, tile_rows, k)   cluster c owns blocks c*T .. c*T+T-1
+  tile_ids    : (C*T, tile_rows)      global row ids, -1 = padding/tombstone
+
+and each query visits only the clusters of its probe list ``probes``
+(Q, P). Two estimators, each as a kernel wrapper and a plain version that
+compute the same (Q, n) result, ascending by (distance, visit position):
+
+  ``ivf_probe`` / ``ivf_probe_scan``        scalar tiles (f32, bf16, int8
+                                            with (C, 1) per-cluster scales)
+                                            under the Zen/Lwb/Upb estimator;
+  ``ivf_probe_pq`` / ``ivf_probe_pq_scan``  uint8 PQ code tiles scored by
+                                            per-(query, probe) (M, 256)
+                                            tables (``pq.build_luts``).
+
+The wrappers launch the CUDA kernels of ``csrc/ivf_probe.cu`` (Hopper,
+sm_90a), take CUDA tensors only and count their launches in ``.launches``.
+The plain versions loop over the P*T (probe, tile) steps, gathering one
+(Q, tile_rows, .) block per step and merging it into the running best
+(``scoring.merge_topk``), as the JAX scans do; they run on any device.
+``kernels.ops`` picks between them by the tensors' device.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .scoring import MODE_IDS
+from .scoring import estimate_rows
+from .scoring import lut_estimate_rows
+from .scoring import mask_invalid
+from .scoring import merge_topk
+from .zen_topk import MAX_K, MAX_NEIGHBORS, _DTYPE_CODES, _pow2_ceil
+
+Tensor = torch.Tensor
+
+#: most PQ subspaces the PQ kernel takes: its (M, 256) f32 table (M KB)
+#: and the 10 KB of its list share one block's 227 KB of shared memory
+MAX_PQ_M = 192
+#: PQ table entries per subspace (one uint8 code)
+PQ_ENTRIES = 256
+
+
+def _check_layout(tile_ids: Tensor, probes: Tensor, ct: int, rows: int,
+                  tiles_per_cluster: int, n_neighbors: int) -> None:
+    if tile_ids.shape != (ct, rows):
+        raise ValueError(f"tile_ids {tuple(tile_ids.shape)} do not match "
+                         f"the tiles' (C*T, rows) = ({ct}, {rows})")
+    if tiles_per_cluster <= 0 or ct % tiles_per_cluster:
+        raise ValueError(f"{ct} tile blocks are not a whole number of "
+                         f"clusters of T={tiles_per_cluster} tiles")
+    if probes.dim() != 2 or probes.shape[1] == 0:
+        raise ValueError(f"probes must be (Q, P) with P >= 1, got "
+                         f"{tuple(probes.shape)}")
+    if n_neighbors <= 0 or n_neighbors > MAX_NEIGHBORS:
+        raise ValueError(f"the probe kernels take 0 < n_neighbors <= "
+                         f"{MAX_NEIGHBORS}, got {n_neighbors}")
+    if probes.shape[1] * tiles_per_cluster * rows >= 2 ** 31:
+        raise ValueError(
+            "P * T * tile_rows must stay below 2**31: the kernels break ties "
+            "by the 32-bit visit position")
+    if probes.shape[0] * probes.shape[1] >= 2 ** 31:
+        raise ValueError("Q * P must stay below 2**31 (one block each)")
+
+
+def _outputs(nq: int, n_probe: int, n: int, dev) -> Tuple[int, Tensor,
+                                                           Tensor, Tensor]:
+    w = _pow2_ceil(n)
+    partial = torch.empty((nq, n_probe, w), dtype=torch.int64, device=dev)
+    out_d = torch.empty((nq, n), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, n), dtype=torch.int32, device=dev)
+    return w, partial, out_d, out_i
+
+
+def ivf_probe(
+    queries: Tensor,
+    tile_coords: Tensor,
+    tile_ids: Tensor,
+    probes: Tensor,
+    n_neighbors: int = 10,
+    mode: str = "zen",
+    *,
+    tiles_per_cluster: int,
+    tile_scales: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Hopper kernel: each query's ``n_neighbors`` best rows over the tiles
+    of its probed clusters -> (Q, n) f32 distances, int32 ids.
+
+    ``tile_coords`` is stored f32, bf16 or int8 (then with (C, 1) f32
+    ``tile_scales``); a tile is dequantised to f32 right after the load.
+    Slots the probed clusters cannot fill are (+inf, -1). ``probes`` must
+    hold cluster ids in [0, C); the kernel skips a column outside it
+    instead of reading out of bounds. Raises for CPU tensors, for shapes
+    past ``MAX_K``/``MAX_NEIGHBORS`` or P*T*tile_rows >= 2**31, and when
+    the launch fails.
+    """
+    if not (queries.is_cuda and tile_coords.is_cuda):
+        raise ValueError("ivf_probe launches the CUDA kernel and takes CUDA "
+                         "tensors; ivf_probe_scan is the plain version")
+    if mode not in MODE_IDS:
+        raise ValueError(f"mode must be one of {tuple(MODE_IDS)}, got "
+                         f"{mode!r}")
+    if tile_coords.dtype not in _DTYPE_CODES:
+        raise ValueError(f"tile dtype {tile_coords.dtype} is not one of "
+                         f"{tuple(_DTYPE_CODES)}")
+    nq, k = queries.shape
+    ct, rows, k2 = tile_coords.shape
+    if k != k2 or not 1 <= k <= MAX_K:
+        raise ValueError(f"the ivf_probe kernel takes queries and tiles of "
+                         f"one width k <= {MAX_K}; got {tuple(queries.shape)}"
+                         f" and {tuple(tile_coords.shape)}")
+    _check_layout(tile_ids, probes, ct, rows, tiles_per_cluster, n_neighbors)
+    n_clusters = ct // tiles_per_cluster
+    dev = tile_coords.device
+    if tile_scales is not None:
+        if tile_scales.numel() != n_clusters:
+            raise ValueError(f"tile_scales must hold one f32 per cluster, "
+                             f"got shape {tuple(tile_scales.shape)} for "
+                             f"{n_clusters} clusters")
+        tile_scales = tile_scales.to(device=dev,
+                                     dtype=torch.float32).contiguous()
+    queries = queries.to(device=dev, dtype=torch.float32).contiguous()
+    tile_coords = tile_coords.contiguous()
+    tile_ids = tile_ids.to(device=dev, dtype=torch.int32).contiguous()
+    probes = probes.to(device=dev, dtype=torch.int32).contiguous()
+    n_probe = probes.shape[1]
+    w, partial, out_d, out_i = _outputs(nq, n_probe, n_neighbors, dev)
+    lib = _build.load("ivf_probe")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ivf_probe_launch(
+            queries.data_ptr(), tile_coords.data_ptr(), tile_ids.data_ptr(),
+            probes.data_ptr(),
+            None if tile_scales is None else tile_scales.data_ptr(),
+            _DTYPE_CODES[tile_coords.dtype], nq, n_probe, n_clusters,
+            tiles_per_cluster * rows, k, n_neighbors, w, MODE_IDS[mode],
+            partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream)
+    _build.check(lib, err, "ivf_probe launch")
+    ivf_probe.launches += 1
+    return out_d, out_i
+
+
+ivf_probe.launches = 0
+
+
+def ivf_probe_pq(
+    tile_codes: Tensor,
+    tile_ids: Tensor,
+    probes: Tensor,
+    luts: Tensor,
+    n_neighbors: int = 10,
+    *,
+    tiles_per_cluster: int,
+) -> Tuple[Tensor, Tensor]:
+    """Hopper kernel: the PQ probe over (C*T, rows, M) uint8 code tiles with
+    the (Q, P, M, 256) f32 tables of ``pq.build_luts`` -> (Q, n) f32
+    distances, int32 ids; unfilled slots are (+inf, -1). Raises for CPU
+    tensors, M > ``MAX_PQ_M``, the limits of :func:`ivf_probe`, and when
+    the launch fails.
+    """
+    if not (tile_codes.is_cuda and luts.is_cuda):
+        raise ValueError("ivf_probe_pq launches the CUDA kernel and takes "
+                         "CUDA tensors; ivf_probe_pq_scan is the plain "
+                         "version")
+    if tile_codes.dtype != torch.uint8:
+        raise ValueError(f"PQ code tiles must be uint8, got "
+                         f"{tile_codes.dtype}")
+    ct, rows, m = tile_codes.shape
+    if not 1 <= m <= MAX_PQ_M:
+        raise ValueError(f"the ivf_probe_pq kernel takes 1 <= M <= "
+                         f"{MAX_PQ_M} subspaces (its table lives in shared "
+                         f"memory); got M={m}")
+    _check_layout(tile_ids, probes, ct, rows, tiles_per_cluster, n_neighbors)
+    nq, n_probe = probes.shape
+    if tuple(luts.shape) != (nq, n_probe, m, PQ_ENTRIES):
+        raise ValueError(f"luts must be (Q, P, M, {PQ_ENTRIES}) = "
+                         f"({nq}, {n_probe}, {m}, {PQ_ENTRIES}), got "
+                         f"{tuple(luts.shape)}")
+    dev = tile_codes.device
+    tile_codes = tile_codes.contiguous()
+    tile_ids = tile_ids.to(device=dev, dtype=torch.int32).contiguous()
+    probes = probes.to(device=dev, dtype=torch.int32).contiguous()
+    luts = luts.to(device=dev, dtype=torch.float32).contiguous()
+    w, partial, out_d, out_i = _outputs(nq, n_probe, n_neighbors, dev)
+    lib = _build.load("ivf_probe")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ivf_probe_pq_launch(
+            tile_codes.data_ptr(), tile_ids.data_ptr(), probes.data_ptr(),
+            luts.data_ptr(), nq, n_probe, ct // tiles_per_cluster,
+            tiles_per_cluster * rows, m, n_neighbors, w, partial.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), stream)
+    _build.check(lib, err, "ivf_probe_pq launch")
+    ivf_probe_pq.launches += 1
+    return out_d, out_i
+
+
+ivf_probe_pq.launches = 0
+
+
+def _scan(n_queries: int, probes: Tensor, tiles_per_cluster: int,
+          n_neighbors: int, score, dev) -> Tuple[Tensor, Tensor]:
+    """The shared loop of the plain probes: step j visits tile ``j % T`` of
+    probe column ``j // T``; ``score(p, b)`` gives the (Q, rows) distances
+    of the gathered blocks ``b`` (Q,) of column ``p``."""
+    T = tiles_per_cluster
+    best_d = torch.full((n_queries, n_neighbors), float("inf"), device=dev)
+    best_i = torch.full((n_queries, n_neighbors), -1, dtype=torch.int32,
+                        device=dev)
+    probes = probes.to(device=dev, dtype=torch.long)
+    for j in range(probes.shape[1] * T):
+        p, t = divmod(j, T)
+        b = probes[:, p] * T + t                   # (Q,) tile block ids
+        d, ids = score(p, b)
+        d = mask_invalid(d, ids)                   # padding + tombstones
+        best_d, best_i = merge_topk(best_d, best_i, d, ids, n_neighbors)
+    return best_d, best_i
+
+
+def ivf_probe_scan(
+    queries: Tensor,
+    tile_coords: Tensor,
+    tile_ids: Tensor,
+    probes: Tensor,
+    n_neighbors: int = 10,
+    mode: str = "zen",
+    *,
+    tiles_per_cluster: int,
+    tile_scales: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of :func:`ivf_probe`: a loop over the (probe,
+    tile) steps, one gathered (Q, tile_rows, k) block at a time; int8
+    blocks are dequantised with their probed cluster's scale."""
+    if mode not in MODE_IDS:
+        raise ValueError(f"mode must be one of {tuple(MODE_IDS)}, got "
+                         f"{mode!r}")
+    dev = tile_coords.device
+    T, mode_i = tiles_per_cluster, MODE_IDS[mode]
+    queries = queries.to(device=dev, dtype=torch.float32)
+    tile_ids = tile_ids.to(dev)
+
+    def score(p: int, b: Tensor):
+        blk = tile_coords[b].to(torch.float32)     # (Q, rows, k)
+        scale = None
+        if tile_scales is not None:  # per-query probed-cluster scales
+            scale = tile_scales.to(dev, torch.float32)[b // T][:, :, None]
+        return (estimate_rows(queries, blk, mode=mode_i, scale=scale),
+                tile_ids[b])
+
+    return _scan(queries.shape[0], probes, T, n_neighbors, score, dev)
+
+
+def ivf_probe_pq_scan(
+    tile_codes: Tensor,
+    tile_ids: Tensor,
+    probes: Tensor,
+    luts: Tensor,
+    n_neighbors: int = 10,
+    *,
+    tiles_per_cluster: int,
+) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of :func:`ivf_probe_pq`: a loop over the
+    (probe, tile) steps, one gathered (Q, rows, M) code block and its
+    (Q, M, 256) tables at a time."""
+    dev = tile_codes.device
+    luts = luts.to(device=dev, dtype=torch.float32)
+    tile_ids = tile_ids.to(dev)
+
+    def score(p: int, b: Tensor):
+        return lut_estimate_rows(luts[:, p], tile_codes[b]), tile_ids[b]
+
+    return _scan(probes.shape[0], probes, tiles_per_cluster, n_neighbors,
+                 score, dev)

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import ivf_probe as _ivf_probe
 from . import zen_topk as _zen_topk
 
 Tensor = torch.Tensor
@@ -45,3 +46,53 @@ def zen_topk(
                                   scales=scales)
     return _zen_topk.zen_topk_scan(queries, index, n_neighbors, mode,
                                    scales=scales, chunk=chunk)
+
+
+def ivf_probe(
+    queries: Tensor,
+    tile_coords: Tensor,
+    tile_ids: Tensor,
+    probes: Tensor,
+    n_neighbors: int = 10,
+    mode: str = "zen",
+    *,
+    tiles_per_cluster: int,
+    tile_scales: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Clustered top-k probe over packed cluster tiles.
+
+    Args:
+      queries:     (Q, k) projected queries.
+      tile_coords: (C*T, tile_rows, k) packed cluster tiles, stored f32,
+                   bf16 or int8.
+      tile_ids:    (C*T, tile_rows) int32 global row ids, -1 = padding or
+                   tombstone.
+      probes:      (Q, P) int32 cluster ids to visit per query.
+      tiles_per_cluster: T.
+      tile_scales: (C, 1) f32 per-cluster scales when the tiles are int8.
+
+    Returns (distances f32, indices int32), each (Q, n_neighbors),
+    ascending; unfilled slots are (+inf, -1).
+    """
+    fn = _ivf_probe.ivf_probe if tile_coords.is_cuda else \
+        _ivf_probe.ivf_probe_scan
+    return fn(queries, tile_coords, tile_ids, probes, n_neighbors, mode,
+              tiles_per_cluster=tiles_per_cluster, tile_scales=tile_scales)
+
+
+def ivf_probe_pq(
+    tile_codes: Tensor,
+    tile_ids: Tensor,
+    probes: Tensor,
+    luts: Tensor,
+    n_neighbors: int = 10,
+    *,
+    tiles_per_cluster: int,
+) -> Tuple[Tensor, Tensor]:
+    """Clustered top-k probe over PQ code tiles with per-(query, probe)
+    (M, 256) tables (``pq.build_luts``; the estimator mode is folded into
+    them). Same contract as :func:`ivf_probe`."""
+    fn = _ivf_probe.ivf_probe_pq if tile_codes.is_cuda else \
+        _ivf_probe.ivf_probe_pq_scan
+    return fn(tile_codes, tile_ids, probes, luts, n_neighbors,
+              tiles_per_cluster=tiles_per_cluster)

@@ -1,19 +1,23 @@
-"""Storage-dtype codec for the flat index: bf16 casts and symmetric int8.
+"""Storage-dtype codec for index rows and tiles: bf16 casts, symmetric int8.
 
-PyTorch counterpart of the scalar modes of ``repro.kernels.quantize``
-(the JAX package's copy cannot be imported without JAX). Modes:
+PyTorch counterpart of ``repro.kernels.quantize`` (the JAX package's copy
+cannot be imported without JAX). Modes:
 
   float32   the identity;
   bfloat16  a plain cast through ``torch.bfloat16`` — round to nearest even,
             the same bits ``ml_dtypes`` gives;
   int8      symmetric linear quantisation ``v ~= q * s`` with ``q`` in
             [-127, 127] and one positive scale ``s = absmax / 127`` per
-            index row (robust to the far-sentinel dead rows of the mutable
-            flat index).
+            *group*: per index row in the flat layout (robust to the
+            far-sentinel dead rows of the mutable flat index), per cluster
+            in the IVF tile layout (``cluster_scales``);
+  pq        per-cluster-residual product quantisation (``kernels.pq``):
+            each member stores M uint8 codebook codes. IVF-only — the
+            residual is taken against the member's coarse centroid, so the
+            flat layout has nothing to encode against.
 
 The codec runs on the control plane (build / upsert / compact); the query
-path dequantises in register inside the top-k kernel. Product quantisation
-("pq") is IVF-only and not ported yet.
+path dequantises in register inside the search kernels.
 """
 from __future__ import annotations
 
@@ -23,8 +27,12 @@ import torch
 
 Tensor = torch.Tensor
 
-#: the element-wise (scalar) storage modes the flat index takes
+#: the element-wise (scalar) storage modes: the flat and IVF layouts both
+#: take these
 SCALAR_STORAGE_DTYPES = ("float32", "bfloat16", "int8")
+
+#: every accepted ``storage=`` value, in decreasing width; "pq" is IVF-only
+STORAGE_DTYPES = SCALAR_STORAGE_DTYPES + ("pq",)
 
 #: symmetric int8 quantisation range (-128 is never produced)
 INT8_MAX = 127.0
@@ -34,22 +42,22 @@ INT8_MAX = 127.0
 _SCALE_FLOOR = 1e-30
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                 "int8": torch.int8}
+                 "int8": torch.int8, "pq": torch.uint8}
 
 
 def check_storage(storage: str) -> str:
-    if storage not in SCALAR_STORAGE_DTYPES:
+    if storage not in STORAGE_DTYPES:
         raise ValueError(
-            f"storage must be one of {SCALAR_STORAGE_DTYPES}, got "
-            f"{storage!r}")
+            f"storage must be one of {STORAGE_DTYPES}, got {storage!r}")
     return storage
 
 
 def storage_help() -> str:
     """The one-line ``--storage`` CLI help text, derived from the menu."""
     return (f"resident dtype of the searchable index, one of "
-            f"{'/'.join(SCALAR_STORAGE_DTYPES)} (bf16 halves, int8 quarters "
-            f"the bytes; estimator accumulation stays f32)")
+            f"{'/'.join(STORAGE_DTYPES)} (bf16 halves, int8 quarters the "
+            f"bytes, pq packs M uint8 codes per row — IVF only; estimator "
+            f"accumulation stays f32)")
 
 
 def torch_dtype(storage: str) -> torch.dtype:
@@ -84,9 +92,32 @@ def row_scales(x: Tensor) -> Tensor:
         x.to(torch.float32).abs().amax(dim=-1, keepdim=True))
 
 
+def cluster_scales(coords: Tensor, assign: Tensor,
+                   n_clusters: int) -> Tensor:
+    """(C, 1) per-cluster scales from member coords and their assignment.
+
+    Taken over all members of each cluster before any tile packing, so the
+    scale depends only on the assignment, never on the layout.
+    """
+    absmax = torch.zeros(n_clusters, dtype=torch.float32,
+                         device=coords.device)
+    if assign.numel():
+        per_row = coords.to(torch.float32).abs().amax(dim=-1)
+        absmax.scatter_reduce_(0, assign.long(), per_row, "amax")
+    return symmetric_scales(absmax)[:, None]
+
+
 def encode_rows(x: Tensor, storage: str) -> Tuple[Tensor, Optional[Tensor]]:
-    """Encode a flat (N, k) f32 array: ``(values, row scales or None)``."""
+    """Encode a flat (N, k) f32 array: ``(values, row scales or None)``.
+
+    Scalar modes only: "pq" codes are residuals against a coarse centroid,
+    which the flat layout does not have.
+    """
     check_storage(storage)
+    if storage == "pq":
+        raise ValueError(
+            "storage='pq' is IVF-only (codes are per-cluster residuals); "
+            "the flat layout takes " + "/".join(SCALAR_STORAGE_DTYPES))
     x = x.to(torch.float32)
     if storage == "float32":
         return x, None

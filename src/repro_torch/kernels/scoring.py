@@ -8,7 +8,8 @@ same two pieces in ``csrc/scoring.cuh``.
 The estimator is the norm expansion over full squared norms (altitude
 included) and a dot product over the first k-1 columns, plus a rank-1
 altitude term for Lwb (-) and Upb (+); everything accumulates in f32 after
-an in-register dequantisation (``scale``).
+an in-register dequantisation (``scale``). Product-quantised tiles are
+scored by a table gather instead (``lut_estimate_rows``).
 
 The merge keeps ``lax.top_k``'s tie order: among equal distances the lower
 position wins, and the running best sits before the new candidates. A
@@ -63,6 +64,18 @@ def estimate_rows(q: Tensor, blk: Tensor, *, mode: int,
     dot = torch.einsum("qk,qrk->qr", q[:, :-1], blk[..., :-1])
     z2 = qn + xn - 2.0 * dot
     return _finish(z2, q[:, -1:], blk[..., -1], mode)
+
+
+def lut_estimate_rows(luts: Tensor, codes: Tensor) -> Tensor:
+    """PQ estimator distances from per-query tables: (Q, M, E) f32 ADC
+    tables of the probed cluster and (Q, R, M) integer codes -> (Q, R).
+
+    ``sum_m luts[q, m, codes[q, r, m]]`` is the squared estimator distance
+    (the mode is folded into the tables by ``pq.build_luts``).
+    """
+    idx = codes.long().transpose(1, 2)                   # (Q, M, R)
+    g = torch.gather(luts.to(torch.float32), 2, idx)
+    return torch.sqrt(torch.clamp_min(torch.sum(g, dim=1), 0.0))
 
 
 def mask_invalid(d: Tensor, ids: Tensor) -> Tensor:

@@ -1,27 +1,33 @@
-"""nSimplex-Zen retrieval serving on the flat index (PyTorch + CUDA).
+"""nSimplex-Zen retrieval serving, flat and IVF (PyTorch + CUDA).
 
-PyTorch counterpart of the flat half of ``repro.launch.serve``.
+PyTorch counterpart of ``repro.launch.serve``.
 
 Offline:  ``build_index`` fits the transform on references drawn from the
-          corpus (reference pdist -> Gram -> Cholesky), projects the corpus
-          to (N, k) apex coordinates (one batched triangular solve) and
-          stores them float32, bfloat16 or int8.
+          corpus (reference pdist -> Gram -> Cholesky) and projects the
+          corpus to (N, k) apex coordinates (one batched triangular solve).
+          ``index="flat"`` stores them float32, bfloat16 or int8;
+          ``index="ivf"`` fits a k-means coarse quantizer and packs them
+          into inverted-list tiles (``index.ivf``), stored float32,
+          bfloat16, int8 or as PQ codes (``storage="pq"``).
 Online:   ``ZenServer.query`` pads the batch to a power-of-two Q bucket,
-          projects it, runs the streaming fused top-k (the Hopper
-          ``zen_topk`` kernel on the card, its plain version on the CPU),
-          re-ranks the candidate pool exactly and maps row positions to
+          projects it and searches: the streaming fused top-k over a flat
+          index (the Hopper ``zen_topk`` kernel on the card), or the probe
+          of the ``nprobe`` nearest clusters of an IVF index (the Hopper
+          ``ivf_probe`` / ``ivf_probe_pq`` kernels); the plain versions on
+          the CPU. It then re-ranks the candidate pool exactly and returns
           external ids.
 Churn:    ``upsert`` projects new rows with the fitted transform and writes
           them into dead slots or grown capacity; ``delete`` tombstones rows
-          with a far sentinel; ``compact`` repacks the live rows.
+          (a far sentinel in the flat index, the ``-1`` id in IVF tiles);
+          ``compact`` repacks the live rows.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: the IVF index (A5), snapshots (A6), the micro-batching
-frontend (A8), principled pivots (A9), the tiered store (A10), fault
-tolerance (A11) and mesh sharding (A12).
+ROADMAP item: snapshots (A6), the micro-batching frontend (A8),
+principled pivots (A9), the tiered store (A10), fault tolerance (A11) and
+mesh sharding (A12).
 
 CLI:  python -m repro_torch.launch.serve --n 20000 --dim 256 --k 16 \
-          --queries 64 [--device cpu]
+          --queries 64 [--index ivf --nprobe 8] [--device cpu]
 """
 from __future__ import annotations
 
@@ -33,10 +39,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import not_ported, resolve_device
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import zen as zen_lib
 from repro_torch.core.projection import NSimplexTransform, select_references
+from repro_torch.index.ivf import IVFZenIndex
 from repro_torch.index.ivf import _check_ids, _dedupe_last_wins, exact_rerank
 from repro_torch.kernels import quantize as quant
 from repro_torch.kernels.scoring import mask_invalid
@@ -56,38 +63,36 @@ _GROW_ROWS = 4096
 _MAX_BATCH = 64
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue A, "
-        f"item {item}); use the JAX package repro for it")
-
-
 @dataclasses.dataclass
 class ZenIndex:
-    """Serving-side flat index: fitted transform + searchable coordinates.
+    """Serving-side index: fitted transform + searchable coordinates.
 
     Attributes:
       transform:  fitted ``NSimplexTransform``.
-      coords:     (cap, k) apex coordinates in the storage dtype. Rows beyond
-                  the live set (tombstones, growth slack) hold a far
-                  sentinel and never win a search.
+      coords:     (cap, k) flat apex coordinates in the storage dtype; rows
+                  beyond the live set (tombstones, growth slack) hold a far
+                  sentinel and never win a search. ``None`` for an IVF index,
+                  whose inverted lists are the searchable state.
       corpus:     original vectors for exact re-ranking, row ``i`` holding
                   the vector of external id ``i``; optional.
       n_valid:    number of live rows; ``None`` means every row is live.
       row_ids:    (cap,) int32 external id per row, ``-1`` for dead rows;
                   ``None`` while ids equal row positions.
       n_deleted:  tombstones since the last build/compact.
-      storage:    resident dtype of ``coords``, one of
-                  ``kernels.quantize.SCALAR_STORAGE_DTYPES``.
+      storage:    resident dtype of the searchable state, one of
+                  ``kernels.quantize.SCALAR_STORAGE_DTYPES`` (the IVF index
+                  also takes "pq").
       coord_scales: (cap, 1) f32 per-row int8 scales, else ``None``.
       generation: churn counter, bumped by every change of the searchable
                   state.
+      ivf:        the ``IVFZenIndex`` when built with ``index="ivf"``; the
+                  mutations and the search then go to it.
 
     Mutations return a new ``ZenIndex`` and leave this one as it was.
     """
 
     transform: NSimplexTransform
-    coords: Tensor
+    coords: Optional[Tensor]
     corpus: Optional[Tensor]
     n_valid: Optional[int] = None
     row_ids: Optional[Tensor] = None
@@ -95,17 +100,42 @@ class ZenIndex:
     storage: str = "float32"
     coord_scales: Optional[Tensor] = None
     generation: int = 0
+    ivf: Optional[IVFZenIndex] = None
 
     @property
     def size(self) -> int:
         """Number of live (searchable) rows."""
+        if self.ivf is not None:
+            return self.ivf.size
         if self.n_valid is not None:
             return self.n_valid
         return self.coords.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.coords.device
+        return self.ivf.device if self.ivf is not None else self.coords.device
+
+    def to(self, device) -> "ZenIndex":
+        """A copy of this index (transform included) with every tensor on
+        ``device``."""
+        def mv(t):
+            return None if t is None else t.to(device)
+        tr = self.transform
+        if tr is not None:
+            base = None if tr.base is None else type(tr.base)(
+                *(mv(t) for t in tr.base))
+            tr = dataclasses.replace(tr, refs=mv(tr.refs), base=base)
+        return dataclasses.replace(
+            self, transform=tr, coords=mv(self.coords),
+            corpus=mv(self.corpus), row_ids=mv(self.row_ids),
+            coord_scales=mv(self.coord_scales),
+            ivf=None if self.ivf is None else self.ivf.to(device))
+
+    def _with_ivf(self, new_ivf: IVFZenIndex) -> "ZenIndex":
+        if new_ivf is self.ivf:  # nothing changed
+            return self
+        return dataclasses.replace(self, ivf=new_ivf,
+                                   generation=self.generation + 1)
 
     # -- storage helpers -----------------------------------------------------
     @staticmethod
@@ -148,6 +178,8 @@ class ZenIndex:
     # -- mutation ------------------------------------------------------------
     def delete(self, ids: Sequence[int]) -> "ZenIndex":
         """Tombstone the given external ids; unknown ids are ignored."""
+        if self.ivf is not None:
+            return self._with_ivf(self.ivf.delete(ids))
         row_ids = self._host_row_ids()
         mask = (row_ids >= 0) & np.isin(row_ids, np.asarray(ids, np.int64))
         if not mask.any():
@@ -168,8 +200,10 @@ class ZenIndex:
         Existing ids are replaced in place; duplicate ids in the batch keep
         the last occurrence. New rows reuse tombstoned slots first; when
         the capacity runs out it grows by multiples of ``_GROW_ROWS`` dead
-        rows.
+        rows. An IVF index writes them into its inverted lists.
         """
+        if self.ivf is not None:
+            return self._with_ivf(self.ivf.upsert(ids, coords_new))
         ids_np = np.asarray(ids, np.int64).ravel()
         _check_ids(ids_np)
         if ids_np.size == 0:
@@ -215,12 +249,16 @@ class ZenIndex:
             n_valid=n_live, n_deleted=max(0, self.n_deleted - reclaimed),
             generation=self.generation + 1)
 
-    def compact(self) -> "ZenIndex":
+    def compact(self, **kw) -> "ZenIndex":
         """Repack the live rows, dropping tombstones and growth slack.
 
-        Per-row scales ride with their rows: slicing is the whole repack,
-        with no dequantise/requantise cycle.
+        An IVF index forwards to ``IVFZenIndex.compact`` (``recluster=True``
+        refits the quantizer). In the flat index per-row scales ride with
+        their rows: slicing is the whole repack, with no
+        dequantise/requantise cycle.
         """
+        if self.ivf is not None:
+            return self._with_ivf(self.ivf.compact(**kw))
         if self.row_ids is None:
             return self
         live = self.row_ids >= 0
@@ -231,9 +269,14 @@ class ZenIndex:
             n_valid=int(live.sum()), n_deleted=0,
             generation=self.generation + 1)
 
-    def needs_compact(self, max_tombstone_ratio: float = 0.2) -> bool:
+    def needs_compact(self, max_tombstone_ratio: float = 0.2, **kw) -> bool:
         """True when tombstones exceed ``max_tombstone_ratio`` of the rows
-        once live. Growth slack is not counted."""
+        once live. Growth slack of the flat index is not counted; an IVF
+        index also takes the tile-slack and imbalance thresholds of
+        ``IVFZenIndex.needs_compact``."""
+        if self.ivf is not None:
+            return self.ivf.needs_compact(
+                max_tombstone_ratio=max_tombstone_ratio, **kw)
         return (self.n_deleted / max(self.size + self.n_deleted, 1)
                 > max_tombstone_ratio)
 
@@ -250,58 +293,86 @@ def build_index(
     generator: Optional[torch.Generator] = None,
     keep_corpus: bool = True,
     device=None,
+    n_clusters: Optional[int] = None,
+    tile_rows: int = 128,
+    kmeans_iters: int = 15,
+    pq_m: Optional[int] = None,
     mesh=None,
     offload: bool = False,
 ) -> ZenIndex:
-    """Fit on the corpus and project every row into a flat index.
+    """Fit on the corpus and project every row into a flat or IVF index.
 
     Args:
       corpus:    (N, m) raw vectors; moved to ``device``.
       k:         number of references == projected width.
+      index:     "flat" keeps the (N, k) coordinates for the streaming
+                 scan; "ivf" fits a k-means coarse quantizer and packs the
+                 inverted-list tiles, so a query probes a few clusters.
+      storage:   resident dtype of the searchable state: "float32",
+                 "bfloat16" (plain cast), "int8" (symmetric scales, per row
+                 in the flat index, per cluster in IVF tiles) or "pq" (IVF
+                 only: ``pq_m`` uint8 product-quantiser codes per row). Fit
+                 and query math stay f32.
       pivot_ids: explicit reference row ids (one fit, no redraw); else the
                  paper's random redraw loop draws from ``generator``.
-      storage:   resident dtype of the coordinates: "float32",
-                 "bfloat16" (plain cast) or "int8" (per-row symmetric
-                 scales). Fit and query math stay f32.
+      generator: the reference draws, then the k-means++ (and PQ codebook)
+                 draws of an IVF build.
       device:    where the index lives; "cuda" by default, which raises
                  when there is no card.
+      n_clusters: IVF cluster count (default ``round(4 * sqrt(N))``).
+      tile_rows:  rows per IVF tile.
+      kmeans_iters: Lloyd iterations of the IVF quantizer fit.
+      pq_m:      PQ subspace count (default ``pq.default_m(k)``).
     """
-    if index == "ivf":
-        raise _not_ported("index='ivf'", "A5")
-    if index != "flat":
+    if index not in ("flat", "ivf"):
         raise ValueError(f"index must be 'flat' or 'ivf', got {index!r}")
     if mesh is not None:
-        raise _not_ported("mesh sharding", "A12")
+        raise not_ported("mesh sharding", "A12")
     if offload:
-        raise _not_ported("offload (the tiered store)", "A10")
+        raise not_ported("offload (the tiered store)", "A10")
     if pivots != "random":
-        raise _not_ported(f"pivots={pivots!r}", "A9")
+        raise not_ported(f"pivots={pivots!r}", "A9")
     quant.check_storage(storage)
+    if storage == "pq" and index != "ivf":
+        raise ValueError(
+            "storage='pq' is IVF-only (codes are per-cluster residuals); "
+            "the flat layout takes " + "/".join(quant.SCALAR_STORAGE_DTYPES))
     dev = resolve_device(device)
     corpus = corpus.to(dev)
     tr = select_references(corpus, k, ids=pivot_ids, generator=generator,
                            metric=metric)
-    coords, coord_scales = quant.encode_rows(tr.transform(corpus), storage)
-    return ZenIndex(transform=tr, coords=coords,
-                    corpus=corpus if keep_corpus else None, storage=storage,
-                    coord_scales=coord_scales)
+    coords = tr.transform(corpus)
+    keep = corpus if keep_corpus else None
+    if index == "ivf":
+        n = coords.shape[0]
+        n_clusters = n_clusters or max(1, min(n, int(round(4 * n ** 0.5))))
+        ivf = IVFZenIndex.build(
+            coords, n_clusters, tile_rows=tile_rows, n_iters=kmeans_iters,
+            generator=generator, storage=storage, pq_m=pq_m)
+        return ZenIndex(transform=tr, coords=None, corpus=keep,
+                        storage=storage, ivf=ivf)
+    coords, coord_scales = quant.encode_rows(coords, storage)
+    return ZenIndex(transform=tr, coords=coords, corpus=keep,
+                    storage=storage, coord_scales=coord_scales)
 
 
 class ZenServer:
-    """Batched k-NN serving over a flat reduced index.
+    """Batched k-NN serving over a reduced index, flat or IVF.
 
     Every query is served at bucketed shapes — rows padded to a power-of-two
     Q bucket (floor 2), ``n_neighbors`` rounded up to the width menu — and
-    sliced back, as in the JAX package. On the card the search is the
-    Hopper ``zen_topk`` kernel; on the CPU ``chunk`` picks the streaming
-    scan (index longer than ``chunk``) or the dense path.
+    sliced back, as in the JAX package. A flat index is searched by the
+    Hopper ``zen_topk`` kernel on the card; on the CPU ``chunk`` picks the
+    streaming scan (index longer than ``chunk``) or the dense path. An IVF
+    index probes the ``nprobe`` nearest clusters per query (the recall /
+    latency knob; ``nprobe = n_clusters`` gives the flat answer).
     """
 
     def __init__(self, index: ZenIndex, *, mode: str = "zen",
-                 rerank_factor: int = 0, chunk: int = 8192,
+                 rerank_factor: int = 0, chunk: int = 8192, nprobe: int = 8,
                  frontend: bool = False):
         if frontend:
-            raise _not_ported("the micro-batching frontend", "A8")
+            raise not_ported("the micro-batching frontend", "A8")
         if mode not in zen_lib.MODES:
             raise ValueError(f"mode must be one of {zen_lib.MODES}, got "
                              f"{mode!r}")
@@ -309,6 +380,7 @@ class ZenServer:
         self.mode = mode
         self.rerank_factor = rerank_factor
         self.chunk = chunk
+        self.nprobe = nprobe
         self._stats = {"queries": 0, "batches": 0, "latency_s": [],
                        "upserts": 0, "deletes": 0}
 
@@ -334,11 +406,15 @@ class ZenServer:
                                device=queries.device))
         qp = index.transform.transform(queries)
         n_fetch = min(width, index.size)
-        d, ids = zen_lib.knn_search(
-            qp, index.coords, n_neighbors=n_fetch, mode=self.mode,
-            chunk=self.chunk if index.coords.shape[0] > self.chunk else 0,
-            scales=index.coord_scales)
-        d, ids = self._map_row_ids(d, ids, index)
+        if index.ivf is not None:  # ids are the global ids of the tiles
+            d, ids = index.ivf.search(qp, n_neighbors=n_fetch,
+                                      nprobe=self.nprobe, mode=self.mode)
+        else:
+            d, ids = zen_lib.knn_search(
+                qp, index.coords, n_neighbors=n_fetch, mode=self.mode,
+                chunk=self.chunk if index.coords.shape[0] > self.chunk
+                else 0, scales=index.coord_scales)
+            d, ids = self._map_row_ids(d, ids, index)
         if self.rerank_factor and index.corpus is not None:
             d, ids = exact_rerank(queries, index.corpus, ids, n_bucket,
                                   metric=index.transform.metric)
@@ -436,15 +512,24 @@ class ZenServer:
         self.index = self.index.delete(ids)
         self._stats["deletes"] += before - self.index.size
 
-    def compact(self) -> None:
+    def compact(self, **kw) -> None:
         """Repack the index now (see ``ZenIndex.compact``)."""
-        self.index = self.index.compact()
+        self.index = self.index.compact(**kw)
 
-    def maybe_compact(self, max_tombstone_ratio: float = 0.2) -> bool:
-        """Compact iff tombstones crossed the threshold; True when it ran."""
-        if not self.index.needs_compact(max_tombstone_ratio):
+    def maybe_compact(self, max_tombstone_ratio: float = 0.2,
+                      **thresholds) -> bool:
+        """Compact iff churn crossed the thresholds; True when it ran.
+
+        When the IVF ``max_imbalance`` threshold is what tripped, the
+        compaction refits the quantizer: a plain repack keeps the
+        assignments and would trip again on every call.
+        """
+        if not self.index.needs_compact(max_tombstone_ratio, **thresholds):
             return False
-        self.compact()
+        mi = thresholds.get("max_imbalance")
+        ivf = self.index.ivf
+        self.compact(**({"recluster": True} if mi is not None and ivf
+                        is not None and ivf.imbalance > mi else {}))
         return True
 
     def stats(self) -> dict:
@@ -461,14 +546,14 @@ class ZenServer:
 
     # -- not ported yet ------------------------------------------------------
     def enable_fault_tolerance(self, *args, **kwargs):
-        raise _not_ported("fault tolerance", "A11")
+        raise not_ported("fault tolerance", "A11")
 
     def save(self, directory: str) -> str:
-        raise _not_ported("server snapshots (save)", "A6")
+        raise not_ported("server snapshots (save)", "A6")
 
     @classmethod
     def load(cls, directory: str, **kwargs) -> "ZenServer":
-        raise _not_ported("server snapshots (load)", "A6")
+        raise not_ported("server snapshots (load)", "A6")
 
 
 def exact_topk(queries: Tensor, corpus: Tensor, n_neighbors: int,
@@ -496,9 +581,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--metric", default="euclidean")
     p.add_argument("--rerank", type=int, default=4)
     p.add_argument("--index", default="flat", choices=["flat", "ivf"])
+    p.add_argument("--clusters", type=int, default=0,
+                   help="IVF cluster count (0 = ~4*sqrt(N))")
+    p.add_argument("--nprobe", type=int, default=8)
     p.add_argument("--storage", default="float32",
-                   choices=list(quant.SCALAR_STORAGE_DTYPES),
+                   choices=list(quant.STORAGE_DTYPES),
                    help=quant.storage_help())
+    p.add_argument("--pq-m", type=int, default=0,
+                   help="PQ subspace count M (storage=pq; 0 = ~k/4)")
     p.add_argument("--pivots", default="random",
                    help="base-simplex selection strategy (only the paper's "
                         "random redraw loop is ported)")
@@ -516,10 +606,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     index = build_index(corpus, args.k, metric=args.metric, index=args.index,
                         storage=args.storage, pivots=args.pivots,
                         generator=torch.Generator().manual_seed(args.seed),
-                        device=dev)
-    server = ZenServer(index, rerank_factor=args.rerank)
+                        device=dev, n_clusters=args.clusters or None,
+                        pq_m=args.pq_m or None)
+    server = ZenServer(index, rerank_factor=args.rerank, nprobe=args.nprobe)
     print(f"index: {index.size} x {args.k} (from dim {args.dim}, "
-          f"storage={index.storage}, device={dev})")
+          f"storage={index.storage}, device={dev})"
+          + (f"; ivf: {index.ivf.n_clusters} clusters, T="
+             f"{index.ivf.tiles_per_cluster}, nprobe={args.nprobe}"
+             if index.ivf is not None else ""))
     recalls = []
     for _ in range(args.batches):
         q = syn.manifold_space(args.queries, args.dim, args.dim // 8,

@@ -88,8 +88,11 @@ def test_quantize_round_trip_and_menu():
     assert q.abs().amax(1).eq(127).logical_or(torch.from_numpy(
         np.abs(x).max(1) == 0)).all()  # each row's absmax lands on 127
     assert tquant.SCALAR_STORAGE_DTYPES == jquant.SCALAR_STORAGE_DTYPES
-    with pytest.raises(ValueError, match="storage must be one of"):
+    assert tquant.STORAGE_DTYPES == jquant.STORAGE_DTYPES
+    with pytest.raises(ValueError, match="IVF-only"):
         tquant.encode_rows(torch.from_numpy(x), "pq")
+    with pytest.raises(ValueError, match="storage must be one of"):
+        tquant.encode_rows(torch.from_numpy(x), "fp8")
 
 
 def test_dispatch_buckets_match_jax():

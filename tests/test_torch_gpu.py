@@ -5,17 +5,27 @@ Whether a card is present is decided inside each test (the ``cuda``
 fixture), never at import or collection, so every test worker collects the
 same tests.
 
-The kernel is held to its plain PyTorch version on the same CUDA tensors:
-rtol 1e-5 / atol 1e-5 on distances of O(1) coordinates (the same f32 norm
-expansion, summed in another order), ids equal outside near-ties.
+Each kernel is held to its plain PyTorch version on the same CUDA tensors,
+ids equal outside near-ties. ``zen_topk``: rtol 1e-5 / atol 1e-5 on
+distances of O(1) coordinates (the same f32 norm expansion, in another
+order). The probes: rtol 1e-5 / atol 1e-5 x the median row norm, as in
+``chip_smoke.py``. Their queries sit next to index rows, so the expansion
+``|q|^2 + |x|^2 - 2 q.x`` cancels terms ~|x|^2 down to a small distance,
+and its rounding error scales with the norms, not with the distance.
 """
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.index import ivf  # noqa: E402
+from repro_torch.kernels import ivf_probe as ip  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import pq  # noqa: E402
 from repro_torch.kernels import quantize as quant  # noqa: E402
+from repro_torch.kernels.scoring import MODE_IDS  # noqa: E402
 from repro_torch.kernels import zen_topk as zt  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.testing import topk_mismatch  # noqa: E402
@@ -88,3 +98,134 @@ def test_server_on_card_matches_cpu(cuda):
         msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
                             atol=1e-4)
         assert msg is None, (storage, msg)
+
+
+# -- the clustered probes -----------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _ivf_index(dev, storage: str, k: int = 16, pq_m: int = 4):
+    """A 30,000-row IVF index on ``dev`` (60 clusters of 128-row tiles,
+    T >= 2) with every ninth row tombstoned, and 64 queries."""
+    x = _coords(7, 30_000, k, dev)
+    idx = ivf.IVFZenIndex.build(
+        x, 60, tile_rows=128, storage=storage, pq_m=pq_m, n_iters=5,
+        generator=torch.Generator().manual_seed(7))
+    q = x[:64] + 0.05 * _coords(8, 64, k, dev)
+    return idx.delete(range(0, 30_000, 9)), q
+
+
+def _check_probe(fn, plain, q, *args, **kw):
+    """Kernel vs plain version; ``q`` are the (projected) queries, whose
+    median norm scales the distance tolerance."""
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, **kw)
+    atol = 1e-5 * float(q.norm(dim=1).median())
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-5,
+                        atol=atol)
+    assert msg is None, msg
+    return got
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("mode", ["zen", "lwb", "upb"])
+@pytest.mark.parametrize("nq,n,nprobe", [
+    (64, 64, 8), (2, 10, 1), (5, 256, 60), (9, 128, 3)])
+def test_ivf_probe_matches_plain(cuda, storage, mode, nq, n, nprobe):
+    idx, q = _ivf_index(cuda, storage)
+    assert idx.tiles_per_cluster >= 2
+    probes = idx.probe_clusters(q[:nq], nprobe, mode)
+    d, ids = _check_probe(
+        ip.ivf_probe, ip.ivf_probe_scan, q, q[:nq], idx.tile_coords,
+        idx.tile_ids, probes, n, mode,
+        tiles_per_cluster=idx.tiles_per_cluster, tile_scales=idx.tile_scales)
+    assert not (ids[ids >= 0] % 9 == 0).any()  # tombstones never come back
+
+
+@pytest.mark.parametrize("mode", ["zen", "lwb", "upb"])
+@pytest.mark.parametrize("k,pq_m", [(16, 4), (16, 16), (12, 5)])
+@pytest.mark.parametrize("nq,n,nprobe", [
+    (64, 64, 8), (2, 10, 1), (5, 256, 60)])
+def test_ivf_probe_pq_matches_plain(cuda, mode, k, pq_m, nq, n, nprobe):
+    idx, q = _ivf_index(cuda, "pq", k, pq_m)
+    probes = idx.probe_clusters(q[:nq], nprobe, mode)
+    luts = pq.build_luts(q[:nq], idx.centroids, idx.codebooks, probes,
+                         MODE_IDS[mode])
+    d, ids = _check_probe(
+        ip.ivf_probe_pq, ip.ivf_probe_pq_scan, q, idx.tile_coords,
+        idx.tile_ids, probes, luts, n, tiles_per_cluster=idx.tiles_per_cluster)
+    assert not (ids[ids >= 0] % 9 == 0).any()
+
+
+@pytest.mark.parametrize("storage", ["float32", "int8", "pq"])
+def test_ivf_probe_fills_what_the_probed_clusters_hold(cuda, storage):
+    """Every query probes one cluster holding 3 live rows: 3 answers, then
+    (+inf, -1)."""
+    idx, q = _ivf_index(cuda, storage)
+    tids = idx.tile_ids.reshape(idx.n_clusters, -1)[0]
+    idx = idx.delete(tids[tids >= 0][3:].tolist())
+    probes = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    kw = dict(tiles_per_cluster=idx.tiles_per_cluster)
+    if storage == "pq":
+        luts = pq.build_luts(q[:8], idx.centroids, idx.codebooks, probes, 0)
+        d, ids = ops.ivf_probe_pq(idx.tile_coords, idx.tile_ids, probes[:, :1],
+                                  luts[:, :1], 10, **kw)
+    else:
+        d, ids = ops.ivf_probe(q[:8], idx.tile_coords, idx.tile_ids,
+                               probes[:, :1], 10, tile_scales=idx.tile_scales,
+                               **kw)
+    assert (ids[:, :3] >= 0).all() and torch.isfinite(d[:, :3]).all()
+    assert (ids[:, 3:] == -1).all() and torch.isinf(d[:, 3:]).all()
+
+
+def test_ivf_probes_reject_what_they_do_not_take(cuda):
+    idx, q = _ivf_index(cuda, "float32")
+    probes = idx.probe_clusters(q[:4], 2)
+    kw = dict(tiles_per_cluster=idx.tiles_per_cluster)
+    with pytest.raises(ValueError, match="n_neighbors <= 256"):
+        ip.ivf_probe(q[:4], idx.tile_coords, idx.tile_ids, probes, 300, **kw)
+    wide = torch.zeros((4, 300), device=cuda)
+    with pytest.raises(ValueError, match="k <= 256"):
+        ip.ivf_probe(wide, torch.zeros((4, 8, 300), device=cuda),
+                     idx.tile_ids[:4, :8], probes, 5, tiles_per_cluster=2)
+    with pytest.raises(ValueError, match="tile_ids"):
+        ip.ivf_probe(q[:4], idx.tile_coords, idx.tile_ids[:, :5], probes, 5,
+                     **kw)
+    with pytest.raises(ValueError, match="whole number"):
+        ip.ivf_probe(q[:4], idx.tile_coords[:-1], idx.tile_ids[:-1], probes,
+                     5, **kw)
+    codes = torch.zeros((4, 8, ip.MAX_PQ_M + 1), dtype=torch.uint8,
+                        device=cuda)
+    with pytest.raises(ValueError, match="M="):
+        ip.ivf_probe_pq(codes, idx.tile_ids[:4, :8], probes,
+                        torch.zeros((4, 2, ip.MAX_PQ_M + 1, 256),
+                                    device=cuda), 5, tiles_per_cluster=2)
+    with pytest.raises(ValueError, match="luts"):
+        ip.ivf_probe_pq(codes[..., :4], idx.tile_ids[:4, :8], probes,
+                        torch.zeros((4, 2, 4, 255), device=cuda), 5,
+                        tiles_per_cluster=2)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8", "pq"])
+def test_ivf_server_on_card_matches_cpu(cuda, storage):
+    """One IVF index, built once on the CPU and moved to the card: the same
+    served answers on both devices."""
+    gen = torch.Generator().manual_seed(0)
+    corpus = torch.randn((6_000, 48), generator=gen)
+    queries = torch.randn((20, 48), generator=gen)
+    index = serve.build_index(corpus, 12, index="ivf", storage=storage,
+                              pivot_ids=list(range(0, 6_000, 500)),
+                              device="cpu", generator=gen)
+    before = (ip.ivf_probe_pq if storage == "pq" else ip.ivf_probe).launches
+    got = serve.ZenServer(index.to(cuda), nprobe=8,
+                          rerank_factor=4).query(queries, 10)
+    assert (ip.ivf_probe_pq if storage == "pq"
+            else ip.ivf_probe).launches == before + 1
+    want = serve.ZenServer(index, nprobe=8, rerank_factor=4).query(queries,
+                                                                   10)
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
+                        atol=1e-4)
+    assert msg is None, (storage, msg)

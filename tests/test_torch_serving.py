@@ -34,6 +34,7 @@ from repro.index import exact_rerank as jexact_rerank  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.index import exact_rerank as texact_rerank  # noqa: E402
+from repro_torch.index import ivf as tivf  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.testing import topk_mismatch  # noqa: E402
 
@@ -275,10 +276,18 @@ def test_exact_rerank_matches_jax(metric):
 
 def test_unported_options_raise_naming_the_roadmap_item():
     x = torch.randn((40, 6), generator=torch.Generator().manual_seed(1))
-    for kw, item in [({"index": "ivf"}, "A5"), ({"pivots": "maxvol"}, "A9"),
-                     ({"mesh": object()}, "A12"), ({"offload": True}, "A10")]:
+    for kw, item in [({"pivots": "maxvol"}, "A9"),
+                     ({"mesh": object()}, "A12"), ({"offload": True}, "A10"),
+                     ({"index": "ivf", "mesh": object()}, "A12"),
+                     ({"index": "ivf", "offload": True}, "A10")]:
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_index(x, 4, device="cpu", **kw)
+    for make, item in [(tivf.ShardedIVFZenIndex.build, "A12"),
+                       (tivf.ShardedIVFZenIndex, "A12"),
+                       (tivf.TieredIVFZenIndex.from_index, "A10"),
+                       (tivf.TieredIVFZenIndex, "A10")]:
+        with pytest.raises(NotImplementedError, match=item):
+            make(x, 4)
     index = tserve.build_index(x, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         tserve.ZenServer(index, frontend=True)
