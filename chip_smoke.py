@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the Hopper
-kernels, holds each against its plain PyTorch version, serves the flat and
-the IVF index end to end at full size, churns both, and times the kernels.
+kernels, holds each against its plain PyTorch version, serves the flat, the
+IVF and the tiered (host-offloaded) IVF index end to end at full size,
+churns, snapshots and reloads them, and times the kernels.
 
     python3 chip_smoke.py            # the whole run, one card
-    python3 chip_smoke.py --quick    # build + kernel checks (phases 1-3, 7)
+    python3 chip_smoke.py --quick    # build + kernel checks (phases 1-3, 7,
+                                     # 11)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -39,9 +41,28 @@ Phases:
  10. time both probe kernels at the serving shape (Q = 64, nprobe 8, the
      index's T, n = 64) beside their bounds, plain versions and library
      composites (gather + matmul-form estimator or table gather +
-     torch.topk).
+     torch.topk);
+ 11. dma_copy_blocks against dma_copy_blocks_plain, byte for byte:
+     f32/bf16/int8/int32/uint8 x block shapes (128, 16), (128,), (128, 13),
+     (5, 7, 3) x B in {1, 2, 3, 257, 1024}, from pinned buffers filled from
+     a memory-mapped file, plus views off a 16-byte boundary;
+ 12. tiered serving: phase 8's f32 index offloaded with hot_fraction 0.1,
+     the same batches through ZenServer (nprobe 8, re-rank 4): ids equal to
+     the resident server's (ties aside) and the same recall@10, p50/p99,
+     the device busy share, the tier statistics, dma_copy_blocks launches
+     against 2 x cold uploads, and the kernel on one chunk of this run
+     beside its bound (bytes over the host link), its plain version and the
+     library copy; at 20,000 rows, bf16 and int8 tiered servers on the card
+     against the CPU, and all-hot and all-cold tiered indexes against the
+     resident one;
+ 13. snapshots: the 1,000,000-row IVF f32 server (ZenServer.save) and its
+     tile pool (TieredIVFZenIndex.save) saved to a temporary directory and
+     reloaded (ZenServer.load, and ZenServer.load(pool=, mmap=True)); the
+     reloads answer the same batches identically; the flat server
+     round-trips at 20,000 rows; save/load seconds and bytes.
 
-Phase 7 runs right after phase 3 (so ``--quick`` covers every kernel).
+Phases 7 and 11 run right after phase 3 (so ``--quick`` covers every
+kernel).
 Prints one JSON line of kernel records, the nvidia-smi line, and last the
 device line. Any failed check exits non-zero.
 """
@@ -515,6 +536,335 @@ def time_ivf(index_f32, index_pq, queries, smi: str):
     return records
 
 
+def check_stage_kernel(dev):
+    """Phase 11: dma_copy_blocks against dma_copy_blocks_plain, byte for
+    byte, on pinned buffers filled from a memory-mapped temporary file;
+    returns (cases, mismatching cases, max |byte difference|)."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import tile_stage as ts
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    n_cases = n_bad = max_err = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16", "int8", "int32", "uint8"):
+            np_dtype = np.uint16 if dtype == "bfloat16" else np.dtype(dtype)
+            for block in ((128, 16), (128,), (128, 13), (5, 7, 3)):
+                shape = (1024,) + block
+                path = os.path.join(tmp, f"{dtype}-{len(block)}.bin")
+                nbytes = int(np.prod(shape)) * np.dtype(np_dtype).itemsize
+                rng.integers(0, 256, nbytes, dtype=np.uint8).tofile(path)
+                pool = np.memmap(path, dtype=np_dtype, mode="r", shape=shape)
+                for n_blocks in (1, 2, 3, 257, 1024):
+                    src = ts.pinned_like(pool[:n_blocks])
+                    got = ts.dma_copy_blocks(src, dev).cpu().numpy()
+                    want = ts.dma_copy_blocks_plain(src, dev).cpu().numpy()
+                    a = got.view(np.uint8).astype(np.int16)
+                    b = want.view(np.uint8).astype(np.int16)
+                    max_err = max(max_err, int(np.abs(a - b).max()))
+                    n_bad += int(got.tobytes() != want.tobytes())
+                    n_cases += 1
+                del pool
+    # views off a 16-byte boundary: the byte-wise head and tail
+    base = ts.pinned_like(rng.integers(0, 256, 1 << 20, dtype=np.uint8))
+    for off, n in ((1, 1000), (3, 65_537), (16, 4096 * 5 + 7)):
+        got = ts.dma_copy_blocks(base[off:off + n], dev).cpu().numpy()
+        n_bad += int(got.tobytes() != base[off:off + n].numpy().tobytes())
+        n_cases += 1
+    torch.cuda.synchronize()
+    log(f"[11] dma_copy_blocks vs dma_copy_blocks_plain, byte for byte: "
+        f"{n_cases} cases (f32/bf16/int8/int32/uint8 x (128, 16)/(128,)/"
+        f"(128, 13)/(5, 7, 3) x B in 1/2/3/257/1024 from a memory-mapped "
+        f"file, plus 3 unaligned views), {n_bad} differ; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_bad:
+        fail(f"dma_copy_blocks differs from its plain version in {n_bad} "
+             f"cases")
+    return n_cases, n_bad, float(max_err)
+
+
+def host_link(smi_name: str):
+    """(bytes/s one way, description) of the card's host link at its
+    maximum: nvidia-smi's PCIe fields, else the kernel's sysfs entries of
+    the card's PCI device, else the part's published PCIe Gen5 x16."""
+    per_lane_gt = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
+
+    def rate(gen, width):
+        enc = 0.8 if gen <= 2 else 128 / 130
+        return per_lane_gt[gen] * 1e9 * width * enc / 8
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max,"
+         "pcie.link.gen.current,pcie.link.width.current,pci.bus_id",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0].split(", ")
+    try:
+        gen, width = int(out[0]), int(out[1])
+        return rate(gen, width), (f"nvidia-smi: max Gen{gen} x{width}, now "
+                                  f"Gen{out[2]} x{out[3]}")
+    except (ValueError, IndexError):
+        pass
+    try:
+        dom, rest = out[4].split(":", 1)
+        sysdir = f"/sys/bus/pci/devices/{int(dom, 16):04x}:{rest.lower()}"
+        with open(f"{sysdir}/max_link_speed") as f:
+            gt = float(f.read().split()[0])
+        with open(f"{sysdir}/max_link_width") as f:
+            width = int(f.read())
+        gen = {v: k for k, v in per_lane_gt.items()}[gt]
+        return rate(gen, width), (f"sysfs {sysdir}: max {gt} GT/s x{width}"
+                                  f" (nvidia-smi: {', '.join(out[:4])})")
+    except (OSError, ValueError, IndexError, KeyError):
+        return rate(5, 16), (f"the published PCIe Gen5 x16 host interface "
+                             f"of the {smi_name} (nvidia-smi gives "
+                             f"{', '.join(out[:4])}, sysfs unreadable)")
+
+
+def serve_tiered(index, batches, corpus, smi: str):
+    """Phase 12: offload the full-size f32 IVF index (hot_fraction 0.1) and
+    serve the batches through ZenServer; returns (tiered server, launches
+    of dma_copy_blocks while serving, the kernel's timing record)."""
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.kernels import tile_stage as ts
+    from repro_torch.launch import serve
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    tiered = ivf.TieredIVFZenIndex.from_index(index.ivf, hot_fraction=0.1)
+    torch.cuda.synchronize()
+    log(f"[12] TieredIVFZenIndex.from_index(hot_fraction=0.1): "
+        f"{tiered.hot_clusters.size} of {tiered.n_clusters} clusters hot, "
+        f"host pool {tiered.host_bytes() / 2**20:.1f} MiB, on the device "
+        f"{tiered.device_bytes() / 2**20:.1f} MiB; "
+        f"{time.perf_counter() - t0:.2f} s")
+    resident = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4)
+    want = [resident.query(q, 10) for q in batches[1:]]
+    tindex = dataclasses.replace(index, ivf=tiered)
+    serve.ZenServer(tindex, nprobe=NPROBE, rerank_factor=4).query(
+        batches[0], 10)  # warm-up: allocates the pinned staging buffers
+    server = serve.ZenServer(tindex, nprobe=NPROBE, rerank_factor=4)
+    cold0 = tiered.stats()["cold_uploads"]
+    ts.dma_copy_blocks.launches = 0
+    lat, got = [], []
+    for q in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got.append(server.query(q, 10))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    launches = ts.dma_copy_blocks.launches
+    reckoned = 2 * (tiered.stats()["cold_uploads"] - cold0)
+    if launches == 0 or launches != reckoned:
+        fail(f"the tiered serving path launched dma_copy_blocks {launches} "
+             f"times; its cold uploads reckon {reckoned}")
+    rec_t, rec_r = [], []
+    for q, (d, ids), (wd, wi) in zip(batches[1:], got, want):
+        if d.shape != (64, 10) or not torch.isfinite(d).all():
+            fail(f"tiered served distances not finite of shape (64, 10): "
+                 f"{tuple(d.shape)}")
+        msg = topk_mismatch(d, ids, wd, wi, rtol=0.0, atol=0.0)
+        if msg is not None:
+            fail(f"tiered and resident serving disagree: {msg}")
+        true = serve.exact_topk(q, corpus, 10)
+        rec_t.append(serve.recall(ids, true))
+        rec_r.append(serve.recall(wi, true))
+    if np.mean(rec_t) != np.mean(rec_r):
+        fail(f"tiered recall@10 {np.mean(rec_t)} != resident "
+             f"{np.mean(rec_r)}")
+    lat_ms = np.asarray(lat) * 1e3
+    st = server.stats()["tier"]
+    log(f"    served {len(lat)} batches x 64 queries at nprobe {NPROBE}, "
+        f"re-rank 4: ids equal the resident server's (ties aside), "
+        f"recall@10 {np.mean(rec_t):.4f} = resident {np.mean(rec_r):.4f}; "
+        f"request latency p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.3f} ms")
+    log(f"    tier: hot_hits {st['hot_hits']}, cold_uploads "
+        f"{st['cold_uploads']}, bytes_uploaded {st['bytes_uploaded']:,} "
+        f"({st['bytes_uploaded'] / max(st['cold_uploads'], 1) / 1e6:.2f} MB"
+        f" a chunk), device_bytes {st['device_bytes']:,} against host_bytes"
+        f" {st['host_bytes']:,}, provisioned_device_bytes(64) "
+        f"{tiered.provisioned_device_bytes(64):,}; dma_copy_blocks launches "
+        f"{launches} = 2 x {reckoned // 2} cold uploads while serving")
+    profile_serving(server, batches[1:5])
+
+    # the kernel on one chunk of this run: the first batch's first two
+    # probe columns, gathered as _stage_chunk does
+    qp = index.transform.transform(batches[1])
+    probes = ivf._probe_clusters(qp, tiered.centroids, NPROBE,
+                                 "zen").cpu().numpy()[:, :2]
+    H = tiered.hot_clusters.size
+    uniq = np.unique(probes[tiered._base_slot[probes] == H])
+    T = tiered.tiles_per_cluster
+    n_slots = max(min(1 << int(uniq.size).bit_length(),
+                      tiered.n_clusters + 1), uniq.size + 1)
+    blocks = (uniq[:, None] * T + np.arange(T)).reshape(-1)
+    coords = np.zeros((n_slots * T,) + tiered.host_coords.shape[1:],
+                      tiered.host_coords.dtype)
+    ids = np.full((n_slots * T, tiered.tile_rows), -1, np.int32)
+    coords[:blocks.size] = tiered.host_coords[blocks]
+    ids[:blocks.size] = tiered.host_ids[blocks]
+    src_c, src_i = ts.pinned_like(coords), ts.pinned_like(ids)
+    dst_c = torch.empty(src_c.shape, dtype=src_c.dtype, device=qp.device)
+    dst_i = torch.empty(src_i.shape, dtype=src_i.dtype, device=qp.device)
+    nbytes = coords.nbytes + ids.nbytes
+    link, link_src = host_link(smi.split(",")[0])
+    bound = nbytes / link * 1e3
+
+    def kernel():
+        ts.dma_copy_blocks(src_c, qp.device)
+        ts.dma_copy_blocks(src_i, qp.device)
+
+    def plain():
+        ts.dma_copy_blocks_plain(src_c, qp.device)
+        ts.dma_copy_blocks_plain(src_i, qp.device)
+
+    def library():
+        dst_c.copy_(src_c, non_blocking=True)
+        dst_i.copy_(src_i, non_blocking=True)
+
+    before = ts.dma_copy_blocks.launches
+    ms = timed(kernel, 20)
+    dev_ms = queued_ms(kernel, 20)
+    dev_ms2 = queued_ms(kernel, 20)
+    ts.dma_copy_blocks.launches = before  # timing launches are not the path's
+    plain_ms = timed(plain, 5, warmup=1)
+    lib_ms = queued_ms(library, 20)
+    lib_ms2 = queued_ms(library, 20)
+    log(f"    dma_copy_blocks on one chunk ({uniq.size} cold clusters in "
+        f"{n_slots} slots, {n_slots * T} blocks of coords + ids, "
+        f"{nbytes / 1e6:.2f} MB): device time {dev_ms:.4f} / {dev_ms2:.4f} "
+        f"ms ({nbytes / min(dev_ms, dev_ms2) / 1e6:.1f} GB/s; per call with "
+        f"the host {ms:.4f} ms), bound {bound:.4f} ms (bytes over the host "
+        f"link at {link / 1e9:.2f} GB/s one way, {link_src}) = "
+        f"{bound / min(dev_ms, dev_ms2):.1%} of bound; plain {plain_ms:.4f} "
+        f"ms; library copy_(non_blocking=True) device time {lib_ms:.4f} / "
+        f"{lib_ms2:.4f} ms ({nbytes / min(lib_ms, lib_ms2) / 1e6:.1f} GB/s);"
+        f" {smi}")
+    record = dict(ms=min(dev_ms, dev_ms2), plain_ms=plain_ms, bound_ms=bound,
+                  bound_by="bytes", library_ms=min(lib_ms, lib_ms2))
+    return server, launches, record
+
+
+def check_tiered_small(corpus, batches, k: int):
+    """Phase 12, small index: bf16 and int8 tiered indexes on the card
+    against the CPU path, and an all-hot and an all-cold index against the
+    resident one."""
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.launch import serve
+    from repro_torch.testing import topk_mismatch
+
+    small = corpus[:20_000]
+    pivots = [int(i) for i in torch.randperm(
+        20_000, generator=torch.Generator().manual_seed(1))[:k]]
+    q = batches[1]
+    for st in ("bfloat16", "int8"):
+        index = serve.build_index(
+            small, k, index="ivf", storage=st, pivot_ids=pivots,
+            device=small.device, generator=torch.Generator().manual_seed(0),
+            offload=True)
+        got = serve.ZenServer(index, nprobe=NPROBE,
+                              rerank_factor=4).query(q, 10)
+        want = serve.ZenServer(index.to("cpu"), nprobe=NPROBE,
+                               rerank_factor=4).query(q.cpu(), 10)
+        msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
+                            atol=1e-4)
+        if msg is not None:
+            fail(f"card and CPU tiered serving disagree ({st}): {msg}")
+    index = serve.build_index(small, k, index="ivf", pivot_ids=pivots,
+                              device=small.device,
+                              generator=torch.Generator().manual_seed(0))
+    qp = index.transform.transform(q)
+    for hot in (0, index.ivf.n_clusters):
+        tiered = ivf.TieredIVFZenIndex.from_index(index.ivf,
+                                                  hot_clusters=hot)
+        for nprobe in (NPROBE, index.ivf.n_clusters):
+            got = tiered.search(qp, 64, nprobe)
+            want = index.ivf.search(qp, 64, nprobe)
+            msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=0.0,
+                                atol=0.0)
+            if msg is not None:
+                fail(f"{hot}-hot tiered index disagrees with the resident "
+                     f"one at nprobe {nprobe}: {msg}")
+    log(f"    20,000 rows: bf16 and int8 tiered servers on the card answer "
+        f"as on the CPU (nprobe {NPROBE}, re-rank 4); all-cold and all-hot "
+        f"({index.ivf.n_clusters} clusters) tiered indexes give the "
+        f"resident answers (n = 64, nprobe {NPROBE} and all)")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def check_snapshots(index, tiered_server, batches, corpus, k: int):
+    """Phase 13: save the full-size IVF f32 server and its tile pool,
+    reload both (resident, and tiered off the memory-mapped pool), and
+    round-trip the flat server at 20,000 rows; every reload answers as
+    before."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.testing import topk_mismatch
+
+    def same(server, want, label):
+        for q, (wd, wi) in zip(batches[1:], want):
+            d, ids = server.query(q, 10)
+            msg = topk_mismatch(d, ids, wd, wi, rtol=1e-6, atol=0.0)
+            if msg is not None or not torch.equal(ids, wi):
+                fail(f"{label} answers differently after the reload: {msg}")
+
+    tmp = tempfile.mkdtemp(prefix="zen-snapshot-")
+    try:
+        resident = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4)
+        want = [resident.query(q, 10) for q in batches[1:]]
+        want_t = [tiered_server.query(q, 10) for q in batches[1:]]
+        sdir, pdir = os.path.join(tmp, "server"), os.path.join(tmp, "pool")
+        t = time.perf_counter()
+        resident.save(sdir)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tiered_server.index.ivf.save(pdir)
+        pool_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = serve.ZenServer.load(sdir, device=corpus.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        same(back, want, "the resident IVF server")
+        del back
+        t = time.perf_counter()
+        back = serve.ZenServer.load(sdir, pool=pdir, mmap=True,
+                                    device=corpus.device)
+        torch.cuda.synchronize()
+        mmap_s = time.perf_counter() - t
+        same(back, want_t, "the tiered IVF server (memory-mapped pool)")
+        del back
+        log(f"[13] snapshots of the {index.size:,}-row IVF f32 server: "
+            f"ZenServer.save {save_s:.2f} s ({_dir_bytes(sdir) / 2**20:.1f}"
+            f" MiB with the re-rank corpus), TieredIVFZenIndex.save "
+            f"{pool_s:.2f} s ({_dir_bytes(pdir) / 2**20:.1f} MiB); "
+            f"ZenServer.load {load_s:.2f} s, ZenServer.load(pool=, "
+            f"mmap=True) {mmap_s:.2f} s; both answer {len(want)} batches "
+            f"with the same ids and distances")
+        small = serve.build_index(corpus[:20_000], k, device=corpus.device,
+                                  generator=torch.Generator().manual_seed(0))
+        flat = serve.ZenServer(small, rerank_factor=4)
+        want = [flat.query(q, 10) for q in batches[1:]]
+        fdir = os.path.join(tmp, "flat")
+        flat.save(fdir)
+        same(serve.ZenServer.load(fdir, device=corpus.device), want,
+             "the flat 20,000-row server")
+        log(f"    flat 20,000-row server: save + load "
+            f"({_dir_bytes(fdir) / 2**20:.1f} MiB) answers the same")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -529,6 +879,7 @@ def main() -> None:
     from repro_torch.testing import topk_mismatch
 
     quick = "--quick" in sys.argv[1:]
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -612,6 +963,7 @@ def main() -> None:
         f"|d - d_plain| {max_err:.3g}; {time.perf_counter() - t0:.1f} s")
     del encoded
     ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
+    stage_cases, stage_bad, stage_err = check_stage_kernel(dev)
     if quick:
         log("quick run: stopping after the kernel checks")
         sys.exit(2)
@@ -753,6 +1105,15 @@ def main() -> None:
 
     # -- 10. timing of the probes at the serving shape ---------------------
     ivf_records = time_ivf(ivf_index_f32, ivf_index_pq, batches[1], smi)
+    del ivf_index_pq
+
+    # -- 12. tiered serving at full size ------------------------------------
+    tiered_server, stage_launches, stage_rec = serve_tiered(
+        ivf_index_f32, batches, corpus, smi)
+    check_tiered_small(corpus, batches, k)
+
+    # -- 13. snapshots -----------------------------------------------------
+    check_snapshots(ivf_index_f32, tiered_server, batches, corpus, k)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",
@@ -767,6 +1128,13 @@ def main() -> None:
             replaces=f"src/repro/kernels/ivf_probe.py:{line}",
             launches=launches, max_abs_err=ivf_err[kname],
             **ivf_records[kname]))
+    kernels.append(dict(
+        name="dma_copy_blocks", route="cuda",
+        source="src/repro_torch/kernels/csrc/tile_stage.cu",
+        replaces="src/repro/kernels/tile_stage.py:62",
+        launches=stage_launches, max_abs_err=stage_err,
+        byte_mismatches=stage_bad, cases=stage_cases, **stage_rec))
+    log(f"whole run {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ other. The transform is ``NSimplexTransform`` (``refs``, ``base.chol``,
 index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
 ``row_ids``, ``n_valid``, ``storage``, ...); the clustered index is
 ``index.IVFZenIndex`` (``centroids``, ``tile_coords``, ``tile_ids``,
-``tile_scales``, ``codebooks``, ...). Feeding both packages one fitted
-state lets a test hold the search path to the reference without the fit's
-float noise (or the k-means draws) in between.
+``tile_scales``, ``codebooks``, ...); the tiered store is
+``index.ivf.TieredIVFZenIndex`` (``centroids``, ``host_coords``,
+``host_ids``, ``host_scales``, ``hot_clusters``, ...). Feeding both
+packages one fitted state lets a test hold the search path to the
+reference without the fit's float noise (or the k-means draws) in between.
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import index_io
 from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
-from repro_torch.index.ivf import IVFZenIndex
+from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.kernels import quantize as quant
 from repro_torch.launch.serve import ZenIndex
 
@@ -50,8 +53,7 @@ def _coords(coords: np.ndarray, storage: str, dev) -> torch.Tensor:
     numpy bf16 dtype belongs to ml_dtypes, which the port does not use)."""
     coords = np.asarray(coords)
     if storage == "bfloat16":
-        bits = np.ascontiguousarray(coords).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+        return index_io.to_tensor(coords.view(np.uint16), dev, bfloat16=True)
     return _tensor(coords, dev, quant.torch_dtype(storage))
 
 
@@ -110,3 +112,38 @@ def ivf_index_from_arrays(transform: NSimplexTransform, *,
         transform=transform, coords=None,
         corpus=None if corpus is None else _tensor(corpus, dev, f32),
         storage=storage, generation=int(generation), ivf=ivf)
+
+
+def tiered_index_from_arrays(transform: Optional[NSimplexTransform], *,
+                             centroids: np.ndarray, host_coords: np.ndarray,
+                             host_ids: np.ndarray, tiles_per_cluster: int,
+                             tile_rows: int, n_valid: int,
+                             hot_clusters: np.ndarray,
+                             storage: str = "float32",
+                             host_scales: Optional[np.ndarray] = None,
+                             prefetch_cols: int = 2, n_shards: int = 1,
+                             generation: int = 0,
+                             corpus: Optional[np.ndarray] = None,
+                             device=None) -> ZenIndex:
+    """The port's ``ZenIndex`` around a ``TieredIVFZenIndex`` serving
+    exactly this host pool with this hot set (a bf16 pool travels as its
+    16-bit pattern)."""
+    dev = resolve_device(device)
+    host_coords = np.asarray(host_coords)
+    if storage == "bfloat16":
+        host_coords = host_coords.view(np.uint16)
+    tiered = TieredIVFZenIndex(
+        _tensor(centroids, dev, torch.float32), host_coords,
+        np.asarray(host_ids, np.int32),
+        n_clusters=int(np.asarray(centroids).shape[0]),
+        tiles_per_cluster=int(tiles_per_cluster), tile_rows=int(tile_rows),
+        n_valid=int(n_valid), storage=storage,
+        host_scales=None if host_scales is None else np.asarray(host_scales),
+        hot_clusters=np.asarray(hot_clusters, np.int64),
+        prefetch_cols=prefetch_cols, n_shards=n_shards,
+        generation=int(generation))
+    return ZenIndex(
+        transform=transform, coords=None,
+        corpus=None if corpus is None else _tensor(corpus, dev,
+                                                   torch.float32),
+        storage=storage, generation=int(generation), ivf=tiered)

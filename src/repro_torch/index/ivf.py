@@ -25,9 +25,18 @@ index's device and return a new index: the tensors are cloned, then
 written in place, and ``self`` is left as it was. The bytes they leave are
 the JAX package's.
 
-``ShardedIVFZenIndex`` (ROADMAP A12), ``TieredIVFZenIndex`` (A10) and
-snapshots (A6) are not ported: the two classes, and
-``launch.serve.build_index`` asked for them, raise ``NotImplementedError``.
+Snapshots: ``save``/``load`` persist the live members and the quantizer
+as canonical host arrays (``checkpoint.index_io``), the same files the JAX
+package writes and reads.
+
+``TieredIVFZenIndex`` serves the same tile layout from a host pool: the
+centroids, scales and a hot set of clusters stay on the device, and each
+search uploads the cold clusters it probes in chunks through the staging
+kernel (``kernels.tile_stage``), one chunk's copy on a staging stream while
+the chunk before is scored.
+
+``ShardedIVFZenIndex`` (ROADMAP A12) is not ported: it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,17 +46,26 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported
+from repro_torch import not_ported, resolve_device
+from repro_torch.checkpoint import index_io
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import zen as zen_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import pq as pq_lib
 from repro_torch.kernels import quantize as quant
+from repro_torch.kernels import scoring
+from repro_torch.kernels import tile_stage
 from repro_torch.kernels.scoring import MODE_IDS
 
 from .kmeans import kmeans_assign, kmeans_fit
 
 Tensor = torch.Tensor
+
+#: snapshot kind tag of an IVF index (its live members + the quantizer)
+IVF_SNAPSHOT_KIND = "ivf-index"
+#: snapshot kind tag of a tiered store's packed tile pool itself, so that a
+#: memory-mapped load serves straight off the snapshot files
+TILE_POOL_SNAPSHOT_KIND = "ivf-tile-pool"
 
 
 def _check_ids(ids: np.ndarray) -> None:
@@ -71,6 +89,32 @@ def _dedupe_last_wins(
     _, first_of_rev = np.unique(ids[::-1], return_index=True)
     keep = np.sort(ids.size - 1 - first_of_rev)
     return ids[keep], rows[torch.as_tensor(keep, device=rows.device)]
+
+
+def snapshot_payload(index) -> Tuple[dict, dict]:
+    """(arrays, meta) of an IVF index's canonical snapshot: the live members
+    in their raw storage dtype (bf16/int8 values, uint8 PQ codes) with the
+    quantizer and the decode state (per-cluster scales, PQ codebooks), so a
+    load packs them back without a requantise cycle. Shared by
+    ``IVFZenIndex.save`` and ``launch.serve.ZenServer.save``; takes a
+    resident or a tiered index. The arrays and meta equal the JAX
+    package's, key for key."""
+    coords, ids, assign = index._live_members(raw=True)
+    arrays = {
+        "centroids": index.centroids.to(torch.float32),
+        "member_coords": coords,
+        "member_ids": ids.to(torch.int32),
+        "member_assign": assign.to(torch.int32),
+    }
+    if index.tile_scales is not None:
+        arrays["cluster_scales"] = torch.as_tensor(index.tile_scales,
+                                                   dtype=torch.float32)
+    if getattr(index, "codebooks", None) is not None:
+        arrays["pq_codebooks"] = index.codebooks.to(torch.float32)
+    meta = {"n_clusters": index.n_clusters, "tile_rows": index.tile_rows,
+            "storage": index.storage,
+            "generation": int(getattr(index, "generation", 0))}
+    return arrays, meta
 
 
 def _packed_scales(packed: Tensor) -> Tensor:
@@ -345,6 +389,26 @@ class IVFZenIndex:
             codebooks=None if codebooks is None else codebooks.to(dev),
             generation=generation)
 
+    # -- persistence ---------------------------------------------------------
+    def save(self, directory: str) -> str:
+        """Persist the live members and the quantizer as a versioned
+        snapshot (atomic publish). Tombstones and grow-by-tile slack are
+        dropped: a save is implicitly a repack."""
+        return index_io.save_state(
+            directory, *snapshot_payload(self), kind=IVF_SNAPSHOT_KIND)
+
+    @classmethod
+    def load(cls, directory: str, *, tile_rows: Optional[int] = None,
+             device=None) -> "IVFZenIndex":
+        """Load a snapshot written by :meth:`save` (or by the JAX package)
+        onto ``device`` ("cuda" unless told otherwise). ``tile_rows``
+        overrides the stored tile geometry. Raises
+        ``checkpoint.CheckpointFormatError`` on a version/kind mismatch."""
+        arrays, meta = index_io.load_state(
+            directory, expect_kind=IVF_SNAPSHOT_KIND)
+        return _ivf_from_snapshot(arrays, meta, resolve_device(device),
+                                  tile_rows=tile_rows)
+
     # -- mutation ------------------------------------------------------------
     def delete(self, ids: Sequence[int]) -> "IVFZenIndex":
         """Tombstone the given global ids (unknown ids are ignored): their
@@ -600,6 +664,25 @@ class IVFZenIndex:
         return _probe_clusters(queries, self.centroids, nprobe, mode)
 
 
+def _ivf_from_snapshot(arrays: dict, meta: dict, dev, *, prefix: str = "",
+                       tile_rows: Optional[int] = None) -> IVFZenIndex:
+    """Pack the members of a snapshot (``arrays`` keyed ``prefix`` +
+    name, as ``snapshot_payload`` wrote them) into an index on ``dev``."""
+    storage = meta.get("storage", "float32")
+
+    def get(name, **kw):
+        arr = arrays.get(prefix + name)
+        return None if arr is None else index_io.to_tensor(arr, dev, **kw)
+
+    return IVFZenIndex.from_members(
+        get("member_coords", bfloat16=storage == "bfloat16"),
+        get("member_ids").long(), get("member_assign").long(),
+        get("centroids"), int(meta["n_clusters"]),
+        tile_rows or int(meta["tile_rows"]), storage=storage,
+        scales=get("cluster_scales"), codebooks=get("pq_codebooks"),
+        generation=int(meta.get("generation", 0)))
+
+
 class ShardedIVFZenIndex:
     """The IVF index sharded over a device mesh: not ported yet (A12)."""
 
@@ -611,16 +694,527 @@ class ShardedIVFZenIndex:
         raise not_ported("ShardedIVFZenIndex", "A12")
 
 
-class TieredIVFZenIndex:
-    """The IVF index with a host-resident tile store: not ported yet
-    (A10)."""
+@dataclasses.dataclass
+class _StagingSlot:
+    """One pair of host staging buffers (pinned for a CUDA store) and the
+    event recorded after the last copy out of them."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("TieredIVFZenIndex", "A10")
+    coords: Tensor
+    ids: Tensor
+    copied: Optional["torch.cuda.Event"] = None
+
+
+def _nbytes(t: Optional[Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+class TieredIVFZenIndex:
+    """Serve-only IVF index whose inverted lists live in a host pool.
+
+    The same (C*T, tile_rows, k) layout as ``IVFZenIndex``, split:
+
+      * **on the device**: the centroids, a *hot set* of clusters (plus one
+        always-empty dummy cluster that absorbs probe slots pointing at
+        cold or dead clusters) and its per-cluster scales;
+      * **on the host**: the whole tile pool as numpy (bf16 as uint16
+        bits), optionally a read-only memmap of a
+        :data:`TILE_POOL_SNAPSHOT_KIND` snapshot (:meth:`load`), so cold
+        tiles are paged straight off disk.
+
+    A search runs the coarse probe, answers the hot part of every probe
+    list from the hot set, and walks the cold probe columns in
+    ``prefetch_cols``-wide chunks. Each chunk's cold clusters are gathered
+    on the host into one of two staging buffers (pinned for a CUDA store,
+    allocated once for the batch shape) and uploaded by the staging kernel
+    (``kernels.tile_stage``) on a staging stream; chunk ``j+1``'s upload is
+    issued before chunk ``j`` is scored, and the probe waits on the
+    upload's event. Upload buffers are bucketed to power-of-two cluster
+    counts, as in the JAX package (which bounds its recompiles), so the
+    byte counters equal the reference's.
+
+    Results equal ``IVFZenIndex.search`` at equal ``nprobe`` up to the order
+    of exactly tied distances: the same probe scores the same tiles, only
+    partitioned into passes merged by ``scoring.merge_topk``.
+
+    Clusters are partitioned over ``n_shards`` logical shards (cluster
+    ``c`` on shard ``c % n_shards``); :meth:`set_dead_shards` masks a dead
+    shard's clusters out of both passes (degraded serving).
+
+    The tier is immutable serving state: churn the resident index and
+    offload again (:meth:`from_index`). It serves from the device of
+    ``centroids``. The reference's ``force_stage_kernel`` option (run the
+    Pallas copy in interpret mode off the TPU) has no counterpart: the
+    device decides, and a CUDA store always runs the staging kernel.
+    """
+
+    def __init__(
+        self,
+        centroids: Tensor,
+        host_coords: np.ndarray,
+        host_ids: np.ndarray,
+        *,
+        n_clusters: int,
+        tiles_per_cluster: int,
+        tile_rows: int,
+        n_valid: int,
+        storage: str = "float32",
+        host_scales: Optional[np.ndarray] = None,
+        hot_clusters: Optional[np.ndarray] = None,
+        prefetch_cols: int = 2,
+        n_shards: int = 1,
+        generation: int = 0,
+    ):
+        ct = n_clusters * tiles_per_cluster
+        if storage not in quant.SCALAR_STORAGE_DTYPES:
+            raise ValueError(f"the tiered store takes storage in "
+                             f"{quant.SCALAR_STORAGE_DTYPES}, got {storage!r}")
+        if storage == "bfloat16":
+            host_coords = host_coords.view(np.uint16)
+        if host_coords.shape[:2] != (ct, tile_rows) or \
+                host_ids.shape != (ct, tile_rows):
+            raise ValueError(f"host tiles {host_coords.shape} / ids "
+                             f"{host_ids.shape} do not match (C*T, rows) = "
+                             f"({ct}, {tile_rows})")
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.centroids = centroids.to(torch.float32)
+        self.host_coords = host_coords
+        self.host_ids = host_ids
+        self.host_scales = (None if host_scales is None
+                            else np.asarray(host_scales, np.float32))
+        self.n_clusters = n_clusters
+        self.tiles_per_cluster = tiles_per_cluster
+        self.tile_rows = tile_rows
+        self.n_valid = n_valid
+        self.n_deleted = 0
+        self.storage = storage
+        self.prefetch_cols = max(1, prefetch_cols)
+        self.n_shards = n_shards
+        self.generation = generation
+        self.dead_shards: list = []
+        self._dead_cluster = np.zeros(n_clusters, bool)
+        self._traffic = np.zeros(n_clusters, np.int64)
+        self._hot_hits = 0
+        self._cold_uploads = 0
+        self._bytes_uploaded = 0
+        self._max_chunk_bytes = 0
+        self._slots: list = []
+        self._next_slot = 0
+        self._stream = None
+        if hot_clusters is None:
+            hot_clusters = np.empty(0, np.int64)
+        self._set_hot(np.asarray(hot_clusters, np.int64))
+
+    # -- construction --------------------------------------------------------
+    @classmethod
+    def from_index(
+        cls,
+        index: IVFZenIndex,
+        *,
+        hot_clusters: Optional[int] = None,
+        hot_fraction: float = 0.1,
+        prefetch_cols: int = 2,
+        n_shards: int = 1,
+    ) -> "TieredIVFZenIndex":
+        """Offload a resident index to the host, keeping a hot set on its
+        device: the ``hot_clusters`` (default ``hot_fraction`` of C)
+        largest clusters by live members; :meth:`refresh_hot` re-picks by
+        observed probe traffic. Raises ``NotImplementedError`` for PQ
+        storage, whose probe scores codes, not coordinates."""
+        if index.storage == "pq":
+            raise NotImplementedError(
+                "tiered offload does not support storage='pq' (its probe "
+                "scores coordinates, not codes); compact to one of "
+                + "/".join(quant.SCALAR_STORAGE_DTYPES) + " first")
+        C = index.n_clusters
+        sizes = index.cluster_sizes()
+        H = (max(0, min(int(hot_clusters), C)) if hot_clusters is not None
+             else max(1, int(C * hot_fraction)))
+        hot = np.sort(np.argsort(sizes, kind="stable")[::-1][:H])
+        return cls(
+            index.centroids,
+            index_io.to_numpy(index.tile_coords),
+            index_io.to_numpy(index.tile_ids.to(torch.int32)),
+            n_clusters=C,
+            tiles_per_cluster=index.tiles_per_cluster,
+            tile_rows=index.tile_rows,
+            n_valid=index.n_valid,
+            storage=index.storage,
+            host_scales=(None if index.tile_scales is None
+                         else index.tile_scales.cpu().numpy()),
+            hot_clusters=hot,
+            prefetch_cols=prefetch_cols,
+            n_shards=n_shards,
+            generation=index.generation,
+        )
+
+    def to(self, device) -> "TieredIVFZenIndex":
+        """The same host pool served from ``device`` (hot set re-staged,
+        dead shards kept, counters fresh)."""
+        out = TieredIVFZenIndex(
+            self.centroids.to(device), self.host_coords, self.host_ids,
+            n_clusters=self.n_clusters,
+            tiles_per_cluster=self.tiles_per_cluster,
+            tile_rows=self.tile_rows, n_valid=self.n_valid,
+            storage=self.storage, host_scales=self.host_scales,
+            hot_clusters=self.hot_clusters, prefetch_cols=self.prefetch_cols,
+            n_shards=self.n_shards, generation=self.generation)
+        out.set_dead_shards(self.dead_shards)
+        return out
+
+    @property
+    def size(self) -> int:
+        return self.n_valid
+
+    @property
+    def dim(self) -> int:
+        return int(self.centroids.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.centroids.device
+
+    @property
+    def tile_scales(self) -> Optional[np.ndarray]:
+        """Host view of the per-cluster scales (snapshot-payload
+        contract)."""
+        return self.host_scales
+
+    def _device_tiles(self, t: Tensor) -> Tensor:
+        """Staged tiles as the probe reads them (bf16 from its bits)."""
+        return t.view(torch.bfloat16) if self.storage == "bfloat16" else t
+
+    # -- hot set -------------------------------------------------------------
+    def _set_hot(self, hot: np.ndarray) -> None:
+        """(Re)upload the hot cluster set + the trailing dummy cluster."""
+        C, T, rows = self.n_clusters, self.tiles_per_cluster, self.tile_rows
+        kdim = self.host_coords.shape[2]
+        self.hot_clusters = np.sort(hot.astype(np.int64))
+        H = self.hot_clusters.size
+        blocks = (self.hot_clusters[:, None] * T + np.arange(T)).reshape(-1)
+        coords = np.zeros(((H + 1) * T, rows, kdim), self.host_coords.dtype)
+        ids = np.full(((H + 1) * T, rows), -1, np.int32)
+        if H:
+            coords[:H * T] = self.host_coords[blocks]
+            ids[:H * T] = self.host_ids[blocks]
+        self._hot_coords = self._device_tiles(
+            tile_stage.stage_blocks(coords, self.device))
+        self._hot_ids = tile_stage.stage_blocks(ids, self.device)
+        if self.host_scales is None:
+            self._hot_scales = None
+        else:
+            hs = np.ones((H + 1, 1), np.float32)
+            if H:
+                hs[:H] = self.host_scales[self.hot_clusters]
+            self._hot_scales = torch.from_numpy(hs).to(self.device)
+        base = np.full(C, H, np.int32)  # cold clusters -> the dummy slot
+        base[self.hot_clusters] = np.arange(H, dtype=np.int32)
+        self._base_slot = base
+        self._refresh_slot()
+
+    def _refresh_slot(self) -> None:
+        dummy = np.int32(self.hot_clusters.size)
+        self._hot_slot = np.where(self._dead_cluster, dummy, self._base_slot)
+
+    def refresh_hot(self, hot_clusters: Optional[int] = None) -> None:
+        """Re-pick the hot set from observed probe traffic and re-upload."""
+        H = (self.hot_clusters.size if hot_clusters is None
+             else max(0, min(int(hot_clusters), self.n_clusters)))
+        order = np.argsort(self._traffic, kind="stable")[::-1]
+        self._set_hot(np.sort(order[:H]))
+
+    # -- degraded serving ----------------------------------------------------
+    def shard_of_cluster(self) -> np.ndarray:
+        """(C,) logical shard owning each cluster."""
+        return np.arange(self.n_clusters) % self.n_shards
+
+    def set_dead_shards(self, shards) -> None:
+        """Mask the given logical shards' clusters out of every probe."""
+        dead = sorted({int(s) for s in shards})
+        for s in dead:
+            if not 0 <= s < self.n_shards:
+                raise ValueError(
+                    f"shard {s} out of range for n_shards={self.n_shards}")
+        self.dead_shards = dead
+        self._dead_cluster = np.isin(self.shard_of_cluster(), dead)
+        self._refresh_slot()
+
+    # -- memory accounting ---------------------------------------------------
+    def _resident_bytes(self) -> int:
+        return (_nbytes(self.centroids) + _nbytes(self._hot_coords)
+                + _nbytes(self._hot_ids) + _nbytes(self._hot_scales))
+
+    def _worst_slots(self, n_queries: int) -> int:
+        """The largest slot bucket ``_stage_chunk`` can use for a batch of
+        ``n_queries`` rows."""
+        worst_uniq = min(int(n_queries) * self.prefetch_cols, self.n_clusters)
+        n_slots = min(1 << worst_uniq.bit_length(), self.n_clusters + 1)
+        return max(n_slots, worst_uniq + 1)
+
+    def device_bytes(self) -> int:
+        """Device-resident footprint: centroids + hot set + the (double-
+        buffered) peak cold upload so far."""
+        return self._resident_bytes() + 2 * self._max_chunk_bytes
+
+    def provisioned_device_bytes(self, n_queries: int) -> int:
+        """Worst-case device high-water mark for ``n_queries``-row batches:
+        the resident arrays plus both uploads at the largest slot bucket
+        that batch shape can use, whatever clusters the traffic touches."""
+        n_slots = self._worst_slots(n_queries)
+        T, rows = self.tiles_per_cluster, self.tile_rows
+        kdim = self.host_coords.shape[2]
+        per_slot = T * rows * (kdim * self.host_coords.dtype.itemsize + 4)
+        chunk = n_slots * per_slot
+        if self.host_scales is not None:
+            chunk += n_slots * 4
+        return self._resident_bytes() + 2 * chunk
+
+    def host_bytes(self) -> int:
+        out = self.host_coords.nbytes + self.host_ids.nbytes
+        if self.host_scales is not None:
+            out += self.host_scales.nbytes
+        return out
+
+    def stats(self) -> dict:
+        return {
+            "hot_clusters": int(self.hot_clusters.size),
+            "hot_hits": int(self._hot_hits),
+            "cold_uploads": int(self._cold_uploads),
+            "bytes_uploaded": int(self._bytes_uploaded),
+            "device_bytes": self.device_bytes(),
+            "host_bytes": self.host_bytes(),
+            "dead_shards": list(self.dead_shards),
+            "masked_clusters": int(self._dead_cluster.sum()),
+        }
+
+    # -- staging -------------------------------------------------------------
+    def _reserve_slots(self, n_queries: int) -> None:
+        """Make both staging buffers hold the worst chunk of an
+        ``n_queries``-row batch (allocated once per larger batch shape)."""
+        blocks = self._worst_slots(n_queries) * self.tiles_per_cluster
+        if self._slots and self._slots[0].coords.shape[0] >= blocks:
+            return
+        for s in self._slots:  # an old buffer may still feed a copy
+            if s.copied is not None:
+                s.copied.synchronize()
+        pin = self.device.type == "cuda"
+        dtype = torch.from_numpy(np.empty(0, self.host_coords.dtype)).dtype
+        shape = (blocks, self.tile_rows)
+        self._slots = [_StagingSlot(
+            torch.empty(shape + (self.host_coords.shape[2],), dtype=dtype,
+                        pin_memory=pin),
+            torch.empty(shape, dtype=torch.int32, pin_memory=pin))
+            for _ in range(2)]
+
+    def _upload(self, slot: _StagingSlot, n_blocks: int):
+        """Issue the copy of a filled slot's first ``n_blocks`` blocks:
+        ``(coords, ids, ready event or None)``. On the card the copy runs
+        on the staging stream; its outputs are marked in use by the current
+        stream, which must wait on ``ready`` before reading them."""
+        coords, ids = slot.coords[:n_blocks], slot.ids[:n_blocks]
+        if self.device.type != "cuda":
+            return (self._device_tiles(tile_stage.stage_blocks(
+                coords, self.device)),
+                tile_stage.stage_blocks(ids, self.device), None)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            up_coords = tile_stage.stage_blocks(coords, self.device)
+            up_ids = tile_stage.stage_blocks(ids, self.device)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        cur = torch.cuda.current_stream(self.device)
+        up_coords.record_stream(cur)
+        up_ids.record_stream(cur)
+        slot.copied = ready
+        return self._device_tiles(up_coords), up_ids, ready
+
+    def _stage_chunk(self, sub: np.ndarray, subcold: np.ndarray):
+        """Gather and launch the upload for one cold probe-column chunk.
+
+        Returns ``(coords, ids, scales, remapped_probes, ready)`` (the copy
+        in flight), or None when the chunk has no cold cluster.
+        ``sub``/``subcold``: (Q, w) probe ids and their cold-and-alive
+        mask.
+        """
+        uniq = np.unique(sub[subcold])
+        if uniq.size == 0:
+            return None
+        T = self.tiles_per_cluster
+        # power-of-two slot bucket (incl. the dummy), as the reference
+        n_slots = min(1 << int(uniq.size).bit_length(), self.n_clusters + 1)
+        n_slots = max(n_slots, uniq.size + 1)
+        slot_of = np.full(self.n_clusters, n_slots - 1, np.int32)
+        slot_of[uniq] = np.arange(uniq.size, dtype=np.int32)
+        remapped = np.where(subcold, slot_of[sub], n_slots - 1).astype(
+            np.int32)
+        blocks = (uniq[:, None] * T + np.arange(T)).reshape(-1)
+        n_blocks, used = n_slots * T, uniq.size * T
+        slot = self._slots[self._next_slot]
+        self._next_slot ^= 1
+        if slot.copied is not None:  # its last copy has read the host bytes
+            slot.copied.synchronize()
+        coords = slot.coords[:n_blocks].numpy()
+        ids = slot.ids[:n_blocks].numpy()
+        np.take(self.host_coords, blocks, axis=0, out=coords[:used],
+                mode="clip")
+        np.take(self.host_ids, blocks, axis=0, out=ids[:used], mode="clip")
+        coords[used:] = 0
+        ids[used:] = -1
+        scales = None
+        if self.host_scales is not None:
+            hs = np.ones((n_slots, 1), np.float32)
+            hs[:uniq.size] = self.host_scales[uniq]
+            scales = torch.from_numpy(hs).to(self.device)
+        up_bytes = coords.nbytes + ids.nbytes
+        self._cold_uploads += 1
+        self._bytes_uploaded += up_bytes
+        self._max_chunk_bytes = max(self._max_chunk_bytes, up_bytes)
+        up_coords, up_ids, ready = self._upload(slot, n_blocks)
+        return (up_coords, up_ids, scales,
+                torch.from_numpy(remapped).to(self.device), ready)
+
+    # -- search --------------------------------------------------------------
+    def search(self, queries: Tensor, n_neighbors: int = 10, nprobe: int = 8,
+               mode: str = "zen") -> Tuple[Tensor, Tensor]:
+        """Hot-set probe + double-buffered cold-chunk probes, merged.
+
+        Same contract as ``IVFZenIndex.search``; dead shards' clusters are
+        skipped (degraded mode), which lowers recall but never raises.
+        """
+        if n_neighbors <= 0:
+            raise ValueError(f"n_neighbors must be > 0, got {n_neighbors}")
+        dev = self.device
+        if self.n_valid == 0:
+            return _empty_result(queries.shape[0], n_neighbors, dev)
+        n_neighbors = min(n_neighbors, self.n_valid)
+        nprobe = max(1, min(nprobe, self.n_clusters))
+        T = self.tiles_per_cluster
+        queries = queries.to(device=dev, dtype=torch.float32)
+        probes = _probe_clusters(queries, self.centroids, nprobe,
+                                 mode).cpu().numpy().astype(np.int64)
+        np.add.at(self._traffic, probes.reshape(-1), 1)
+
+        # hot pass: the full probe list with cold/dead entries remapped to
+        # the dummy slot answers everything the hot set can
+        hot_pr = self._hot_slot[probes]
+        H = self.hot_clusters.size
+        self._hot_hits += int((hot_pr < H).sum())
+        best_d, best_i = kernel_ops.ivf_probe(
+            queries, self._hot_coords, self._hot_ids,
+            torch.from_numpy(hot_pr).to(dev), n_neighbors, mode,
+            tiles_per_cluster=T, tile_scales=self._hot_scales)
+
+        # cold passes: probe columns in fixed-width chunks; the upload for
+        # chunk j+1 is in flight while chunk j is scored
+        cold = (~self._dead_cluster & (self._base_slot == H))[probes]
+        self._reserve_slots(queries.shape[0])
+        w = self.prefetch_cols
+        spans = [(lo, min(lo + w, nprobe)) for lo in range(0, nprobe, w)]
+        staged = self._stage_chunk(probes[:, :spans[0][1]],
+                                   cold[:, :spans[0][1]])
+        for j in range(len(spans)):
+            cur, staged = staged, None
+            if j + 1 < len(spans):
+                lo, hi = spans[j + 1]
+                staged = self._stage_chunk(probes[:, lo:hi], cold[:, lo:hi])
+            if cur is None:
+                continue
+            up_coords, up_ids, up_scales, remapped, ready = cur
+            if ready is not None:
+                torch.cuda.current_stream(dev).wait_event(ready)
+            d, i = kernel_ops.ivf_probe(
+                queries, up_coords, up_ids, remapped, n_neighbors, mode,
+                tiles_per_cluster=T, tile_scales=up_scales)
+            best_d, best_i = scoring.merge_topk(best_d, best_i, d, i,
+                                                n_neighbors)
+        return best_d, best_i
+
+    # -- persistence ---------------------------------------------------------
+    def _live_members(self, *, raw: bool = False
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+        """Host (CPU) tensors of the live rows, the contract of
+        ``IVFZenIndex._live_members``: lets ``snapshot_payload`` serve a
+        tiered index too."""
+        valid = self.host_ids >= 0
+        block_cluster = (np.arange(self.host_ids.shape[0])
+                         // self.tiles_per_cluster)
+        assign = np.broadcast_to(block_cluster[:, None],
+                                 self.host_ids.shape)[valid]
+        coords = index_io.to_tensor(np.asarray(self.host_coords)[valid],
+                                    "cpu",
+                                    bfloat16=self.storage == "bfloat16")
+        if not raw and self.host_scales is not None:
+            coords = quant.dequantize(
+                coords, torch.from_numpy(self.host_scales[assign]))
+        elif not raw:
+            coords = coords.to(torch.float32)
+        return (coords, torch.from_numpy(self.host_ids[valid].astype(
+            np.int64)), torch.from_numpy(assign.astype(np.int64)))
+
+    def save(self, directory: str) -> str:
+        """Persist the packed tile pool itself (memmap-servable layout)."""
+        coords = (index_io.to_tensor(self.host_coords, "cpu", bfloat16=True)
+                  if self.storage == "bfloat16" else self.host_coords)
+        arrays = {
+            "centroids": self.centroids.to(torch.float32),
+            "tile_coords": coords,
+            "tile_ids": np.asarray(self.host_ids, np.int32),
+        }
+        if self.host_scales is not None:
+            arrays["cluster_scales"] = self.host_scales
+        meta = {
+            "n_clusters": self.n_clusters,
+            "tiles_per_cluster": self.tiles_per_cluster,
+            "tile_rows": self.tile_rows,
+            "n_valid": self.n_valid,
+            "storage": self.storage,
+            "n_shards": self.n_shards,
+            "generation": int(self.generation),
+        }
+        return index_io.save_state(
+            directory, arrays, meta, kind=TILE_POOL_SNAPSHOT_KIND)
 
     @classmethod
-    def from_index(cls, *args, **kwargs):
-        raise not_ported("TieredIVFZenIndex", "A10")
+    def load(
+        cls,
+        directory: str,
+        *,
+        mmap: bool = True,
+        hot_clusters: Optional[int] = None,
+        hot_fraction: float = 0.1,
+        prefetch_cols: int = 2,
+        n_shards: Optional[int] = None,
+        device=None,
+    ) -> "TieredIVFZenIndex":
+        """Open a tile-pool snapshot (of either package) served from
+        ``device`` ("cuda" unless told otherwise); with ``mmap`` the cold
+        tiles never materialise in RAM, only probed blocks are read. The
+        hot set is the largest clusters, as in :meth:`from_index`."""
+        arrays, meta = index_io.load_state(
+            directory, expect_kind=TILE_POOL_SNAPSHOT_KIND, mmap=mmap)
+        host_ids = arrays["tile_ids"]
+        C, T = int(meta["n_clusters"]), int(meta["tiles_per_cluster"])
+        live = (np.asarray(host_ids) >= 0).reshape(C, -1).sum(axis=1)
+        H = (max(0, min(int(hot_clusters), C)) if hot_clusters is not None
+             else max(1, int(C * hot_fraction)))
+        hot = np.sort(np.argsort(live, kind="stable")[::-1][:H])
+        return cls(
+            index_io.to_tensor(arrays["centroids"], resolve_device(device)),
+            arrays["tile_coords"],
+            host_ids,
+            n_clusters=C,
+            tiles_per_cluster=T,
+            tile_rows=int(meta["tile_rows"]),
+            n_valid=int(meta["n_valid"]),
+            storage=meta.get("storage", "float32"),
+            host_scales=arrays.get("cluster_scales"),
+            hot_clusters=hot,
+            prefetch_cols=prefetch_cols,
+            n_shards=(int(meta.get("n_shards", 1)) if n_shards is None
+                      else n_shards),
+            generation=int(meta.get("generation", 0)),
+        )
 
 
 def _empty_result(n_queries: int, n_neighbors: int,

@@ -51,6 +51,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                                  _P, _P, _P, _P], ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "tile_stage": {
+        # src (page-locked host), dst, block_bytes, n_blocks, stream
+        "tile_stage_launch": ([_P, _P, _L, _L, _P], ctypes.c_int),
+        "zen_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -3,15 +3,18 @@
 PyTorch counterpart of ``repro.kernels.ops``. A CUDA tensor goes to the
 Hopper kernel, which either runs or raises: nothing catches a build or
 launch error to fall back. A CPU tensor goes to the kernel's plain PyTorch
-version.
+version. The staging copy, whose source is always host memory, goes by
+its target device instead.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import ivf_probe as _ivf_probe
+from . import tile_stage as _tile_stage
 from . import zen_topk as _zen_topk
 
 Tensor = torch.Tensor
@@ -96,3 +99,15 @@ def ivf_probe_pq(
         _ivf_probe.ivf_probe_pq_scan
     return fn(tile_codes, tile_ids, probes, luts, n_neighbors,
               tiles_per_cluster=tiles_per_cluster)
+
+
+def dma_copy_blocks(src: Union[np.ndarray, Tensor], device) -> Tensor:
+    """Copy a (B, ...) host block array onto ``device``, byte for byte.
+
+    A CUDA ``device`` launches the Hopper staging kernel, which reads a
+    pinned CPU tensor (``tile_stage.dma_copy_blocks``; a pageable source
+    raises); a CPU ``device`` takes the plain copy.
+    """
+    if torch.device(device).type == "cuda":
+        return _tile_stage.dma_copy_blocks(src, device)
+    return _tile_stage.dma_copy_blocks_plain(src, device)

@@ -20,19 +20,30 @@ Churn:    ``upsert`` projects new rows with the fitted transform and writes
           them into dead slots or grown capacity; ``delete`` tombstones rows
           (a far sentinel in the flat index, the ``-1`` id in IVF tiles);
           ``compact`` repacks the live rows.
+Offload:  ``build_index(index="ivf", offload=True)`` keeps the IVF tile
+          pool on the host (``index.ivf.TieredIVFZenIndex``): a hot set of
+          clusters stays on the device, and each query batch uploads the
+          cold clusters it probes through the Hopper staging kernel
+          (``kernels.tile_stage``). The tiered index is serve-only.
+Persist:  ``ZenServer.save`` writes the transform, the flat coordinates or
+          the IVF members, and the re-rank corpus as one versioned atomic
+          snapshot (``checkpoint.index_io``), the JAX package's format;
+          ``ZenServer.load`` restores it, optionally serving the IVF tier
+          from a tile-pool snapshot (``pool=``, memory-mapped).
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: snapshots (A6), the micro-batching frontend (A8),
-principled pivots (A9), the tiered store (A10), fault tolerance (A11) and
-mesh sharding (A12).
+ROADMAP item: the micro-batching frontend (A8), principled pivots (A9),
+fault tolerance (A11) and mesh sharding (A12).
 
 CLI:  python -m repro_torch.launch.serve --n 20000 --dim 256 --k 16 \
-          --queries 64 [--index ivf --nprobe 8] [--device cpu]
+          --queries 64 [--index ivf --nprobe 8 [--offload]] \
+          [--checkpoint DIR] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -40,11 +51,14 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported, resolve_device
+from repro_torch.checkpoint import index_io
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import zen as zen_lib
 from repro_torch.core.projection import NSimplexTransform, select_references
-from repro_torch.index.ivf import IVFZenIndex
+from repro_torch.core.simplex import BaseSimplex
+from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.index.ivf import _check_ids, _dedupe_last_wins, exact_rerank
+from repro_torch.index.ivf import _ivf_from_snapshot, snapshot_payload
 from repro_torch.kernels import quantize as quant
 from repro_torch.kernels.scoring import mask_invalid
 from repro_torch.serving import (
@@ -53,6 +67,8 @@ from repro_torch.serving import (
 
 Tensor = torch.Tensor
 
+#: snapshot kind tag for full serving state (transform + index + corpus)
+SERVER_SNAPSHOT_KIND = "zen-server"
 #: coordinate sentinel written into tombstoned flat rows — far enough that a
 #: dead row can never win a top-k slot, small enough that f32 squared norms
 #: stay finite (1e15^2 * k << f32 max)
@@ -85,8 +101,9 @@ class ZenIndex:
       coord_scales: (cap, 1) f32 per-row int8 scales, else ``None``.
       generation: churn counter, bumped by every change of the searchable
                   state.
-      ivf:        the ``IVFZenIndex`` when built with ``index="ivf"``; the
-                  mutations and the search then go to it.
+      ivf:        the ``IVFZenIndex`` (or the serve-only
+                  ``TieredIVFZenIndex``) when built with ``index="ivf"``;
+                  the mutations and the search then go to it.
 
     Mutations return a new ``ZenIndex`` and leave this one as it was.
     """
@@ -100,7 +117,7 @@ class ZenIndex:
     storage: str = "float32"
     coord_scales: Optional[Tensor] = None
     generation: int = 0
-    ivf: Optional[IVFZenIndex] = None
+    ivf: Optional[object] = None
 
     @property
     def size(self) -> int:
@@ -175,10 +192,21 @@ class ZenIndex:
     def _on_device(self, rows: np.ndarray) -> Tensor:
         return torch.as_tensor(rows, dtype=torch.long, device=self.device)
 
+    def _is_tiered(self) -> bool:
+        return isinstance(self.ivf, TieredIVFZenIndex)
+
+    def _check_not_tiered(self) -> None:
+        if self._is_tiered():
+            raise NotImplementedError(
+                "a tiered (host-offloaded) index is serve-only: churn the "
+                "resident index and re-offload (build_index(..., "
+                "offload=True) or TieredIVFZenIndex.from_index)")
+
     # -- mutation ------------------------------------------------------------
     def delete(self, ids: Sequence[int]) -> "ZenIndex":
         """Tombstone the given external ids; unknown ids are ignored."""
         if self.ivf is not None:
+            self._check_not_tiered()
             return self._with_ivf(self.ivf.delete(ids))
         row_ids = self._host_row_ids()
         mask = (row_ids >= 0) & np.isin(row_ids, np.asarray(ids, np.int64))
@@ -203,6 +231,7 @@ class ZenIndex:
         rows. An IVF index writes them into its inverted lists.
         """
         if self.ivf is not None:
+            self._check_not_tiered()
             return self._with_ivf(self.ivf.upsert(ids, coords_new))
         ids_np = np.asarray(ids, np.int64).ravel()
         _check_ids(ids_np)
@@ -258,6 +287,7 @@ class ZenIndex:
         dequantise/requantise cycle.
         """
         if self.ivf is not None:
+            self._check_not_tiered()
             return self._with_ivf(self.ivf.compact(**kw))
         if self.row_ids is None:
             return self
@@ -273,7 +303,10 @@ class ZenIndex:
         """True when tombstones exceed ``max_tombstone_ratio`` of the rows
         once live. Growth slack of the flat index is not counted; an IVF
         index also takes the tile-slack and imbalance thresholds of
-        ``IVFZenIndex.needs_compact``."""
+        ``IVFZenIndex.needs_compact``; a tiered index never does (it is
+        serve-only)."""
+        if self._is_tiered():
+            return False
         if self.ivf is not None:
             return self.ivf.needs_compact(
                 max_tombstone_ratio=max_tombstone_ratio, **kw)
@@ -299,6 +332,9 @@ def build_index(
     pq_m: Optional[int] = None,
     mesh=None,
     offload: bool = False,
+    hot_clusters: Optional[int] = None,
+    offload_shards: int = 1,
+    prefetch_cols: int = 2,
 ) -> ZenIndex:
     """Fit on the corpus and project every row into a flat or IVF index.
 
@@ -323,13 +359,28 @@ def build_index(
       tile_rows:  rows per IVF tile.
       kmeans_iters: Lloyd iterations of the IVF quantizer fit.
       pq_m:      PQ subspace count (default ``pq.default_m(k)``).
+      offload:   (IVF only) drop the packed tiles to a host pool after the
+                 build (``index.ivf.TieredIVFZenIndex``): the centroids,
+                 scales and the ``hot_clusters`` largest clusters (default
+                 10% of C) stay on the device, cold probes are uploaded in
+                 ``prefetch_cols``-wide double-buffered chunks, and the
+                 clusters are split over ``offload_shards`` logical shards
+                 for degraded serving. The offloaded index is serve-only:
+                 upsert/delete/compact raise.
     """
     if index not in ("flat", "ivf"):
         raise ValueError(f"index must be 'flat' or 'ivf', got {index!r}")
+    if offload and index != "ivf":
+        raise ValueError("offload=True requires index='ivf' (the tiered "
+                         "tile store offloads inverted-list tiles)")
+    if offload and mesh is not None:
+        raise ValueError(
+            "offload=True and mesh are mutually exclusive: the tiered "
+            "store already splits device/host residency on one host; "
+            "degraded serving over its logical shards replaces mesh "
+            "sharding (offload_shards=...)")
     if mesh is not None:
         raise not_ported("mesh sharding", "A12")
-    if offload:
-        raise not_ported("offload (the tiered store)", "A10")
     if pivots != "random":
         raise not_ported(f"pivots={pivots!r}", "A9")
     quant.check_storage(storage)
@@ -349,11 +400,90 @@ def build_index(
         ivf = IVFZenIndex.build(
             coords, n_clusters, tile_rows=tile_rows, n_iters=kmeans_iters,
             generator=generator, storage=storage, pq_m=pq_m)
+        if offload:
+            ivf = TieredIVFZenIndex.from_index(
+                ivf, hot_clusters=hot_clusters, n_shards=offload_shards,
+                prefetch_cols=prefetch_cols)
         return ZenIndex(transform=tr, coords=None, corpus=keep,
                         storage=storage, ivf=ivf)
     coords, coord_scales = quant.encode_rows(coords, storage)
     return ZenIndex(transform=tr, coords=coords, corpus=keep,
                     storage=storage, coord_scales=coord_scales)
+
+
+#: the saved server settings that only the micro-batching frontend reads
+#: (A8, not ported): a snapshot without a frontend carries them, and the
+#: port's server takes no such options
+_FRONTEND_KEYS = ("frontend", "max_batch", "cache_size")
+
+
+def load_index_snapshot(
+    directory: str,
+    *,
+    mesh=None,
+    mmap: bool = False,
+    pool: Optional[str] = None,
+    device=None,
+) -> Tuple[ZenIndex, dict]:
+    """Load a :meth:`ZenServer.save` snapshot (of either package) into a
+    ``ZenIndex`` on ``device`` ("cuda" unless told otherwise).
+
+    Args:
+      directory: snapshot directory (``SERVER_SNAPSHOT_KIND``).
+      mmap:      memory-map the snapshot's arrays read-only instead of
+                 reading them; for the tiered ``pool`` the cold tiles are
+                 then served straight off the mapped files.
+      pool:      optional ``TILE_POOL_SNAPSHOT_KIND`` snapshot directory:
+                 the IVF tier is opened as a serve-only
+                 ``TieredIVFZenIndex`` over that pool (``load(mmap=...)``)
+                 instead of packing resident tiles, with its default hot
+                 set. IVF snapshots only.
+
+    Returns ``(index, server_kw)``: the restored index (with the saved
+    ``generation``) and the saved server settings. Raises
+    ``checkpoint.CheckpointFormatError`` for a snapshot of an unreadable
+    version or another kind.
+    """
+    if mesh is not None:
+        raise not_ported("loading onto a mesh", "A12")
+    dev = resolve_device(device)
+    arrays, meta = index_io.load_state(
+        directory, expect_kind=SERVER_SNAPSHOT_KIND, mmap=mmap)
+
+    def get(name, **kw):
+        return index_io.to_tensor(arrays[name], dev, **kw)
+
+    tr = NSimplexTransform(
+        k=int(meta["k"]), metric=meta["metric"],
+        jitter=float(meta["jitter"]), refs=get("refs"),
+        base=BaseSimplex(chol=get("base_chol"), diag_g=get("base_diag_g"),
+                         d0=get("base_d0")))
+    corpus = get("corpus") if "corpus" in arrays else None
+    generation = int(meta.get("generation", 0))
+    storage = meta.get("storage", "float32")
+    if pool is not None and meta["index"] != "ivf":
+        raise ValueError(
+            "pool=... serves the IVF tier from a tile-pool snapshot; this "
+            "snapshot holds a flat index")
+    if meta["index"] == "ivf":
+        if pool is not None:
+            ivf = TieredIVFZenIndex.load(pool, mmap=mmap, device=dev)
+            # the server snapshot's generation is authoritative
+            ivf.generation = generation
+        else:
+            ivf = _ivf_from_snapshot(arrays, meta, dev, prefix="ivf_")
+        index = ZenIndex(transform=tr, coords=None, corpus=corpus,
+                         storage=storage, generation=generation, ivf=ivf)
+    else:
+        index = ZenIndex(
+            transform=tr,
+            coords=get("coords", bfloat16=storage == "bfloat16"),
+            corpus=corpus, row_ids=get("row_ids").to(torch.int32),
+            storage=storage,
+            coord_scales=(get("coord_scales") if "coord_scales" in arrays
+                          else None),
+            generation=generation)
+    return index, dict(meta.get("server", {}))
 
 
 class ZenServer:
@@ -535,7 +665,7 @@ class ZenServer:
     def stats(self) -> dict:
         """Serving counters: query/batch totals, latency percentiles, churn."""
         lat = np.asarray(self._stats["latency_s"] or [0.0])
-        return {
+        out = {
             "queries": self._stats["queries"],
             "batches": self._stats["batches"],
             "upserts": self._stats["upserts"],
@@ -543,17 +673,92 @@ class ZenServer:
             "p50_ms": float(np.percentile(lat, 50) * 1e3),
             "p99_ms": float(np.percentile(lat, 99) * 1e3),
         }
+        if self.index._is_tiered():
+            out["tier"] = self.index.ivf.stats()  # hot/cold traffic, bytes
+        return out
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, directory: str) -> str:
+        """Persist the full serving state as one versioned atomic snapshot:
+        the fitted transform, the flat coordinates (live rows, raw storage
+        dtype, their per-row scales) with the external-id map *or* the IVF
+        members and quantizer, the re-rank corpus if kept, and the server's
+        settings. The files are those the JAX package writes."""
+        index = self.index
+        tr = index.transform
+        if tr.refs is None:
+            raise ValueError(
+                "distance-only transforms hold no reference coordinates and "
+                "cannot serve raw-vector queries after reload; checkpointing "
+                "them is unsupported")
+        f32 = torch.float32
+        arrays = {
+            "refs": tr.refs.to(f32),
+            "base_chol": tr.base.chol.to(f32),
+            "base_diag_g": tr.base.diag_g.to(f32),
+            "base_d0": tr.base.d0.to(f32),
+        }
+        meta = {
+            "k": tr.k,
+            "metric": tr.metric,
+            "jitter": tr.jitter,
+            "index": "ivf" if index.ivf is not None else "flat",
+            "server": {
+                "mode": self.mode,
+                "rerank_factor": self.rerank_factor,
+                "chunk": self.chunk,
+                "nprobe": self.nprobe,
+                "frontend": False,
+                "max_batch": _MAX_BATCH,
+                "cache_size": 0,
+            },
+        }
+        if index.ivf is not None:
+            ivf_arrays, ivf_meta = snapshot_payload(index.ivf)
+            arrays.update({f"ivf_{k}": v for k, v in ivf_arrays.items()})
+            meta.update(ivf_meta)
+        else:
+            row_ids = index._host_row_ids()
+            live = row_ids >= 0
+            keep = index._on_device(np.flatnonzero(live))
+            arrays["coords"] = index.coords[keep]
+            arrays["row_ids"] = row_ids[live].astype(np.int32)
+            if index.coord_scales is not None:
+                arrays["coord_scales"] = index.coord_scales[keep].to(f32)
+            meta["storage"] = index.storage
+        # the wrapper's churn counter is the published generation (set
+        # after the IVF meta on purpose, as the reference does)
+        meta["generation"] = int(index.generation)
+        if index.corpus is not None:
+            arrays["corpus"] = index.corpus
+        return index_io.save_state(
+            directory, arrays, meta, kind=SERVER_SNAPSHOT_KIND)
+
+    @classmethod
+    def load(cls, directory: str, *, mesh=None, mmap: bool = False,
+             pool: Optional[str] = None, device=None,
+             **server_kw) -> "ZenServer":
+        """Restore a server from :meth:`save` (or from the JAX package's)
+        on ``device``: the same answers as before the save.
+
+        ``mmap`` and ``pool`` as in :func:`load_index_snapshot`;
+        ``server_kw`` overrides the saved settings (``mode``,
+        ``rerank_factor``, ``chunk``, ``nprobe``). A snapshot of a server
+        with the micro-batching frontend raises (A8 is not ported); the
+        frontend's own settings of one without it are dropped.
+        """
+        index, saved_kw = load_index_snapshot(
+            directory, mesh=mesh, mmap=mmap, pool=pool, device=device)
+        if saved_kw.get("frontend"):
+            raise not_ported("a snapshot of a server with the "
+                             "micro-batching frontend", "A8")
+        kw = {k: v for k, v in saved_kw.items() if k not in _FRONTEND_KEYS}
+        kw.update(server_kw)
+        return cls(index, **kw)
 
     # -- not ported yet ------------------------------------------------------
     def enable_fault_tolerance(self, *args, **kwargs):
         raise not_ported("fault tolerance", "A11")
-
-    def save(self, directory: str) -> str:
-        raise not_ported("server snapshots (save)", "A6")
-
-    @classmethod
-    def load(cls, directory: str, **kwargs) -> "ZenServer":
-        raise not_ported("server snapshots (load)", "A6")
 
 
 def exact_topk(queries: Tensor, corpus: Tensor, n_neighbors: int,
@@ -592,6 +797,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--pivots", default="random",
                    help="base-simplex selection strategy (only the paper's "
                         "random redraw loop is ported)")
+    p.add_argument("--offload", action="store_true",
+                   help="host-offload the IVF tile pool (tiered store): "
+                        "only centroids + a hot cluster set stay on the "
+                        "device, cold probes are uploaded double-buffered")
+    p.add_argument("--hot-clusters", type=int, default=0,
+                   help="device-resident hot set size (0 = 10%% of C)")
+    p.add_argument("--offload-shards", type=int, default=1,
+                   help="logical shards for degraded serving (tiered)")
+    p.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="restore the server from DIR if a snapshot exists "
+                        "there, else build and save one (versioned, atomic)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--seed", type=int, default=0)
@@ -603,12 +819,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     corpus = syn.manifold_space(args.n, args.dim, args.dim // 8,
                                 generator=gen)
-    index = build_index(corpus, args.k, metric=args.metric, index=args.index,
-                        storage=args.storage, pivots=args.pivots,
-                        generator=torch.Generator().manual_seed(args.seed),
-                        device=dev, n_clusters=args.clusters or None,
-                        pq_m=args.pq_m or None)
-    server = ZenServer(index, rerank_factor=args.rerank, nprobe=args.nprobe)
+    if args.checkpoint and os.path.exists(
+            os.path.join(args.checkpoint, "manifest.json")):
+        server = ZenServer.load(args.checkpoint, device=dev,
+                                rerank_factor=args.rerank, nprobe=args.nprobe)
+        index = server.index
+        ref_dim = int(index.transform.refs.shape[1])
+        if ref_dim != args.dim:
+            raise SystemExit(
+                f"checkpoint {args.checkpoint} serves {ref_dim}-d vectors "
+                f"but --dim is {args.dim}; pass --dim {ref_dim}")
+        print(f"restored server from {args.checkpoint}")
+    else:
+        index = build_index(
+            corpus, args.k, metric=args.metric, index=args.index,
+            storage=args.storage, pivots=args.pivots,
+            generator=torch.Generator().manual_seed(args.seed), device=dev,
+            n_clusters=args.clusters or None, pq_m=args.pq_m or None,
+            offload=args.offload, hot_clusters=args.hot_clusters or None,
+            offload_shards=args.offload_shards)
+        server = ZenServer(index, rerank_factor=args.rerank,
+                           nprobe=args.nprobe)
+        if args.checkpoint:
+            print(f"saved snapshot to {server.save(args.checkpoint)}")
     print(f"index: {index.size} x {args.k} (from dim {args.dim}, "
           f"storage={index.storage}, device={dev})"
           + (f"; ivf: {index.ivf.n_clusters} clusters, T="

@@ -6,12 +6,16 @@ fixture), never at import or collection, so every test worker collects the
 same tests.
 
 Each kernel is held to its plain PyTorch version on the same CUDA tensors,
-ids equal outside near-ties. ``zen_topk``: rtol 1e-5 / atol 1e-5 on
+ids equal outside near-ties (the staging copy: byte for byte). ``zen_topk``:
+rtol 1e-5 / atol 1e-5 on
 distances of O(1) coordinates (the same f32 norm expansion, in another
 order). The probes: rtol 1e-5 / atol 1e-5 x the median row norm, as in
 ``chip_smoke.py``. Their queries sit next to index rows, so the expansion
 ``|q|^2 + |x|^2 - 2 q.x`` cancels terms ~|x|^2 down to a small distance,
-and its rounding error scales with the norms, not with the distance.
+and its rounding error scales with the norms, not with the distance. The
+tiered store against the resident index on the card: the same probe kernel
+scores the same rows, so distances are bit-equal and ids equal outside
+exact ties.
 """
 import functools
 
@@ -25,6 +29,7 @@ from repro_torch.kernels import ivf_probe as ip  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pq  # noqa: E402
 from repro_torch.kernels import quantize as quant  # noqa: E402
+from repro_torch.kernels import tile_stage as ts  # noqa: E402
 from repro_torch.kernels.scoring import MODE_IDS  # noqa: E402
 from repro_torch.kernels import zen_topk as zt  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -229,3 +234,104 @@ def test_ivf_server_on_card_matches_cpu(cuda, storage):
     msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
                         atol=1e-4)
     assert msg is None, (storage, msg)
+
+
+# -- the staging copy and the tiered store ------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint16", "int8", "int32",
+                                   "uint8"])
+@pytest.mark.parametrize("block", [(128, 16), (128,), (128, 13), (5, 7, 3)])
+@pytest.mark.parametrize("n_blocks", [1, 3, 257])
+def test_dma_copy_blocks_matches_plain(cuda, dtype, block, n_blocks):
+    rng = np.random.default_rng(n_blocks)
+    src = ts.pinned_like(rng.integers(0, 256, (n_blocks,) + block
+                                      + (np.dtype(dtype).itemsize,),
+                                      dtype=np.uint8).view(dtype)[..., 0])
+    before = ts.dma_copy_blocks.launches
+    got = ts.dma_copy_blocks(src, cuda)
+    torch.cuda.synchronize()
+    assert ts.dma_copy_blocks.launches == before + 1
+    assert got.is_cuda and got.dtype == src.dtype and got.shape == src.shape
+    want = ts.dma_copy_blocks_plain(src, cuda)
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+def test_dma_copy_blocks_unaligned_views(cuda):
+    """Views that start off a 16-byte boundary, and sizes that are no
+    multiple of 16, go through the byte-wise head and tail."""
+    base = ts.pinned_like(np.random.default_rng(1).integers(
+        0, 256, 1 << 18, dtype=np.uint8))
+    for off, n in ((1, 1000), (3, 65_537), (16, 4096 * 5 + 7), (5, 9)):
+        view = base[off:off + n]
+        got = ts.dma_copy_blocks(view, cuda)
+        torch.cuda.synchronize()
+        assert got.cpu().numpy().tobytes() == view.numpy().tobytes(), off
+
+
+def test_pageable_source_raises(cuda):
+    with pytest.raises(ValueError, match="pinned"):
+        ts.dma_copy_blocks(torch.zeros((4, 8)), cuda)
+    with pytest.raises(ValueError, match="pinned"):
+        ops.dma_copy_blocks(torch.zeros((4, 8)), cuda)
+    # the launcher itself refuses a pageable pointer, never copies it
+    from repro_torch.kernels import _build
+
+    lib = _build.load("tile_stage")
+    host = np.zeros(4096, np.uint8)
+    dst = torch.empty(4096, dtype=torch.uint8, device=cuda)
+    err = lib.tile_stage_launch(host.ctypes.data, dst.data_ptr(), 4096, 1,
+                                torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="tile_stage"):
+        _build.check(lib, err, "tile_stage launch")
+
+
+def _tiered_pair(dev, storage, hot):
+    idx, q = _ivf_index(dev, storage)
+    return ivf.TieredIVFZenIndex.from_index(idx, hot_clusters=hot), idx, q
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("hot", [0, 6, 60])
+def test_tiered_search_on_card_matches_resident(cuda, storage, hot):
+    tiered, idx, q = _tiered_pair(cuda, storage, hot)
+    assert tiered._hot_coords.is_cuda
+    before = ts.dma_copy_blocks.launches
+    for nprobe in (1, 8, 60):
+        got = tiered.search(q, 64, nprobe)
+        want = idx.search(q, 64, nprobe)
+        msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=0.0,
+                            atol=0.0)
+        assert msg is None, (nprobe, msg)
+    assert ts.dma_copy_blocks.launches - before == \
+        2 * tiered.stats()["cold_uploads"]
+
+
+def test_tiered_slot_reuse_has_no_race(cuda):
+    """20 back-to-back searches, each of 8 cold chunks alternating the two
+    pinned staging buffers: every answer equals the resident one."""
+    tiered, idx, _ = _tiered_pair(cuda, "float32", 4)
+    x = _coords(9, 64 * 20, 16, cuda)
+    answers = [(tiered.search(x[i * 64:(i + 1) * 64], 64, 16),
+                x[i * 64:(i + 1) * 64]) for i in range(20)]
+    assert tiered.stats()["cold_uploads"] >= 20 * 7
+    for (d, ids), q in answers:
+        want = idx.search(q, 64, 16)
+        msg = topk_mismatch(d, ids, want[0], want[1], rtol=0.0, atol=0.0)
+        assert msg is None, msg
+
+
+def test_tiered_server_on_card_matches_cpu(cuda):
+    gen = torch.Generator().manual_seed(0)
+    corpus = torch.randn((6_000, 48), generator=gen)
+    queries = torch.randn((20, 48), generator=gen)
+    index = serve.build_index(corpus, 12, index="ivf", offload=True,
+                              pivot_ids=list(range(0, 6_000, 500)),
+                              device=cuda, generator=gen)
+    got = serve.ZenServer(index, nprobe=8, rerank_factor=4).query(queries, 10)
+    want = serve.ZenServer(index.to("cpu"), nprobe=8,
+                           rerank_factor=4).query(queries, 10)
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
+                        atol=1e-4)
+    assert msg is None, msg

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package."""
+"""The port stands alone: it imports neither JAX, nor the JAX package, nor
+``ml_dtypes`` (which the machine with the card does not have)."""
 import os
 import re
 import subprocess
@@ -10,16 +11,17 @@ pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
-_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)\b")
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.convert, "
-        "repro_torch.testing\n"
+        "repro_torch.testing, repro_torch.checkpoint, "
+        "repro_torch.kernels.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

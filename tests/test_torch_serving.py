@@ -277,23 +277,20 @@ def test_exact_rerank_matches_jax(metric):
 def test_unported_options_raise_naming_the_roadmap_item():
     x = torch.randn((40, 6), generator=torch.Generator().manual_seed(1))
     for kw, item in [({"pivots": "maxvol"}, "A9"),
-                     ({"mesh": object()}, "A12"), ({"offload": True}, "A10"),
-                     ({"index": "ivf", "mesh": object()}, "A12"),
-                     ({"index": "ivf", "offload": True}, "A10")]:
+                     ({"mesh": object()}, "A12"),
+                     ({"index": "ivf", "mesh": object()}, "A12")]:
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_index(x, 4, device="cpu", **kw)
     for make, item in [(tivf.ShardedIVFZenIndex.build, "A12"),
-                       (tivf.ShardedIVFZenIndex, "A12"),
-                       (tivf.TieredIVFZenIndex.from_index, "A10"),
-                       (tivf.TieredIVFZenIndex, "A10")]:
+                       (tivf.ShardedIVFZenIndex, "A12")]:
         with pytest.raises(NotImplementedError, match=item):
             make(x, 4)
     index = tserve.build_index(x, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         tserve.ZenServer(index, frontend=True)
     server = tserve.ZenServer(index)
-    for call, item in [(lambda: server.save("x"), "A6"),
-                       (lambda: tserve.ZenServer.load("x"), "A6"),
+    for call, item in [(lambda: tserve.ZenServer.load("x", mesh=object()),
+                        "A12"),
                        (server.enable_fault_tolerance, "A11")]:
         with pytest.raises(NotImplementedError, match=item):
             call()
