@@ -1,11 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the Hopper
 kernels, holds each against its plain PyTorch version, serves the flat, the
 IVF and the tiered (host-offloaded) IVF index end to end at full size,
-churns, snapshots and reloads them, and times the kernels.
+churns, snapshots and reloads them, runs the paper's evaluation (Zen
+against PCA, RP, MDS and LMDS) through the dense kernels, and times the
+kernels.
 
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --quick    # build + kernel checks (phases 1-3, 7,
-                                     # 11)
+                                     # 11, 14)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -59,9 +61,28 @@ Phases:
      tile pool (TieredIVFZenIndex.save) saved to a temporary directory and
      reloaded (ZenServer.load, and ZenServer.load(pool=, mmap=True)); the
      reloads answer the same batches identically; the flat server
-     round-trips at 20,000 rows; save/load seconds and bytes.
+     round-trips at 20,000 rows; save/load seconds and bytes;
+ 14. the dense kernels pdist_sq, zen_estimate and jsd_pdist against their
+     plain versions, in squared space: the sweeps of repro_torch.testing
+     (f32 and bf16; ragged N, K and m; every mode, k in {1, 2, 16, 130};
+     sparse probability rows and disjoint supports), X against X, and the
+     working shapes of phases 15 and 16;
+ 15. the paper's evaluation through the public dispatch
+     repro_torch.kernels: on the 1,000,000 x 256 corpus, Zen (random,
+     farthest_first and maxvol pivots), PCA, RP, MDS (400 witnesses) and
+     LMDS fitted at k = 16 from 2,048 witnesses, a 2,048-row sample
+     transformed; delta by kernels.pdist, zeta by kernels.zen_estimate
+     (Zen) or kernels.pdist; and a JSD leg on 2,048 + 16 probability rows
+     (jsd_pdist for the reference, cross and true distances, Zen from
+     distances against LMDS). quality_profile of each; the dispatched
+     matrices against core/metrics.py and core/zen.py on the card; the
+     quality numbers against the same evaluation on the CPU; each dense
+     kernel's launch count must advance;
+ 16. the dense kernels timed at their working shapes (CUDA events, queued
+     behind a spin kernel) beside their bounds, plain versions and library
+     calls.
 
-Phases 7 and 11 run right after phase 3 (so ``--quick`` covers every
+Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
 kernel).
 Prints one JSON line of kernel records, the nvidia-smi line, and last the
 device line. Any failed check exits non-zero.
@@ -89,6 +110,21 @@ RTOL = 1e-5
 #: the IVF configuration served at full size: ~4 sqrt(N) clusters of
 #: 128-row tiles, 8 probed per query (the JAX package's defaults)
 N_CLUSTERS, TILE_ROWS, NPROBE, PQ_M = 4_000, 128, 8, 4
+#: phase 15: the evaluation's sizes (witness set = pivots.MAX_WITNESS rows;
+#: MDS on 400 witnesses, as benchmarks/paper_quality.py fits it)
+EVAL_ROWS, MDS_WITNESS = 2_048, 400
+#: phases 14 and 16: the side of the square evaluation-sized matrices
+SQUARE = 4_096
+#: phase 15: the quality numbers of the card and of the CPU agree within
+#: this, per normalised measure. The two runs take the same rows, draws and
+#: pivot ids; zeta carries each backend's f32 noise of the fits (SVD, eigh,
+#: pinv, Cholesky: ~1e-5 relative), which moves stress and rho by ~1e-5 on
+#: two million pairs; the margin covers rank swaps of near-tied pairs.
+EVAL_ATOL = 1e-3
+#: the special-function units' log2 rate per SM and clock (CUDA C++
+#: Programming Guide, arithmetic instruction throughput, compute
+#: capability 9.0)
+SFU_PER_CLOCK = 16
 
 
 def log(*a):
@@ -865,6 +901,328 @@ def check_snapshots(index, tiered_server, batches, corpus, k: int):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+
+def dense_kernels():
+    """(name, kernel wrapper, plain version, ``testing.dense_errors`` kind)
+    of the three dense kernels."""
+    import importlib
+
+    from repro_torch.kernels import jsd as jk
+    from repro_torch.kernels import zen as zk
+
+    pk = importlib.import_module("repro_torch.kernels.pdist")
+    return (("pdist_sq", pk.pdist_sq, pk.pdist_sq_plain, "pdist"),
+            ("zen_estimate", zk.zen_estimate, zk.zen_estimate_plain, "zen"),
+            ("jsd_pdist", jk.jsd_pdist, jk.jsd_pdist_plain, "jsd"))
+
+
+def check_dense_kernels(corpus, coords, gen):
+    """Phase 14: the dense kernels against their plain versions on the
+    card; returns each kernel's max |out - out_plain| on its own output
+    (squared distances for pdist_sq, distances for the others)."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.data import synthetic as syn
+
+    t0 = time.perf_counter()
+    dev = corpus.device
+    funcs = {name: (kernel, plain, kind)
+             for name, kernel, plain, kind in dense_kernels()}
+    probs = syn.probability_space(2 * SQUARE, 256, generator=gen)
+    cases = []  # (kernel name, label, X, Y, extra args)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for i, shape in enumerate(testing.PDIST_CASES):
+            X, Y = testing.dense_inputs("pdist", shape, i, dt, dev)
+            cases.append(("pdist_sq", f"{tag} {shape}", X, Y, ()))
+        for i, shape in enumerate(testing.ZEN_CASES):
+            X, Y = testing.dense_inputs("zen", shape, i, dt, dev)
+            for mode in ("zen", "lwb", "upb"):
+                cases.append(("zen_estimate", f"{tag} {shape} {mode}", X, Y,
+                              (mode,)))
+        for i, shape in enumerate(testing.JSD_CASES):
+            X, Y = testing.dense_inputs("jsd", shape, i, dt, dev)
+            cases.append(("jsd_pdist", f"{tag} {shape} sparse", X, Y, ()))
+    sparse_x = torch.tensor([[0.5, 0.5, 0.0, 0.0], [0.25] * 4], device=dev)
+    sparse_y = torch.tensor([[0.0, 0.0, 0.5, 0.5]], device=dev)
+    cases.append(("jsd_pdist", "disjoint supports", sparse_x, sparse_y, ()))
+    # X against X, and the working shapes of phases 15 and 16
+    sample = corpus[:EVAL_ROWS]
+    square = corpus[:SQUARE]
+    refs = corpus[EVAL_ROWS:EVAL_ROWS + 16]
+    cases += [
+        ("pdist_sq", "X vs X 2048 x 256", sample, sample, ()),
+        ("pdist_sq", "1,000,000 x 16 x 256", corpus[:1_000_000], refs, ()),
+        ("pdist_sq", f"{SQUARE} x {SQUARE} x 256", square,
+         corpus[SQUARE:2 * SQUARE], ()),
+        ("jsd_pdist", "X vs X 2048 x 256", probs[:EVAL_ROWS],
+         probs[:EVAL_ROWS], ()),
+        ("jsd_pdist", f"{SQUARE} x {SQUARE} x 256", probs[:SQUARE],
+         probs[SQUARE:2 * SQUARE], ()),
+        ("jsd_pdist", "2048 x 16 x 256", probs[:EVAL_ROWS],
+         probs[-16:], ())]
+    for mode in ("zen", "lwb", "upb"):
+        cases += [
+            ("zen_estimate", f"X vs X 2048 x 16 {mode}", coords[:EVAL_ROWS],
+             coords[:EVAL_ROWS], (mode,)),
+            ("zen_estimate", f"{SQUARE} x {SQUARE} x 16 {mode}",
+             coords[:SQUARE], coords[SQUARE:2 * SQUARE], (mode,)),
+            ("zen_estimate", f"64 x 1,000,000 x 16 {mode}", coords[:64],
+             coords[:1_000_000], (mode,))]
+    worst = {name: [0.0, 0.0, 0.0] for name in funcs}  # out, squared, D
+    for name, label, X, Y, extra in cases:
+        kernel, plain, kind = funcs[name]
+        got = kernel(X, Y, *extra)
+        torch.cuda.synchronize()
+        want = plain(X, Y, *extra)
+        err_sq, err_d, why = testing.dense_errors(kind, X, Y, got, want)
+        if why is not None:
+            fail(f"{name} ({label}) disagrees with its plain version: {why}")
+        if label == "disjoint supports" and float(got[0, 0]) != 1.0:
+            fail(f"jsd_pdist of disjoint supports is {float(got[0, 0])!r}, "
+                 f"not 1.0")
+        w = worst[name]
+        w[0] = max(w[0], float((got - want).abs().max()))
+        w[1], w[2] = max(w[1], err_sq), max(w[2], err_d)
+    log(f"[14] dense kernels vs their plain versions: {len(cases)} cases "
+        f"(f32/bf16 sweeps of repro_torch.testing, X vs X, the working "
+        f"shapes) agree in squared space; {time.perf_counter() - t0:.1f} s")
+    log(f"    tolerance: pdist_sq and zen_estimate |d^2 - d^2_plain| <= "
+        f"{testing.SQ_RTOL:g} x (|x|^2 + |y|^2) (the norm expansion's f32 "
+        f"sums in another order), jsd_pdist |K - K_plain| <= "
+        f"{testing.JSD_KTOL:g} on K = D^2 (three f32 sums of m entropy "
+        f"terms); on D itself within sqrt of that")
+    for name, (out, sq, d) in worst.items():
+        log(f"    {name}: max |out - out_plain| {out:.3g}, in squared space "
+            f"{sq:.3g}, on D {d:.3g}")
+    return {name: w[0] for name, w in worst.items()}
+
+
+def evaluate(witness, sample, probs, k: int, pivot_ids=None):
+    """Phase 15's evaluation on the tensors' device, through the public
+    dispatch ``repro_torch.kernels``. Returns (quality profiles by method,
+    farthest_first/maxvol pivot ids, the dispatched matrices by name, the
+    reduced coordinates by method, the seconds the host measures took).
+    ``pivot_ids`` replaces the selection (the CPU rerun takes the card's)."""
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.core import pivots, quality, reducers
+    from repro_torch.core.baselines import LMDSTransform
+    from repro_torch.core.projection import NSimplexTransform
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    fitted = {"zen_random": reducers.make_reducer("zen", k).fit(
+        witness, generator=gen(1))}
+    ids = {}
+    for st in ("farthest_first", "maxvol"):
+        ids[st] = (pivots.pivot_ids(witness, k, strategy=st)
+                   if pivot_ids is None else pivot_ids[st])
+        fitted[f"zen_{st}"] = dataclasses.replace(
+            reducers.make_reducer("zen", k),
+            transform_=pivots.select_references(witness, k, ids=ids[st]))
+    fitted["pca"] = reducers.make_reducer("pca", k).fit(witness)
+    fitted["rp"] = reducers.make_reducer("rp", k).fit(witness,
+                                                       generator=gen(2))
+    fitted["mds"] = reducers.make_reducer("mds", k).fit(
+        witness[:MDS_WITNESS])
+    fitted["lmds"] = reducers.make_reducer("lmds", k).fit(witness,
+                                                           generator=gen(3))
+    mats = {"delta": K.pdist(sample, sample)}
+    reduced = {}
+    for name, r in fitted.items():
+        Y = reduced[name] = r.transform(sample)
+        mats[name] = (K.zen_estimate(Y, Y) if name.startswith("zen")
+                      else K.pdist(Y, Y))
+    # the JSD leg: coordinate-free, reference and object distances only
+    R, P = probs[:k], probs[k:]
+    D_refs = K.jsd_pdist(R, R).fill_diagonal_(0.0)
+    D_xr = K.jsd_pdist(P, R)
+    mats["jsd_delta"] = K.jsd_pdist(P, P)
+    Xz = NSimplexTransform.from_distances(D_refs).transform_from_distances(
+        D_xr)
+    Xl = LMDSTransform(k=k).fit_from_distances(
+        D_refs).transform_from_distances(D_xr)
+    reduced.update(jsd_zen=Xz, jsd_lmds=Xl)
+    mats["jsd_zen"] = K.zen_estimate(Xz, Xz)
+    mats["jsd_lmds"] = K.pdist(Xl, Xl)
+    if probs.is_cuda:
+        torch.cuda.synchronize()
+    t_measures = time.perf_counter()
+    profiles = {}
+    for name, D in mats.items():
+        if name in ("delta", "jsd_delta"):
+            continue
+        delta = quality.flatten_upper(
+            mats["jsd_delta" if name.startswith("jsd") else "delta"])
+        # quadratic normalised by the loss of the all-zero embedding
+        qmax = float((delta.double() ** 2).sum())
+        profiles[name] = quality.quality_profile(
+            delta, quality.flatten_upper(D), qmax=qmax)
+    return profiles, ids, mats, reduced, time.perf_counter() - t_measures
+
+
+def _fmt(p) -> str:
+    return (f"kruskal {p['kruskal']:.4f} sammon {p['sammon']:.4f} spearman "
+            f"{p['spearman']:.4f} quadratic {p['quadratic']:.4f}")
+
+
+def run_evaluation(corpus, gen, k: int):
+    """Phase 15: the evaluation on the card, its cross-checks, and its
+    rerun on the CPU; returns each dense kernel's launches in the card
+    run."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import metrics, pivots, zen
+    from repro_torch.data import synthetic as syn
+
+    t0 = time.perf_counter()
+    perm = torch.randperm(corpus.shape[0],
+                          generator=torch.Generator().manual_seed(5))
+    witness = corpus[perm[:EVAL_ROWS].to(corpus.device)]
+    sample = corpus[perm[EVAL_ROWS:2 * EVAL_ROWS].to(corpus.device)]
+    probs = syn.probability_space(EVAL_ROWS + k, 256, generator=gen)
+    kernels = {name: kernel for name, kernel, _, _ in dense_kernels()}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    profiles, ids, mats, reduced, t_measures = evaluate(witness, sample,
+                                                         probs, k)
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    t_card = time.perf_counter() - t0
+    if min(launches.values()) == 0:
+        fail(f"the evaluation did not launch every dense kernel: {launches}")
+    log(f"[15] paper evaluation on the card, k = {k}: {EVAL_ROWS:,} "
+        f"witnesses and a {EVAL_ROWS:,}-row sample of the "
+        f"{corpus.shape[0]:,} x 256 corpus ({EVAL_ROWS * (EVAL_ROWS - 1) // 2:,}"
+        f" pairs), MDS on {MDS_WITNESS}; JSD leg {EVAL_ROWS:,} + {k} "
+        f"probability rows of width 256; {t_card:.1f} s, of which the "
+        f"data, pivots, fits, transforms and dispatched matrices "
+        f"{t_card - t_measures:.1f} s and the quality measures (host numpy) "
+        f"{t_measures:.1f} s; launches {launches}")
+    log(f"    pivot ids: farthest_first {ids['farthest_first'].tolist()}, "
+        f"maxvol {ids['maxvol'].tolist()}")
+    for name, p in profiles.items():
+        log(f"    {name:20s} {_fmt(p)}")
+    # the dispatched matrices against the modules' own torch functions
+    checks = [("pdist", sample, sample, mats["delta"] ** 2,
+               metrics.sqeuclidean_pdist(sample, sample.clone()))]
+    for name, Y in reduced.items():
+        if "zen" in name:
+            checks.append(("zen", Y, Y, mats[name], zen.zen_pdist(Y, Y)))
+        else:
+            checks.append(("pdist", Y, Y, mats[name] ** 2,
+                           metrics.sqeuclidean_pdist(Y, Y.clone())))
+    P = probs[k:]
+    want = torch.cat([metrics.jsd_pdist(P[s:s + 256], P, assume_normalized=True)
+                      for s in range(0, P.shape[0], 256)])
+    checks.append(("jsd", P, P, mats["jsd_delta"], want))
+    worst = 0.0
+    for kind, X, Y, got, want in checks:
+        err_sq, _, why = testing.dense_errors(kind, X, Y, got, want)
+        if why is not None:
+            fail(f"a dispatched {kind} matrix of the evaluation disagrees "
+                 f"with core/metrics.py or core/zen.py: {why}")
+        worst = max(worst, err_sq)
+    log(f"    {len(checks)} dispatched matrices agree with core/metrics.py "
+        f"and core/zen.py on the card (max squared-space error {worst:.3g})")
+    # the same evaluation on the CPU, from the same rows, draws and pivots
+    t0 = time.perf_counter()
+    cpu_ids = {st: pivots.pivot_ids(witness.cpu(), k, strategy=st)
+               for st in ids}
+    cpu, _, _, _, _ = evaluate(witness.cpu(), sample.cpu(), probs.cpu(), k,
+                               pivot_ids=ids)
+    diff = max(abs(cpu[n][m] - profiles[n][m]) for n in profiles
+               for m in ("kruskal", "sammon", "spearman", "quadratic"))
+    same_ids = {st: bool(np.array_equal(cpu_ids[st], ids[st])) for st in ids}
+    log(f"    the same evaluation on the CPU ({time.perf_counter() - t0:.1f}"
+        f" s, the card's pivot ids): max |measure difference| {diff:.3g} "
+        f"(tolerance {EVAL_ATOL}); the CPU's own pivot selection gives the "
+        f"card's ids: {same_ids}")
+    if not diff <= EVAL_ATOL:
+        fail(f"card and CPU quality numbers differ by {diff:.3g} > "
+             f"{EVAL_ATOL}")
+    return launches
+
+
+def time_dense(corpus, transform, gen, smi: str):
+    """Phase 16: the dense kernels at their working shapes; returns each
+    kernel's record for the kernels line, and logs the others."""
+    import torch
+    from repro_torch.core import metrics, zen
+    from repro_torch.data import synthetic as syn
+
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log_rate = SFU_PER_CLOCK * n_sms * clock_mhz * 1e6
+    X = corpus[:1_000_000]
+    refs = transform.refs
+    coords = transform.transform(X)
+    square = (corpus[:SQUARE], corpus[SQUARE:2 * SQUARE])
+    probs = syn.probability_space(2 * SQUARE, 256, generator=gen)
+    kernels = {name: (kernel, plain) for name, kernel, plain, _
+               in dense_kernels()}
+    # (kernel, shape, operands, arguments, library call, kept for the
+    # kernels line)
+    shapes = [
+        ("pdist_sq", "transform 1,000,000 x 16 x 256", (X, refs), (),
+         metrics.sqeuclidean_pdist, False),
+        ("pdist_sq", f"evaluation square {SQUARE:,} x {SQUARE:,} x 256",
+         square, (), metrics.sqeuclidean_pdist, True),
+        ("zen_estimate", f"({SQUARE:,} x 16)^2",
+         (coords[:SQUARE], coords[SQUARE:2 * SQUARE]), ("zen",),
+         zen.estimate_pdist, True),
+        ("zen_estimate", "64 x 1,000,000 x 16", (coords[:64], coords),
+         ("zen",), zen.estimate_pdist, False),
+        ("jsd_pdist", f"{SQUARE:,} x {SQUARE:,} x 256",
+         (probs[:SQUARE], probs[SQUARE:]), (), None, True),
+    ]
+    records = {}
+    for name, label, (A, B), extra, library, keep in shapes:
+        kernel, plain = kernels[name]
+        n, m = A.shape
+        kk = B.shape[0]
+        nbytes = (A.numel() + B.numel() + n * kk) * 4
+        if name == "jsd_pdist":
+            # one log2 per (i, j, l) on the special-function units
+            t_ops = n * kk * m / log_rate
+            bound = max(nbytes / PEAK_BYTES_S, t_ops) * 1e3
+            bound_by = "operations" if t_ops > nbytes / PEAK_BYTES_S \
+                else "bytes"
+            ops_note = f"{n * kk * m / 1e9:.2f} G log2 at {log_rate / 1e12:.2f} T/s"
+        else:
+            flops = 2 * n * kk * (m - (name == "zen_estimate")) \
+                + 2 * (n + kk) * m
+            bound, bound_by = bound_of(nbytes, flops)
+            ops_note = f"{flops / 1e9:.2f} GFLOP"
+        iters = 5 if name == "jsd_pdist" else 20
+        before = kernel.launches
+        dev = queued_ms(lambda: kernel(A, B, *extra), iters)
+        dev2 = queued_ms(lambda: kernel(A, B, *extra), iters)
+        kernel.launches = before  # timing launches are not the path's
+        plain_ms = timed(lambda: plain(A, B, *extra), 2, warmup=1)
+        lib_ms = None if library is None else min(
+            queued_ms(lambda: library(A, B, *extra), iters),
+            queued_ms(lambda: library(A, B, *extra), iters))
+        ms = min(dev, dev2)
+        log(f"[16] {name} at {label}: device time {dev:.4f} / {dev2:.4f} ms,"
+            f" bound {bound:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
+            f"{ops_note}) = {bound / ms:.1%} of bound; plain {plain_ms:.3f} "
+            f"ms; library "
+            + ("none (no single PyTorch call computes it)" if lib_ms is None
+               else f"{library.__module__}.{library.__name__} {lib_ms:.4f} "
+                    f"ms") + f"; {smi}")
+        if keep:
+            records[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=bound_by, library_ms=lib_ms,
+                                 at=label)
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -962,6 +1320,7 @@ def main() -> None:
     log(f"    {n_checked} cases agree (ids equal outside near-ties); max "
         f"|d - d_plain| {max_err:.3g}; {time.perf_counter() - t0:.1f} s")
     del encoded
+    dense_err = check_dense_kernels(corpus, coords, gen)
     ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
     stage_cases, stage_bad, stage_err = check_stage_kernel(dev)
     if quick:
@@ -1114,6 +1473,13 @@ def main() -> None:
 
     # -- 13. snapshots -----------------------------------------------------
     check_snapshots(ivf_index_f32, tiered_server, batches, corpus, k)
+    del tiered_server, ivf_index_f32
+
+    # -- 15. the paper's evaluation through the dense kernels ----------------
+    dense_launches = run_evaluation(corpus, gen, k)
+
+    # -- 16. the dense kernels at their working shapes -----------------------
+    dense_records = time_dense(corpus, tr, gen, smi)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",
@@ -1134,6 +1500,16 @@ def main() -> None:
         replaces="src/repro/kernels/tile_stage.py:62",
         launches=stage_launches, max_abs_err=stage_err,
         byte_mismatches=stage_bad, cases=stage_cases, **stage_rec))
+    for kname, source, line in (
+            ("pdist_sq", "pdist.cu", "pdist.py:52"),
+            ("zen_estimate", "zen_estimate.cu", "zen.py:60"),
+            ("jsd_pdist", "jsd.cu", "jsd.py:72")):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=f"src/repro/kernels/{line}",
+            launches=dense_launches[kname], max_abs_err=dense_err[kname],
+            **dense_records[kname]))
     log(f"whole run {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,12 +9,16 @@ index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
 ``index.IVFZenIndex`` (``centroids``, ``tile_coords``, ``tile_ids``,
 ``tile_scales``, ``codebooks``, ...); the tiered store is
 ``index.ivf.TieredIVFZenIndex`` (``centroids``, ``host_coords``,
-``host_ids``, ``host_scales``, ``hot_clusters``, ...). Feeding both
-packages one fitted state lets a test hold the search path to the
-reference without the fit's float noise (or the k-means draws) in between.
+``host_ids``, ``host_scales``, ``hot_clusters``, ...); the baselines are
+``core.baselines``' ``PCATransform``, ``RandomProjection``,
+``MDSTransform`` and ``LMDSTransform`` (their fields by name). Feeding
+both packages one fitted state lets a test hold the search path, or a
+baseline's transform, to the reference without the fit's float noise (or
+the k-means and RP draws, or the SVD/eigh sign choices) in between.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import index_io
+from repro_torch.core import baselines
 from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
 from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
@@ -147,3 +152,26 @@ def tiered_index_from_arrays(transform: Optional[NSimplexTransform], *,
         corpus=None if corpus is None else _tensor(corpus, dev,
                                                    torch.float32),
         storage=storage, generation=int(generation), ivf=tiered)
+
+
+_BASELINES = {"pca": baselines.PCATransform,
+              "rp": baselines.RandomProjection,
+              "mds": baselines.MDSTransform,
+              "lmds": baselines.LMDSTransform}
+
+
+def baseline_from_arrays(kind: str, *, k: int, device=None, **arrays):
+    """The port's fitted baseline ``kind`` ("pca", "rp", "mds" or "lmds")
+    holding exactly these f32 arrays, passed by the reference's field
+    names (``mean``, ``components``, ``matrix``, ``pinv_coords``, ...);
+    a field left out or given as ``None`` stays ``None``."""
+    cls = _BASELINES[kind]
+    fields = {f.name for f in dataclasses.fields(cls)} - {"k"}
+    unknown = set(arrays) - fields
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}; "
+                         f"it has {sorted(fields)}")
+    dev = resolve_device(device)
+    return cls(k=int(k), **{
+        name: None if a is None else _tensor(a, dev, torch.float32)
+        for name, a in arrays.items()})

@@ -50,6 +50,10 @@ def estimate_pdist(X: Tensor, Y: Tensor, mode: str = "zen") -> Tensor:
     return torch.sqrt(torch.clamp_min(z2, 0.0))
 
 
+def zen_pdist(X: Tensor, Y: Tensor) -> Tensor:
+    return estimate_pdist(X, Y, "zen")
+
+
 def estimate_triple(X: Tensor, Y: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """(lwb, zen, upb) evaluated as a triple sharing one matmul (paper §4.1)."""
     Xa, Ya, z2 = _norms_and_dot(X, Y)

@@ -51,6 +51,22 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                                  _P, _P, _P, _P], ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "pdist": {
+        # x, y, dtype, n, k, m, out, stream
+        "pdist_sq_launch": ([_P, _P, _I, _L, _L, _I, _P, _P], ctypes.c_int),
+        "zen_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "zen_estimate": {
+        # x, y, dtype, n, m, k, mode, out, stream
+        "zen_estimate_launch": ([_P, _P, _I, _L, _L, _I, _I, _P, _P],
+                                ctypes.c_int),
+        "zen_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "jsd": {
+        # x, y, dtype, n, k, m, out, stream
+        "jsd_pdist_launch": ([_P, _P, _I, _L, _L, _I, _P, _P], ctypes.c_int),
+        "zen_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "tile_stage": {
         # src (page-locked host), dst, block_bytes, n_blocks, stream
         "tile_stage_launch": ([_P, _P, _L, _L, _P], ctypes.c_int),

@@ -14,10 +14,39 @@ import numpy as np
 import torch
 
 from . import ivf_probe as _ivf_probe
+from . import jsd as _jsd
+from . import pdist as _pdist
 from . import tile_stage as _tile_stage
+from . import zen as _zen
 from . import zen_topk as _zen_topk
 
 Tensor = torch.Tensor
+
+
+def pdist_sq(X: Tensor, Y: Tensor) -> Tensor:
+    """Pairwise squared Euclidean distances (N, K) f32 of (N, m) x (K, m),
+    f32 or bf16 inputs."""
+    fn = _pdist.pdist_sq if X.is_cuda else _pdist.pdist_sq_plain
+    return fn(X, Y)
+
+
+def pdist(X: Tensor, Y: Tensor) -> Tensor:
+    """Pairwise Euclidean distances: ``sqrt(pdist_sq(X, Y))``."""
+    return torch.sqrt(pdist_sq(X, Y))
+
+
+def zen_estimate(X: Tensor, Y: Tensor, mode: str = "zen") -> Tensor:
+    """Zen/Lwb/Upb estimator matrix (N, M) f32 of projected (N, k) x (M, k)
+    coordinates (last column the altitude)."""
+    fn = _zen.zen_estimate if X.is_cuda else _zen.zen_estimate_plain
+    return fn(X, Y, mode)
+
+
+def jsd_pdist(X: Tensor, Y: Tensor) -> Tensor:
+    """Jensen-Shannon distance matrix (N, K) f32 of l1-normalised rows,
+    clipped to [0, 1] before the root as the TPU kernel does."""
+    fn = _jsd.jsd_pdist if X.is_cuda else _jsd.jsd_pdist_plain
+    return fn(X, Y)
 
 
 def zen_topk(

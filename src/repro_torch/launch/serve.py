@@ -32,8 +32,8 @@ Persist:  ``ZenServer.save`` writes the transform, the flat coordinates or
           from a tile-pool snapshot (``pool=``, memory-mapped).
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: the micro-batching frontend (A8), principled pivots (A9),
-fault tolerance (A11) and mesh sharding (A12).
+ROADMAP item: the micro-batching frontend (A8), fault tolerance (A11) and
+mesh sharding (A12).
 
 CLI:  python -m repro_torch.launch.serve --n 20000 --dim 256 --k 16 \
           --queries 64 [--index ivf --nprobe 8 [--offload]] \
@@ -54,7 +54,8 @@ from repro_torch import not_ported, resolve_device
 from repro_torch.checkpoint import index_io
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import zen as zen_lib
-from repro_torch.core.projection import NSimplexTransform, select_references
+from repro_torch.core import pivots as pivots_lib
+from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
 from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.index.ivf import _check_ids, _dedupe_last_wins, exact_rerank
@@ -349,8 +350,12 @@ def build_index(
                  in the flat index, per cluster in IVF tiles) or "pq" (IVF
                  only: ``pq_m`` uint8 product-quantiser codes per row). Fit
                  and query math stay f32.
-      pivot_ids: explicit reference row ids (one fit, no redraw); else the
-                 paper's random redraw loop draws from ``generator``.
+      pivots:    base-simplex selection strategy
+                 (``core.pivots.PIVOT_STRATEGIES``): the paper's "random"
+                 redraw loop, or kmeanspp/farthest_first/maxvol over a
+                 witness distance matrix.
+      pivot_ids: explicit reference row ids (one fit, no redraw); else
+                 ``pivots`` selects them, drawing from ``generator``.
       generator: the reference draws, then the k-means++ (and PQ codebook)
                  draws of an IVF build.
       device:    where the index lives; "cuda" by default, which raises
@@ -381,8 +386,7 @@ def build_index(
             "sharding (offload_shards=...)")
     if mesh is not None:
         raise not_ported("mesh sharding", "A12")
-    if pivots != "random":
-        raise not_ported(f"pivots={pivots!r}", "A9")
+    pivots_lib.check_strategy(pivots)
     quant.check_storage(storage)
     if storage == "pq" and index != "ivf":
         raise ValueError(
@@ -390,8 +394,9 @@ def build_index(
             "the flat layout takes " + "/".join(quant.SCALAR_STORAGE_DTYPES))
     dev = resolve_device(device)
     corpus = corpus.to(dev)
-    tr = select_references(corpus, k, ids=pivot_ids, generator=generator,
-                           metric=metric)
+    tr = pivots_lib.select_references(corpus, k, ids=pivot_ids,
+                                      generator=generator, metric=metric,
+                                      strategy=pivots)
     coords = tr.transform(corpus)
     keep = corpus if keep_corpus else None
     if index == "ivf":
@@ -795,8 +800,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--pq-m", type=int, default=0,
                    help="PQ subspace count M (storage=pq; 0 = ~k/4)")
     p.add_argument("--pivots", default="random",
-                   help="base-simplex selection strategy (only the paper's "
-                        "random redraw loop is ported)")
+                   choices=list(pivots_lib.PIVOT_STRATEGIES),
+                   help="base-simplex (reference) selection strategy "
+                        "(core.pivots; random = the paper's redraw loop)")
     p.add_argument("--offload", action="store_true",
                    help="host-offload the IVF tile pool (tiered store): "
                         "only centroids + a hot cluster set stay on the "

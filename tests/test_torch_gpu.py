@@ -18,6 +18,7 @@ scores the same rows, so distances are bit-equal and ids equal outside
 exact ties.
 """
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -26,14 +27,21 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.index import ivf  # noqa: E402
 from repro_torch.kernels import ivf_probe as ip  # noqa: E402
+from repro_torch.kernels import jsd as jk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pq  # noqa: E402
 from repro_torch.kernels import quantize as quant  # noqa: E402
 from repro_torch.kernels import tile_stage as ts  # noqa: E402
+from repro_torch.kernels import zen as zk  # noqa: E402
 from repro_torch.kernels.scoring import MODE_IDS  # noqa: E402
 from repro_torch.kernels import zen_topk as zt  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.testing import topk_mismatch  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    JSD_CASES, JSD_KTOL, PDIST_CASES, SQ_RTOL, ZEN_CASES, dense_errors,
+    dense_inputs, topk_mismatch)
+
+# the package exports the function ``pdist``, which shadows the module name
+pk = importlib.import_module("repro_torch.kernels.pdist")
 
 pytestmark = pytest.mark.gpu
 
@@ -335,3 +343,102 @@ def test_tiered_server_on_card_matches_cpu(cuda):
     msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
                         atol=1e-4)
     assert msg is None, msg
+
+
+# -- the dense matrices -------------------------------------------------------
+# Kernel against plain on the sweep of chip_smoke.py phase 14, in squared
+# space (repro_torch.testing: SQ_RTOL x (|x|^2 + |y|^2) for pdist_sq and
+# zen_estimate, JSD_KTOL on K = D^2 for jsd_pdist; the distances then agree
+# within the square root of that).
+
+_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _check_dense(kind, kernel, plain, X, Y, *args):
+    before = kernel.launches
+    got = kernel(X, Y, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(X, Y, *args)
+    _, _, why = dense_errors(kind, X, Y, got, want)
+    assert why is None, why
+    return got
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", PDIST_CASES)
+def test_pdist_sq_matches_plain(cuda, dtype, shape):
+    X, Y = dense_inputs("pdist", shape, sum(shape), dtype, cuda)
+    _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, Y)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("mode", ["zen", "lwb", "upb"])
+@pytest.mark.parametrize("shape", ZEN_CASES)
+def test_zen_estimate_matches_plain(cuda, dtype, mode, shape):
+    X, Y = dense_inputs("zen", shape, sum(shape), dtype, cuda)
+    _check_dense("zen", zk.zen_estimate, zk.zen_estimate_plain, X, Y, mode)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", JSD_CASES)
+def test_jsd_pdist_matches_plain(cuda, dtype, shape):
+    X, Y = dense_inputs("jsd", shape, sum(shape), dtype, cuda)
+    _check_dense("jsd", jk.jsd_pdist, jk.jsd_pdist_plain, X, Y)
+
+
+def test_dense_self_matrices(cuda):
+    """X against itself, where the norm expansion and K cancel to ~0 on the
+    diagonal: the check is in squared space."""
+    X, _ = dense_inputs("pdist", (300, 1, 513), 1, torch.float32, cuda)
+    d2 = _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, X)
+    assert float(d2.diagonal().max()) <= SQ_RTOL * 2 * float(
+        (X * X).sum(1).max())
+    Z, _ = dense_inputs("zen", (200, 1, 16), 2, torch.float32, cuda)
+    _check_dense("zen", zk.zen_estimate, zk.zen_estimate_plain, Z, Z, "lwb")
+    P, _ = dense_inputs("jsd", (300, 1, 256), 3, torch.float32, cuda)
+    d = _check_dense("jsd", jk.jsd_pdist, jk.jsd_pdist_plain, P, P)
+    assert float(d.diagonal().max()) <= JSD_KTOL ** 0.5
+
+
+def test_jsd_sparse_rows(cuda):
+    """0 log 0 inside the kernel, and disjoint supports give exactly 1."""
+    X = torch.tensor([[0.5, 0.5, 0.0, 0.0], [0.25, 0.25, 0.25, 0.25]],
+                     device=cuda)
+    Y = torch.tensor([[0.0, 0.0, 0.5, 0.5]], device=cuda)
+    got = jk.jsd_pdist(X, Y)
+    assert torch.isfinite(got).all()
+    assert float(got[0, 0]) == 1.0
+    _check_dense("jsd", jk.jsd_pdist, jk.jsd_pdist_plain, X, Y)
+
+
+def test_dense_ops_dispatch_on_card(cuda):
+    X, Y = dense_inputs("pdist", (50, 30, 64), 5, torch.float32, cuda)
+    before = pk.pdist_sq.launches
+    d = ops.pdist(X, Y)
+    assert pk.pdist_sq.launches == before + 1
+    torch.testing.assert_close(d * d, pk.pdist_sq_plain(X, Y), rtol=1e-5,
+                               atol=SQ_RTOL * float((X * X).sum(1).max()
+                                                    + (Y * Y).sum(1).max()))
+    before = (zk.zen_estimate.launches, jk.jsd_pdist.launches)
+    ops.zen_estimate(X, Y, "upb")
+    P, Q = dense_inputs("jsd", (20, 10, 48), 6, torch.float32, cuda)
+    ops.jsd_pdist(P, Q)
+    assert (zk.zen_estimate.launches, jk.jsd_pdist.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_dense_kernels_reject_what_they_do_not_take(cuda):
+    X = torch.rand((8, 16))
+    for fn in (pk.pdist_sq, zk.zen_estimate, jk.jsd_pdist):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(X, X)
+        with pytest.raises(ValueError, match="takes"):
+            fn(X.to(cuda).double(), X.to(cuda).double())
+        with pytest.raises(ValueError, match=r"\(N, m\) and \(K, m\)"):
+            fn(X.to(cuda), X[:, :5].to(cuda))
+    wide = torch.rand((4, 300), device=cuda)
+    with pytest.raises(ValueError, match="k <= 256"):
+        zk.zen_estimate(wide, wide)
+    with pytest.raises(ValueError, match="mode"):
+        zk.zen_estimate(X.to(cuda), X.to(cuda), "exact")

@@ -19,7 +19,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.convert, "
         "repro_torch.testing, repro_torch.checkpoint, "
-        "repro_torch.kernels.ops\n"
+        "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+        "repro_torch.kernels.pdist, repro_torch.kernels.zen, "
+        "repro_torch.kernels.jsd, repro_torch.core.pivots, "
+        "repro_torch.core.baselines, repro_torch.core.reducers, "
+        "repro_torch.core.quality, repro_torch.data.synthetic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")

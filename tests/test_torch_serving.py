@@ -276,8 +276,7 @@ def test_exact_rerank_matches_jax(metric):
 
 def test_unported_options_raise_naming_the_roadmap_item():
     x = torch.randn((40, 6), generator=torch.Generator().manual_seed(1))
-    for kw, item in [({"pivots": "maxvol"}, "A9"),
-                     ({"mesh": object()}, "A12"),
+    for kw, item in [({"mesh": object()}, "A12"),
                      ({"index": "ivf", "mesh": object()}, "A12")]:
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_index(x, 4, device="cpu", **kw)
