@@ -80,10 +80,22 @@ Phases:
      kernel's launch count must advance;
  16. the dense kernels timed at their working shapes (CUDA events, queued
      behind a spin kernel) beside their bounds, plain versions and library
-     calls.
+     calls;
+ 17. wide result lists: the flat, IVF f32, IVF PQ and tiered servers of
+     phases 4, 8 and 12 at n in {65, 128, 300} with re-rank 4 (fetch widths
+     512, 512 and 2,048) and at n = 10, 8 batches each: every kernel of
+     the path counted from 0 around them, one batch's answers against the
+     same server with the search kernels' plain versions on the card, and
+     the p50 at n = 300 beside the p50 at n = 10.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel).
+kernel); phase 17 runs after phase 12. Phase 3 also holds zen_topk at
+widths up to 16,384 (lists in global memory) and k = 300, phase 7 the
+probes at widths up to 16,384 and PQ at M = 256, phase 14 zen_estimate at
+k = 300 and 600 and every dense kernel past 65,535 grid rows of column
+tiles; phase 12 also times the staging copy of the coords and of the ids
+apart, and splits a tiered request's host time into the gather of cold
+tiles and the waits on the staging slots' copies.
 Prints one JSON line of kernel records, the nvidia-smi line, and last the
 device line. Any failed check exits non-zero.
 """
@@ -121,6 +133,11 @@ SQUARE = 4_096
 #: pinv, Cholesky: ~1e-5 relative), which moves stress and rho by ~1e-5 on
 #: two million pairs; the margin covers rank swaps of near-tied pairs.
 EVAL_ATOL = 1e-3
+#: phase 14: more output columns than 65,535 grid rows of 64-column tiles
+WIDE_COLS = 65_535 * 64 + 1_000
+#: phases 3, 7 and 17: result widths past the 256 the kernels once took
+#: (n = 65 and 128 at re-rank 4 fetch 512, n = 300 fetches 2,048)
+WIDE_N = (65, 128, 300)
 #: the special-function units' log2 rate per SM and clock (CUDA C++
 #: Programming Guide, arithmetic instruction throughput, compute
 #: capability 9.0)
@@ -291,6 +308,8 @@ def check_ivf_kernels(coords, queries, atol: float):
             cases = [(False, nq, n, P) for nq in (2, 64) for n in (10, 64, 128)
                      for P in (1, 8, 64)]
             cases += [(True, 64, 128, P) for P in (1, 8, 64)]
+            # widths 512, 2,048 and 16,384 (lists in global memory)
+            cases += [(False, 64, n, NPROBE) for n in (300, 2_048, 10_000)]
             for tomb, nq, n, P in cases:
                 idx = (churned if tomb else layouts)[st]
                 q = queries[:nq]
@@ -332,9 +351,39 @@ def check_ivf_kernels(coords, queries, atol: float):
                     max_err[name] = max(max_err[name], float(
                         (got[0] - want[0])[fin].abs().max()))
                 n_cases += 1
-    log(f"    {n_cases} cases agree (ids equal outside near-ties); max "
-        f"|d - d_plain| ivf_probe {max_err['ivf_probe']:.3g}, ivf_probe_pq "
-        f"{max_err['ivf_probe_pq']:.3g}; {time.perf_counter() - t0:.1f} s")
+    # PQ at M = 256 over k = 256 (one column a subspace): 218 tables fit
+    # shared memory beside the list, 38 are read from global memory
+    wide = torch.randn((100_000, 256), generator=torch.Generator(
+        coords.device).manual_seed(3), device=coords.device)
+    wide[:, -1].abs_()
+    pq256 = ivf.IVFZenIndex.build(wide, 64, tile_rows=TILE_ROWS, n_iters=3,
+                                  storage="pq", pq_m=256,
+                                  generator=torch.Generator().manual_seed(0))
+    plan = ip.probe_plan(64, NPROBE, pq_m=256)
+    for n in (10, 300):
+        probes = pq256.probe_clusters(wide[:64] + 0.01, NPROBE)
+        luts = pq.build_luts(wide[:64] + 0.01, pq256.centroids,
+                             pq256.codebooks, probes, MODE_IDS["zen"])
+        args = (pq256.tile_coords, pq256.tile_ids, probes, luts, n)
+        kw = dict(tiles_per_cluster=pq256.tiles_per_cluster)
+        got = ip.ivf_probe_pq(*args, **kw)
+        want = ip.ivf_probe_pq_scan(*args, **kw)
+        torch.cuda.synchronize()
+        msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=RTOL,
+                            atol=RTOL)
+        if msg is not None:
+            fail(f"ivf_probe_pq at M=256 n={n} disagrees with its plain "
+                 f"version: {msg}")
+        fin = torch.isfinite(want[0])
+        max_err["ivf_probe_pq"] = max(max_err["ivf_probe_pq"], float(
+            (got[0] - want[0])[fin].abs().max()))
+        n_cases += 1
+    del wide, pq256
+    log(f"    {n_cases} cases agree (ids equal outside near-ties; widths up "
+        f"to 16,384; PQ at M = 256 with {plan.m_smem} tables in shared "
+        f"memory); max |d - d_plain| ivf_probe {max_err['ivf_probe']:.3g}, "
+        f"ivf_probe_pq {max_err['ivf_probe_pq']:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s")
     return max_err
 
 
@@ -724,6 +773,7 @@ def serve_tiered(index, batches, corpus, smi: str):
         f" {st['host_bytes']:,}, provisioned_device_bytes(64) "
         f"{tiered.provisioned_device_bytes(64):,}; dma_copy_blocks launches "
         f"{launches} = 2 x {reckoned // 2} cold uploads while serving")
+    split_tier_host_time(server, batches[1:])
     profile_serving(server, batches[1:5])
 
     # the kernel on one chunk of this run: the first batch's first two
@@ -749,26 +799,38 @@ def serve_tiered(index, batches, corpus, smi: str):
     link, link_src = host_link(smi.split(",")[0])
     bound = nbytes / link * 1e3
 
-    def kernel():
-        ts.dma_copy_blocks(src_c, qp.device)
-        ts.dma_copy_blocks(src_i, qp.device)
+    def kernel(parts=(src_c, src_i)):
+        for src in parts:
+            ts.dma_copy_blocks(src, qp.device)
 
     def plain():
         ts.dma_copy_blocks_plain(src_c, qp.device)
         ts.dma_copy_blocks_plain(src_i, qp.device)
 
-    def library():
-        dst_c.copy_(src_c, non_blocking=True)
-        dst_i.copy_(src_i, non_blocking=True)
+    def library(parts=((dst_c, src_c), (dst_i, src_i))):
+        for dst, src in parts:
+            dst.copy_(src, non_blocking=True)
 
     before = ts.dma_copy_blocks.launches
     ms = timed(kernel, 20)
     dev_ms = queued_ms(kernel, 20)
     dev_ms2 = queued_ms(kernel, 20)
-    ts.dma_copy_blocks.launches = before  # timing launches are not the path's
     plain_ms = timed(plain, 5, warmup=1)
     lib_ms = queued_ms(library, 20)
     lib_ms2 = queued_ms(library, 20)
+    # the coords and the ids apart, kernel and library in turns
+    apart = []
+    for what, src, dst in (("coords", src_c, dst_c), ("ids", src_i, dst_i)):
+        k1 = queued_ms(lambda: kernel((src,)), 20)
+        l1 = queued_ms(lambda: library(((dst, src),)), 20)
+        k2 = queued_ms(lambda: kernel((src,)), 20)
+        l2 = queued_ms(lambda: library(((dst, src),)), 20)
+        nb = src.numel() * src.element_size()
+        apart.append(f"{what} {nb:,} B: kernel {min(k1, k2):.4f} ms "
+                     f"({nb / min(k1, k2) / 1e6:.1f} GB/s), library "
+                     f"{min(l1, l2):.4f} ms ({nb / min(l1, l2) / 1e6:.1f} "
+                     f"GB/s), bound {nb / link * 1e3:.4f} ms")
+    ts.dma_copy_blocks.launches = before  # timing launches are not the path's
     log(f"    dma_copy_blocks on one chunk ({uniq.size} cold clusters in "
         f"{n_slots} slots, {n_slots * T} blocks of coords + ids, "
         f"{nbytes / 1e6:.2f} MB): device time {dev_ms:.4f} / {dev_ms2:.4f} "
@@ -779,9 +841,145 @@ def serve_tiered(index, batches, corpus, smi: str):
         f"ms; library copy_(non_blocking=True) device time {lib_ms:.4f} / "
         f"{lib_ms2:.4f} ms ({nbytes / min(lib_ms, lib_ms2) / 1e6:.1f} GB/s);"
         f" {smi}")
+    log(f"    apart: {'; '.join(apart)}")
     record = dict(ms=min(dev_ms, dev_ms2), plain_ms=plain_ms, bound_ms=bound,
                   bound_by="bytes", library_ms=min(lib_ms, lib_ms2))
     return server, launches, record
+
+
+def split_tier_host_time(server, batches) -> None:
+    """Phase 12: the host's time in a tiered request, split: the gathers of
+    cold tiles into the pinned staging slots (np.take) and the waits on a
+    slot's last copy (torch.cuda.Event.synchronize), against the whole
+    request (host clock, ending in torch.cuda.synchronize)."""
+    import torch
+
+    spent = {"gather": 0.0, "wait": 0.0, "calls": 0}
+    take, sync = np.take, torch.cuda.Event.synchronize
+
+    def timed_take(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return take(*a, **kw)
+        finally:
+            spent["gather"] += time.perf_counter() - t
+            spent["calls"] += 1
+
+    def timed_sync(event):
+        t = time.perf_counter()
+        try:
+            return sync(event)
+        finally:
+            spent["wait"] += time.perf_counter() - t
+
+    lat = []
+    np.take, torch.cuda.Event.synchronize = timed_take, timed_sync
+    try:
+        for q in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            server.query(q, 10)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+    finally:
+        np.take, torch.cuda.Event.synchronize = take, sync
+    n = len(batches)
+    wall = sum(lat) * 1e3 / n
+    gather, wait = spent["gather"] * 1e3 / n, spent["wait"] * 1e3 / n
+    log(f"    host split of a tiered request (mean of {n} batches, host "
+        f"clock): {wall:.3f} ms in all, of which the gather of cold tiles "
+        f"into the pinned slots {gather:.3f} ms ({gather / wall:.1%}, "
+        f"{spent['calls'] // n} np.take calls a batch) and the waits on a "
+        f"slot's last copy {wait:.3f} ms ({wait / wall:.1%}); the rest "
+        f"{wall - gather - wait:.3f} ms (launches, the coarse ranking and "
+        f"its device sync, the merges, the re-rank)")
+
+
+def plain_dispatch():
+    """A context in which ``kernels.ops`` sends CUDA tensors to the search
+    kernels' plain versions (on the card) instead of the kernels: the
+    reference the served answers of phase 17 are held to."""
+    import contextlib
+
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import zen_topk as zt
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = ops.zen_topk, ops.ivf_probe, ops.ivf_probe_pq
+        ops.zen_topk = zt.zen_topk_scan
+        ops.ivf_probe, ops.ivf_probe_pq = ip.ivf_probe_scan, \
+            ip.ivf_probe_pq_scan
+        try:
+            yield
+        finally:
+            ops.zen_topk, ops.ivf_probe, ops.ivf_probe_pq = saved
+
+    return swapped()
+
+
+def serve_wide(servers, batches, corpus):
+    """Phase 17: each full-size server at n in WIDE_N with re-rank 4
+    (fetch widths 512, 512, 2,048) and at n = 10: the answers of one batch
+    against the same server with the search kernels' plain versions on the
+    card, the path's kernels counted from 0 around the served batches, and
+    the p50 at n = 300 beside the p50 at n = 10."""
+    import torch
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import tile_stage as ts
+    from repro_torch.kernels import zen_topk as zt
+    from repro_torch.launch import serve
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    log(f"[17] wide result lists at 1,000,000 rows, re-rank 4: n in "
+        f"{WIDE_N} (fetch widths "
+        f"{[serve.bucket_neighbors(4 * n) for n in WIDE_N]})")
+    atol = RTOL * float(batches[1].norm(dim=1).median())
+    for name, server, kernels in servers:
+        p50 = {}
+        for n in (10, *WIDE_N):
+            for kern in kernels:
+                kern.launches = 0
+            lat = []
+            for q in batches[1:]:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                d, ids = server.query(q, n)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+                if d.shape != (64, n) or not torch.isfinite(d).all() or \
+                        ids.min() < 0 or ids.max() >= corpus.shape[0]:
+                    fail(f"{name} at n={n}: served {tuple(d.shape)} with "
+                         f"non-finite distances or ids out of range")
+            counts = {kern.__name__: kern.launches for kern in kernels}
+            if min(counts.values()) == 0:
+                fail(f"{name} at n={n} did not launch every kernel of its "
+                     f"path: {counts}")
+            p50[n] = float(np.percentile(np.asarray(lat) * 1e3, 50))
+            if n == 10:
+                continue
+            got = server.query(batches[1], n)
+            before = {kern.__name__: kern.launches for kern in kernels}
+            with plain_dispatch():
+                want = server.query(batches[1], n)
+            torch.cuda.synchronize()
+            after = {kern.__name__: kern.launches for kern in kernels}
+            searched = {k: after[k] - before[k] for k in after
+                        if k != "dma_copy_blocks"}
+            if any(searched.values()):
+                fail(f"{name}: the plain reference launched {searched}")
+            msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=RTOL,
+                                atol=atol)
+            if msg is not None:
+                fail(f"{name} at n={n} disagrees with the plain versions: "
+                     f"{msg}")
+            log(f"    {name:8s} n={n:3d}: matches the plain versions on the "
+                f"card; p50 {p50[n]:.3f} ms; launches {counts}")
+        log(f"    {name:8s} p50 at n=300 {p50[300]:.3f} ms beside "
+            f"{p50[10]:.3f} ms at n=10")
+    log(f"    {time.perf_counter() - t0:.1f} s")
 
 
 def check_tiered_small(corpus, batches, k: int):
@@ -969,6 +1167,19 @@ def check_dense_kernels(corpus, coords, gen):
              coords[:SQUARE], coords[SQUARE:2 * SQUARE], (mode,)),
             ("zen_estimate", f"64 x 1,000,000 x 16 {mode}", coords[:64],
              coords[:1_000_000], (mode,))]
+    # k past one 256-column chunk, and more column tiles than grid y holds
+    for kw in (300, 600):
+        X, Y = testing.dense_inputs("zen", (1_024, 1_024, kw), kw,
+                                    torch.float32, dev)
+        for mode in ("zen", "lwb", "upb"):
+            cases.append(("zen_estimate", f"1024 x 1024 x {kw} {mode}", X, Y,
+                          (mode,)))
+    for name, kind in (("pdist_sq", "pdist"), ("zen_estimate", "zen"),
+                       ("jsd_pdist", "jsd")):
+        X, Y = testing.dense_inputs(kind, (3, WIDE_COLS, 8), 5,
+                                    torch.float32, dev)
+        cases.append((name, f"3 x {WIDE_COLS:,} x 8", X, Y,
+                      ("zen",) if kind == "zen" else ()))
     worst = {name: [0.0, 0.0, 0.0] for name in funcs}  # out, squared, D
     for name, label, X, Y, extra in cases:
         kernel, plain, kind = funcs[name]
@@ -986,7 +1197,8 @@ def check_dense_kernels(corpus, coords, gen):
         w[1], w[2] = max(w[1], err_sq), max(w[2], err_d)
     log(f"[14] dense kernels vs their plain versions: {len(cases)} cases "
         f"(f32/bf16 sweeps of repro_torch.testing, X vs X, the working "
-        f"shapes) agree in squared space; {time.perf_counter() - t0:.1f} s")
+        f"shapes, zen_estimate at k = 300 and 600, {WIDE_COLS:,} columns) "
+        f"agree in squared space; {time.perf_counter() - t0:.1f} s")
     log(f"    tolerance: pdist_sq and zen_estimate |d^2 - d^2_plain| <= "
         f"{testing.SQ_RTOL:g} x (|x|^2 + |y|^2) (the norm expansion's f32 "
         f"sums in another order), jsd_pdist |K - K_plain| <= "
@@ -1317,9 +1529,31 @@ def main() -> None:
         dead = dead.delete(list(range(0, 50_000, 7)))
         compare(queries, dead.coords, dead.coord_scales, 64, "lwb",
                 f"{st} N=50000 with {50_000 // 7 + 1} dead rows")
-    log(f"    {n_checked} cases agree (ids equal outside near-ties); max "
-        f"|d - d_plain| {max_err:.3g}; {time.perf_counter() - t0:.1f} s")
-    del encoded
+    # wide lists: widths 512 to 16,384 (past 8,192 the lists live in global
+    # memory, one query a block), on 200,003 rows; and k = 300
+    wide_ns = (300, 2_048) if quick else (300, 600, 2_048, 5_000, 10_000)
+    for st in quant.SCALAR_STORAGE_DTYPES:
+        x, s = encoded[st]
+        for n in wide_ns if st == "float32" else wide_ns[:1]:
+            plan = zt.launch_geometry(64, 200_003, n, k, torch.cuda
+                                      .get_device_properties(dev)
+                                      .multi_processor_count)
+            compare(queries, x[:200_003], None if s is None else s[:200_003],
+                    n, "zen", f"{st} Q=64 n={n} N=200003 (width {plan.w}, "
+                    f"{plan.queries_per_block} a block, lists in "
+                    f"{'global' if plan.global_lists else 'shared'} memory)")
+    wide_k = torch.randn((100_000, 300), generator=gen, device=dev)
+    wide_k[:, -1].abs_()
+    wide_q = torch.randn((64, 300), generator=gen, device=dev)
+    wide_q[:, -1].abs_()
+    for n in (10, 300):
+        compare(wide_q, wide_k, None, n, "zen",
+                f"float32 k=300 Q=64 n={n} N=100000")
+    log(f"    {n_checked} cases agree (ids equal outside near-ties), widths "
+        f"up to {zt.launch_geometry(64, 200_003, wide_ns[-1], k, 132).w} and"
+        f" k up to 300; max |d - d_plain| {max_err:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del encoded, wide_k, wide_q
     dense_err = check_dense_kernels(corpus, coords, gen)
     ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
     stage_cases, stage_bad, stage_err = check_stage_kernel(dev)
@@ -1446,6 +1680,21 @@ def main() -> None:
             f"{bound / dev:.1%} of bound; plain {plain:.3f} ms; library "
             f"{lib:.4f} ms, device time {lib_dev:.4f} ms")
     main_rec = records["float32"]
+    # wider lists at the same shape: width 512 (8 queries a block, one block
+    # an SM), 2,048 (4 a block) and 16,384 (lists in global memory)
+    n_sms = torch.cuda.get_device_properties(qt.device).multi_processor_count
+    for n in (65 * 4, 300 * 4, 10_000):
+        plan = zt.launch_geometry(nq, x32.shape[0], n, k, n_sms)
+        before = zt.zen_topk.launches
+        wide_ms = queued_ms(lambda: zt.zen_topk(qt, x32, n, "zen"), 5)
+        zt.zen_topk.launches = before
+        log(f"    float32 n={n:5d} (width {plan.w}, {plan.queries_per_block} "
+            f"queries a block, {plan.n_split} splits, {plan.smem:,} B of "
+            f"shared memory, {plan.blocks_per_sm} block(s) an SM, lists in "
+            f"{'global' if plan.global_lists else 'shared'} memory, pass 2 "
+            f"in {'shared' if plan.merge_smem else 'global'} memory): "
+            f"device time {wide_ms:.4f} ms, {main_rec['bound_ms'] / wide_ms:.1%}"
+            f" of the n = 64 bound")
     del coords, x32
 
     # -- 8. IVF serving at full width --------------------------------------
@@ -1464,12 +1713,24 @@ def main() -> None:
 
     # -- 10. timing of the probes at the serving shape ---------------------
     ivf_records = time_ivf(ivf_index_f32, ivf_index_pq, batches[1], smi)
-    del ivf_index_pq
 
     # -- 12. tiered serving at full size ------------------------------------
     tiered_server, stage_launches, stage_rec = serve_tiered(
         ivf_index_f32, batches, corpus, smi)
     check_tiered_small(corpus, batches, k)
+
+    # -- 17. wide result lists on every path --------------------------------
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import tile_stage as ts
+    serve_wide((
+        ("flat", server, (zt.zen_topk,)),
+        ("ivf f32", serve.ZenServer(ivf_index_f32, nprobe=NPROBE,
+                                    rerank_factor=4), (ip.ivf_probe,)),
+        ("ivf pq", serve.ZenServer(ivf_index_pq, nprobe=NPROBE,
+                                   rerank_factor=4), (ip.ivf_probe_pq,)),
+        ("tiered", tiered_server, (ip.ivf_probe, ts.dma_copy_blocks))),
+        batches, corpus)
+    del ivf_index_pq
 
     # -- 13. snapshots -----------------------------------------------------
     check_snapshots(ivf_index_f32, tiered_server, batches, corpus, k)

@@ -33,22 +33,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
     "zen_topk": {
-        # queries, index, scales, dtype, nq, n_index, k, n_out, w, n_split,
-        # split_rows, mode, partial, out_d, out_i, stream
-        "zen_topk_launch": ([_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _L, _I,
-                             _P, _P, _P, _P], ctypes.c_int),
+        # queries, index, scales, dtype, nq, n_index, k, n_out, mode, then
+        # the plan (w, kq, cap, global_lists, smem, n_split, split_rows,
+        # n_lists, merge_smem), partial, gscratch, out_d, out_i, stream
+        "zen_topk_launch": ([_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P],
+                            ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "ivf_probe": {
         # queries, tiles, tile_ids, probes, scales, dtype, nq, n_probe,
-        # n_clusters, cluster_rows, k, n_out, w, mode, partial, out_d,
-        # out_i, stream
+        # n_clusters, cluster_rows, k, n_out, mode, then the plan (w, cap,
+        # global_lists, smem, group, merge_smem), partial, gscratch,
+        # mscratch, out_d, out_i, stream
         "ivf_probe_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
-                              _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P], ctypes.c_int),
         # codes, tile_ids, probes, luts, nq, n_probe, n_clusters,
-        # cluster_rows, m, n_out, w, partial, out_d, out_i, stream
+        # cluster_rows, m, n_out, then the plan (w, cap, global_lists, smem,
+        # m_smem, group, merge_smem), partial, gscratch, mscratch, out_d,
+        # out_i, stream
         "ivf_probe_pq_launch": ([_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
-                                 _P, _P, _P, _P], ctypes.c_int),
+                                 _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P], ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "pdist": {

@@ -28,7 +28,8 @@
 // with m. BN = 256, BK = 16 serves a narrow K (the transform's 16
 // references) without computing padded columns; BN = BK = 64 serves square
 // tiles. Outputs go out as float4 where K allows. Nothing here uses the
-// tensor cores.
+// tensor cores. Row tiles go on grid x (2^31 - 1 of them); column tiles
+// past grid y's 65,535 are taken in a loop, so no K is refused.
 #pragma once
 
 #include <cstdint>
@@ -110,87 +111,98 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int64_t r0 = int64_t(blockIdx.x) * BN;
-  const int64_t c0 = int64_t(blockIdx.y) * BK;
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-  float xsum = 0.0f, ysum = 0.0f;  // row terms of row threadIdx.x
-
-  for (int l0 = 0; l0 < m; l0 += kChunk) {
-    stage<T, BN, VEC>(xs, x, r0, n, m, l0);
-    stage<T, BK, VEC>(ys, y, c0, k, m, l0);
-    __syncthreads();
-    if (threadIdx.x < BN) {
-      float s = 0.0f;
-#pragma unroll 8
-      for (int l = 0; l < kChunk; ++l) s = Op::self(xs[l][threadIdx.x], s);
-      xsum = __fadd_rn(xsum, s);
-    }
-    if (threadIdx.x < BK) {
-      float s = 0.0f;
-#pragma unroll 8
-      for (int l = 0; l < kChunk; ++l) s = Op::self(ys[l][threadIdx.x], s);
-      ysum = __fadd_rn(ysum, s);
-    }
-    float part[kMicro][kMicro];
+  const int64_t col_tiles = (k + BK - 1) / BK;
+  for (int64_t by = blockIdx.y; by < col_tiles; by += gridDim.y) {
+    const int64_t c0 = by * BK;
+    float acc[kMicro][kMicro];
 #pragma unroll
     for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) part[i][j] = 0.0f;
+      for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
+    float xsum = 0.0f, ysum = 0.0f;  // row terms of row threadIdx.x
+
+    for (int l0 = 0; l0 < m; l0 += kChunk) {
+      stage<T, BN, VEC>(xs, x, r0, n, m, l0);
+      stage<T, BK, VEC>(ys, y, c0, k, m, l0);
+      __syncthreads();
+      if (threadIdx.x < BN) {
+        float s = 0.0f;
 #pragma unroll 8
-    for (int l = 0; l < kChunk; ++l) {
-      const float4 av = *reinterpret_cast<const float4*>(&xs[l][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&ys[l][tx * 4]);
-      const float a[kMicro] = {av.x, av.y, av.z, av.w};
-      const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
+        for (int l = 0; l < kChunk; ++l) s = Op::self(xs[l][threadIdx.x], s);
+        xsum = __fadd_rn(xsum, s);
+      }
+      if (threadIdx.x < BK) {
+        float s = 0.0f;
+#pragma unroll 8
+        for (int l = 0; l < kChunk; ++l) s = Op::self(ys[l][threadIdx.x], s);
+        ysum = __fadd_rn(ysum, s);
+      }
+      float part[kMicro][kMicro];
+#pragma unroll
+      for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+        for (int j = 0; j < kMicro; ++j) part[i][j] = 0.0f;
+#pragma unroll 8
+      for (int l = 0; l < kChunk; ++l) {
+        const float4 av = *reinterpret_cast<const float4*>(&xs[l][ty * 4]);
+        const float4 bv = *reinterpret_cast<const float4*>(&ys[l][tx * 4]);
+        const float a[kMicro] = {av.x, av.y, av.z, av.w};
+        const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+          for (int j = 0; j < kMicro; ++j)
+            part[i][j] = Op::pair(a[i], b[j], part[i][j]);
+      }
 #pragma unroll
       for (int i = 0; i < kMicro; ++i)
 #pragma unroll
         for (int j = 0; j < kMicro; ++j)
-          part[i][j] = Op::pair(a[i], b[j], part[i][j]);
+          acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+      __syncthreads();
     }
-#pragma unroll
-    for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j)
-        acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+    if (threadIdx.x < BN) xterm[threadIdx.x] = xsum;
+    if (threadIdx.x < BK) yterm[threadIdx.x] = ysum;
     __syncthreads();
-  }
-  if (threadIdx.x < BN) xterm[threadIdx.x] = xsum;
-  if (threadIdx.x < BK) yterm[threadIdx.x] = ysum;
-  __syncthreads();
-  const int c = tx * 4;
-  const bool whole = (k & 3) == 0 && c0 + c + 3 < k;  // one float4 store
+    const int c = tx * 4;
+    const bool whole = (k & 3) == 0 && c0 + c + 3 < k;  // one float4 store
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int r = ty * 4 + i;
-    if (r0 + r >= n) continue;
-    float o[kMicro];
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j)
-      o[j] = Op::finish(xterm[r], yterm[c + j], acc[i][j]);
-    float* row = out + (r0 + r) * k + c0 + c;
-    if (whole) {
-      *reinterpret_cast<float4*>(row) = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
+    for (int i = 0; i < kMicro; ++i) {
+      const int r = ty * 4 + i;
+      if (r0 + r >= n) continue;
+      float o[kMicro];
 #pragma unroll
       for (int j = 0; j < kMicro; ++j)
-        if (c0 + c + j < k) row[j] = o[j];
+        o[j] = Op::finish(xterm[r], yterm[c + j], acc[i][j]);
+      float* row = out + (r0 + r) * k + c0 + c;
+      if (whole) {
+        *reinterpret_cast<float4*>(row) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kMicro; ++j)
+          if (c0 + c + j < k) row[j] = o[j];
+      }
     }
+    __syncthreads();  // the row terms are read before the next tile's
   }
+}
+
+// Grid y holds at most 65,535 column tiles; the kernel loops over the rest.
+inline unsigned column_blocks(long long k, int bk) {
+  const long long tiles = (k + bk - 1) / bk;
+  return unsigned(tiles < 65535 ? tiles : 65535);
 }
 
 template <class Op, typename T, bool VEC>
 void launch_tiles(const T* x, const T* y, long long n, long long k, int m,
                   float* out, cudaStream_t s) {
   if (k <= 16) {
-    const dim3 grid(unsigned((n + 255) / 256), unsigned((k + 15) / 16));
+    const dim3 grid(unsigned((n + 255) / 256), column_blocks(k, 16));
     dense_tile<Op, T, 256, 16, VEC><<<grid, kThreads, 0, s>>>(x, y, n, k, m,
                                                              out);
   } else {
-    const dim3 grid(unsigned((n + 63) / 64), unsigned((k + 63) / 64));
+    const dim3 grid(unsigned((n + 63) / 64), column_blocks(k, 64));
     dense_tile<Op, T, 64, 64, VEC><<<grid, kThreads, 0, s>>>(x, y, n, k, m,
                                                             out);
   }

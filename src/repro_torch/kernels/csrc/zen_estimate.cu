@@ -12,19 +12,23 @@
 // 67 MB written (20 us at 3.35 TB/s) against 2.1 GFLOP; at 64 x 1e6 x 16,
 // 0.32 GB read and written (96 us).
 //
-// Design. k is small, so a block stages the whole width of its 64 rows of X
-// and 64 rows of Y in shared memory (transposed, each staged row padded by 4
-// words so that it stays 16-byte aligned; at most 2 x 256 x 68 words, 139
-// KB, as dynamic shared memory), and each of 256 threads scores a 4 x 4
-// micro-tile of 4 consecutive rows and 4 consecutive columns in registers,
-// reading each column of both as one float4, and writes its rows as float4
-// where M allows. The tile of an (i, j) output reads one contiguous span of
-// each operand (16-byte vector loads where k and alignment allow), so ragged
-// N, M and k need no padded copy. The full squared norms and the altitudes
-// come from the same staged tiles. The estimator and the distance are
-// scoring.cuh's estimate_sq and distance, the functions zen_topk and the
-// probes score with, so the dense matrix and the top-k kernels cannot drift
-// apart.
+// Design. A block stages kCols = 256 columns at a time of its 64 rows of X
+// and 64 rows of Y in shared memory (transposed, each staged row padded by
+// 4 words so that it stays 16-byte aligned; 2 x 256 x 68 words, 139 KB, as
+// dynamic shared memory, less when k is smaller), and each of 256 threads
+// scores a 4 x 4 micro-tile of 4 consecutive rows and 4 consecutive
+// columns in registers, reading each column of both as one float4, and
+// writes its rows as float4 where M allows. k <= 256 is one chunk; a wider
+// k streams its chunks through the same registers: the dot and the full
+// squared norms go on as one FMA chain over the columns in order, so every
+// k rounds as one chunk would, and the altitude is taken from the chunk
+// that holds column k-1. The tile of an (i, j) output reads one contiguous
+// span of each operand's rows (16-byte vector loads where k and alignment
+// allow), so ragged N, M and k need no padded copy. Column tiles past the
+// grid's 65,535 rows of y are taken in a loop. The estimator and the
+// distance are scoring.cuh's estimate_sq and distance, the functions
+// zen_topk and the probes score with, so the dense matrix and the top-k
+// kernels cannot drift apart.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -40,33 +44,35 @@ constexpr int kTile = 64;              // rows of X and of Y per block
 constexpr int kMicro = 4;              // a thread's outputs per row, column
 constexpr int kSide = kTile / kMicro;  // 16 x 16 threads
 constexpr int kStride = kTile + 4;     // a staged row, 16-byte aligned
+constexpr int kCols = 256;             // columns staged at a time
 
 size_t smem_bytes(int k) {
-  return sizeof(float) * (2 * size_t(k) * kStride + 4 * kTile);
+  const size_t kc = k < kCols ? k : kCols;
+  return sizeof(float) * (2 * kc * kStride + 4 * kTile);
 }
 
-// Stages rows [r0, r0 + kTile) of the (n, k) matrix src, all k columns,
-// into dst[c * kStride + r], zero outside the matrix. The rows are one
-// contiguous span of src, read in order; VEC: k % 4 == 0 and src aligned to
-// 4 elements, so 4 consecutive elements (of one row) are one vector load.
+// Stages columns [c0, c0 + kc) of rows [r0, r0 + kTile) of the (n, k)
+// matrix src into dst[c * kStride + r], zero outside the matrix; with
+// kc = k the rows are one contiguous span of src, read in order. VEC:
+// k % 4 == 0 (so kc % 4 == 0) and src aligned to 4 elements, so 4
+// consecutive elements (of one row) are one vector load.
 template <typename T, bool VEC>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int64_t r0, int64_t n, int k) {
-  const int64_t base = r0 * k;
-  const int64_t end = n * k;
+                                      int64_t r0, int64_t n, int k, int c0,
+                                      int kc) {
   if constexpr (VEC) {
-    for (int e = 4 * threadIdx.x; e < kTile * k; e += 4 * kThreads) {
-      const int r = e / k, c = e - r * k;
+    for (int e = 4 * threadIdx.x; e < kTile * kc; e += 4 * kThreads) {
+      const int r = e / kc, c = e - r * kc;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (base + e < end) dense::load4(src + base + e, v);
+      if (r0 + r < n) dense::load4(src + (r0 + r) * k + c0 + c, v);
 #pragma unroll
       for (int q = 0; q < 4; ++q) dst[(c + q) * kStride + r] = v[q];
     }
   } else {
-    for (int e = threadIdx.x; e < kTile * k; e += kThreads) {
-      const int r = e / k, c = e - r * k;
+    for (int e = threadIdx.x; e < kTile * kc; e += kThreads) {
+      const int r = e / kc, c = e - r * kc;
       dst[c * kStride + r] =
-          base + e < end ? zen::to_float(src[base + e]) : 0.0f;
+          r0 + r < n ? zen::to_float(src[(r0 + r) * k + c0 + c]) : 0.0f;
     }
   }
 }
@@ -77,68 +83,80 @@ __global__ void __launch_bounds__(kThreads)
                       int64_t n, int64_t m, int k, int mode,
                       float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                    // [k][kStride]
-  float* ys = xs + k * kStride;        // [k][kStride]
-  float* xn = ys + k * kStride;        // [kTile] full squared norms
+  const int kcs = min(k, kCols);       // columns a chunk stages
+  float* xs = smem;                    // [kcs][kStride]
+  float* ys = xs + kcs * kStride;      // [kcs][kStride]
+  float* xn = ys + kcs * kStride;      // [kTile] full squared norms
   float* yn = xn + kTile;
   float* xa = yn + kTile;              // [kTile] altitudes
   float* ya = xa + kTile;
 
-  const int64_t r0 = int64_t(blockIdx.x) * kTile;
-  const int64_t c0 = int64_t(blockIdx.y) * kTile;
-  stage<T, VEC>(xs, x, r0, n, k);
-  stage<T, VEC>(ys, y, c0, m, k);
-  __syncthreads();
   const int t = threadIdx.x;
-  if (t < 2 * kTile) {
-    const float* s = t < kTile ? xs : ys;
-    const int r = t % kTile;
-    float sq = 0.0f;
-    for (int c = 0; c < k; ++c)
-      sq = fmaf(s[c * kStride + r], s[c * kStride + r], sq);
-    (t < kTile ? xn : yn)[r] = sq;
-    (t < kTile ? xa : ya)[r] = s[(k - 1) * kStride + r];
-  }
-  __syncthreads();
-
   const int tx = t % kSide, ty = t / kSide;
-  float dot[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) dot[i][j] = 0.0f;
-#pragma unroll 4
-  for (int c = 0; c < k - 1; ++c) {  // the altitude column left out
-    const float4 av =
-        *reinterpret_cast<const float4*>(&xs[c * kStride + ty * 4]);
-    const float4 bv =
-        *reinterpret_cast<const float4*>(&ys[c * kStride + tx * 4]);
-    const float a[kMicro] = {av.x, av.y, av.z, av.w};
-    const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
+  const int64_t r0 = int64_t(blockIdx.x) * kTile;
+  const int64_t col_tiles = (m + kTile - 1) / kTile;
+  for (int64_t by = blockIdx.y; by < col_tiles; by += gridDim.y) {
+    const int64_t c0 = by * kTile;
+    float dot[kMicro][kMicro];
 #pragma unroll
     for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
-  }
-  const int c = tx * 4;
-  const bool whole = (m & 3) == 0 && c0 + c + 3 < m;  // one float4 store
+      for (int j = 0; j < kMicro; ++j) dot[i][j] = 0.0f;
+    float sq = 0.0f;  // thread t < 2 kTile: the norm of one staged row
+    for (int k0 = 0; k0 < k; k0 += kCols) {
+      const int kc = min(kCols, k - k0);
+      stage<T, VEC>(xs, x, r0, n, k, k0, kc);
+      stage<T, VEC>(ys, y, c0, m, k, k0, kc);
+      __syncthreads();
+      if (t < 2 * kTile) {
+        const float* s = t < kTile ? xs : ys;
+        const int r = t % kTile;
+        for (int c = 0; c < kc; ++c)
+          sq = fmaf(s[c * kStride + r], s[c * kStride + r], sq);
+        if (k0 + kc == k) {
+          (t < kTile ? xn : yn)[r] = sq;
+          (t < kTile ? xa : ya)[r] = s[(kc - 1) * kStride + r];
+        }
+      }
+      const int kdot = min(kc, k - 1 - k0);  // the altitude column left out
+#pragma unroll 4
+      for (int c = 0; c < kdot; ++c) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(&xs[c * kStride + ty * 4]);
+        const float4 bv =
+            *reinterpret_cast<const float4*>(&ys[c * kStride + tx * 4]);
+        const float a[kMicro] = {av.x, av.y, av.z, av.w};
+        const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int r = ty * 4 + i;
-    if (r0 + r >= n) continue;
-    float o[kMicro];
+        for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j)
-      o[j] = zen::distance(zen::estimate_sq(xn[r], yn[c + j], dot[i][j],
-                                            xa[r], ya[c + j], mode));
-    float* row = out + (r0 + r) * m + c0 + c;
-    if (whole) {
-      *reinterpret_cast<float4*>(row) = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
+          for (int j = 0; j < kMicro; ++j)
+            dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
+      }
+      __syncthreads();
+    }
+    const int c = tx * 4;
+    const bool whole = (m & 3) == 0 && c0 + c + 3 < m;  // one float4 store
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+      const int r = ty * 4 + i;
+      if (r0 + r >= n) continue;
+      float o[kMicro];
 #pragma unroll
       for (int j = 0; j < kMicro; ++j)
-        if (c0 + c + j < m) row[j] = o[j];
+        o[j] = zen::distance(zen::estimate_sq(xn[r], yn[c + j], dot[i][j],
+                                              xa[r], ya[c + j], mode));
+      float* row = out + (r0 + r) * m + c0 + c;
+      if (whole) {
+        *reinterpret_cast<float4*>(row) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kMicro; ++j)
+          if (c0 + c + j < m) row[j] = o[j];
+      }
     }
+    __syncthreads();  // the norms are read before the next tile's overwrite
   }
 }
 
@@ -150,8 +168,9 @@ cudaError_t launch_tiles(const T* x, const T* y, long long n, long long m,
       zen_estimate_tile<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
+  const long long col_tiles = (m + kTile - 1) / kTile;
   const dim3 grid(unsigned((n + kTile - 1) / kTile),
-                  unsigned((m + kTile - 1) / kTile));
+                  unsigned(col_tiles < 65535 ? col_tiles : 65535));
   zen_estimate_tile<T, VEC><<<grid, kThreads, smem, s>>>(x, y, n, m, k,
                                                          mode, out);
   return cudaGetLastError();

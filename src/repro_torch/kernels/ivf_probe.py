@@ -26,6 +26,7 @@ The plain versions loop over the P*T (probe, tile) steps, gathering one
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -36,15 +37,65 @@ from .scoring import estimate_rows
 from .scoring import lut_estimate_rows
 from .scoring import mask_invalid
 from .scoring import merge_topk
-from .zen_topk import MAX_K, MAX_NEIGHBORS, _DTYPE_CODES, _pow2_ceil
+from .zen_topk import SMEM_LIMIT, _DTYPE_CODES, _pow2_ceil
 
 Tensor = torch.Tensor
 
-#: most PQ subspaces the PQ kernel takes: its (M, 256) f32 table (M KB)
-#: and the 10 KB of its list share one block's 227 KB of shared memory
-MAX_PQ_M = 192
 #: PQ table entries per subspace (one uint8 code)
 PQ_ENTRIES = 256
+#: the shortest candidate buffer of a pass-1 block (kCap in
+#: csrc/ivf_probe.cu: four 256-row chunks)
+_MIN_CAP = 1024
+
+
+@dataclass(frozen=True)
+class ProbePlan:
+    """The geometry of one probe launch; the kernels take every field as an
+    argument and derive none of them itself.
+
+    Pass 1 (one block per (query, probe column)) keeps a sorted list of
+    ``w`` keys and a buffer of ``cap`` candidates in ``smem`` bytes of
+    shared memory beside the query (scalar) or the first ``m_smem``
+    subspaces' tables (PQ; the rest are read from global memory), or, when
+    the lists do not fit (``global_lists``), in global scratch. Pass 2
+    merges ``group`` lists at a time in ``merge_smem`` bytes of shared
+    memory, or, when ``merge_smem`` is 0, each list straight from global
+    memory into a running best there.
+    """
+    w: int
+    cap: int
+    global_lists: bool
+    smem: int
+    m_smem: int
+    group: int
+    merge_smem: int
+
+
+def probe_plan(n_neighbors: int, n_probe: int, k: int = 0,
+               pq_m: int = 0) -> ProbePlan:
+    """The plan of a probe launch keeping ``n_neighbors`` over ``n_probe``
+    columns: scalar tiles of width ``k`` (``pq_m`` = 0) or PQ codes of
+    ``pq_m`` subspaces. The buffer holds ``max(1024, w)`` keys, at least a
+    list; pass 2 groups as many lists as fit beside the running best."""
+    w = _pow2_ceil(n_neighbors)
+    cap = max(_MIN_CAP, w)
+    lists = 8 * (w + cap)
+    if pq_m:
+        global_lists = lists + 4 * PQ_ENTRIES > SMEM_LIMIT
+        room = SMEM_LIMIT - (0 if global_lists else lists)
+        m_smem = min(pq_m, room // (4 * PQ_ENTRIES))
+        smem = (0 if global_lists else lists) + 4 * PQ_ENTRIES * m_smem
+    else:
+        global_lists = lists + 4 * k > SMEM_LIMIT
+        m_smem = 0
+        smem = 0 if global_lists else lists + 4 * k
+    group, merge_smem = 1, 0
+    if 8 * 2 * w <= SMEM_LIMIT:
+        while group < n_probe and 8 * (2 * group + 1) * w <= SMEM_LIMIT:
+            group *= 2
+        merge_smem = 8 * (group + 1) * w
+    return ProbePlan(w=w, cap=cap, global_lists=global_lists, smem=smem,
+                     m_smem=m_smem, group=group, merge_smem=merge_smem)
 
 
 def _check_layout(tile_ids: Tensor, probes: Tensor, ct: int, rows: int,
@@ -58,9 +109,8 @@ def _check_layout(tile_ids: Tensor, probes: Tensor, ct: int, rows: int,
     if probes.dim() != 2 or probes.shape[1] == 0:
         raise ValueError(f"probes must be (Q, P) with P >= 1, got "
                          f"{tuple(probes.shape)}")
-    if n_neighbors <= 0 or n_neighbors > MAX_NEIGHBORS:
-        raise ValueError(f"the probe kernels take 0 < n_neighbors <= "
-                         f"{MAX_NEIGHBORS}, got {n_neighbors}")
+    if n_neighbors <= 0:
+        raise ValueError(f"need n_neighbors > 0, got {n_neighbors}")
     if probes.shape[1] * tiles_per_cluster * rows >= 2 ** 31:
         raise ValueError(
             "P * T * tile_rows must stay below 2**31: the kernels break ties "
@@ -69,13 +119,26 @@ def _check_layout(tile_ids: Tensor, probes: Tensor, ct: int, rows: int,
         raise ValueError("Q * P must stay below 2**31 (one block each)")
 
 
-def _outputs(nq: int, n_probe: int, n: int, dev) -> Tuple[int, Tensor,
-                                                           Tensor, Tensor]:
-    w = _pow2_ceil(n)
-    partial = torch.empty((nq, n_probe, w), dtype=torch.int64, device=dev)
+def _outputs(plan: ProbePlan, nq: int, n_probe: int, n: int, dev):
+    """(partial, pass-1 scratch, pass-2 scratch, out_d, out_i) of a launch;
+    the scratch tensors only where the plan keeps lists in global memory
+    (the pointers are then null)."""
+    partial = torch.empty((nq, n_probe, plan.w), dtype=torch.int64,
+                          device=dev)
+    scratch = merge_scratch = None
+    if plan.global_lists:  # one candidate buffer per (query, probe column)
+        scratch = torch.empty((nq * n_probe, plan.cap), dtype=torch.int64,
+                              device=dev)
+    if plan.merge_smem == 0:  # one running best per query
+        merge_scratch = torch.empty((nq, plan.w), dtype=torch.int64,
+                                    device=dev)
     out_d = torch.empty((nq, n), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, n), dtype=torch.int32, device=dev)
-    return w, partial, out_d, out_i
+    return partial, scratch, merge_scratch, out_d, out_i
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def ivf_probe(
@@ -96,9 +159,9 @@ def ivf_probe(
     ``tile_scales``); a tile is dequantised to f32 right after the load.
     Slots the probed clusters cannot fill are (+inf, -1). ``probes`` must
     hold cluster ids in [0, C); the kernel skips a column outside it
-    instead of reading out of bounds. Raises for CPU tensors, for shapes
-    past ``MAX_K``/``MAX_NEIGHBORS`` or P*T*tile_rows >= 2**31, and when
-    the launch fails.
+    instead of reading out of bounds. Every width and ``k`` is served
+    (:func:`probe_plan`). Raises for CPU tensors, P*T*tile_rows >= 2**31,
+    and when the launch fails.
     """
     if not (queries.is_cuda and tile_coords.is_cuda):
         raise ValueError("ivf_probe launches the CUDA kernel and takes CUDA "
@@ -111,10 +174,10 @@ def ivf_probe(
                          f"{tuple(_DTYPE_CODES)}")
     nq, k = queries.shape
     ct, rows, k2 = tile_coords.shape
-    if k != k2 or not 1 <= k <= MAX_K:
+    if k != k2 or k < 1:
         raise ValueError(f"the ivf_probe kernel takes queries and tiles of "
-                         f"one width k <= {MAX_K}; got {tuple(queries.shape)}"
-                         f" and {tuple(tile_coords.shape)}")
+                         f"one width k >= 1; got {tuple(queries.shape)} and "
+                         f"{tuple(tile_coords.shape)}")
     _check_layout(tile_ids, probes, ct, rows, tiles_per_cluster, n_neighbors)
     n_clusters = ct // tiles_per_cluster
     dev = tile_coords.device
@@ -130,17 +193,20 @@ def ivf_probe(
     tile_ids = tile_ids.to(device=dev, dtype=torch.int32).contiguous()
     probes = probes.to(device=dev, dtype=torch.int32).contiguous()
     n_probe = probes.shape[1]
-    w, partial, out_d, out_i = _outputs(nq, n_probe, n_neighbors, dev)
+    plan = probe_plan(n_neighbors, n_probe, k=k)
+    partial, scratch, merge_scratch, out_d, out_i = _outputs(
+        plan, nq, n_probe, n_neighbors, dev)
     lib = _build.load("ivf_probe")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ivf_probe_launch(
             queries.data_ptr(), tile_coords.data_ptr(), tile_ids.data_ptr(),
-            probes.data_ptr(),
-            None if tile_scales is None else tile_scales.data_ptr(),
+            probes.data_ptr(), _ptr(tile_scales),
             _DTYPE_CODES[tile_coords.dtype], nq, n_probe, n_clusters,
-            tiles_per_cluster * rows, k, n_neighbors, w, MODE_IDS[mode],
-            partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream)
+            tiles_per_cluster * rows, k, n_neighbors, MODE_IDS[mode], plan.w,
+            plan.cap, int(plan.global_lists), plan.smem, plan.group,
+            plan.merge_smem, partial.data_ptr(), _ptr(scratch),
+            _ptr(merge_scratch), out_d.data_ptr(), out_i.data_ptr(), stream)
     _build.check(lib, err, "ivf_probe launch")
     ivf_probe.launches += 1
     return out_d, out_i
@@ -160,9 +226,10 @@ def ivf_probe_pq(
 ) -> Tuple[Tensor, Tensor]:
     """Hopper kernel: the PQ probe over (C*T, rows, M) uint8 code tiles with
     the (Q, P, M, 256) f32 tables of ``pq.build_luts`` -> (Q, n) f32
-    distances, int32 ids; unfilled slots are (+inf, -1). Raises for CPU
-    tensors, M > ``MAX_PQ_M``, the limits of :func:`ivf_probe`, and when
-    the launch fails.
+    distances, int32 ids; unfilled slots are (+inf, -1). Every M is served:
+    the first subspaces' tables sit in shared memory, the rest are read
+    from global memory (:func:`probe_plan`). Raises for CPU tensors, the
+    limits of :func:`ivf_probe`, and when the launch fails.
     """
     if not (tile_codes.is_cuda and luts.is_cuda):
         raise ValueError("ivf_probe_pq launches the CUDA kernel and takes "
@@ -172,10 +239,9 @@ def ivf_probe_pq(
         raise ValueError(f"PQ code tiles must be uint8, got "
                          f"{tile_codes.dtype}")
     ct, rows, m = tile_codes.shape
-    if not 1 <= m <= MAX_PQ_M:
-        raise ValueError(f"the ivf_probe_pq kernel takes 1 <= M <= "
-                         f"{MAX_PQ_M} subspaces (its table lives in shared "
-                         f"memory); got M={m}")
+    if m < 1:
+        raise ValueError(f"the ivf_probe_pq kernel takes M >= 1 subspaces, "
+                         f"got M={m}")
     _check_layout(tile_ids, probes, ct, rows, tiles_per_cluster, n_neighbors)
     nq, n_probe = probes.shape
     if tuple(luts.shape) != (nq, n_probe, m, PQ_ENTRIES):
@@ -187,15 +253,19 @@ def ivf_probe_pq(
     tile_ids = tile_ids.to(device=dev, dtype=torch.int32).contiguous()
     probes = probes.to(device=dev, dtype=torch.int32).contiguous()
     luts = luts.to(device=dev, dtype=torch.float32).contiguous()
-    w, partial, out_d, out_i = _outputs(nq, n_probe, n_neighbors, dev)
+    plan = probe_plan(n_neighbors, n_probe, pq_m=m)
+    partial, scratch, merge_scratch, out_d, out_i = _outputs(
+        plan, nq, n_probe, n_neighbors, dev)
     lib = _build.load("ivf_probe")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ivf_probe_pq_launch(
             tile_codes.data_ptr(), tile_ids.data_ptr(), probes.data_ptr(),
             luts.data_ptr(), nq, n_probe, ct // tiles_per_cluster,
-            tiles_per_cluster * rows, m, n_neighbors, w, partial.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), stream)
+            tiles_per_cluster * rows, m, n_neighbors, plan.w, plan.cap,
+            int(plan.global_lists), plan.smem, plan.m_smem, plan.group,
+            plan.merge_smem, partial.data_ptr(), _ptr(scratch),
+            _ptr(merge_scratch), out_d.data_ptr(), out_i.data_ptr(), stream)
     _build.check(lib, err, "ivf_probe_pq launch")
     ivf_probe_pq.launches += 1
     return out_d, out_i

@@ -25,8 +25,6 @@ from . import _build
 Tensor = torch.Tensor
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernels put column tiles of at most 64 on the grid's y axis
-_MAX_COLS = 65_535 * 64
 
 
 def kernel_operands(X: Tensor, Y: Tensor, what: str,
@@ -45,9 +43,9 @@ def kernel_operands(X: Tensor, Y: Tensor, what: str,
     if X.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what} takes {tuple(_DTYPE_CODES)}, got "
                          f"{X.dtype}")
-    if Y.shape[0] > _MAX_COLS or X.shape[1] >= 2 ** 31:
-        raise ValueError(f"{what} takes at most {_MAX_COLS} columns of "
-                         f"output and m < 2**31, got {tuple(Y.shape)}")
+    if X.shape[1] >= 2 ** 31:
+        raise ValueError(f"{what} takes m < 2**31 features, got "
+                         f"{tuple(Y.shape)}")
     return (X.contiguous(), Y.to(X.dtype).contiguous(),
             _DTYPE_CODES[X.dtype])
 

@@ -23,7 +23,6 @@ from . import _build
 from .pdist import kernel_operands
 from .scoring import MODE_IDS
 from .scoring import estimate_tile
-from .zen_topk import MAX_K
 
 Tensor = torch.Tensor
 
@@ -37,17 +36,16 @@ def _check_mode(mode: str) -> None:
 def zen_estimate(X: Tensor, Y: Tensor, mode: str = "zen") -> Tensor:
     """Hopper kernel: (N, k) x (M, k) -> (N, M) f32 estimator distances.
 
-    Takes f32 or bf16 coordinates, 1 <= k <= ``MAX_K`` (both tiles' full
-    width sit in shared memory). Raises for CPU tensors, shapes past the
-    limits, and when the launch fails.
+    Takes f32 or bf16 coordinates of any width k >= 1 (the kernel stages
+    256 columns at a time). Raises for CPU tensors, k = 0, and when the
+    launch fails.
     """
     _check_mode(mode)
     X, Y, dtype = kernel_operands(X, Y, "zen_estimate", "zen_estimate_plain")
     n, k = X.shape
     m = Y.shape[0]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the zen_estimate kernel takes 1 <= k <= {MAX_K}, "
-                         f"got k={k}")
+    if k < 1:
+        raise ValueError(f"the zen_estimate kernel takes k >= 1, got k={k}")
     out = torch.empty((n, m), dtype=torch.float32, device=X.device)
     if n == 0 or m == 0:
         return out

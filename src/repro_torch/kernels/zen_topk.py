@@ -17,6 +17,7 @@ ascending by (distance, row id), without the (Q, N) distance matrix:
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -28,17 +29,23 @@ from .scoring import merge_topk
 
 Tensor = torch.Tensor
 
-#: widest coordinate row and longest result list the kernel takes
-MAX_K = 256
-MAX_NEIGHBORS = 256
+#: dynamic shared memory one block may take on an H100 (227 KB), and what
+#: each of two blocks on one SM may take (the SM's 228 KB less 1 KB the
+#: hardware reserves per block, halved)
+SMEM_LIMIT = 232_448
+SMEM_TWO_BLOCKS = 115_712
 
-#: rows one pass-1 block scores per tile and queries per block
-#: (kTile, kQueries in csrc/zen_topk.cu)
+#: rows one pass-1 block scores per tile (kTile in csrc/zen_topk.cu) and
+#: the threads of a block
 _TILE_ROWS = 512
-_BLOCK_QUERIES = 8
-#: pass 2 holds n_split * w keys of 8 bytes (n_split rounded up to a power
-#: of two) in shared memory
-_MERGE_KEYS = 8192
+_THREADS = 256
+#: columns staged per pass, with one word of padding per staged row
+_X_STRIDE = 17
+#: queries per pass-1 block, widest first (the kernel's instantiations)
+_BLOCK_QUERIES = (8, 4, 2, 1)
+#: the most 8-byte keys pass 2 holds in shared memory: n_lists * w is a
+#: power of two, and 16,384 keys (128 KB) is the largest within SMEM_LIMIT
+MERGE_KEYS = 16_384
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -47,22 +54,83 @@ def _pow2_ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def launch_geometry(nq: int, n_index: int, n_out: int,
-                    n_sms: int) -> Tuple[int, int, int]:
-    """(w, n_split, split_rows) of one launch.
+@dataclass(frozen=True)
+class TopkPlan:
+    """The geometry of one ``zen_topk`` launch; the kernel takes every
+    field as an argument and derives none of them itself.
 
-    ``w`` is the per-split list width (a power of two >= n_out). N is cut
-    into ``n_split`` contiguous splits of ``split_rows`` rows (a multiple
-    of the tile): enough blocks for two per SM, but no split shorter than
-    one tile and no more lists than pass 2 holds in shared memory.
+    Pass 1 runs a (ceil(Q / queries_per_block), n_split) grid; each block
+    keeps, per query, a sorted list of ``w`` keys and a buffer of ``cap``
+    unsorted candidates. They sit in ``smem`` bytes of shared memory, or,
+    when even one query a block does not fit (``global_lists``), in global
+    scratch that the wrapper allocates. Pass 2 merges each query's
+    ``n_lists`` lists (``n_split`` padded to a power of two) in
+    ``merge_smem`` bytes of shared memory, or in place in global memory
+    when ``merge_smem`` is 0.
+    """
+    w: int
+    queries_per_block: int
+    cap: int
+    global_lists: bool
+    smem: int
+    blocks_per_sm: int
+    n_split: int
+    split_rows: int
+    n_lists: int
+    merge_smem: int
+
+
+def pass1_smem(k: int, w: int, cap: int, queries_per_block: int,
+               global_lists: bool) -> int:
+    """Dynamic shared memory of a pass-1 block, as csrc/zen_topk.cu lays it
+    out: the lists and buffers (8-byte keys) and the staged queries unless
+    they live in global memory, then the staged tile, the per-query norm,
+    altitude and bound (f32) and the buffer counts (int32)."""
+    kq = queries_per_block
+    lists = 0 if global_lists else 8 * kq * (w + cap) + 4 * kq * k
+    return lists + 4 * (_TILE_ROWS * _X_STRIDE + 3 * kq) + 4 * kq
+
+
+def launch_geometry(nq: int, n_index: int, n_out: int, k: int,
+                    n_sms: int) -> TopkPlan:
+    """The plan of one launch for Q = ``nq`` queries of width ``k`` over
+    ``n_index`` rows, keeping ``n_out`` neighbours, on ``n_sms`` SMs.
+
+    ``w`` is the list width (a power of two >= n_out) and the candidate
+    buffer holds ``max(2 * kTile, w)`` keys, at least a list. A block takes
+    the most queries (8, 4, 2, 1) whose lists fit shared memory, else one
+    query with its lists in global memory. N is cut into ``n_split``
+    contiguous splits of ``split_rows`` rows (a multiple of the tile):
+    enough blocks to fill every SM (two a SM where two fit), but no split
+    shorter than one tile or than one list, and, while pass 1 keeps its
+    lists in shared memory, no more lists than pass 2 merges there.
     """
     w = _pow2_ceil(n_out)
-    q_blocks = -(-nq // _BLOCK_QUERIES)
-    n_split = min(-(-2 * n_sms // q_blocks), _MERGE_KEYS // w,
-                  -(-n_index // _TILE_ROWS))
+    cap = max(2 * _TILE_ROWS, w)
+    for kq in _BLOCK_QUERIES:
+        smem = pass1_smem(k, w, cap, kq, False)
+        if smem <= SMEM_LIMIT:
+            global_lists = False
+            break
+    else:
+        kq, global_lists = 1, True
+        smem = pass1_smem(k, w, cap, 1, True)
+    blocks_per_sm = 2 if smem <= SMEM_TWO_BLOCKS else 1
+    q_blocks = -(-nq // kq)
+    n_split = min(-(-blocks_per_sm * n_sms // q_blocks),
+                  -(-n_index // _TILE_ROWS), max(1, n_index // w))
+    if not global_lists:
+        n_split = min(n_split, max(1, MERGE_KEYS // w))
     per_split = -(-n_index // n_split)
     split_rows = -(-per_split // _TILE_ROWS) * _TILE_ROWS
-    return w, -(-n_index // split_rows), split_rows
+    n_split = -(-n_index // split_rows)
+    n_lists = _pow2_ceil(n_split)
+    merge_smem = 8 * n_lists * w if n_lists * w <= MERGE_KEYS else 0
+    return TopkPlan(w=w, queries_per_block=kq, cap=cap,
+                    global_lists=global_lists, smem=smem,
+                    blocks_per_sm=blocks_per_sm, n_split=n_split,
+                    split_rows=split_rows, n_lists=n_lists,
+                    merge_smem=merge_smem)
 
 
 def zen_topk(
@@ -77,9 +145,10 @@ def zen_topk(
 
     ``index`` is stored float32, bfloat16 or int8 (then with (N, 1) or (N,)
     f32 row ``scales``); rows are dequantised to f32 in the kernel right
-    after the load. ``n`` is ``n_neighbors`` clamped to N. Rows come back
-    ascending by (distance, id). Raises for CPU tensors, for shapes past
-    ``MAX_K``/``MAX_NEIGHBORS``, and when the launch fails.
+    after the load. ``n`` is ``n_neighbors`` clamped to N; every width and
+    ``k`` is served (:func:`launch_geometry`). Rows come back ascending by
+    (distance, id). Raises for CPU tensors, an index of 2**31 rows or more,
+    and when the launch fails.
     """
     if not (queries.is_cuda and index.is_cuda):
         raise ValueError("zen_topk launches the CUDA kernel and takes CUDA "
@@ -99,11 +168,9 @@ def zen_topk(
         raise ValueError("need n_neighbors > 0 and a non-empty index")
     if n_index >= 2 ** 31:
         raise ValueError("row ids are int32: the index must hold < 2**31 rows")
+    if k == 0:
+        raise ValueError("need coordinates of width k >= 1")
     n_out = min(n_neighbors, n_index)
-    if k > MAX_K or n_out > MAX_NEIGHBORS:
-        raise ValueError(
-            f"the zen_topk kernel takes k <= {MAX_K} and n_neighbors <= "
-            f"{MAX_NEIGHBORS}; got k={k}, n_neighbors={n_out}")
     dev = index.device
     queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     index = index.contiguous()
@@ -113,8 +180,13 @@ def zen_topk(
                              f"{tuple(scales.shape)} for {n_index} rows")
         scales = scales.to(device=dev, dtype=torch.float32).contiguous()
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    w, n_split, split_rows = launch_geometry(nq, n_index, n_out, n_sms)
-    partial = torch.empty((nq, n_split, w), dtype=torch.int64, device=dev)
+    plan = launch_geometry(nq, n_index, n_out, k, n_sms)
+    partial = torch.empty((nq, plan.n_lists, plan.w), dtype=torch.int64,
+                          device=dev)
+    scratch = None
+    if plan.global_lists:  # one candidate buffer per (query, split)
+        scratch = torch.empty((nq * plan.n_split, plan.cap),
+                              dtype=torch.int64, device=dev)
     out_d = torch.empty((nq, n_out), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, n_out), dtype=torch.int32, device=dev)
     lib = _build.load("zen_topk")
@@ -123,8 +195,11 @@ def zen_topk(
         err = lib.zen_topk_launch(
             queries.data_ptr(), index.data_ptr(),
             None if scales is None else scales.data_ptr(),
-            _DTYPE_CODES[index.dtype], nq, n_index, k, n_out, w, n_split,
-            split_rows, MODE_IDS[mode], partial.data_ptr(), out_d.data_ptr(),
+            _DTYPE_CODES[index.dtype], nq, n_index, k, n_out, MODE_IDS[mode],
+            plan.w, plan.queries_per_block, plan.cap, int(plan.global_lists),
+            plan.smem, plan.n_split, plan.split_rows, plan.n_lists,
+            plan.merge_smem, partial.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), stream)
     _build.check(lib, err, "zen_topk launch")
     zen_topk.launches += 1

@@ -86,14 +86,42 @@ def test_dead_rows_never_win(cuda):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """No width or k is refused any more (k = 300 and n = 300 are held to
+    the plain version); a dtype the kernel cannot read still is."""
     q = _coords(4, 4, 300, cuda)
-    with pytest.raises(ValueError, match="k <= 256"):
-        zt.zen_topk(q, q, 3)
+    got = zt.zen_topk(q, q, 3)
+    want = zt.zen_topk_scan(q, q, 3)
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
+    assert msg is None, msg
     q = _coords(5, 4, 8, cuda)
-    with pytest.raises(ValueError, match="n_neighbors <= 256"):
-        zt.zen_topk(q, _coords(6, 1000, 8, cuda), 300)
+    x = _coords(6, 1000, 8, cuda)
+    got = zt.zen_topk(q, x, 300)
+    want = zt.zen_topk_scan(q, x, 300)
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
+    assert msg is None, msg
     with pytest.raises(ValueError, match="dtype"):
         zt.zen_topk(q, q.double(), 3)
+
+
+@pytest.mark.parametrize("nq,n_index,k,n", [
+    (64, 200_003, 16, 300), (64, 200_003, 16, 600), (9, 60_000, 16, 1_500),
+    (5, 50_000, 8, 3_000), (3, 40_000, 16, 6_000), (64, 100_003, 16, 10_000),
+    (2, 70_000, 300, 65), (4, 30_000, 1_024, 16)])
+def test_kernel_matches_plain_at_wide_widths(cuda, nq, n_index, k, n):
+    """Widths 512 to 16,384 (1 query a block past 8,192: lists in global
+    memory, pass 2 in place there) and k = 300 and 1,024."""
+    q = _coords(20, nq, k, cuda)
+    x = _coords(21, n_index, k, cuda)
+    plan = zt.launch_geometry(nq, n_index, n, k, torch.cuda
+                              .get_device_properties(cuda)
+                              .multi_processor_count)
+    before = zt.zen_topk.launches
+    got = zt.zen_topk(q, x, n, "zen")
+    torch.cuda.synchronize()
+    assert zt.zen_topk.launches == before + 1
+    want = zt.zen_topk_scan(q, x, n, "zen")
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
+    assert msg is None, (plan, msg)
 
 
 def test_server_on_card_matches_cpu(cuda):
@@ -195,31 +223,73 @@ def test_ivf_probe_fills_what_the_probed_clusters_hold(cuda, storage):
 
 
 def test_ivf_probes_reject_what_they_do_not_take(cuda):
+    """n = 300, k = 300 and M = 256 are served (held to the plain versions
+    here); bad layouts and tables are still refused."""
     idx, q = _ivf_index(cuda, "float32")
     probes = idx.probe_clusters(q[:4], 2)
     kw = dict(tiles_per_cluster=idx.tiles_per_cluster)
-    with pytest.raises(ValueError, match="n_neighbors <= 256"):
-        ip.ivf_probe(q[:4], idx.tile_coords, idx.tile_ids, probes, 300, **kw)
-    wide = torch.zeros((4, 300), device=cuda)
-    with pytest.raises(ValueError, match="k <= 256"):
-        ip.ivf_probe(wide, torch.zeros((4, 8, 300), device=cuda),
-                     idx.tile_ids[:4, :8], probes, 5, tiles_per_cluster=2)
+    _check_probe(ip.ivf_probe, ip.ivf_probe_scan, q, q[:4], idx.tile_coords,
+                 idx.tile_ids, probes, 300, **kw)
+    wide = _coords(22, 4, 300, cuda)
+    tiles = _coords(23, 4 * 8, 300, cuda).reshape(4, 8, 300)
+    ids = torch.arange(32, dtype=torch.int32, device=cuda).reshape(4, 8)
+    probes2 = torch.tensor([[0, 1], [1, 0], [0, 1], [1, 0]],
+                           dtype=torch.int32, device=cuda)
+    _check_probe(ip.ivf_probe, ip.ivf_probe_scan, wide, wide, tiles, ids,
+                 probes2, 5, tiles_per_cluster=2)
     with pytest.raises(ValueError, match="tile_ids"):
         ip.ivf_probe(q[:4], idx.tile_coords, idx.tile_ids[:, :5], probes, 5,
                      **kw)
     with pytest.raises(ValueError, match="whole number"):
         ip.ivf_probe(q[:4], idx.tile_coords[:-1], idx.tile_ids[:-1], probes,
                      5, **kw)
-    codes = torch.zeros((4, 8, ip.MAX_PQ_M + 1), dtype=torch.uint8,
-                        device=cuda)
-    with pytest.raises(ValueError, match="M="):
-        ip.ivf_probe_pq(codes, idx.tile_ids[:4, :8], probes,
-                        torch.zeros((4, 2, ip.MAX_PQ_M + 1, 256),
-                                    device=cuda), 5, tiles_per_cluster=2)
+    codes = torch.randint(0, 256, (4, 8, 256), dtype=torch.uint8,
+                          device=cuda, generator=torch.Generator(cuda)
+                          .manual_seed(0))
+    luts = torch.rand((4, 2, 256, 256), device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(1))
+    _check_probe(ip.ivf_probe_pq, ip.ivf_probe_pq_scan, q, codes, ids,
+                 probes2, luts, 5, tiles_per_cluster=2)
     with pytest.raises(ValueError, match="luts"):
-        ip.ivf_probe_pq(codes[..., :4], idx.tile_ids[:4, :8], probes,
+        ip.ivf_probe_pq(codes[..., :4], ids, probes2,
                         torch.zeros((4, 2, 4, 255), device=cuda), 5,
                         tiles_per_cluster=2)
+
+
+@pytest.mark.parametrize("n", [300, 600, 2_048, 10_000])
+@pytest.mark.parametrize("storage", ["float32", "pq"])
+def test_ivf_probes_match_plain_at_wide_widths(cuda, storage, n):
+    """Widths 512 to 16,384: pass 2 in shared memory up to 8,192, lists and
+    the running best in global memory past it."""
+    idx, q = _ivf_index(cuda, storage)
+    probes = idx.probe_clusters(q, 16)
+    kw = dict(tiles_per_cluster=idx.tiles_per_cluster)
+    if storage == "pq":
+        luts = pq.build_luts(q, idx.centroids, idx.codebooks, probes, 0)
+        _check_probe(ip.ivf_probe_pq, ip.ivf_probe_pq_scan, q,
+                     idx.tile_coords, idx.tile_ids, probes, luts, n, **kw)
+    else:
+        _check_probe(ip.ivf_probe, ip.ivf_probe_scan, q, q, idx.tile_coords,
+                     idx.tile_ids, probes, n, **kw)
+
+
+@pytest.mark.parametrize("pq_m", [192, 256, 300])
+def test_ivf_probe_pq_matches_plain_past_shared_tables(cuda, pq_m):
+    """M past what shared memory holds: the first tables staged, the rest
+    read from global memory, summed in the same ascending order."""
+    gen = torch.Generator(cuda).manual_seed(pq_m)
+    ct, rows, n_probe = 40, 64, 6
+    codes = torch.randint(0, 256, (ct, rows, pq_m), dtype=torch.uint8,
+                          device=cuda, generator=gen)
+    ids = torch.arange(ct * rows, dtype=torch.int32,
+                       device=cuda).reshape(ct, rows)
+    ids[:, ::5] = -1
+    probes = torch.randperm(20, generator=gen, device=cuda)[
+        :n_probe].to(torch.int32).repeat(8, 1)
+    luts = torch.rand((8, n_probe, pq_m, 256), device=cuda, generator=gen)
+    q = torch.ones((8, 1), device=cuda)
+    _check_probe(ip.ivf_probe_pq, ip.ivf_probe_pq_scan, q, codes, ids,
+                 probes, luts, 64, tiles_per_cluster=2)
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8", "pq"])
@@ -275,6 +345,22 @@ def test_dma_copy_blocks_unaligned_views(cuda):
         got = ts.dma_copy_blocks(view, cuda)
         torch.cuda.synchronize()
         assert got.cpu().numpy().tobytes() == view.numpy().tobytes(), off
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4_097, 196_608, 196_609,
+                               3_145_728, 64 << 20])
+@pytest.mark.parametrize("off", [0, 5, 16])
+def test_dma_copy_blocks_partial_warps_and_blocks(cuda, n, off):
+    """Sizes that leave the last thread, warp or block of the copy partial
+    (1 byte to 64 MB, the tiered chunk's 196,608-byte ids and 3 MB coords),
+    from an aligned start, one off it (a head and a tail) and one 16 bytes
+    in: 0 mismatching bytes."""
+    base = ts.pinned_like(np.random.default_rng(n).integers(
+        0, 256, n + 32, dtype=np.uint8))
+    view = base[off:off + n]
+    got = ts.dma_copy_blocks(view, cuda)
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes() == view.numpy().tobytes()
 
 
 def test_pageable_source_raises(cuda):
@@ -345,6 +431,29 @@ def test_tiered_server_on_card_matches_cpu(cuda):
     assert msg is None, msg
 
 
+@pytest.mark.parametrize("n", [65, 128, 300])
+@pytest.mark.parametrize("kind", ["flat", "ivf", "ivf_pq", "tiered"])
+def test_server_on_card_matches_cpu_at_wide_widths(cuda, kind, n):
+    """Re-rank 4 fetches 512, 512 and 2,048 candidates: the card's kernels
+    answer as the CPU path does."""
+    gen = torch.Generator().manual_seed(1)
+    corpus = torch.randn((6_000, 48), generator=gen)
+    queries = torch.randn((20, 48), generator=gen)
+    kw = dict(pivot_ids=list(range(0, 6_000, 500)), device="cpu",
+              generator=gen)
+    if kind != "flat":
+        kw.update(index="ivf", storage="pq" if kind == "ivf_pq"
+                  else "float32", offload=kind == "tiered")
+    index = serve.build_index(corpus, 12, **kw)
+    skw = dict(rerank_factor=4) if kind == "flat" else dict(
+        rerank_factor=4, nprobe=16)
+    want = serve.ZenServer(index, **skw).query(queries, n)
+    got = serve.ZenServer(index.to(cuda), **skw).query(queries.to(cuda), n)
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
+                        atol=1e-4)
+    assert msg is None, (kind, n, msg)
+
+
 # -- the dense matrices -------------------------------------------------------
 # Kernel against plain on the sweep of chip_smoke.py phase 14, in squared
 # space (repro_torch.testing: SQ_RTOL x (|x|^2 + |y|^2) for pdist_sq and
@@ -412,6 +521,27 @@ def test_jsd_sparse_rows(cuda):
     _check_dense("jsd", jk.jsd_pdist, jk.jsd_pdist_plain, X, Y)
 
 
+@pytest.mark.parametrize("k", [300, 513, 1_024])
+def test_zen_estimate_matches_plain_past_one_chunk(cuda, k):
+    """k past the 256 columns one chunk stages."""
+    X, Y = dense_inputs("zen", (130, 70, k), k, torch.float32, cuda)
+    for mode in ("zen", "lwb", "upb"):
+        _check_dense("zen", zk.zen_estimate, zk.zen_estimate_plain, X, Y,
+                     mode)
+
+
+def test_dense_kernels_take_more_column_tiles_than_grid_y(cuda):
+    """K past 65,535 column tiles of 64 (4,194,240 columns): the kernels
+    loop over the tiles grid y cannot hold."""
+    k = 65_535 * 64 + 1_000
+    X, Y = dense_inputs("pdist", (3, k, 8), 7, torch.float32, cuda)
+    _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, Y)
+    P, Q = dense_inputs("jsd", (2, k, 4), 8, torch.float32, cuda)
+    _check_dense("jsd", jk.jsd_pdist, jk.jsd_pdist_plain, P, Q)
+    Z, W = dense_inputs("zen", (3, k, 8), 9, torch.float32, cuda)
+    _check_dense("zen", zk.zen_estimate, zk.zen_estimate_plain, Z, W, "zen")
+
+
 def test_dense_ops_dispatch_on_card(cuda):
     X, Y = dense_inputs("pdist", (50, 30, 64), 5, torch.float32, cuda)
     before = pk.pdist_sq.launches
@@ -438,7 +568,6 @@ def test_dense_kernels_reject_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match=r"\(N, m\) and \(K, m\)"):
             fn(X.to(cuda), X[:, :5].to(cuda))
     wide = torch.rand((4, 300), device=cuda)
-    with pytest.raises(ValueError, match="k <= 256"):
-        zk.zen_estimate(wide, wide)
+    _check_dense("zen", zk.zen_estimate, zk.zen_estimate_plain, wide, wide)
     with pytest.raises(ValueError, match="mode"):
         zk.zen_estimate(X.to(cuda), X.to(cuda), "exact")

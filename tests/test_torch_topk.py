@@ -162,9 +162,11 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     (64, 1_000_000, 64), (2, 1_000_000, 16), (64, 1_000_003, 128),
     (8, 100, 64), (3, 7, 7), (64, 50_000, 256)])
 def test_launch_geometry_covers_the_index(nq, n_index, n_out):
-    w, n_split, split_rows = tzt.launch_geometry(nq, n_index, n_out, 132)
+    plan = tzt.launch_geometry(nq, n_index, n_out, 16, 132)
+    w, n_split, split_rows = plan.w, plan.n_split, plan.split_rows
     assert w >= n_out and w & (w - 1) == 0
-    assert tzt._pow2_ceil(n_split) * w <= 8192
+    assert plan.n_lists == tzt._pow2_ceil(n_split)
+    assert plan.merge_smem == 8 * plan.n_lists * w <= tzt.SMEM_LIMIT
     assert split_rows % 512 == 0
     assert n_split * split_rows >= n_index           # every row in a split
     assert (n_split - 1) * split_rows < n_index      # no split wholly empty
