@@ -11,28 +11,37 @@
 // page-locked host memory that the card addresses directly (zero-copy, under
 // unified addressing), so every byte crosses PCIe once and is written to
 // device memory once; there is no arithmetic. At the serving shape of
-// chip_smoke.py (a cold chunk of 128-256 clusters of 3 tiles of 128 rows,
-// k = 16 f32, 26,112 bytes a cluster with its ids) a launch moves 3-7 MB,
-// ~50-110 us at Gen5 x16's ~63 GB/s one way.
+// chip_smoke.py (a cold chunk of 128 slots of 3 tiles of 128 rows, k = 16
+// f32: 3,145,728 bytes of coordinates and 196,608 of ids, two launches)
+// that is 53 us at Gen5 x16's 63 GB/s one way.
+//
+// What holds it back, as measured on the card (PERF.md): reads that the
+// SMs issue to host memory top out at ~33 GB/s whatever keeps them in
+// flight -- more blocks, 4 to 16 loads a thread, or 1-D TMA bulk copies
+// into shared memory all stay there -- while the copy engine reaches
+// ~49-54 GB/s. A dependent 16-byte host read takes ~1.25 us, so ~33 GB/s
+// is ~41 KB in flight: a cap on the host reads outstanding from the SMs,
+// not on what one kernel issues.
 //
 // Design. The (B, ...) array is one contiguous byte range in host memory
-// and in the output, so the block boundaries do not change the work: the
-// range is cut into pieces of 16 KB (256 threads x 4 x 16 bytes), and each
-// block of threads takes pieces in a grid-stride loop. A thread streams its
-// own 16-byte vectors of a piece into one of two shared-memory staging
-// slots with cp.async.cg, issues the next piece's loads into the other slot
-// before it waits for the current one, then writes the current slot out with
-// 16-byte stores: the TPU kernel's two-slot pipeline, per thread, with up to
-// two pieces in flight per block and one wave of blocks over the card. A
-// thread reads back only what it loaded itself, so no barrier is needed.
-// The bytes before the first 16-byte boundary of the source and after the
-// last go through a byte-wise kernel; so does the whole range when source
-// and destination differ in alignment mod 16 (a view at an odd offset). The
-// launcher takes the device address of the source with
-// cudaHostGetDevicePointer after cudaPointerGetAttributes confirms that it is
-// page-locked host memory: a pageable pointer is refused, never copied
-// another way. More bytes in flight per SM, or a TMA bulk copy
-// (cp.async.bulk) into shared memory, are later work.
+// and in the output, so the block boundaries do not change the work. Since
+// a straight copy gains nothing from shared memory, each thread loads
+// kUnroll 16-byte vectors straight into registers with ld.global.nc (8 in
+// flight a thread, 32 KB a block), then stores them. Each load
+// instruction of a warp covers 512 contiguous bytes. Blocks take steps of
+// kThreads * kUnroll vectors in a grid-stride loop, and the grid is sized
+// from n (one block per step, at most kBlocksPerSm per SM), so a chunk of
+// any size starts on as many SMs as it has steps: a 3 MB upload is 96
+// steps of 32 KB on 96 SMs, all requested at once. The bytes before the
+// first 16-byte boundary of the source and after the last go through a
+// byte-wise kernel; so does the whole range when source and destination
+// differ in alignment mod 16 (a view at an odd offset). The launcher takes
+// the device address of the source from cudaPointerGetAttributes, which
+// also refuses anything but page-locked host memory: a pageable pointer is
+// never copied another way. The address is not cached across launches:
+// the check must run on every launch anyway (a cache keyed by the host
+// address could outlive the pinned allocation it was taken from), and the
+// one driver call is the whole host cost (PERF.md).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -40,55 +49,37 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVecs = 4;                       // 16-byte vectors a thread
-constexpr int kPieceVecs = kThreads * kVecs;   // 16 KB a staging slot
-constexpr int kBlocksPerSm = 4;
+constexpr int kUnroll = 8;                       // 16-byte loads a thread
+constexpr int kStepVecs = kThreads * kUnroll;    // 32 KB a block step
+constexpr int kBlocksPerSm = 2;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most one committed group (the newest) is pending.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void issue(uint4* slot, const uint4* src,
-                                      int64_t piece, int64_t n_vec) {
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    const int64_t v = piece * kPieceVecs + i * kThreads + threadIdx.x;
-    if (v < n_vec) cp_async16(slot + i * kThreads + threadIdx.x, src + v);
-  }
+// A 16-byte load through the non-coherent path: the source is not written
+// while the copy runs (the caller's contract).
+__device__ __forceinline__ uint4 load_nc(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
 __global__ void __launch_bounds__(kThreads)
     stage_vectors(const uint4* __restrict__ src, uint4* __restrict__ dst,
                   int64_t n_vec) {
-  __shared__ __align__(16) uint4 slots[2][kPieceVecs];
-  const int64_t n_pieces = (n_vec + kPieceVecs - 1) / kPieceVecs;
-  int64_t piece = blockIdx.x;
-  if (piece >= n_pieces) return;
-  int s = 0;
-  issue(slots[0], src, piece, n_vec);
-  cp_async_commit();
-  for (; piece < n_pieces; piece += gridDim.x) {
-    const int64_t next = piece + gridDim.x;
-    if (next < n_pieces) issue(slots[s ^ 1], src, next, n_vec);
-    cp_async_commit();  // an empty group at the end keeps the count uniform
-    cp_async_wait_one();
+  const int64_t step = int64_t(gridDim.x) * kStepVecs;
+  for (int64_t base = int64_t(blockIdx.x) * kStepVecs + threadIdx.x;
+       base < n_vec; base += step) {
+    uint4 v[kUnroll];
 #pragma unroll
-    for (int i = 0; i < kVecs; ++i) {
-      const int64_t v = piece * kPieceVecs + i * kThreads + threadIdx.x;
-      if (v < n_vec) dst[v] = slots[s][i * kThreads + threadIdx.x];
+    for (int i = 0; i < kUnroll; ++i) {
+      const int64_t j = base + i * kThreads;
+      if (j < n_vec) v[i] = load_nc(src + j);
     }
-    s ^= 1;
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int64_t j = base + i * kThreads;
+      if (j < n_vec) dst[j] = v[i];
+    }
   }
 }
 
@@ -113,12 +104,15 @@ int grid_limit() {
   return sms * kBlocksPerSm;
 }
 
+int blocks_for(int64_t units) {
+  return static_cast<int>(units < grid_limit() ? units : grid_limit());
+}
+
 void launch_bytes(const unsigned char* src, unsigned char* dst, int64_t n,
                   cudaStream_t s) {
   if (n <= 0) return;
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < grid_limit() ? want : grid_limit());
-  stage_bytes<<<grid, kThreads, 0, s>>>(src, dst, n);
+  stage_bytes<<<blocks_for((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      src, dst, n);
 }
 
 }  // namespace
@@ -134,13 +128,11 @@ int tile_stage_launch(const void* src, void* dst, long long block_bytes,
   cudaPointerAttributes attr;
   cudaError_t err = cudaPointerGetAttributes(&attr, src);
   if (err != cudaSuccess) return err;
-  if (attr.type != cudaMemoryTypeHost) return cudaErrorInvalidValue;
-  void* mapped = nullptr;
-  err = cudaHostGetDevicePointer(&mapped, const_cast<void*>(src), 0);
-  if (err != cudaSuccess) return err;
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n = int64_t(block_bytes) * int64_t(n_blocks);
-  const unsigned char* in = static_cast<const unsigned char*>(mapped);
+  const unsigned char* in = static_cast<const unsigned char*>(attr.devicePointer);
   unsigned char* out = static_cast<unsigned char*>(dst);
   const uintptr_t a = reinterpret_cast<uintptr_t>(in);
   const uintptr_t b = reinterpret_cast<uintptr_t>(out);
@@ -154,10 +146,8 @@ int tile_stage_launch(const void* src, void* dst, long long block_bytes,
   const int64_t tail = head + n_vec * 16;
   launch_bytes(in, out, head, s);
   if (n_vec > 0) {
-    const int64_t pieces = (n_vec + kPieceVecs - 1) / kPieceVecs;
-    const int grid =
-        static_cast<int>(pieces < grid_limit() ? pieces : grid_limit());
-    stage_vectors<<<grid, kThreads, 0, s>>>(
+    stage_vectors<<<blocks_for((n_vec + kStepVecs - 1) / kStepVecs),
+                    kThreads, 0, s>>>(
         reinterpret_cast<const uint4*>(in + head),
         reinterpret_cast<uint4*>(out + head), n_vec);
   }

@@ -43,8 +43,8 @@ Tensor = torch.Tensor
 
 #: PQ table entries per subspace (one uint8 code)
 PQ_ENTRIES = 256
-#: the shortest candidate buffer of a pass-1 block (kCap in
-#: csrc/ivf_probe.cu: four 256-row chunks)
+#: the shortest candidate buffer of a pass-1 block: four chunks of 256
+#: rows (one row a thread)
 _MIN_CAP = 1024
 
 

@@ -29,23 +29,23 @@ from .scoring import merge_topk
 
 Tensor = torch.Tensor
 
-#: dynamic shared memory one block may take on an H100 (227 KB), and what
-#: each of two blocks on one SM may take (the SM's 228 KB less 1 KB the
-#: hardware reserves per block, halved)
-SMEM_LIMIT = 232_448
+#: dynamic shared memory a plan gives one block: the 227 KB (232,448 B) a
+#: block may take on an H100, less 1 KB left for the kernels' static
+#: __shared__ variables (16 B in the probes, none in zen_topk, per ptxas);
+#: and what each of two blocks on one SM may take (the SM's 228 KB less
+#: 1 KB the hardware reserves per block, halved)
+SMEM_LIMIT = 232_448 - 1_024
 SMEM_TWO_BLOCKS = 115_712
 
-#: rows one pass-1 block scores per tile (kTile in csrc/zen_topk.cu) and
-#: the threads of a block
+#: rows one pass-1 block scores per tile (kTile in csrc/zen_topk.cu)
 _TILE_ROWS = 512
-_THREADS = 256
 #: columns staged per pass, with one word of padding per staged row
 _X_STRIDE = 17
 #: queries per pass-1 block, widest first (the kernel's instantiations)
 _BLOCK_QUERIES = (8, 4, 2, 1)
 #: the most 8-byte keys pass 2 holds in shared memory: n_lists * w is a
 #: power of two, and 16,384 keys (128 KB) is the largest within SMEM_LIMIT
-MERGE_KEYS = 16_384
+_MERGE_KEYS = 16_384
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -120,12 +120,12 @@ def launch_geometry(nq: int, n_index: int, n_out: int, k: int,
     n_split = min(-(-blocks_per_sm * n_sms // q_blocks),
                   -(-n_index // _TILE_ROWS), max(1, n_index // w))
     if not global_lists:
-        n_split = min(n_split, max(1, MERGE_KEYS // w))
+        n_split = min(n_split, max(1, _MERGE_KEYS // w))
     per_split = -(-n_index // n_split)
     split_rows = -(-per_split // _TILE_ROWS) * _TILE_ROWS
     n_split = -(-n_index // split_rows)
     n_lists = _pow2_ceil(n_split)
-    merge_smem = 8 * n_lists * w if n_lists * w <= MERGE_KEYS else 0
+    merge_smem = 8 * n_lists * w if n_lists * w <= _MERGE_KEYS else 0
     return TopkPlan(w=w, queries_per_block=kq, cap=cap,
                     global_lists=global_lists, smem=smem,
                     blocks_per_sm=blocks_per_sm, n_split=n_split,
