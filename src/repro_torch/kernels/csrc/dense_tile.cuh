@@ -184,7 +184,8 @@ __global__ void __launch_bounds__(kThreads)
           if (c0 + c + j < k) row[j] = o[j];
       }
     }
-    __syncthreads();  // the row terms are read before the next tile's
+    // the row terms are read before the next tile's overwrite them
+    if (by + gridDim.y < col_tiles) __syncthreads();
   }
 }
 

@@ -15,13 +15,15 @@
 // f32: 3,145,728 bytes of coordinates and 196,608 of ids, two launches)
 // that is 53 us at Gen5 x16's 63 GB/s one way.
 //
-// What holds it back, as measured on the card (PERF.md): reads that the
-// SMs issue to host memory top out at ~33 GB/s whatever keeps them in
-// flight -- more blocks, 4 to 16 loads a thread, or 1-D TMA bulk copies
-// into shared memory all stay there -- while the copy engine reaches
-// ~49-54 GB/s. A dependent 16-byte host read takes ~1.25 us, so ~33 GB/s
-// is ~41 KB in flight: a cap on the host reads outstanding from the SMs,
-// not on what one kernel issues.
+// What holds it back, as measured on the card (PERF.md): how fast the SMs
+// read host memory is the host machine's, not the kernel's. On most
+// machines measured their reads top out at 26-34 GB/s whatever keeps them
+// in flight -- more blocks, 4 to 16 loads a thread, L2 fetch sizes, an L2
+// bulk prefetch or 1-D TMA bulk copies into shared memory
+// (probes/host_reads.cu) -- and on one they reached ~48 GB/s, while the
+// copy engine reaches 43-55 GB/s on all. A dependent 16-byte host read
+// takes ~1.25 us, so ~33 GB/s is ~41 KB in flight: a cap on the host
+// reads outstanding from the SMs, not on what one kernel issues.
 //
 // Design. The (B, ...) array is one contiguous byte range in host memory
 // and in the output, so the block boundaries do not change the work. Since

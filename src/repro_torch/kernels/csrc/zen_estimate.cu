@@ -52,38 +52,50 @@ size_t smem_bytes(int k) {
 }
 
 // Stages columns [c0, c0 + kc) of rows [r0, r0 + kTile) of the (n, k)
-// matrix src into dst[c * kStride + r], zero outside the matrix; with
-// kc = k the rows are one contiguous span of src, read in order. VEC:
-// k % 4 == 0 (so kc % 4 == 0) and src aligned to 4 elements, so 4
-// consecutive elements (of one row) are one vector load.
-template <typename T, bool VEC>
+// matrix src into dst[c * kStride + r], zero outside the matrix. WHOLE
+// (c0 = 0, kc = k): the rows are one contiguous span of src, read in
+// order. VEC: k % 4 == 0 (so kc % 4 == 0) and src aligned to 4 elements,
+// so 4 consecutive elements (of one row) are one vector load.
+template <typename T, bool VEC, bool WHOLE>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       int64_t r0, int64_t n, int k, int c0,
                                       int kc) {
+  // the element (r, c) of the staged block, e = r * kc + c in it, or -1
+  // outside the matrix
+  auto at = [&](int e, int r, int c) -> int64_t {
+    if constexpr (WHOLE) {
+      return r0 * k + e < n * k ? r0 * k + e : -1;
+    } else {
+      return r0 + r < n ? (r0 + r) * k + c0 + c : -1;
+    }
+  };
   if constexpr (VEC) {
     for (int e = 4 * threadIdx.x; e < kTile * kc; e += 4 * kThreads) {
       const int r = e / kc, c = e - r * kc;
+      const int64_t g = at(e, r, c);
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (r0 + r < n) dense::load4(src + (r0 + r) * k + c0 + c, v);
+      if (g >= 0) dense::load4(src + g, v);
 #pragma unroll
       for (int q = 0; q < 4; ++q) dst[(c + q) * kStride + r] = v[q];
     }
   } else {
     for (int e = threadIdx.x; e < kTile * kc; e += kThreads) {
       const int r = e / kc, c = e - r * kc;
-      dst[c * kStride + r] =
-          r0 + r < n ? zen::to_float(src[(r0 + r) * k + c0 + c]) : 0.0f;
+      const int64_t g = at(e, r, c);
+      dst[c * kStride + r] = g >= 0 ? zen::to_float(src[g]) : 0.0f;
     }
   }
 }
 
-template <typename T, bool VEC>
+// WIDE: k > kCols, streamed in chunks of kCols columns; otherwise the whole
+// width is staged at once.
+template <typename T, bool VEC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     zen_estimate_tile(const T* __restrict__ x, const T* __restrict__ y,
                       int64_t n, int64_t m, int k, int mode,
                       float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  const int kcs = min(k, kCols);       // columns a chunk stages
+  const int kcs = WIDE ? kCols : k;    // columns a chunk stages
   float* xs = smem;                    // [kcs][kStride]
   float* ys = xs + kcs * kStride;      // [kcs][kStride]
   float* xn = ys + kcs * kStride;      // [kTile] full squared norms
@@ -103,10 +115,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kMicro; ++j) dot[i][j] = 0.0f;
     float sq = 0.0f;  // thread t < 2 kTile: the norm of one staged row
-    for (int k0 = 0; k0 < k; k0 += kCols) {
-      const int kc = min(kCols, k - k0);
-      stage<T, VEC>(xs, x, r0, n, k, k0, kc);
-      stage<T, VEC>(ys, y, c0, m, k, k0, kc);
+    for (int k0 = 0; k0 < k; k0 += kcs) {
+      const int kc = min(kcs, k - k0);
+      stage<T, VEC, !WIDE>(xs, x, r0, n, k, k0, kc);
+      stage<T, VEC, !WIDE>(ys, y, c0, m, k, k0, kc);
       __syncthreads();
       if (t < 2 * kTile) {
         const float* s = t < kTile ? xs : ys;
@@ -118,6 +130,7 @@ __global__ void __launch_bounds__(kThreads)
           (t < kTile ? xa : ya)[r] = s[(kc - 1) * kStride + r];
         }
       }
+      if constexpr (!WIDE) __syncthreads();  // the norms, then the dot
       const int kdot = min(kc, k - 1 - k0);  // the altitude column left out
 #pragma unroll 4
       for (int c = 0; c < kdot; ++c) {
@@ -133,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int j = 0; j < kMicro; ++j)
             dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
       }
-      __syncthreads();
+      if constexpr (WIDE) __syncthreads();  // before the next chunk's stage
     }
     const int c = tx * 4;
     const bool whole = (m & 3) == 0 && c0 + c + 3 < m;  // one float4 store
@@ -156,24 +169,33 @@ __global__ void __launch_bounds__(kThreads)
           if (c0 + c + j < m) row[j] = o[j];
       }
     }
-    __syncthreads();  // the norms are read before the next tile's overwrite
+    // the staged tiles and norms are read before the next tile's overwrite
+    if (by + gridDim.y < col_tiles) __syncthreads();
   }
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool WIDE>
 cudaError_t launch_tiles(const T* x, const T* y, long long n, long long m,
                          int k, int mode, float* out, cudaStream_t s) {
   const size_t smem = smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
-      zen_estimate_tile<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      zen_estimate_tile<T, VEC, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const long long col_tiles = (m + kTile - 1) / kTile;
   const dim3 grid(unsigned((n + kTile - 1) / kTile),
                   unsigned(col_tiles < 65535 ? col_tiles : 65535));
-  zen_estimate_tile<T, VEC><<<grid, kThreads, smem, s>>>(x, y, n, m, k,
-                                                         mode, out);
+  zen_estimate_tile<T, VEC, WIDE><<<grid, kThreads, smem, s>>>(x, y, n, m, k,
+                                                               mode, out);
   return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_width(const T* x, const T* y, long long n, long long m,
+                         int k, int mode, float* out, cudaStream_t s) {
+  if (k > kCols)
+    return launch_tiles<T, VEC, true>(x, y, n, m, k, mode, out, s);
+  return launch_tiles<T, VEC, false>(x, y, n, m, k, mode, out, s);
 }
 
 // Vector loads when k and both operands allow.
@@ -185,8 +207,8 @@ cudaError_t launch(const void* x, const void* y, long long n, long long m,
   const uintptr_t quad = 4 * sizeof(T);
   if (k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % quad == 0 &&
       reinterpret_cast<uintptr_t>(y) % quad == 0)
-    return launch_tiles<T, true>(xp, yp, n, m, k, mode, out, s);
-  return launch_tiles<T, false>(xp, yp, n, m, k, mode, out, s);
+    return launch_width<T, true>(xp, yp, n, m, k, mode, out, s);
+  return launch_width<T, false>(xp, yp, n, m, k, mode, out, s);
 }
 
 }  // namespace
