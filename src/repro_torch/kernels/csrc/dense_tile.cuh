@@ -28,8 +28,8 @@
 // with m. BN = 256, BK = 16 serves a narrow K (the transform's 16
 // references) without computing padded columns; BN = BK = 64 serves square
 // tiles. Outputs go out as float4 where K allows. Nothing here uses the
-// tensor cores. Row tiles go on grid x (2^31 - 1 of them); column tiles
-// past grid y's 65,535 are taken in a loop, so no K is refused.
+// tensor cores. The grid is one-dimensional over row tiles x column tiles
+// (2^31 - 1 blocks), so no K is refused by a grid dimension.
 #pragma once
 
 #include <cstdint>
@@ -96,10 +96,13 @@ __device__ __forceinline__ void stage(float (*dst)[R + kPad],
   }
 }
 
+// One block per (row tile, column tile), row tiles fastest: block b is
+// row tile b % row_tiles of column tile b / row_tiles.
 template <class Op, typename T, int BN, int BK, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     dense_tile(const T* __restrict__ x, const T* __restrict__ y, int64_t n,
-               int64_t k, int m, float* __restrict__ out) {
+               int64_t k, int m, int64_t row_tiles,
+               float* __restrict__ out) {
   constexpr int TX = BK / kMicro;  // threads along a tile row
   constexpr int TY = BN / kMicro;  // threads along a tile column
   static_assert(TX * TY == kThreads, "one 4 x 4 micro-tile per thread");
@@ -110,103 +113,95 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float yterm[BK];
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int64_t r0 = int64_t(blockIdx.x) * BN;
-  const int64_t col_tiles = (k + BK - 1) / BK;
-  for (int64_t by = blockIdx.y; by < col_tiles; by += gridDim.y) {
-    const int64_t c0 = by * BK;
-    float acc[kMicro][kMicro];
+  const int64_t r0 = (int64_t(blockIdx.x) % row_tiles) * BN;
+  const int64_t c0 = (int64_t(blockIdx.x) / row_tiles) * BK;
+  float acc[kMicro][kMicro];
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
+  float xsum = 0.0f, ysum = 0.0f;  // row terms of row threadIdx.x
+
+  for (int l0 = 0; l0 < m; l0 += kChunk) {
+    stage<T, BN, VEC>(xs, x, r0, n, m, l0);
+    stage<T, BK, VEC>(ys, y, c0, k, m, l0);
+    __syncthreads();
+    if (threadIdx.x < BN) {
+      float s = 0.0f;
+#pragma unroll 8
+      for (int l = 0; l < kChunk; ++l) s = Op::self(xs[l][threadIdx.x], s);
+      xsum = __fadd_rn(xsum, s);
+    }
+    if (threadIdx.x < BK) {
+      float s = 0.0f;
+#pragma unroll 8
+      for (int l = 0; l < kChunk; ++l) s = Op::self(ys[l][threadIdx.x], s);
+      ysum = __fadd_rn(ysum, s);
+    }
+    float part[kMicro][kMicro];
 #pragma unroll
     for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-    float xsum = 0.0f, ysum = 0.0f;  // row terms of row threadIdx.x
-
-    for (int l0 = 0; l0 < m; l0 += kChunk) {
-      stage<T, BN, VEC>(xs, x, r0, n, m, l0);
-      stage<T, BK, VEC>(ys, y, c0, k, m, l0);
-      __syncthreads();
-      if (threadIdx.x < BN) {
-        float s = 0.0f;
+      for (int j = 0; j < kMicro; ++j) part[i][j] = 0.0f;
 #pragma unroll 8
-        for (int l = 0; l < kChunk; ++l) s = Op::self(xs[l][threadIdx.x], s);
-        xsum = __fadd_rn(xsum, s);
-      }
-      if (threadIdx.x < BK) {
-        float s = 0.0f;
-#pragma unroll 8
-        for (int l = 0; l < kChunk; ++l) s = Op::self(ys[l][threadIdx.x], s);
-        ysum = __fadd_rn(ysum, s);
-      }
-      float part[kMicro][kMicro];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) part[i][j] = 0.0f;
-#pragma unroll 8
-      for (int l = 0; l < kChunk; ++l) {
-        const float4 av = *reinterpret_cast<const float4*>(&xs[l][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&ys[l][tx * 4]);
-        const float a[kMicro] = {av.x, av.y, av.z, av.w};
-        const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j)
-            part[i][j] = Op::pair(a[i], b[j], part[i][j]);
-      }
+    for (int l = 0; l < kChunk; ++l) {
+      const float4 av = *reinterpret_cast<const float4*>(&xs[l][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&ys[l][tx * 4]);
+      const float a[kMicro] = {av.x, av.y, av.z, av.w};
+      const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int i = 0; i < kMicro; ++i)
 #pragma unroll
         for (int j = 0; j < kMicro; ++j)
-          acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
-      __syncthreads();
+          part[i][j] = Op::pair(a[i], b[j], part[i][j]);
     }
-    if (threadIdx.x < BN) xterm[threadIdx.x] = xsum;
-    if (threadIdx.x < BK) yterm[threadIdx.x] = ysum;
-    __syncthreads();
-    const int c = tx * 4;
-    const bool whole = (k & 3) == 0 && c0 + c + 3 < k;  // one float4 store
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      const int r = ty * 4 + i;
-      if (r0 + r >= n) continue;
-      float o[kMicro];
+    for (int i = 0; i < kMicro; ++i)
 #pragma unroll
       for (int j = 0; j < kMicro; ++j)
-        o[j] = Op::finish(xterm[r], yterm[c + j], acc[i][j]);
-      float* row = out + (r0 + r) * k + c0 + c;
-      if (whole) {
-        *reinterpret_cast<float4*>(row) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      } else {
+        acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+    __syncthreads();
+  }
+  if (threadIdx.x < BN) xterm[threadIdx.x] = xsum;
+  if (threadIdx.x < BK) yterm[threadIdx.x] = ysum;
+  __syncthreads();
+  const int c = tx * 4;
+  const bool whole = (k & 3) == 0 && c0 + c + 3 < k;  // one float4 store
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          if (c0 + c + j < k) row[j] = o[j];
-      }
+  for (int i = 0; i < kMicro; ++i) {
+    const int r = ty * 4 + i;
+    if (r0 + r >= n) continue;
+    float o[kMicro];
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j)
+      o[j] = Op::finish(xterm[r], yterm[c + j], acc[i][j]);
+    float* row = out + (r0 + r) * k + c0 + c;
+    if (whole) {
+      *reinterpret_cast<float4*>(row) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j)
+        if (c0 + c + j < k) row[j] = o[j];
     }
-    // the row terms are read before the next tile's overwrite them
-    if (by + gridDim.y < col_tiles) __syncthreads();
   }
 }
 
-// Grid y holds at most 65,535 column tiles; the kernel loops over the rest.
-inline unsigned column_blocks(long long k, int bk) {
-  const long long tiles = (k + bk - 1) / bk;
-  return unsigned(tiles < 65535 ? tiles : 65535);
-}
-
+// One block per tile: at most 2^31 - 1 of them (a matrix of some 8.8e12
+// outputs), past which the launch is refused.
 template <class Op, typename T, bool VEC>
-void launch_tiles(const T* x, const T* y, long long n, long long k, int m,
-                  float* out, cudaStream_t s) {
-  if (k <= 16) {
-    const dim3 grid(unsigned((n + 255) / 256), column_blocks(k, 16));
-    dense_tile<Op, T, 256, 16, VEC><<<grid, kThreads, 0, s>>>(x, y, n, k, m,
-                                                             out);
-  } else {
-    const dim3 grid(unsigned((n + 63) / 64), column_blocks(k, 64));
-    dense_tile<Op, T, 64, 64, VEC><<<grid, kThreads, 0, s>>>(x, y, n, k, m,
-                                                            out);
-  }
+cudaError_t launch_tiles(const T* x, const T* y, long long n, long long k,
+                         int m, float* out, cudaStream_t s) {
+  const bool narrow = k <= 16;
+  const long long rows = narrow ? (n + 255) / 256 : (n + 63) / 64;
+  const long long tiles = rows * (narrow ? (k + 15) / 16 : (k + 63) / 64);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (narrow)
+    dense_tile<Op, T, 256, 16, VEC><<<unsigned(tiles), kThreads, 0, s>>>(
+        x, y, n, k, m, rows, out);
+  else
+    dense_tile<Op, T, 64, 64, VEC><<<unsigned(tiles), kThreads, 0, s>>>(
+        x, y, n, k, m, rows, out);
+  return cudaGetLastError();
 }
 
 // Launches the narrow tile (BN = 256, BK = 16) when K <= 16, else the square
@@ -220,11 +215,8 @@ cudaError_t launch(const void* x, const void* y, long long n, long long k,
   const uintptr_t quad = 4 * sizeof(T);
   const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % quad == 0 &&
                    reinterpret_cast<uintptr_t>(y) % quad == 0;
-  if (vec)
-    launch_tiles<Op, T, true>(xp, yp, n, k, m, out, s);
-  else
-    launch_tiles<Op, T, false>(xp, yp, n, k, m, out, s);
-  return cudaGetLastError();
+  if (vec) return launch_tiles<Op, T, true>(xp, yp, n, k, m, out, s);
+  return launch_tiles<Op, T, false>(xp, yp, n, k, m, out, s);
 }
 
 // dtype: 0 float32, 1 bfloat16.

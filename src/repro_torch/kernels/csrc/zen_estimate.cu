@@ -24,11 +24,11 @@
 // k rounds as one chunk would, and the altitude is taken from the chunk
 // that holds column k-1. The tile of an (i, j) output reads one contiguous
 // span of each operand's rows (16-byte vector loads where k and alignment
-// allow), so ragged N, M and k need no padded copy. Column tiles past the
-// grid's 65,535 rows of y are taken in a loop. The estimator and the
-// distance are scoring.cuh's estimate_sq and distance, the functions
-// zen_topk and the probes score with, so the dense matrix and the top-k
-// kernels cannot drift apart.
+// allow), so ragged N, M and k need no padded copy. The grid is
+// one-dimensional over row tiles x column tiles, so no M is refused by a
+// grid dimension. The estimator and the distance are scoring.cuh's
+// estimate_sq and distance, the functions zen_topk and the probes score
+// with, so the dense matrix and the top-k kernels cannot drift apart.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -51,51 +51,88 @@ size_t smem_bytes(int k) {
   return sizeof(float) * (2 * kc * kStride + 4 * kTile);
 }
 
-// Stages columns [c0, c0 + kc) of rows [r0, r0 + kTile) of the (n, k)
-// matrix src into dst[c * kStride + r], zero outside the matrix. WHOLE
-// (c0 = 0, kc = k): the rows are one contiguous span of src, read in
-// order. VEC: k % 4 == 0 (so kc % 4 == 0) and src aligned to 4 elements,
-// so 4 consecutive elements (of one row) are one vector load.
-template <typename T, bool VEC, bool WHOLE>
+// Stages rows [r0, r0 + kTile) of the (n, k) matrix src, all k columns,
+// into dst[c * kStride + r], zero outside the matrix. The rows are one
+// contiguous span of src, read in order; VEC: k % 4 == 0 and src aligned to
+// 4 elements, so 4 consecutive elements (of one row) are one vector load.
+template <typename T, bool VEC>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int64_t r0, int64_t n, int k, int c0,
-                                      int kc) {
-  // the element (r, c) of the staged block, e = r * kc + c in it, or -1
-  // outside the matrix
-  auto at = [&](int e, int r, int c) -> int64_t {
-    if constexpr (WHOLE) {
-      return r0 * k + e < n * k ? r0 * k + e : -1;
-    } else {
-      return r0 + r < n ? (r0 + r) * k + c0 + c : -1;
+                                      int64_t r0, int64_t n, int k) {
+  const int64_t base = r0 * k;
+  const int64_t end = n * k;
+  if constexpr (VEC) {
+    for (int e = 4 * threadIdx.x; e < kTile * k; e += 4 * kThreads) {
+      const int r = e / k, c = e - r * k;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (base + e < end) dense::load4(src + base + e, v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dst[(c + q) * kStride + r] = v[q];
     }
-  };
+  } else {
+    for (int e = threadIdx.x; e < kTile * k; e += kThreads) {
+      const int r = e / k, c = e - r * k;
+      dst[c * kStride + r] =
+          base + e < end ? zen::to_float(src[base + e]) : 0.0f;
+    }
+  }
+}
+
+// The same for columns [c0, c0 + kCols) of a wider matrix (kc of them at
+// the right edge): each row's span is read in order.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_cols(float* dst,
+                                           const T* __restrict__ src,
+                                           int64_t r0, int64_t n, int k,
+                                           int c0, int kc) {
   if constexpr (VEC) {
     for (int e = 4 * threadIdx.x; e < kTile * kc; e += 4 * kThreads) {
       const int r = e / kc, c = e - r * kc;
-      const int64_t g = at(e, r, c);
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (g >= 0) dense::load4(src + g, v);
+      if (r0 + r < n) dense::load4(src + (r0 + r) * k + c0 + c, v);
 #pragma unroll
       for (int q = 0; q < 4; ++q) dst[(c + q) * kStride + r] = v[q];
     }
   } else {
     for (int e = threadIdx.x; e < kTile * kc; e += kThreads) {
       const int r = e / kc, c = e - r * kc;
-      const int64_t g = at(e, r, c);
-      dst[c * kStride + r] = g >= 0 ? zen::to_float(src[g]) : 0.0f;
+      dst[c * kStride + r] =
+          r0 + r < n ? zen::to_float(src[(r0 + r) * k + c0 + c]) : 0.0f;
     }
   }
 }
 
-// WIDE: k > kCols, streamed in chunks of kCols columns; otherwise the whole
-// width is staged at once.
+// Adds the staged columns [0, kdot) of the thread's 4 rows and 4 columns
+// to its dot partials, one FMA chain per output.
+__device__ __forceinline__ void add_dots(float (&dot)[kMicro][kMicro],
+                                         const float* xs, const float* ys,
+                                         int kdot, int tx, int ty) {
+#pragma unroll 4
+  for (int c = 0; c < kdot; ++c) {
+    const float4 av =
+        *reinterpret_cast<const float4*>(&xs[c * kStride + ty * 4]);
+    const float4 bv =
+        *reinterpret_cast<const float4*>(&ys[c * kStride + tx * 4]);
+    const float a[kMicro] = {av.x, av.y, av.z, av.w};
+    const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
+  }
+}
+
+// One block per (row tile, column tile), row tiles fastest: block b is
+// row tile b % row_tiles of column tile b / row_tiles. WIDE (k > kCols):
+// the columns are streamed kCols at a time through the same partials, the
+// dot and the norms going on as one FMA chain; otherwise the whole width is
+// staged at once.
 template <typename T, bool VEC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     zen_estimate_tile(const T* __restrict__ x, const T* __restrict__ y,
                       int64_t n, int64_t m, int k, int mode,
-                      float* __restrict__ out) {
+                      int64_t row_tiles, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  const int kcs = WIDE ? kCols : k;    // columns a chunk stages
+  const int kcs = WIDE ? kCols : k;    // columns staged at a time
   float* xs = smem;                    // [kcs][kStride]
   float* ys = xs + kcs * kStride;      // [kcs][kStride]
   float* xn = ys + kcs * kStride;      // [kTile] full squared norms
@@ -103,22 +140,36 @@ __global__ void __launch_bounds__(kThreads)
   float* xa = yn + kTile;              // [kTile] altitudes
   float* ya = xa + kTile;
 
+  const int64_t r0 = (int64_t(blockIdx.x) % row_tiles) * kTile;
+  const int64_t c0 = (int64_t(blockIdx.x) / row_tiles) * kTile;
   const int t = threadIdx.x;
   const int tx = t % kSide, ty = t / kSide;
-  const int64_t r0 = int64_t(blockIdx.x) * kTile;
-  const int64_t col_tiles = (m + kTile - 1) / kTile;
-  for (int64_t by = blockIdx.y; by < col_tiles; by += gridDim.y) {
-    const int64_t c0 = by * kTile;
-    float dot[kMicro][kMicro];
+  float dot[kMicro][kMicro];
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i)
+  for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) dot[i][j] = 0.0f;
+    for (int j = 0; j < kMicro; ++j) dot[i][j] = 0.0f;
+  if constexpr (!WIDE) {
+    stage<T, VEC>(xs, x, r0, n, k);
+    stage<T, VEC>(ys, y, c0, m, k);
+    __syncthreads();
+    if (t < 2 * kTile) {
+      const float* s = t < kTile ? xs : ys;
+      const int r = t % kTile;
+      float sq = 0.0f;
+      for (int c = 0; c < k; ++c)
+        sq = fmaf(s[c * kStride + r], s[c * kStride + r], sq);
+      (t < kTile ? xn : yn)[r] = sq;
+      (t < kTile ? xa : ya)[r] = s[(k - 1) * kStride + r];
+    }
+    __syncthreads();
+    add_dots(dot, xs, ys, k - 1, tx, ty);  // the altitude column left out
+  } else {
     float sq = 0.0f;  // thread t < 2 kTile: the norm of one staged row
-    for (int k0 = 0; k0 < k; k0 += kcs) {
-      const int kc = min(kcs, k - k0);
-      stage<T, VEC, !WIDE>(xs, x, r0, n, k, k0, kc);
-      stage<T, VEC, !WIDE>(ys, y, c0, m, k, k0, kc);
+    for (int k0 = 0; k0 < k; k0 += kCols) {
+      const int kc = min(kCols, k - k0);
+      stage_cols<T, VEC>(xs, x, r0, n, k, k0, kc);
+      stage_cols<T, VEC>(ys, y, c0, m, k, k0, kc);
       __syncthreads();
       if (t < 2 * kTile) {
         const float* s = t < kTile ? xs : ys;
@@ -130,66 +181,50 @@ __global__ void __launch_bounds__(kThreads)
           (t < kTile ? xa : ya)[r] = s[(kc - 1) * kStride + r];
         }
       }
-      if constexpr (!WIDE) __syncthreads();  // the norms, then the dot
-      const int kdot = min(kc, k - 1 - k0);  // the altitude column left out
-#pragma unroll 4
-      for (int c = 0; c < kdot; ++c) {
-        const float4 av =
-            *reinterpret_cast<const float4*>(&xs[c * kStride + ty * 4]);
-        const float4 bv =
-            *reinterpret_cast<const float4*>(&ys[c * kStride + tx * 4]);
-        const float a[kMicro] = {av.x, av.y, av.z, av.w};
-        const float b[kMicro] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j)
-            dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
-      }
-      if constexpr (WIDE) __syncthreads();  // before the next chunk's stage
+      __syncthreads();
+      add_dots(dot, xs, ys, min(kc, k - 1 - k0), tx, ty);
+      __syncthreads();  // before the next chunk's stage
     }
-    const int c = tx * 4;
-    const bool whole = (m & 3) == 0 && c0 + c + 3 < m;  // one float4 store
+  }
+  const int c = tx * 4;
+  const bool whole = (m & 3) == 0 && c0 + c + 3 < m;  // one float4 store
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      const int r = ty * 4 + i;
-      if (r0 + r >= n) continue;
-      float o[kMicro];
+  for (int i = 0; i < kMicro; ++i) {
+    const int r = ty * 4 + i;
+    if (r0 + r >= n) continue;
+    float o[kMicro];
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j)
+      o[j] = zen::distance(zen::estimate_sq(xn[r], yn[c + j], dot[i][j],
+                                            xa[r], ya[c + j], mode));
+    float* row = out + (r0 + r) * m + c0 + c;
+    if (whole) {
+      *reinterpret_cast<float4*>(row) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
 #pragma unroll
       for (int j = 0; j < kMicro; ++j)
-        o[j] = zen::distance(zen::estimate_sq(xn[r], yn[c + j], dot[i][j],
-                                              xa[r], ya[c + j], mode));
-      float* row = out + (r0 + r) * m + c0 + c;
-      if (whole) {
-        *reinterpret_cast<float4*>(row) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          if (c0 + c + j < m) row[j] = o[j];
-      }
+        if (c0 + c + j < m) row[j] = o[j];
     }
-    // the staged tiles and norms are read before the next tile's overwrite
-    if (by + gridDim.y < col_tiles) __syncthreads();
   }
 }
 
 template <typename T, bool VEC, bool WIDE>
 cudaError_t launch_tiles(const T* x, const T* y, long long n, long long m,
                          int k, int mode, float* out, cudaStream_t s) {
+  const long long rows = (n + kTile - 1) / kTile;
+  const long long tiles = rows * ((m + kTile - 1) / kTile);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const size_t smem = smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
       zen_estimate_tile<T, VEC, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const long long col_tiles = (m + kTile - 1) / kTile;
-  const dim3 grid(unsigned((n + kTile - 1) / kTile),
-                  unsigned(col_tiles < 65535 ? col_tiles : 65535));
-  zen_estimate_tile<T, VEC, WIDE><<<grid, kThreads, smem, s>>>(x, y, n, m, k,
-                                                               mode, out);
+  zen_estimate_tile<T, VEC, WIDE><<<unsigned(tiles), kThreads, smem, s>>>(
+      x, y, n, m, k, mode, rows, out);
   return cudaGetLastError();
 }
 
+// The whole width at once when it fits one chunk.
 template <typename T, bool VEC>
 cudaError_t launch_width(const T* x, const T* y, long long n, long long m,
                          int k, int mode, float* out, cudaStream_t s) {
