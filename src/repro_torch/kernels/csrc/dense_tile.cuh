@@ -28,8 +28,8 @@
 // with m. BN = 256, BK = 16 serves a narrow K (the transform's 16
 // references) without computing padded columns; BN = BK = 64 serves square
 // tiles. Outputs go out as float4 where K allows. Nothing here uses the
-// tensor cores. The grid is one-dimensional over row tiles x column tiles
-// (2^31 - 1 blocks), so no K is refused by a grid dimension.
+// tensor cores. Grid y holds at most 65,535 column tiles, so a wider K is
+// covered by several launches, each from its own first column tile.
 #pragma once
 
 #include <cstdint>
@@ -96,13 +96,10 @@ __device__ __forceinline__ void stage(float (*dst)[R + kPad],
   }
 }
 
-// One block per (row tile, column tile), row tiles fastest: block b is
-// row tile b % row_tiles of column tile b / row_tiles.
 template <class Op, typename T, int BN, int BK, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     dense_tile(const T* __restrict__ x, const T* __restrict__ y, int64_t n,
-               int64_t k, int m, int64_t row_tiles,
-               float* __restrict__ out) {
+               int64_t k, int m, int64_t col0, float* __restrict__ out) {
   constexpr int TX = BK / kMicro;  // threads along a tile row
   constexpr int TY = BN / kMicro;  // threads along a tile column
   static_assert(TX * TY == kThreads, "one 4 x 4 micro-tile per thread");
@@ -113,8 +110,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float yterm[BK];
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int64_t r0 = (int64_t(blockIdx.x) % row_tiles) * BN;
-  const int64_t c0 = (int64_t(blockIdx.x) / row_tiles) * BK;
+  const int64_t r0 = int64_t(blockIdx.x) * BN;
+  const int64_t c0 = col0 + int64_t(blockIdx.y) * BK;
   float acc[kMicro][kMicro];
 #pragma unroll
   for (int i = 0; i < kMicro; ++i)
@@ -186,22 +183,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per tile: at most 2^31 - 1 of them (a matrix of some 8.8e12
-// outputs), past which the launch is refused.
+// Grid x takes the row tiles, grid y at most kMaxGridY column tiles a
+// launch; the launches go on from column tile t0 until K is covered.
+constexpr long long kMaxGridY = 65535;
+
+template <class Op, typename T, int BN, int BK, bool VEC>
+void launch_grid(const T* x, const T* y, long long n, long long k, int m,
+                 float* out, cudaStream_t s) {
+  const long long col_tiles = (k + BK - 1) / BK;
+  for (long long t0 = 0; t0 < col_tiles; t0 += kMaxGridY) {
+    const long long nt = col_tiles - t0 < kMaxGridY ? col_tiles - t0
+                                                    : kMaxGridY;
+    const dim3 grid(unsigned((n + BN - 1) / BN), unsigned(nt));
+    dense_tile<Op, T, BN, BK, VEC><<<grid, kThreads, 0, s>>>(
+        x, y, n, k, m, t0 * BK, out);
+  }
+}
+
 template <class Op, typename T, bool VEC>
-cudaError_t launch_tiles(const T* x, const T* y, long long n, long long k,
-                         int m, float* out, cudaStream_t s) {
-  const bool narrow = k <= 16;
-  const long long rows = narrow ? (n + 255) / 256 : (n + 63) / 64;
-  const long long tiles = rows * (narrow ? (k + 15) / 16 : (k + 63) / 64);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (narrow)
-    dense_tile<Op, T, 256, 16, VEC><<<unsigned(tiles), kThreads, 0, s>>>(
-        x, y, n, k, m, rows, out);
+void launch_tiles(const T* x, const T* y, long long n, long long k, int m,
+                  float* out, cudaStream_t s) {
+  if (k <= 16)
+    launch_grid<Op, T, 256, 16, VEC>(x, y, n, k, m, out, s);
   else
-    dense_tile<Op, T, 64, 64, VEC><<<unsigned(tiles), kThreads, 0, s>>>(
-        x, y, n, k, m, rows, out);
-  return cudaGetLastError();
+    launch_grid<Op, T, 64, 64, VEC>(x, y, n, k, m, out, s);
 }
 
 // Launches the narrow tile (BN = 256, BK = 16) when K <= 16, else the square
@@ -215,8 +220,11 @@ cudaError_t launch(const void* x, const void* y, long long n, long long k,
   const uintptr_t quad = 4 * sizeof(T);
   const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % quad == 0 &&
                    reinterpret_cast<uintptr_t>(y) % quad == 0;
-  if (vec) return launch_tiles<Op, T, true>(xp, yp, n, k, m, out, s);
-  return launch_tiles<Op, T, false>(xp, yp, n, k, m, out, s);
+  if (vec)
+    launch_tiles<Op, T, true>(xp, yp, n, k, m, out, s);
+  else
+    launch_tiles<Op, T, false>(xp, yp, n, k, m, out, s);
+  return cudaGetLastError();
 }
 
 // dtype: 0 float32, 1 bfloat16.

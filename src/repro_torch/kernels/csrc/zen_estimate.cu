@@ -24,9 +24,10 @@
 // k rounds as one chunk would, and the altitude is taken from the chunk
 // that holds column k-1. The tile of an (i, j) output reads one contiguous
 // span of each operand's rows (16-byte vector loads where k and alignment
-// allow), so ragged N, M and k need no padded copy. The grid is
-// one-dimensional over row tiles x column tiles, so no M is refused by a
-// grid dimension. The estimator and the distance are scoring.cuh's
+// allow), so ragged N, M and k need no padded copy. Grid y holds at most
+// 65,535 column tiles, so a wider M is covered by several launches, each
+// from its own first column tile. The estimator and the distance are
+// scoring.cuh's
 // estimate_sq and distance, the functions zen_topk and the probes score
 // with, so the dense matrix and the top-k kernels cannot drift apart.
 #include <cstdint>
@@ -121,8 +122,8 @@ __device__ __forceinline__ void add_dots(float (&dot)[kMicro][kMicro],
   }
 }
 
-// One block per (row tile, column tile), row tiles fastest: block b is
-// row tile b % row_tiles of column tile b / row_tiles. WIDE (k > kCols):
+// One block per (row tile, column tile): row tile blockIdx.x, column tile
+// col0 / kTile + blockIdx.y. WIDE (k > kCols):
 // the columns are streamed kCols at a time through the same partials, the
 // dot and the norms going on as one FMA chain; otherwise the whole width is
 // staged at once.
@@ -130,7 +131,7 @@ template <typename T, bool VEC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     zen_estimate_tile(const T* __restrict__ x, const T* __restrict__ y,
                       int64_t n, int64_t m, int k, int mode,
-                      int64_t row_tiles, float* __restrict__ out) {
+                      int64_t col0, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int kcs = WIDE ? kCols : k;    // columns staged at a time
   float* xs = smem;                    // [kcs][kStride]
@@ -140,8 +141,8 @@ __global__ void __launch_bounds__(kThreads)
   float* xa = yn + kTile;              // [kTile] altitudes
   float* ya = xa + kTile;
 
-  const int64_t r0 = (int64_t(blockIdx.x) % row_tiles) * kTile;
-  const int64_t c0 = (int64_t(blockIdx.x) / row_tiles) * kTile;
+  const int64_t r0 = int64_t(blockIdx.x) * kTile;
+  const int64_t c0 = col0 + int64_t(blockIdx.y) * kTile;
   const int t = threadIdx.x;
   const int tx = t % kSide, ty = t / kSide;
   float dot[kMicro][kMicro];
@@ -211,16 +212,20 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool VEC, bool WIDE>
 cudaError_t launch_tiles(const T* x, const T* y, long long n, long long m,
                          int k, int mode, float* out, cudaStream_t s) {
-  const long long rows = (n + kTile - 1) / kTile;
-  const long long tiles = rows * ((m + kTile - 1) / kTile);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  constexpr long long kMaxGridY = 65535;
   const size_t smem = smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
       zen_estimate_tile<T, VEC, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  zen_estimate_tile<T, VEC, WIDE><<<unsigned(tiles), kThreads, smem, s>>>(
-      x, y, n, m, k, mode, rows, out);
+  const long long col_tiles = (m + kTile - 1) / kTile;
+  for (long long t0 = 0; t0 < col_tiles; t0 += kMaxGridY) {
+    const long long nt = col_tiles - t0 < kMaxGridY ? col_tiles - t0
+                                                    : kMaxGridY;
+    const dim3 grid(unsigned((n + kTile - 1) / kTile), unsigned(nt));
+    zen_estimate_tile<T, VEC, WIDE><<<grid, kThreads, smem, s>>>(
+        x, y, n, m, k, mode, t0 * kTile, out);
+  }
   return cudaGetLastError();
 }
 
