@@ -21,7 +21,7 @@
 // in flight -- more blocks, 4 to 16 loads a thread, L2 fetch sizes, an L2
 // bulk prefetch or 1-D TMA bulk copies into shared memory
 // (probes/host_reads.cu) -- and on one they reached ~48 GB/s, while the
-// copy engine reaches 43-55 GB/s on all. A dependent 16-byte host read
+// copy engine reaches 41-55 GB/s on all. A dependent 16-byte host read
 // takes ~1.25 us, so ~33 GB/s is ~41 KB in flight: a cap on the host
 // reads outstanding from the SMs, not on what one kernel issues.
 //
