@@ -34,11 +34,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
     "zen_topk": {
         # queries, index, scales, dtype, nq, n_index, k, n_out, mode, then
-        # the plan (w, kq, cap, global_lists, smem, n_split, split_rows,
-        # n_lists, merge_smem), partial, gscratch, out_d, out_i, stream
+        # the plan (kernel, w, kq, cap, global_lists, smem, n_split,
+        # split_rows, n_lists, merge_smem, tile_rows, stages, warps,
+        # streams), partial, gscratch, out_d, out_i, stream
         "zen_topk_launch": ([_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P],
-                            ctypes.c_int),
+                             _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I, _P,
+                             _P, _P, _P, _P], ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "ivf_probe": {

@@ -138,4 +138,55 @@ __device__ __forceinline__ void merge_sorted_segments(uint64_t* l,
   }
 }
 
+// Bitonic sort of 64 keys held two a lane of one warp (elements lane and
+// lane + 32), by shuffles.
+__device__ __forceinline__ void sort64(uint64_t& a, uint64_t& b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // elements lane and lane + 32, ascending
+        const uint64_t x = a < b ? a : b, y = a < b ? b : a;
+        a = x, b = y;
+        continue;
+      }
+      const bool lower = (lane & j) == 0;
+      const uint64_t pa = __shfl_xor_sync(~0u, a, j);
+      const uint64_t pb = __shfl_xor_sync(~0u, b, j);
+      const bool asc_a = (lane & size) == 0, asc_b = ((lane + 32) & size) == 0;
+      a = (lower == asc_a) ? (a < pa ? a : pa) : (a < pa ? pa : a);
+      b = (lower == asc_b) ? (b < pb ? b : pb) : (b < pb ? pb : b);
+    }
+  }
+}
+
+// One warp: the list (l0, l1) = elements lane and lane + 32 of w <= 64
+// ascending keys (empty past w) becomes the w smallest of it and the
+// ascending (b0, b1). min(l[i], b[w-1-i]) is bitonic, and a half-cleaner
+// cascade of shuffles sorts it.
+__device__ __forceinline__ void merge64(uint64_t& l0, uint64_t& l1,
+                                        uint64_t b0, uint64_t b1, int w) {
+  const int lane = threadIdx.x & 31;
+  const int src = (w - 1 - lane) & 31;  // element i sits in lane i % 32
+  const uint64_t r0 = __shfl_sync(~0u, b0, src);
+  const uint64_t r1 = __shfl_sync(~0u, b1, src);
+  if (lane < w) {
+    const uint64_t y = w == 64 ? r1 : r0;  // b[w-1-lane]
+    l0 = y < l0 ? y : l0;
+  }
+  if (lane + 32 < w && r0 < l1) l1 = r0;  // b[31-lane], w = 64
+  if (w == 64 && l1 < l0) {
+    const uint64_t x = l0;
+    l0 = l1, l1 = x;
+  }
+  for (int j = min(w, 32) >> 1; j > 0; j >>= 1) {
+    const bool lower = (lane & j) == 0;
+    const uint64_t p0 = __shfl_xor_sync(~0u, l0, j);
+    const uint64_t p1 = __shfl_xor_sync(~0u, l1, j);
+    l0 = lower == (l0 < p0) ? l0 : p0;
+    l1 = lower == (l1 < p1) ? l1 : p1;
+  }
+}
+
 }  // namespace zen

@@ -6,44 +6,52 @@
 // the estimator, ascending by (distance, row id), without ever holding the
 // (Q, N) distance matrix.
 //
-// What bounds it on an H100: 2*Q*N*k f32 operations against reading the
-// index once. At the serving shape (Q = 64, N = 1e6, k = 16) that is 2.0
-// GFLOP (31 us at 67 TFLOP/s outside the tensor cores) against 64 MB of f32
-// rows (19 us at 3.35 TB/s): compute-bound, and more so for bf16 and int8.
+// What bounds it on an H100, at the serving shape (Q = 64, N = 1e6, k = 16,
+// f32): reading the index once, 64 MB, 19.1 us at 3.35 TB/s. Its 2.05
+// GFLOP take 30.6 us on the CUDA cores (67 TFLOP/s f32), the bound of the
+// SIMT plan; in 3xTF32 on the tensor cores, three products each at 495
+// TFLOP/s, 12.4 us, so the MMA plan is bound by the bytes.
 //
-// Design. The TPU kernel walks N in order inside one grid row and carries
-// the running best in VMEM scratch. Hopper blocks run in no order, and a
-// serving batch has at most 64 queries (8 blocks of 8), so N itself is
-// split to fill the card:
-//   pass 1  grid (Q/KQ, S): a block scores its KQ queries against one
-//           contiguous split of N rows, 512-row tile by tile. The tile is
-//           staged in shared memory 16 columns at a time through a register
-//           double buffer (the next chunk's loads are in flight while this
-//           one is scored), dequantised to f32 right after, and every thread
-//           scores 2 rows against the KQ queries in registers. A candidate
-//           that beats the query's n-th best (as of the last flush) is
-//           appended to a buffer of `cap` keys; when the next tile might not
-//           fit, and at the end, the buffer is bitonic-sorted and merged
-//           into the running best of w keys (the counterpart of concat +
-//           top_k). Once the running best has filled, few rows beat it, so
-//           flushes are rare; a squared-distance bound skips the sqrt for
-//           the rows that cannot.
-//   pass 2  one block per query merges the S partial lists pairwise, in a
-//           tree (padded to a power of two), and writes the first n.
-// Every width n the reference serves is served. The wrapper's planner
-// (kernels/zen_topk.py::launch_geometry) sizes each launch: w, cap >= w
-// (merge_sorted_segments reads w keys of the buffer), KQ in {8, 4, 2, 1}
-// (the most queries whose lists and staged queries fit 227 KB of shared
-// memory), S, and pass 2's shared bytes. Past what one query's lists can
-// keep in shared memory (w >= 16,384 at k = 16), the lists, the buffers and
-// the query live in global memory (the wrapper's scratch; the lists are
-// the partial output itself), and pass 2 merges in place there; the same
-// sort and merge run over them, slower, through L1 and L2. The kernel
-// takes the plan's numbers and never derives them from constants of its
-// own.
+// Two plans; the wrapper's planner (kernels/zen_topk.py::launch_geometry)
+// picks one and sizes it, and the kernels take every number of the plan as
+// an argument.
+//
+// MMA plan (list widths up to 512, and k whose tiles fit the ring): one
+// block an SM walks a contiguous split of N for up to 64 queries.
+//   - One producer warp fills a ring of 2-8 stages of 32-128 rows with TMA
+//     bulk copies (cp.async.bulk, completing on an mbarrier a stage). A
+//     tile of consecutive rows is one contiguous byte range, so the 1-D
+//     copy describes every k, also where k x element size is not a
+//     multiple of 16; a tail under 16 bytes is copied by the producer.
+//   - Each consumer warp owns 8 queries and scores every row: mma.sync
+//     m16n8k8 with rows as M and its queries as N, in split TF32 (x = hi +
+//     lo, dot = hi.hi + hi.lo + lo.hi accumulated in f32) so the dot keeps
+//     f32 accuracy. Rows are dequantised (x row scale) to f32 as they are
+//     read from the stage, and their norms and altitudes summed on the
+//     CUDA cores in f32 (dead rows, 1e15 a coordinate, stay ~1.6e31). The
+//     altitude column is zero in the query operand.
+//   - Each accumulator is compared in registers with its query's threshold
+//     (squared_bound of the n-th best key as of the last flush: stale, so
+//     only looser; a row tied with the n-th best passes, and the merge
+//     compares full keys, so a lower id still wins the tie), and survivors
+//     are appended to the query's buffer with __ballot_sync and a prefix
+//     count. A buffer that might not hold the next step is flushed by its
+//     warp alone: a warp-wide bitonic sort and merge into the query's
+//     running best of w keys, by shuffles up to 64 keys and in shared
+//     memory past that. No block-wide barrier runs after set-up.
+// SIMT plan (wider lists, or rows too wide for the ring): the previous
+// design. A (Q/KQ, S) grid of 256-thread blocks scores KQ in {8, 4, 2, 1}
+// queries against one split of N in 512-row tiles staged in shared memory
+// through a register double buffer, with FMAs on the CUDA cores; candidates
+// are buffered (cap keys a query) and merged into the running best by
+// block-wide bitonic flushes. Past what one query's lists can keep in shared
+// memory (w >= 16,384 at k = 16) the lists and buffers live in global
+// memory (the wrapper's scratch).
+// Pass 2 (both plans): one block a query merges the S partial lists
+// pairwise, in a tree padded to a power of two, in shared memory when they
+// fit (merge_smem) and in place in global memory otherwise, and writes the
+// first n.
 // Scoring and merging live in scoring.cuh, shared with the clustered probe.
-// Nothing here uses the tensor cores: TF32 would break the f32 parity that
-// _DEAD_COORD rows (squared norms ~1e30 * k) need. wgmma/TMA is later work.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -51,7 +59,19 @@
 
 #include "scoring.cuh"
 
+// Phase marks of the MMA consumers for probes/zen_topk_phases.cu, which
+// defines ZEN_TOPK_PROBE and these macros before it includes this file.
+#ifndef ZEN_TOPK_PROBE
+#define ZEN_PROBE_START()
+#define ZEN_PROBE_MARK(phase)
+#define ZEN_PROBE_FLUSH(count)
+#define ZEN_PROBE_END()
+#endif
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// The SIMT plan.
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 2;            // index rows per thread per tile
@@ -62,7 +82,7 @@ constexpr int kRowsPerStep = kThreads / kCols;
 constexpr int kLoads = kTile / kRowsPerStep;  // staged values per thread
 
 // Dynamic shared memory a pass-1 block needs: the layout of
-// zen_topk_partial, mirrored by kernels/zen_topk.py::pass1_smem. The
+// zen_topk_partial, mirrored by kernels/zen_topk.py::simt_smem. The
 // launcher refuses a plan that gives less.
 template <int KQ, bool kGlobal>
 size_t partial_smem_bytes(int k, int w, int cap) {
@@ -309,11 +329,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// One block per query: tree-merge the S sorted partial lists (padded with
-// empty lists to n_lists, a power of two) and write the first n as
-// (distance, id). In shared memory when the plan gives it (merge_smem),
-// else in place in the query's n_lists x w slots of partial.
-__global__ void __launch_bounds__(kThreads)
+// Pass 2, one block per query: tree-merge the S sorted partial lists and
+// write the first n as (distance, id). In shared memory when the plan gives
+// it (merge_smem): up to 64 keys a list each pair of lists merges in one
+// warp's registers, by shuffles, wider lists by block-wide networks; else
+// in place in the query's n_lists x w slots of partial.
+constexpr int kMergeThreads = 1024;
+
+__global__ void __launch_bounds__(kMergeThreads)
     zen_topk_merge(uint64_t* partial, int n_split, int n_lists, int w,
                    int n_out, bool in_smem, float* __restrict__ out_d,
                    int32_t* __restrict__ out_i) {
@@ -323,17 +346,35 @@ __global__ void __launch_bounds__(kThreads)
   uint64_t* lists = src;  // [n_lists][w]
   if (in_smem) {
     lists = reinterpret_cast<uint64_t*>(smem);
-    for (int t = threadIdx.x; t < n_lists * w; t += blockDim.x)
-      lists[t] = t < n_split * w ? src[t] : zen::kEmptyKey;
-  } else {
-    for (int64_t t = int64_t(n_split) * w + threadIdx.x;
-         t < int64_t(n_lists) * w; t += blockDim.x)
-      lists[t] = zen::kEmptyKey;
+    for (int t = threadIdx.x; t < n_split * w; t += blockDim.x)
+      lists[t] = src[t];
   }
   __syncthreads();
-  for (int stride = 1; stride < n_lists; stride <<= 1) {
-    zen::merge_sorted_segments(lists, 2 * stride * w, lists + stride * w,
-                               2 * stride * w, n_lists / (2 * stride), w);
+  if (in_smem && w <= 64) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n_warps = blockDim.x >> 5;
+    for (int stride = 1; stride < n_split; stride <<= 1) {
+      const int pairs = (n_split - stride + 2 * stride - 1) / (2 * stride);
+      for (int p = warp; p < pairs; p += n_warps) {
+        uint64_t* l = lists + int64_t(2 * stride * p) * w;
+        const uint64_t* b = l + int64_t(stride) * w;
+        uint64_t l0 = lane < w ? l[lane] : zen::kEmptyKey;
+        uint64_t l1 = lane + 32 < w ? l[lane + 32] : zen::kEmptyKey;
+        const uint64_t b0 = lane < w ? b[lane] : zen::kEmptyKey;
+        const uint64_t b1 = lane + 32 < w ? b[lane + 32] : zen::kEmptyKey;
+        zen::merge64(l0, l1, b0, b1, w);
+        if (lane < w) l[lane] = l0;
+        if (lane + 32 < w) l[lane + 32] = l1;
+      }
+      __syncthreads();
+    }
+  } else {
+    // only pairs of real lists merge
+    for (int stride = 1, n_cur = n_split; n_cur > 1; stride <<= 1) {
+      zen::merge_sorted_segments(lists, 2 * stride * w, lists + stride * w,
+                                 2 * stride * w, n_cur / 2, w);
+      n_cur = (n_cur + 1) / 2;
+    }
   }
   for (int t = threadIdx.x; t < n_out; t += blockDim.x) {
     const uint64_t key = lists[t];
@@ -390,21 +431,692 @@ cudaError_t launch_dtype(int kq, bool global_lists, int nq, int n_split,
 #undef ZEN_LAUNCH
 }
 
+
+// ---------------------------------------------------------------------------
+// The MMA plan.
+namespace mma {
+
+constexpr int kWarpQueries = 8;  // a consumer warp's queries: the MMA's n
+constexpr int kStepRows = 32;    // rows a warp scores a step: two m16 tiles
+constexpr int kMaxWarps = 16;    // consumer warps a block, at most
+constexpr int kMaxStages = 8;
+constexpr int kBarBytes = 16 * kMaxStages;  // a full and an empty mbarrier
+constexpr int kMinCap = 64;      // buffer keys a query, at least
+
+// Bytes of one ring stage: the rows (rounded up to 16 B), then their
+// scales. Mirrored by kernels/zen_topk.py::mma_stage_bytes.
+__host__ __device__ inline size_t stage_bytes(int tile_rows, int k, int es) {
+  return ((size_t(tile_rows) * k * es + 15) & ~size_t(15)) +
+         sizeof(float) * tile_rows;
+}
+
+// Dynamic shared memory of an MMA block: the mbarriers, the ring, then each
+// consumer warp's 8 running lists (w keys) and 8 buffers (cap keys).
+// Mirrored by kernels/zen_topk.py::mma_smem; the launcher refuses less.
+inline size_t smem_bytes(int k, int es, int w, int cap, int warps,
+                         int tile_rows, int stages) {
+  return kBarBytes + size_t(stages) * stage_bytes(tile_rows, k, es) +
+         sizeof(uint64_t) * warps * kWarpQueries * (size_t(w) + cap);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return uint32_t(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The producer's arrival, announcing `bytes` that bulk copies will bring.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-aligned)
+// from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Copies `bytes` of one array into a stage: the 16-byte multiple by a bulk
+// copy, the tail here (before the producer's arrival, which publishes it).
+// Returns the bytes the bulk copy brings.
+__device__ __forceinline__ int stage_copy(unsigned char* dst,
+                                          const unsigned char* src, int bytes,
+                                          uint64_t* bar, bool issue) {
+  const int bulk = bytes & ~15;
+  if (!issue) {
+    for (int i = bulk; i < bytes; ++i) dst[i] = src[i];
+  } else if (bulk > 0) {
+    bulk_load(dst, src, bulk, bar);
+  }
+  return bulk;
+}
+
+// x = hi + lo, both rounded to TF32 (round to nearest, ties away from
+// zero: half an ulp added to the magnitude bits, the low 13 cleared; as
+// cvt.rna.tf32.f32 for finite x, in two integer operations).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a * b, m16n8k8, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Columns col .. col + 3 of a staged row, f32; zero past k. With kVec
+// (k % 4 == 0) the four are one 16-, 8- or 4-byte load.
+template <typename T, bool kVec>
+__device__ __forceinline__ void load4(const T* row, int col, int k,
+                                      float (&v)[4]) {
+  if constexpr (kVec) {
+    if (col >= k) {
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
+    } else if constexpr (sizeof(T) == 4) {
+      const float4 u = *reinterpret_cast<const float4*>(row + col);
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    } else if constexpr (sizeof(T) == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(row + col);
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+    } else {
+      const char4 u = *reinterpret_cast<const char4*>(row + col);
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = col + j < k ? zen::to_float(row[col + j]) : 0.0f;
+  }
+}
+
+// The query operand of one 16-column chunk: query g's columns c0 + 4t + 2h
+// and + 1 for the chunk's two k-steps h, split hi/lo; zero for the
+// altitude column, past k, and for a query slot past Q.
+__device__ __forceinline__ void query_chunk(const float* qg, bool g_ok, int k,
+                                            int col, uint32_t (&hi)[2][2],
+                                            uint32_t (&lo)[2][2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int c = col + 2 * h + b;
+      split_tf32(g_ok && c < k - 1 ? __ldg(qg + c) : 0.0f, hi[h][b], lo[h][b]);
+    }
+  }
+}
+
+// Bitonic sort of p keys (p a power of two) in shared memory, one warp.
+__device__ __forceinline__ void warp_sort(uint64_t* a, int p) {
+  const int lane = threadIdx.x & 31;
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int i = lane; i < (p >> 1); i += 32) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const uint64_t x = a[lo], y = a[lo + j];
+        if ((x > y) == ((lo & size) == 0)) {
+          a[lo] = y;
+          a[lo + j] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The running best l (w keys, ascending) becomes the w smallest of l and
+// the sorted b (p keys): min(l[i], b[w-1-i]) is bitonic, and a half-cleaner
+// cascade sorts it. One warp.
+__device__ __forceinline__ void warp_merge(uint64_t* l, int w,
+                                           const uint64_t* b, int p) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < w; i += 32) {
+    const int j = w - 1 - i;
+    if (j < p && b[j] < l[i]) l[i] = b[j];
+  }
+  __syncwarp();
+  for (int j = w >> 1; j > 0; j >>= 1) {
+    for (int i = lane; i < (w >> 1); i += 32) {
+      const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+      const uint64_t x = l[lo], y = l[lo + j];
+      if (x > y) {
+        l[lo] = y;
+        l[lo + j] = x;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The bound that the lists of all blocks share. bests holds n_out buckets
+// a query (all ones before the launch); every list publishes its best key
+// into bucket list_id % n_out with atomicMin, so each bucket holds the key
+// of a real row, a different row in each bucket. Once every bucket is
+// filled, n_out rows lie at or below the largest bucket: no row beyond it
+// can be among the query's n_out nearest, and each list may filter with
+// it. It is only read stale, so only looser. One warp; all ones (no bound)
+// until every bucket is filled, and without bests.
+__device__ __forceinline__ uint64_t shared_bound(const uint64_t* bests, int q,
+                                                 int n_out) {
+  uint64_t most = 0;
+  if (bests == nullptr) return ~uint64_t(0);
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < n_out; i += 32) {
+    const uint64_t b = *reinterpret_cast<const volatile uint64_t*>(
+        bests + int64_t(q) * n_out + i);
+    most = b > most ? b : most;
+  }
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const uint64_t o = __shfl_xor_sync(~0u, most, j);
+    most = o > most ? o : most;
+  }
+  return most;
+}
+
+__device__ __forceinline__ void publish_best(uint64_t* bests, int q,
+                                             int n_out, int list_id,
+                                             uint64_t best) {
+  if (bests != nullptr && (threadIdx.x & 31) == 0 && best != zen::kEmptyKey)
+    atomicMin(reinterpret_cast<unsigned long long*>(bests) +
+                  int64_t(q) * n_out + list_id % n_out,
+              static_cast<unsigned long long>(best));
+}
+
+// Tightens this lane's bounds (queries 2t and 2t + 1 of the warp's 8 at
+// qw0) with the shared bound; the 8 queries' buckets are read at once.
+__device__ __forceinline__ void refresh_bounds(const uint64_t* bests, int qw0,
+                                               int nq, int n_out,
+                                               float (&bnd)[2]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  uint64_t most[kWarpQueries];
+#pragma unroll
+  for (int ql = 0; ql < kWarpQueries; ++ql) {
+    most[ql] = 0;
+    for (int i = lane; i < n_out && qw0 + ql < nq; i += 32) {
+      const uint64_t b = *reinterpret_cast<const volatile uint64_t*>(
+          bests + int64_t(qw0 + ql) * n_out + i);
+      most[ql] = b > most[ql] ? b : most[ql];
+    }
+  }
+#pragma unroll
+  for (int ql = 0; ql < kWarpQueries; ++ql) {
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1) {
+      const uint64_t o = __shfl_xor_sync(~0u, most[ql], j);
+      most[ql] = o > most[ql] ? o : most[ql];
+    }
+    if (t == (ql >> 1) && most[ql] <= zen::kEmptyKey) {
+      const float b = zen::squared_bound(zen::key_distance(most[ql]));
+      bnd[ql & 1] = fminf(bnd[ql & 1], b);
+    }
+  }
+}
+
+// A buffered key holds max(z2, 0)'s bits (the squared estimate) above the
+// row id; a flush turns it into the distance key before sorting.
+__device__ __forceinline__ uint64_t to_distance_key(uint64_t z2_key) {
+  const float d = zen::distance(__uint_as_float(uint32_t(z2_key >> 32)));
+  return (uint64_t(__float_as_uint(d)) << 32) | (z2_key & 0xffffffffu);
+}
+
+// Sorts a query's c >= 1 buffered keys (squared-estimate keys, made
+// distance keys first, with `convert`) and merges them into its running
+// best; returns the new n-th best key. One warp; the buffer holds cap >=
+// pow2(c) keys. Up to 64 keys (cap 64, w <= 64) the sort and the merge run
+// in registers, by shuffles; wider ones in shared memory.
+__device__ __noinline__ uint64_t warp_flush(uint64_t* list, uint64_t* buf,
+                                            int c, int w, int n_out, int cap,
+                                            bool convert) {
+  const int lane = threadIdx.x & 31;
+  if (cap <= 64) {
+    uint64_t a = lane < c ? buf[lane] : zen::kEmptyKey;
+    uint64_t b = lane + 32 < c ? buf[lane + 32] : zen::kEmptyKey;
+    if (convert) {
+      if (lane < c) a = to_distance_key(a);
+      if (lane + 32 < c) b = to_distance_key(b);
+    }
+    zen::sort64(a, b);
+    uint64_t l0 = lane < w ? list[lane] : zen::kEmptyKey;
+    uint64_t l1 = lane + 32 < w ? list[lane + 32] : zen::kEmptyKey;
+    zen::merge64(l0, l1, a, b, w);
+    if (lane < w) list[lane] = l0;
+    if (lane + 32 < w) list[lane + 32] = l1;
+    __syncwarp();
+    const int e = n_out - 1;
+    return __shfl_sync(~0u, e < 32 ? l0 : l1, e & 31);
+  }
+  int p = 1;
+  while (p < c) p <<= 1;
+  for (int i = lane; i < p; i += 32) {
+    if (i >= c)
+      buf[i] = zen::kEmptyKey;
+    else if (convert)
+      buf[i] = to_distance_key(buf[i]);
+  }
+  __syncwarp();
+  warp_sort(buf, p);
+  warp_merge(list, w, buf, p);
+  const uint64_t nth = list[n_out - 1];
+  __syncwarp();
+  return nth;
+}
+
+// Pass 1 of the MMA plan. Block (query block x, split y): `streams` row
+// streams of `groups` consumer warps (8 queries each) and one producer
+// warp. Stream s scores the tiles t = s mod streams of the split with its
+// own lists, and the streams' lists merge at the end. KC > 0: k <= 16 KC
+// and the query operand sits in registers; KC = 0: any k, the query
+// operand read per chunk. kVec: k % 4 == 0, four columns a load.
+template <typename T, int KC, bool kVec>
+__global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
+    zen_topk_mma(const float* __restrict__ queries, const T* __restrict__ index,
+                 const float* __restrict__ scales, int nq, int64_t n_index,
+                 int k, int n_out, int w, int cap, int tile_rows, int stages,
+                 int streams, int64_t split_rows, int n_lists, int mode,
+                 uint64_t* __restrict__ partial, uint64_t* __restrict__ bests) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x / 32 - 1, groups = warps / streams;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  const size_t sbytes = stage_bytes(tile_rows, k, sizeof(T));
+  const size_t xbytes = sbytes - sizeof(float) * tile_rows;
+  unsigned char* ring = smem + kBarBytes;
+  uint64_t* lists = reinterpret_cast<uint64_t*>(ring + stages * sbytes);
+  uint64_t* bufs = lists + size_t(warps) * kWarpQueries * w;
+  const int64_t row_begin = int64_t(blockIdx.y) * split_rows;
+  const int64_t row_end = min(n_index, row_begin + split_rows);
+  const int n_tiles =
+      row_begin < row_end ? int((row_end - row_begin - 1) / tile_rows) + 1 : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], groups);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == warps) {  // the producer: one lane keeps the ring full
+    if (lane == 0) {
+      for (int tl = 0; tl < n_tiles; ++tl) {
+        const int s = tl % stages;
+        if (tl >= stages) bar_wait(&empty[s], ((tl / stages) + 1) & 1);
+        const int64_t tile0 = row_begin + int64_t(tl) * tile_rows;
+        const int rows = int(min(int64_t(tile_rows), row_end - tile0));
+        unsigned char* sx = ring + s * sbytes;
+        const auto* gx =
+            reinterpret_cast<const unsigned char*>(index + tile0 * k);
+        const auto* gs = reinterpret_cast<const unsigned char*>(scales + tile0);
+        const int xb = rows * k * int(sizeof(T)), sb = scales ? rows * 4 : 0;
+        // the tails first: the arrival below publishes them
+        stage_copy(sx, gx, xb, &full[s], false);
+        stage_copy(sx + xbytes, gs, sb, &full[s], false);
+        bar_expect(&full[s], (xb & ~15) + (sb & ~15));
+        stage_copy(sx, gx, xb, &full[s], true);
+        stage_copy(sx + xbytes, gs, sb, &full[s], true);
+      }
+    }
+    return;
+  }
+
+  // a consumer: 8 queries against its stream's rows of the split
+  const int group = warp % groups, stream = warp / groups;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = (blockIdx.x * groups + group) * kWarpQueries;
+  const bool idle = qw0 >= nq;
+  uint64_t* list = lists + size_t(warp) * kWarpQueries * w;
+  uint64_t* buf = bufs + size_t(warp) * kWarpQueries * cap;
+  for (int i = lane; i < kWarpQueries * w; i += 32) list[i] = zen::kEmptyKey;
+  __syncwarp();
+  // this lane's accumulator queries 2t and 2t + 1: norms, altitudes, and the
+  // squared distance bound of the n-th best as of the last flush
+  float qn[2], qa[2], bnd[2];
+  int cnt[2];
+  bool qok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int q = qw0 + 2 * t + j;
+    qok[j] = q < nq;
+    float s = 0.0f;
+    for (int c = 0; qok[j] && c < k; ++c) {
+      const float v = __ldg(queries + int64_t(q) * k + c);
+      s = fmaf(v, v, s);
+    }
+    qn[j] = s;
+    qa[j] = qok[j] ? __ldg(queries + int64_t(q) * k + k - 1) : 0.0f;
+    bnd[j] = __int_as_float(0x7f800000);
+    cnt[j] = 0;
+  }
+  // the query operand: query g of the warp (the MMA's column g)
+  const float* qg = queries + int64_t(qw0 + g) * k;
+  const bool g_ok = qw0 + g < nq;
+  uint32_t qhi[KC > 0 ? KC : 1][2][2], qlo[KC > 0 ? KC : 1][2][2];
+  if constexpr (KC > 0) {
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      query_chunk(qg, g_ok, k, 16 * c + 4 * t, qhi[c], qlo[c]);
+  }
+  // where the altitude column k - 1 sits: chunk, lane column, element
+  const int alt_c = (k - 1) >> 4, alt_t = ((k - 1) & 15) >> 2,
+            alt_j = (k - 1) & 3;
+  const int n_chunks = (k + 15) >> 4;
+  // flush a buffer that holds more than lim: 0 until its first flush (so
+  // every list publishes a best key after one step), then cap - 32
+  const int limit = cap - kStepRows;
+  int lim[2] = {0, 0};
+  const uint32_t mine = 0x11111111u << t, below = (1u << lane) - 1u;
+  const int list_id = blockIdx.y * streams + stream;
+  ZEN_PROBE_START();
+
+  for (int tl = stream; tl < n_tiles; tl += streams) {
+    const int s = tl % stages;
+    bar_wait(&full[s], (tl / stages) & 1);
+    ZEN_PROBE_MARK(0);
+    const int64_t tile0 = row_begin + int64_t(tl) * tile_rows;
+    const int rows = int(min(int64_t(tile_rows), row_end - tile0));
+    const T* sx = reinterpret_cast<const T*>(ring + s * sbytes);
+    const float* ss = reinterpret_cast<const float*>(ring + s * sbytes + xbytes);
+    if (bests != nullptr && !idle) refresh_bounds(bests, qw0, nq, n_out, bnd);
+    for (int r0 = 0; r0 < rows && !idle; r0 += kStepRows) {
+      // rows r0 + 16m + 8r + g (m: m16 tile, r: its upper or lower half);
+      // the dot's hi.hi products and its cross terms accumulate apart
+      float big[2][4], small[2][4], nx[2][2], xa[2][2], sc[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) big[m][i] = small[m][i] = 0.0f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          nx[m][r] = xa[m][r] = 0.0f;
+          sc[m][r] = scales ? ss[r0 + 16 * m + 8 * r + g] : 1.0f;
+        }
+      }
+      const int nc = KC > 0 ? KC : n_chunks;
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        if (KC > 0 && c >= n_chunks) break;
+        const int col = 16 * c + 4 * t;
+        float v[2][2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            load4<T, kVec>(sx + size_t(r0 + 16 * m + 8 * r + g) * k, col, k,
+                           v[m][r]);
+            if (scales) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) v[m][r][j] *= sc[m][r];
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              nx[m][r] = fmaf(v[m][r][j], v[m][r][j], nx[m][r]);
+            const float pick = alt_j == 0   ? v[m][r][0]
+                               : alt_j == 1 ? v[m][r][1]
+                               : alt_j == 2 ? v[m][r][2]
+                                            : v[m][r][3];
+            xa[m][r] = (c == alt_c && t == alt_t) ? pick : xa[m][r];
+          }
+        }
+        uint32_t bh[2][2], bl[2][2];
+        if constexpr (KC > 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              bh[h][b] = qhi[c][h][b];
+              bl[h][b] = qlo[c][h][b];
+            }
+        } else {
+          query_chunk(qg, g_ok, k, col, bh, bl);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            uint32_t ah[4], al[4];
+            split_tf32(v[m][0][2 * h], ah[0], al[0]);
+            split_tf32(v[m][1][2 * h], ah[1], al[1]);
+            split_tf32(v[m][0][2 * h + 1], ah[2], al[2]);
+            split_tf32(v[m][1][2 * h + 1], ah[3], al[3]);
+            mma_tf32(small[m], al, bh[h][0], bh[h][1]);
+            mma_tf32(small[m], ah, bl[h][0], bl[h][1]);
+            mma_tf32(big[m], ah, bh[h][0], bh[h][1]);
+          }
+        }
+      }
+      // whole-row norms and altitudes from the four lanes of a row
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          nx[m][r] += __shfl_xor_sync(~0u, nx[m][r], 1);
+          nx[m][r] += __shfl_xor_sync(~0u, nx[m][r], 2);
+          xa[m][r] = __shfl_sync(~0u, xa[m][r], (lane & ~3) | alt_t);
+        }
+      }
+      // the filter, on the squared distance alone: accumulator (m, r, j)
+      // is row r0 + 16m + 8r + g against query 2t + j. The bound is at or
+      // above the n-th best's squared distance, so a row tied with it (a
+      // lower id may still win) passes; the merge compares full keys.
+      float z2[2][2][2];
+      bool keep[2][2][2];
+      bool any = false;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rl = r0 + 16 * m + 8 * r + g;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            z2[m][r][j] = zen::estimate_sq(
+                qn[j], nx[m][r], big[m][2 * r + j] + small[m][2 * r + j],
+                qa[j], xa[m][r], mode);
+            keep[m][r][j] = rl < rows && qok[j] && z2[m][r][j] <= bnd[j];
+            any |= keep[m][r][j];
+          }
+        }
+      }
+      ZEN_PROBE_MARK(1);
+      // append the survivors (squared-estimate keys): the 8 lanes of
+      // column t share queries 2t and 2t + 1
+      if (__any_sync(~0u, any)) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t b = __ballot_sync(~0u, keep[m][r][j]) & mine;
+              if (keep[m][r][j])
+                buf[(2 * t + j) * cap + cnt[j] + __popc(b & below)] =
+                    (uint64_t(__float_as_uint(fmaxf(z2[m][r][j], 0.0f)))
+                     << 32) |
+                    uint32_t(tile0 + r0 + 16 * m + 8 * r + g);
+              cnt[j] += __popc(b);
+            }
+          }
+        }
+        __syncwarp();
+      }
+      ZEN_PROBE_MARK(2);
+      // flush each buffer that might not hold the next step
+      if (__any_sync(~0u, cnt[0] > lim[0] || cnt[1] > lim[1])) {
+        for (int ql = 0; ql < kWarpQueries; ++ql) {
+          const int c = __shfl_sync(~0u, (ql & 1) ? cnt[1] : cnt[0], ql >> 1);
+          const int cl = __shfl_sync(~0u, (ql & 1) ? lim[1] : lim[0], ql >> 1);
+          if (c <= cl) continue;
+          ZEN_PROBE_FLUSH(c);
+          const uint64_t shared_nth = shared_bound(bests, qw0 + ql, n_out);
+          uint64_t nth = warp_flush(list + ql * w, buf + ql * cap, c, w,
+                                    n_out, cap, true);
+          publish_best(bests, qw0 + ql, n_out, list_id, list[ql * w]);
+          nth = nth < shared_nth ? nth : shared_nth;
+          if (t == (ql >> 1)) {
+            const float b = zen::squared_bound(zen::key_distance(nth));
+            if (ql & 1) {
+              cnt[1] = 0, bnd[1] = b, lim[1] = limit;
+            } else {
+              cnt[0] = 0, bnd[0] = b, lim[0] = limit;
+            }
+          }
+        }
+      }
+      ZEN_PROBE_MARK(3);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);
+  }
+  if (!idle) {
+    for (int ql = 0; ql < kWarpQueries; ++ql) {
+      const int c = __shfl_sync(~0u, (ql & 1) ? cnt[1] : cnt[0], ql >> 1);
+      if (c > 0) {
+        ZEN_PROBE_FLUSH(c);
+        warp_flush(list + ql * w, buf + ql * cap, c, w, n_out, cap, true);
+      }
+    }
+  }
+  ZEN_PROBE_MARK(3);
+  ZEN_PROBE_END();
+  // the streams' lists merge pairwise into stream 0's, in a tree (the
+  // consumers alone meet at named barrier 1)
+  for (int half = streams >> 1; half > 0; half >>= 1) {
+    asm volatile("bar.sync 1, %0;" ::"r"(warps * 32) : "memory");
+    if (stream < half && !idle) {
+      const uint64_t* other = lists + size_t(warp + half * groups) *
+                                          kWarpQueries * w;
+      for (int ql = 0; ql < kWarpQueries; ++ql)
+        warp_flush(list + ql * w, const_cast<uint64_t*>(other) + ql * w, w,
+                   w, n_out, w, false);
+    }
+  }
+  if (stream != 0 || idle) return;
+  for (int ql = 0; ql < kWarpQueries; ++ql) {
+    const int q = qw0 + ql;
+    if (q >= nq) break;
+    uint64_t* dst = partial + (int64_t(q) * n_lists + blockIdx.y) * w;
+    for (int i = lane; i < w; i += 32) dst[i] = list[ql * w + i];
+  }
+}
+
+template <typename T, int KC, bool kVec>
+cudaError_t launch(int nq, int n_split, size_t smem, cudaStream_t stream,
+                   const float* queries, const void* index,
+                   const float* scales, int64_t n_index, int k, int n_out,
+                   int w, int cap, int tile_rows, int stages, int warps,
+                   int streams, int64_t split_rows, int n_lists, int mode,
+                   uint64_t* partial, uint64_t* bests) {
+  const bool pow2 = (cap & (cap - 1)) == 0;
+  if (warps < 1 || warps > kMaxWarps || streams < 1 || warps % streams != 0 ||
+      (streams & (streams - 1)) != 0 || stages < 2 || stages > kMaxStages ||
+      tile_rows < kStepRows || tile_rows % kStepRows != 0 || !pow2 ||
+      cap < kMinCap || cap < w || (KC > 0 && k > 16 * KC) ||
+      kVec != (k % 4 == 0) || reinterpret_cast<uintptr_t>(index) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(scales) % 16 != 0 ||
+      split_rows % tile_rows != 0 ||
+      smem < smem_bytes(k, sizeof(T), w, cap, warps, tile_rows, stages))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(zen_topk_mma<T, KC, kVec>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
+  if (err != cudaSuccess) return err;
+  if (bests != nullptr) {
+    err = cudaMemsetAsync(bests, 0xff, sizeof(uint64_t) * nq * n_out, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const int per_block = warps / streams * kWarpQueries;
+  const dim3 grid((nq + per_block - 1) / per_block, n_split);
+  zen_topk_mma<T, KC, kVec><<<grid, (warps + 1) * 32, smem, stream>>>(
+      queries, static_cast<const T*>(index), scales, nq, n_index, k, n_out, w,
+      cap, tile_rows, stages, streams, split_rows, n_lists, mode, partial,
+      bests);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dtype(int nq, int n_split, size_t smem, cudaStream_t s,
+                         const float* q, const void* index, const float* sc,
+                         int64_t n_index, int k, int n_out, int w, int cap,
+                         int tile_rows, int stages, int warps, int streams,
+                         int64_t split_rows, int n_lists, int mode,
+                         uint64_t* part, uint64_t* bests) {
+#define ZEN_MMA(KC, VEC)                                                     \
+  launch<T, KC, VEC>(nq, n_split, smem, s, q, index, sc, n_index, k, n_out, \
+                     w, cap, tile_rows, stages, warps, streams, split_rows, \
+                     n_lists, mode, part, bests)
+  const bool vec = k % 4 == 0;
+  if (k <= 16) return vec ? ZEN_MMA(1, true) : ZEN_MMA(1, false);
+  return vec ? ZEN_MMA(0, true) : ZEN_MMA(0, false);
+#undef ZEN_MMA
+}
+
+}  // namespace mma
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16, 2 int8. scales may be null. The plan
-// (w, kq, cap, global_lists, smem, n_split, split_rows, n_lists,
-// merge_smem) comes from kernels/zen_topk.py::launch_geometry: partial
-// holds nq * n_lists * w keys, gscratch (global_lists only) nq * n_split *
-// cap. Returns the CUDA error code of the launches (0 on success).
+// dtype: 0 float32, 1 bfloat16, 2 int8. scales may be null. The plan comes
+// from kernels/zen_topk.py::launch_geometry: kernel 1 is the MMA plan (w,
+// cap, smem, n_split, split_rows, n_lists, tile_rows, stages, warps,
+// streams; index and scales 16-byte aligned), kernel 0 the SIMT plan (w, kq, cap,
+// global_lists, smem, n_split, split_rows, n_lists); merge_smem is pass 2's.
+// partial holds nq * n_lists * w keys. gscratch: under the SIMT plan with
+// global lists nq * n_split * cap keys; under the MMA plan the shared
+// bound's nq * n_out buckets (filled with ones here), or null for none. Returns the CUDA error code of the launches (0 on
+// success).
 int zen_topk_launch(const void* queries, const void* index, const void* scales,
                     int dtype, int nq, long long n_index, int k, int n_out,
-                    int mode, int w, int kq, int cap, int global_lists,
-                    int smem, int n_split, long long split_rows, int n_lists,
-                    int merge_smem, void* partial, void* gscratch, void* out_d,
-                    void* out_i, void* stream) {
+                    int mode, int kernel, int w, int kq, int cap,
+                    int global_lists, int smem, int n_split,
+                    long long split_rows, int n_lists, int merge_smem,
+                    int tile_rows, int stages, int warps, int streams,
+                    void* partial, void* gscratch, void* out_d, void* out_i,
+                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(queries);
   const float* sc = static_cast<const float*>(scales);
@@ -412,24 +1124,51 @@ int zen_topk_launch(const void* queries, const void* index, const void* scales,
   uint64_t* gs = static_cast<uint64_t*>(gscratch);
   const bool g = global_lists != 0;
   cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_dtype<float>(kq, g, nq, n_split, smem, s, q, index, sc,
-                                n_index, k, n_out, w, cap, split_rows,
-                                n_lists, mode, part, gs);
-      break;
-    case 1:
-      err = launch_dtype<__nv_bfloat16>(kq, g, nq, n_split, smem, s, q, index,
-                                        sc, n_index, k, n_out, w, cap,
-                                        split_rows, n_lists, mode, part, gs);
-      break;
-    case 2:
-      err = launch_dtype<int8_t>(kq, g, nq, n_split, smem, s, q, index, sc,
-                                 n_index, k, n_out, w, cap, split_rows,
-                                 n_lists, mode, part, gs);
-      break;
-    default:
-      return int(cudaErrorInvalidValue);
+  if (kernel == 1) {
+    switch (dtype) {
+      case 0:
+        err = mma::launch_dtype<float>(nq, n_split, smem, s, q, index, sc,
+                                       n_index, k, n_out, w, cap, tile_rows,
+                                       stages, warps, streams, split_rows,
+                                       n_lists, mode, part, gs);
+        break;
+      case 1:
+        err = mma::launch_dtype<__nv_bfloat16>(
+            nq, n_split, smem, s, q, index, sc, n_index, k, n_out, w, cap,
+            tile_rows, stages, warps, streams, split_rows, n_lists, mode,
+            part, gs);
+        break;
+      case 2:
+        err = mma::launch_dtype<int8_t>(nq, n_split, smem, s, q, index, sc,
+                                        n_index, k, n_out, w, cap, tile_rows,
+                                        stages, warps, streams, split_rows,
+                                        n_lists, mode, part, gs);
+        break;
+      default:
+        return int(cudaErrorInvalidValue);
+    }
+  } else if (kernel == 0) {
+    switch (dtype) {
+      case 0:
+        err = launch_dtype<float>(kq, g, nq, n_split, smem, s, q, index, sc,
+                                  n_index, k, n_out, w, cap, split_rows,
+                                  n_lists, mode, part, gs);
+        break;
+      case 1:
+        err = launch_dtype<__nv_bfloat16>(kq, g, nq, n_split, smem, s, q,
+                                          index, sc, n_index, k, n_out, w, cap,
+                                          split_rows, n_lists, mode, part, gs);
+        break;
+      case 2:
+        err = launch_dtype<int8_t>(kq, g, nq, n_split, smem, s, q, index, sc,
+                                   n_index, k, n_out, w, cap, split_rows,
+                                   n_lists, mode, part, gs);
+        break;
+      default:
+        return int(cudaErrorInvalidValue);
+    }
+  } else {
+    return int(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return int(err);
   if (merge_smem > 0) {
@@ -440,7 +1179,7 @@ int zen_topk_launch(const void* queries, const void* index, const void* scales,
                                merge_smem);
     if (err != cudaSuccess) return int(err);
   }
-  zen_topk_merge<<<nq, kThreads, merge_smem, s>>>(
+  zen_topk_merge<<<nq, kMergeThreads, merge_smem, s>>>(
       part, n_split, n_lists, w, n_out, merge_smem > 0,
       static_cast<float*>(out_d), static_cast<int32_t*>(out_i));
   return int(cudaGetLastError());

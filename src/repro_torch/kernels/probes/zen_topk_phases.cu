@@ -24,7 +24,34 @@
 
 #include <cuda_runtime.h>
 
-#include "../csrc/scoring.cuh"
+// The MMA plan's consumers mark four phases a step (wait for the stage,
+// scoring and filter, append, flushes) and count flushes and flushed keys.
+#define ZEN_TOPK_PROBE
+__device__ long long g_mma_probe[132 * 16 * 8][6];
+#define ZEN_PROBE_START() \
+  long long zp_t = clock64(), zp_acc[4] = {0, 0, 0, 0}, zp_n = 0, zp_c = 0
+#define ZEN_PROBE_MARK(p)               \
+  do {                                  \
+    const long long zp_now = clock64(); \
+    zp_acc[p] += zp_now - zp_t;         \
+    zp_t = zp_now;                      \
+  } while (0)
+#define ZEN_PROBE_FLUSH(c) \
+  do {                     \
+    ++zp_n;                \
+    zp_c += (c);           \
+  } while (0)
+#define ZEN_PROBE_END()                                                     \
+  do {                                                                      \
+    if (lane == 0) {                                                        \
+      long long* o =                                                        \
+          g_mma_probe[(blockIdx.y * gridDim.x + blockIdx.x) * 16 + warp];    \
+      for (int i = 0; i < 4; ++i) o[i] = zp_acc[i];                         \
+      o[4] = zp_n;                                                          \
+      o[5] = zp_c;                                                          \
+    }                                                                       \
+  } while (0)
+#include "../csrc/zen_topk.cu"
 
 #define CK(x)                                                          \
   do {                                                                 \
@@ -35,7 +62,7 @@
     }                                                                  \
   } while (0)
 
-namespace {
+namespace simt_probe {
 
 constexpr int kThreads = 256, kRowsPerThread = 2, kTile = 512, kCols = 16;
 constexpr int kXStride = kCols + 1, kRowsPerStep = kThreads / kCols;
@@ -272,9 +299,63 @@ __global__ void fill_normal(float* x, int64_t n, int k, uint32_t seed) {
   }
 }
 
-}  // namespace
+// The MMA plan at the serving shape for n_out neighbours (list width w, as
+// launch_geometry plans it): pass 1 alone, both passes, and the phases.
+int run_mma(const float* q, const float* x, int nq, int64_t n_index, int k,
+            int n_out, int w, int smem, int merge_smem, uint64_t* part,
+            uint64_t* bests, float* out_d, int32_t* out_i) {
+  const int cap = w < 64 ? 64 : w, tile_rows = 128, stages = 4, warps = 16,
+            streams = 2;
+  const int n_split = 131, n_lists = 256;
+  const int64_t split_rows = 7680;
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  auto time = [&](auto fn) {
+    for (int i = 0; i < 3; ++i) fn();
+    cudaEventRecord(e0);
+    for (int i = 0; i < 20; ++i) fn();
+    cudaEventRecord(e1);
+    cudaEventSynchronize(e1);
+    float ms;
+    cudaEventElapsedTime(&ms, e0, e1);
+    return ms / 20;
+  };
+  const float t1 = time([&] {
+    mma::launch<float, 1, true>(nq, n_split, smem, 0, q, x, nullptr, n_index,
+                                k, n_out, w, cap, tile_rows, stages, warps,
+                                streams, split_rows, n_lists, 0, part, bests);
+  });
+  const float t12 = time([&] {
+    zen_topk_launch(q, x, nullptr, 0, nq, n_index, k, n_out, 0, 1, w, 64, cap,
+                    0, smem, n_split, split_rows, n_lists, merge_smem,
+                    tile_rows, stages, warps, streams, part, bests, out_d,
+                    out_i, 0);
+  });
+  CK(cudaDeviceSynchronize());
+  static long long h[132 * 16 * 8][6];
+  CK(cudaMemcpyFromSymbol(h, g_mma_probe, sizeof(h)));
+  double ph[6] = {0};
+  const int n_warps = n_split * warps;
+  for (int i = 0; i < n_warps; ++i)
+    for (int p = 0; p < 6; ++p) ph[p] += double(h[i][p]) / n_warps;
+  const double tot = ph[0] + ph[1] + ph[2] + ph[3];
+  const char* names[4] = {"wait for the stage (full mbarrier)",
+                          "scoring + filter (loads, 3xTF32 MMA, epilogue)",
+                          "append (ballot, prefix, stores)",
+                          "flushes (warp sort + merge)"};
+  printf("MMA plan n=%d (w=%d, cap=%d, %d B, %s bound): pass 1 %.4f ms, "
+         "both %.4f ms\n", n_out, w, cap, smem,
+         bests ? "shared" : "no shared", t1, t12);
+  for (int p = 0; p < 4; ++p)
+    printf("  phase %-52s %10.0f cycles a warp  %5.1f%%\n", names[p], ph[p],
+           100 * ph[p] / tot);
+  printf("  a consumer warp: %.0f cycles, %.1f flushes, %.0f flushed keys "
+         "(%.1f a query)\n", tot, ph[4], ph[5], ph[5] / 8);
+  return 0;
+}
 
-int main() {
+int run() {
   const int nq = 64, k = 16, n_out = 64, w = 64, cap = 1024;
   const int64_t n_index = 1000000, split_rows = 30720;
   const int n_split = 33, n_lists = 64;
@@ -357,5 +438,17 @@ int main() {
   for (int i = 0; i < nq; ++i)
     for (int j = 1; j < n_out; ++j) sorted &= hd[i * n_out + j - 1] <= hd[i * n_out + j];
   printf("results ascending: %s (query 0: %.4f .. %.4f)\n", sorted ? "yes" : "NO", hd[0], hd[n_out - 1]);
+  uint64_t* part2;
+  CK(cudaMalloc(&part2, size_t(nq) * 256 * 64 * 8));
+  uint64_t* bests;
+  CK(cudaMalloc(&bests, size_t(nq) * 64 * 8));
+  if (run_mma(q, x, nq, n_index, k, 64, 64, 166016, 131072, part2, bests, out_d, out_i) ||
+      run_mma(q, x, nq, n_index, k, 10, 16, 116864, 32768, part2, bests, out_d, out_i) ||
+      run_mma(q, x, nq, n_index, k, 64, 64, 166016, 131072, part2, nullptr, out_d, out_i))
+    return 1;
   return sorted ? 0 : 1;
 }
+
+}  // namespace simt_probe
+
+int main() { return simt_probe::run(); }

@@ -32,22 +32,45 @@ Tensor = torch.Tensor
 #: dynamic shared memory a plan gives one block: the 227 KB (232,448 B) a
 #: block may take on an H100, less 1 KB left for the kernels' static
 #: __shared__ variables (16 B in the probes, none in zen_topk, per ptxas);
-#: and what each of two blocks on one SM may take (the SM's 228 KB less
-#: 1 KB the hardware reserves per block, halved)
+#: what each of two blocks on one SM may take (the SM's 228 KB less 1 KB
+#: the hardware reserves per block, halved); and the SM's 228 KB
 SMEM_LIMIT = 232_448 - 1_024
 SMEM_TWO_BLOCKS = 115_712
+SMEM_SM = 233_472
+#: the most 8-byte keys pass 2 holds in shared memory: n_lists * w is a
+#: power of two, and 16,384 keys (128 KB) is the largest within SMEM_LIMIT
+_MERGE_KEYS = 16_384
 
-#: rows one pass-1 block scores per tile (kTile in csrc/zen_topk.cu)
+# The SIMT plan (csrc/zen_topk.cu, zen_topk_partial)
+#: rows one pass-1 block scores per tile (kTile)
 _TILE_ROWS = 512
 #: columns staged per pass, with one word of padding per staged row
 _X_STRIDE = 17
 #: queries per pass-1 block, widest first (the kernel's instantiations)
 _BLOCK_QUERIES = (8, 4, 2, 1)
-#: the most 8-byte keys pass 2 holds in shared memory: n_lists * w is a
-#: power of two, and 16,384 keys (128 KB) is the largest within SMEM_LIMIT
-_MERGE_KEYS = 16_384
+
+# The MMA plan (csrc/zen_topk.cu, namespace mma)
+#: queries a consumer warp owns (the MMA's n), rows it scores a step
+_WARP_QUERIES = 8
+_STEP_ROWS = 32
+#: consumer warps a block, query groups (8 queries each) among them, and
+#: ring stages, at most; the mbarriers' bytes
+_MAX_WARPS = 16
+_MAX_GROUPS = 8
+_MAX_STAGES = 8
+_BAR_BYTES = 16 * _MAX_STAGES
+#: tile heights, tallest first, and the stage bytes a tile should not pass
+_MMA_TILE_ROWS = (128, 64, 32)
+_STAGE_TARGET = 16_384
+#: bytes of index rows the ring keeps in flight on an SM
+_RING_TARGET = 32_768
+#: buffer keys a query, at least (a flush merges 33 to 64 at w <= 64)
+_MIN_CAP = 64
+#: the widest list the MMA plan keeps; wider ones take the SIMT plan
+MMA_MAX_W = 512
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_KERNELS = {"simt": 0, "mma": 1}
 
 
 def _pow2_ceil(x: int) -> int:
@@ -59,15 +82,24 @@ class TopkPlan:
     """The geometry of one ``zen_topk`` launch; the kernel takes every
     field as an argument and derives none of them itself.
 
-    Pass 1 runs a (ceil(Q / queries_per_block), n_split) grid; each block
-    keeps, per query, a sorted list of ``w`` keys and a buffer of ``cap``
-    unsorted candidates. They sit in ``smem`` bytes of shared memory, or,
-    when even one query a block does not fit (``global_lists``), in global
-    scratch that the wrapper allocates. Pass 2 merges each query's
-    ``n_lists`` lists (``n_split`` padded to a power of two) in
-    ``merge_smem`` bytes of shared memory, or in place in global memory
-    when ``merge_smem`` is 0.
+    ``kernel`` names the pass-1 kernel. ``"mma"``: a (ceil(Q /
+    queries_per_block), n_split) grid of blocks, each ``warps`` consumer
+    warps of 8 queries in ``streams`` row streams (a stream scores every
+    ``streams``-th tile of the split; their lists merge in the block at
+    the end) and one producer warp that fills a ring of ``stages`` tiles of
+    ``tile_rows`` rows by TMA bulk copies; each (query, stream) keeps a
+    sorted list of ``w`` keys and a buffer of ``cap`` candidates in
+    ``smem`` bytes of shared memory, ``blocks_per_sm`` blocks an SM.
+    ``"simt"``: a grid of 256-thread blocks of ``queries_per_block`` queries
+    scoring 512-row tiles on the CUDA cores, the lists and buffers in shared
+    memory or, when even one query a block does not fit
+    (``global_lists``), in global scratch that the wrapper allocates
+    (``warps``, ``streams``, ``stages``: 0). Both cut N into ``n_split`` splits of
+    ``split_rows`` rows. Pass 2 merges each query's ``n_lists`` lists
+    (``n_split`` padded to a power of two) in ``merge_smem`` bytes of
+    shared memory, or in place in global memory when ``merge_smem`` is 0.
     """
+    kernel: str
     w: int
     queries_per_block: int
     cap: int
@@ -78,59 +110,165 @@ class TopkPlan:
     split_rows: int
     n_lists: int
     merge_smem: int
+    tile_rows: int
+    stages: int
+    warps: int
+    streams: int
+
+    def shares_bound(self, n_out: int) -> bool:
+        """Whether the MMA plan's lists share a bound across blocks: it
+        needs n_out buckets a query, each fed by at least one list."""
+        return self.kernel == "mma" and self.n_split * self.streams >= n_out
+
+    @property
+    def route(self) -> str:
+        """How pass 1 loads the index and scores it."""
+        if self.kernel == "mma":
+            return "TMA bulk copies; mma.sync m16n8k8 3xTF32"
+        return "register-staged loads; f32 FMA on the CUDA cores"
 
 
-def pass1_smem(k: int, w: int, cap: int, queries_per_block: int,
-               global_lists: bool) -> int:
-    """Dynamic shared memory of a pass-1 block, as csrc/zen_topk.cu lays it
-    out: the lists and buffers (8-byte keys) and the staged queries unless
-    they live in global memory, then the staged tile, the per-query norm,
-    altitude and bound (f32) and the buffer counts (int32)."""
+def simt_smem(k: int, w: int, cap: int, queries_per_block: int,
+              global_lists: bool) -> int:
+    """Dynamic shared memory of a SIMT pass-1 block, as csrc/zen_topk.cu
+    lays it out: the lists and buffers (8-byte keys) and the staged queries
+    unless they live in global memory, then the staged tile, the per-query
+    norm, altitude and bound (f32) and the buffer counts (int32)."""
     kq = queries_per_block
     lists = 0 if global_lists else 8 * kq * (w + cap) + 4 * kq * k
     return lists + 4 * (_TILE_ROWS * _X_STRIDE + 3 * kq) + 4 * kq
 
 
-def launch_geometry(nq: int, n_index: int, n_out: int, k: int,
-                    n_sms: int) -> TopkPlan:
-    """The plan of one launch for Q = ``nq`` queries of width ``k`` over
-    ``n_index`` rows, keeping ``n_out`` neighbours, on ``n_sms`` SMs.
+def mma_stage_bytes(tile_rows: int, k: int, elem_bytes: int) -> int:
+    """One ring stage of the MMA plan: the rows (rounded up to 16 B), then
+    their f32 scales."""
+    return ((tile_rows * k * elem_bytes + 15) & ~15) + 4 * tile_rows
 
-    ``w`` is the list width (a power of two >= n_out) and the candidate
-    buffer holds ``max(2 * kTile, w)`` keys, at least a list. A block takes
-    the most queries (8, 4, 2, 1) whose lists fit shared memory, else one
-    query with its lists in global memory. N is cut into ``n_split``
-    contiguous splits of ``split_rows`` rows (a multiple of the tile):
-    enough blocks to fill every SM (two a SM where two fit), but no split
-    shorter than one tile or than one list, and, while pass 1 keeps its
-    lists in shared memory, no more lists than pass 2 merges there.
-    """
-    w = _pow2_ceil(n_out)
+
+def mma_smem(k: int, elem_bytes: int, w: int, cap: int, warps: int,
+             tile_rows: int, stages: int) -> int:
+    """Dynamic shared memory of an MMA pass-1 block: the mbarriers, the
+    ring, then each consumer warp's 8 lists (w keys) and buffers (cap)."""
+    return (_BAR_BYTES + stages * mma_stage_bytes(tile_rows, k, elem_bytes)
+            + 8 * warps * _WARP_QUERIES * (w + cap))
+
+
+def _splits(n_index: int, want: int, tile_rows: int, w: int,
+            merge_cap: bool):
+    """(n_split, split_rows, n_lists, merge_smem): at most ``want`` splits
+    of whole tiles, none empty; while ``merge_cap``, no more lists than pass
+    2 merges in shared memory."""
+    n_split = min(want, -(-n_index // tile_rows))
+    if merge_cap:
+        n_split = min(n_split, max(1, _MERGE_KEYS // w))
+    per_split = -(-n_index // max(n_split, 1))
+    split_rows = -(-per_split // tile_rows) * tile_rows
+    n_split = -(-n_index // split_rows)
+    n_lists = _pow2_ceil(n_split)
+    merge_smem = 8 * n_lists * w if n_lists * w <= _MERGE_KEYS else 0
+    return n_split, split_rows, n_lists, merge_smem
+
+
+def _mma_plan(nq: int, n_index: int, w: int, k: int, n_sms: int,
+              elem_bytes: int) -> Optional[TopkPlan]:
+    if w > MMA_MAX_W:
+        return None
+    cap = max(_MIN_CAP, w)
+    tile_rows = next((r for r in _MMA_TILE_ROWS
+                      if mma_stage_bytes(r, k, elem_bytes) <= _STAGE_TARGET),
+                     _MMA_TILE_ROWS[-1])
+    stage = mma_stage_bytes(tile_rows, k, elem_bytes)
+
+    def fits(warps: int, stages: int) -> bool:
+        return mma_smem(k, elem_bytes, w, cap, warps, tile_rows,
+                        stages) <= SMEM_LIMIT
+
+    groups = min(_MAX_GROUPS, -(-nq // _WARP_QUERIES))
+    while not fits(groups, 2):
+        if groups == 1:
+            return None
+        groups //= 2
+    streams = 1  # more streams while their warps and two stages each fit
+    while groups * streams * 2 <= _MAX_WARPS and fits(
+            groups * streams * 2, min(_MAX_STAGES, 4 * streams)):
+        streams *= 2
+    warps = groups * streams
+    # ~32 KB in flight, and two stages a stream
+    stages = min(_MAX_STAGES, max(2, -(-_RING_TARGET // stage), 2 * streams))
+    while not fits(warps, stages):
+        stages -= 1
+    smem = mma_smem(k, elem_bytes, w, cap, warps, tile_rows, stages)
+    blocks_per_sm = max(1, min(_MAX_WARPS // warps,
+                               SMEM_SM // (smem + 1_024)))
+    per_block = groups * _WARP_QUERIES
+    q_blocks = -(-nq // per_block)
+    n_split, split_rows, n_lists, merge_smem = _splits(
+        n_index, -(-blocks_per_sm * n_sms // q_blocks), tile_rows, w, True)
+    return TopkPlan(kernel="mma", w=w, queries_per_block=per_block, cap=cap,
+                    global_lists=False, smem=smem,
+                    blocks_per_sm=blocks_per_sm, n_split=n_split,
+                    split_rows=split_rows, n_lists=n_lists,
+                    merge_smem=merge_smem, tile_rows=tile_rows,
+                    stages=stages, warps=warps, streams=streams)
+
+
+def _simt_plan(nq: int, n_index: int, w: int, k: int,
+               n_sms: int) -> TopkPlan:
     cap = max(2 * _TILE_ROWS, w)
     for kq in _BLOCK_QUERIES:
-        smem = pass1_smem(k, w, cap, kq, False)
+        smem = simt_smem(k, w, cap, kq, False)
         if smem <= SMEM_LIMIT:
             global_lists = False
             break
     else:
         kq, global_lists = 1, True
-        smem = pass1_smem(k, w, cap, 1, True)
+        smem = simt_smem(k, w, cap, 1, True)
     blocks_per_sm = 2 if smem <= SMEM_TWO_BLOCKS else 1
     q_blocks = -(-nq // kq)
-    n_split = min(-(-blocks_per_sm * n_sms // q_blocks),
-                  -(-n_index // _TILE_ROWS), max(1, n_index // w))
-    if not global_lists:
-        n_split = min(n_split, max(1, _MERGE_KEYS // w))
-    per_split = -(-n_index // n_split)
-    split_rows = -(-per_split // _TILE_ROWS) * _TILE_ROWS
-    n_split = -(-n_index // split_rows)
-    n_lists = _pow2_ceil(n_split)
-    merge_smem = 8 * n_lists * w if n_lists * w <= _MERGE_KEYS else 0
-    return TopkPlan(w=w, queries_per_block=kq, cap=cap,
+    want = min(-(-blocks_per_sm * n_sms // q_blocks), max(1, n_index // w))
+    n_split, split_rows, n_lists, merge_smem = _splits(
+        n_index, want, _TILE_ROWS, w, not global_lists)
+    return TopkPlan(kernel="simt", w=w, queries_per_block=kq, cap=cap,
                     global_lists=global_lists, smem=smem,
                     blocks_per_sm=blocks_per_sm, n_split=n_split,
                     split_rows=split_rows, n_lists=n_lists,
-                    merge_smem=merge_smem)
+                    merge_smem=merge_smem, tile_rows=_TILE_ROWS, stages=0,
+                    warps=0, streams=0)
+
+
+def simt_plan(nq: int, n_index: int, n_out: int, k: int,
+              n_sms: int) -> TopkPlan:
+    """The SIMT plan of a launch, whatever the width (what
+    ``launch_geometry`` gives past the MMA plan)."""
+    return _simt_plan(nq, n_index, _pow2_ceil(n_out), k, n_sms)
+
+
+def launch_geometry(nq: int, n_index: int, n_out: int, k: int, n_sms: int,
+                    elem_bytes: int = 4) -> TopkPlan:
+    """The plan of one launch for Q = ``nq`` queries of width ``k`` over
+    ``n_index`` rows of ``elem_bytes`` a coordinate, keeping ``n_out``
+    neighbours, on ``n_sms`` SMs.
+
+    ``w`` is the list width (a power of two >= n_out). The MMA plan serves
+    w <= ``MMA_MAX_W`` whenever one consumer warp's lists and a ring of two
+    stages fit shared memory: up to 8 query groups of 8 queries a block (as
+    many as the queries need, fewer where their lists do not fit), as many
+    row streams (a power of two) as keep the consumer warps within 16 and
+    their lists within shared memory, tiles of 128, 64
+    or 32 rows (the tallest whose stage stays within 16 KB), as many stages
+    (2 to 8) as keep ~32 KB in flight, buffers of max(64, w) keys, and
+    enough splits to give each SM its blocks. Everything else takes the
+    SIMT plan: its buffer holds ``max(2 * 512, w)`` keys, a block the most
+    queries (8, 4, 2, 1) whose lists fit shared memory, else one query with
+    its lists in global memory, and two blocks an SM where two fit. Both
+    cut N into contiguous splits of whole tiles, none shorter than one list
+    (SIMT) and, while the lists sit in shared memory, no more than pass 2
+    merges there.
+    """
+    w = _pow2_ceil(n_out)
+    plan = _mma_plan(nq, n_index, w, k, n_sms, elem_bytes)
+    return plan if plan is not None else _simt_plan(nq, n_index, w, k,
+                                                    n_sms)
 
 
 def zen_topk(
@@ -140,6 +278,7 @@ def zen_topk(
     mode: str = "zen",
     *,
     scales: Optional[Tensor] = None,
+    plan: Optional[TopkPlan] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Hopper kernel: (Q, k) x (N, k) -> (Q, n) f32 distances, int32 ids.
 
@@ -147,8 +286,9 @@ def zen_topk(
     f32 row ``scales``); rows are dequantised to f32 in the kernel right
     after the load. ``n`` is ``n_neighbors`` clamped to N; every width and
     ``k`` is served (:func:`launch_geometry`). Rows come back ascending by
-    (distance, id). Raises for CPU tensors, an index of 2**31 rows or more,
-    and when the launch fails.
+    (distance, id). ``plan`` replaces the planner's (tests and timings
+    compare the two plans with it). Raises for CPU tensors, an index of
+    2**31 rows or more, and when the launch fails.
     """
     if not (queries.is_cuda and index.is_cuda):
         raise ValueError("zen_topk launches the CUDA kernel and takes CUDA "
@@ -180,13 +320,22 @@ def zen_topk(
                              f"{tuple(scales.shape)} for {n_index} rows")
         scales = scales.to(device=dev, dtype=torch.float32).contiguous()
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = launch_geometry(nq, n_index, n_out, k, n_sms)
+    if plan is None:
+        plan = launch_geometry(nq, n_index, n_out, k, n_sms,
+                               index.element_size())
+    if plan.kernel == "mma":  # TMA bulk copies read from 16-byte boundaries
+        if index.data_ptr() % 16:
+            index = index.clone()
+        if scales is not None and scales.data_ptr() % 16:
+            scales = scales.clone()
     partial = torch.empty((nq, plan.n_lists, plan.w), dtype=torch.int64,
                           device=dev)
     scratch = None
     if plan.global_lists:  # one candidate buffer per (query, split)
         scratch = torch.empty((nq * plan.n_split, plan.cap),
                               dtype=torch.int64, device=dev)
+    elif plan.shares_bound(n_out):  # n_out buckets a query (the kernel fills)
+        scratch = torch.empty((nq, n_out), dtype=torch.int64, device=dev)
     out_d = torch.empty((nq, n_out), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, n_out), dtype=torch.int32, device=dev)
     lib = _build.load("zen_topk")
@@ -196,9 +345,10 @@ def zen_topk(
             queries.data_ptr(), index.data_ptr(),
             None if scales is None else scales.data_ptr(),
             _DTYPE_CODES[index.dtype], nq, n_index, k, n_out, MODE_IDS[mode],
-            plan.w, plan.queries_per_block, plan.cap, int(plan.global_lists),
-            plan.smem, plan.n_split, plan.split_rows, plan.n_lists,
-            plan.merge_smem, partial.data_ptr(),
+            _KERNELS[plan.kernel], plan.w, plan.queries_per_block, plan.cap,
+            int(plan.global_lists), plan.smem, plan.n_split, plan.split_rows,
+            plan.n_lists, plan.merge_smem, plan.tile_rows, plan.stages,
+            plan.warps, plan.streams, partial.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), stream)
     _build.check(lib, err, "zen_topk launch")

@@ -21,7 +21,8 @@ The planners (``zen_topk.launch_geometry``, ``ivf_probe.probe_plan``) are
 pure Python: every power-of-two width from 1 to 2**18 must give a launch
 whose shared memory fits one block of an H100 (232,448 B, less 1 KB for
 the kernels' static shared variables), whose candidate buffer
-holds a whole list, and whose pass 2 fits.
+holds a whole list, and whose pass 2 fits; ``zen_topk``'s plan is the
+MMA plan wherever that fits, for every storage width.
 """
 import numpy as np
 import pytest
@@ -164,42 +165,111 @@ WIDTHS = [1 << e for e in range(19)]   # 1 .. 2**18
 @pytest.mark.parametrize("k", [1, 16, 256, 300, 1024])
 @pytest.mark.parametrize("w", WIDTHS)
 def test_topk_plan_fits_every_width(w, k):
+    """Every width, k and storage (4, 2 and 1 bytes a coordinate) gets a
+    plan that fits shared memory and covers the index: the MMA plan where
+    its lists and a two-stage ring fit, the SIMT plan elsewhere."""
     for nq, n_index in ((64, 1_000_000), (1, w), (7, 3 * w + 5)):
-        plan = tzt.launch_geometry(nq, n_index, w, k, 132)
-        assert plan.w == w and plan.cap >= w
-        assert plan.smem <= tzt.SMEM_LIMIT
-        assert plan.smem == tzt.pass1_smem(k, w, plan.cap,
-                                           plan.queries_per_block,
-                                           plan.global_lists)
-        assert plan.queries_per_block in (8, 4, 2, 1)
-        assert not plan.global_lists or plan.queries_per_block == 1
-        assert plan.blocks_per_sm == (2 if plan.smem <= tzt.SMEM_TWO_BLOCKS
-                                      else 1)
-        assert plan.n_split >= 1 and plan.split_rows % 512 == 0
-        assert plan.n_split * plan.split_rows >= n_index
-        assert (plan.n_split - 1) * plan.split_rows < n_index
-        assert plan.n_lists >= plan.n_split
-        assert plan.n_lists & (plan.n_lists - 1) == 0
-        if plan.merge_smem:  # pass 2 in shared memory
-            assert plan.merge_smem == 8 * plan.n_lists * w <= tzt.SMEM_LIMIT
-        else:                # pass 2 in place in global memory
-            assert 8 * plan.n_lists * w > tzt.SMEM_LIMIT
+        for es in (4, 2, 1):
+            plan = tzt.launch_geometry(nq, n_index, w, k, 132, es)
+            assert plan.w == w and plan.cap >= w
+            assert plan.cap & (plan.cap - 1) == 0
+            assert plan.smem <= tzt.SMEM_LIMIT
+            assert plan.n_split >= 1
+            assert plan.split_rows % plan.tile_rows == 0
+            assert plan.n_split * plan.split_rows >= n_index
+            assert (plan.n_split - 1) * plan.split_rows < n_index
+            assert plan.n_lists >= plan.n_split
+            assert plan.n_lists & (plan.n_lists - 1) == 0
+            if plan.merge_smem:  # pass 2 in shared memory
+                assert plan.merge_smem == 8 * plan.n_lists * w
+                assert plan.merge_smem <= tzt.SMEM_LIMIT
+            else:                # pass 2 in place in global memory
+                assert 8 * plan.n_lists * w > tzt.SMEM_LIMIT
+            mma_fits = w <= tzt.MMA_MAX_W and tzt.mma_smem(
+                k, es, w, max(64, w), 1, 32, 2) <= tzt.SMEM_LIMIT
+            assert (plan.kernel == "mma") == mma_fits
+            if plan.kernel == "mma":
+                assert plan.smem == tzt.mma_smem(k, es, w, plan.cap,
+                                                 plan.warps, plan.tile_rows,
+                                                 plan.stages)
+                assert plan.cap == max(64, w) and not plan.global_lists
+                assert 1 <= plan.warps <= 16 and 2 <= plan.stages <= 8
+                assert plan.tile_rows in (128, 64, 32)
+                streams, groups = plan.streams, plan.warps // plan.streams
+                assert streams & (streams - 1) == 0
+                assert plan.warps == groups * streams
+                assert plan.queries_per_block == 8 * groups
+                assert groups == min(8, -(-nq // 8)) or tzt.mma_smem(
+                    k, es, w, plan.cap, 2 * groups, plan.tile_rows,
+                    2) > tzt.SMEM_LIMIT
+                assert plan.blocks_per_sm * (plan.smem + 1_024) <= \
+                    tzt.SMEM_SM or plan.blocks_per_sm == 1
+                assert plan.blocks_per_sm * plan.warps <= 16
+                assert plan.merge_smem > 0
+            else:
+                assert plan.smem == tzt.simt_smem(k, w, plan.cap,
+                                                  plan.queries_per_block,
+                                                  plan.global_lists)
+                assert plan.queries_per_block in (8, 4, 2, 1)
+                assert not plan.global_lists or plan.queries_per_block == 1
+                assert plan.blocks_per_sm == (
+                    2 if plan.smem <= tzt.SMEM_TWO_BLOCKS else 1)
+                assert plan.tile_rows == 512 and plan.warps == 0
+                assert not plan.shares_bound(w)
 
 
 def test_topk_plan_keeps_the_serving_geometry():
-    """The 1e6-row serving batch (Q = 64, k = 16, width 64) keeps its
-    launch: 8 queries a block, two blocks an SM (105,088 bytes each), 33
-    splits; width 512 fits one block of 133,760 bytes."""
+    """The 1e6-row serving batch (Q = 64, k = 16, width 64) takes the MMA
+    plan: 16 consumer warps in two row streams (64 queries) a block, one
+    block an SM of 166,016 bytes, a ring of 4 stages of 128 rows (8 for
+    bf16 and int8), 131 splits of 7,680 rows merged in shared memory, and
+    a bound shared across its 262 lists. Width 512 keeps the MMA plan with
+    2 warps a block; 2,048 and 16,384 take the SIMT plan (4 queries a
+    block; one, with lists in global memory)."""
     plan = tzt.launch_geometry(64, 1_000_000, 64, 16, 132)
-    assert (plan.queries_per_block, plan.smem, plan.blocks_per_sm,
-            plan.n_split, plan.global_lists) == (8, 105_088, 2, 33, False)
+    assert (plan.kernel, plan.warps, plan.streams, plan.queries_per_block,
+            plan.smem, plan.blocks_per_sm, plan.tile_rows, plan.stages,
+            plan.n_split, plan.split_rows, plan.n_lists,
+            plan.merge_smem) == ("mma", 16, 2, 64, 166_016, 1, 128, 4, 131,
+                                 7_680, 256, 131_072)
+    assert plan.shares_bound(64) and not plan.shares_bound(300)
+    for es in (2, 1):
+        plan = tzt.launch_geometry(64, 1_000_000, 64, 16, 132, es)
+        assert (plan.kernel, plan.stages, plan.n_split) == ("mma", 8, 131)
     plan = tzt.launch_geometry(64, 1_000_000, 512, 16, 132)
-    assert (plan.queries_per_block, plan.smem, plan.blocks_per_sm) == (
-        8, 133_760, 1)
+    assert (plan.kernel, plan.warps, plan.streams, plan.smem,
+            plan.blocks_per_sm) == ("mma", 2, 1, 166_016, 1)
     plan = tzt.launch_geometry(64, 1_000_000, 2_048, 16, 132)
-    assert plan.queries_per_block == 4 and not plan.global_lists
+    assert plan.kernel == "simt" and plan.queries_per_block == 4
+    assert not plan.global_lists
     plan = tzt.launch_geometry(64, 100_000, 16_384, 16, 132)
-    assert plan.global_lists and plan.merge_smem == 0
+    assert plan.kernel == "simt" and plan.global_lists
+    assert plan.merge_smem == 0
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 13, 16, 130, 300])
+@pytest.mark.parametrize("nq", [1, 2, 3, 64])
+def test_topk_mma_plan_pads_queries_and_rows(nq, k):
+    """Q = 1, 2, 3 fill one consumer warp's 8 query slots (the rest are
+    padding, never written), Q = 64 all 8 warps. Rows of k x element size
+    not a multiple of 16 bytes take the same TMA bulk copies: a tile of
+    consecutive rows is one byte range, and every split and tile starts on
+    a 16-byte boundary (tiles are multiples of 32 rows); only the tail
+    under 16 bytes of a ragged last tile is copied by the producer."""
+    for es in (4, 2, 1):
+        plan = tzt.launch_geometry(nq, 1_000_003, 16, k, 132, es)
+        assert plan.kernel == "mma"
+        assert plan.warps // plan.streams == min(8, -(-nq // 8))
+        assert plan.queries_per_block >= min(nq, 64)
+        assert (plan.tile_rows * k * es) % 16 == 0
+        assert (plan.split_rows * k * es) % 16 == 0
+        assert (plan.split_rows * 4) % 16 == 0       # the row scales
+        stage = tzt.mma_stage_bytes(plan.tile_rows, k, es)
+        assert stage % 16 == 0 and stage >= plan.tile_rows * (k * es + 4)
+        tail = (1_000_003 - (plan.n_split - 1) * plan.split_rows)
+        assert 0 < tail <= plan.split_rows
+        assert plan.blocks_per_sm * plan.warps <= 16
+        assert plan.stages >= min(8, 2 * plan.streams)
 
 
 @pytest.mark.parametrize("w", WIDTHS)
