@@ -14,7 +14,9 @@ Phases:
   2. build every kernel from src/repro_torch/kernels/csrc (nvcc, sm_90a);
   3. zen_topk against zen_topk_scan on the card: every mode x storage,
      Q in {2, 64}, n in {10, 64, 128}, N = 1,000,000 and 1,000,003, a small
-     N with n > N, and an index holding dead (_DEAD_COORD) rows;
+     N with n > N, an index holding dead (_DEAD_COORD) rows, 64 exact
+     copies of 1,000 rows (ids equal, the lower id first), and k in {1, 2,
+     13, 130} for every storage;
   4. serve: build_index on a 1,000,000 x 256 f32 manifold corpus (k = 16,
      flat, re-rank 4), 8 batches of 64 queries through ZenServer.query,
      recall@10 against an exact brute-force top-10, p50/p99 request
@@ -23,9 +25,12 @@ Phases:
   5. churn: delete and upsert ids, query, compact, query; no deleted id
      may come back;
   6. time the kernel at the serving shape (Q = 64, N = 1e6, k = 16, n = 64)
-     with CUDA events, per call and queued back to back on the card,
-     beside its bound, the plain version and a library composite
-     (matmul-form distances + torch.topk);
+     with CUDA events, per call and queued back to back on the card, pass 1
+     and pass 2 apart (torch.profiler), with its plan, beside the bound of
+     its route (3xTF32 on the tensor cores or f32 on the CUDA cores, and the
+     bytes) and the f32 CUDA-core bound, the plain version and a library
+     composite (matmul-form distances + torch.topk); then n = 10 and the
+     wide widths 512, 2,048 and 16,384;
   7. ivf_probe and ivf_probe_pq against ivf_probe_scan and
      ivf_probe_pq_scan on the card, on the phase-3 coordinates packed into
      4,000 clusters of 128-row tiles: every mode x f32/bf16/int8 and PQ at
@@ -119,6 +124,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: published H100 SXM peaks (data sheet, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 #: kernel vs plain tolerance: both evaluate the same f32 norm expansion,
 #: in another summation order (per-thread FMA chain vs cuBLAS f32 GEMM)
 RTOL = 1e-5
@@ -256,6 +262,61 @@ def probe_cost(index, probes, n: int, luts=None):
                                         else uniq.numel() * 4)
         flops = 2 * rows_scored * index.dim
     return nbytes, flops
+
+
+def kernel_split(fn, iters: int = 10):
+    """Device ms a call of ``fn`` by zen_topk's kernel (torch.profiler):
+    pass 1 (the MMA or SIMT kernel), pass 2 (the merge) and the memset of
+    the shared bound's buckets; None where the profiler shows no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {"pass 1": 0.0, "pass 2": 0.0, "memset": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / iters / 1e3
+        if "zen_topk_mma" in e.key or "zen_topk_partial" in e.key:
+            out["pass 1"] += ms
+        elif "zen_topk_merge" in e.key:
+            out["pass 2"] += ms
+        elif "emset" in e.key:
+            out["memset"] += ms
+    if out["pass 1"] == 0.0:
+        return {key: None for key in out}
+    return out
+
+
+def _fmt_split(split) -> str:
+    if split["pass 1"] is None:
+        return "passes not measured: the profiler shows no device time"
+    return (f"pass 1 {split['pass 1']:.4f} ms, pass 2 {split['pass 2']:.4f} "
+            f"ms, memset {split['memset']:.4f} ms")
+
+
+def describe_plan(plan, n_out: int) -> str:
+    """One line of a zen_topk launch plan."""
+    if plan.kernel == "mma":
+        return (f"MMA plan, width {plan.w}: {plan.queries_per_block} queries "
+                f"a block in {plan.warps} consumer warps ({plan.streams} row "
+                f"streams) + 1 producer, {plan.stages} stages of "
+                f"{plan.tile_rows} rows, {plan.smem:,} B, {plan.n_split} "
+                f"splits, bound shared across blocks: "
+                f"{'yes' if plan.shares_bound(n_out) else 'no'}; "
+                f"{plan.route}")
+    return (f"SIMT plan, width {plan.w}: {plan.queries_per_block} queries a "
+            f"block, {plan.n_split} splits, {plan.smem:,} B, "
+            f"{plan.blocks_per_sm} block(s) an SM, lists in "
+            f"{'global' if plan.global_lists else 'shared'} memory, pass 2 "
+            f"in {'shared' if plan.merge_smem else 'global'} memory; "
+            f"{plan.route}")
 
 
 def bound_of(nbytes: int, flops: int):
@@ -1555,6 +1616,45 @@ def main() -> None:
         dead = dead.delete(list(range(0, 50_000, 7)))
         compare(queries, dead.coords, dead.coord_scales, 64, "lwb",
                 f"{st} N=50000 with {50_000 // 7 + 1} dead rows")
+    # exactly duplicated rows (64 copies of 1,000): distances tie exactly,
+    # and the ids must equal the plain version's, the lower id first
+    for st in quant.SCALAR_STORAGE_DTYPES:
+        x, s = quant.encode_rows(coords[:1_000].repeat(64, 1), st)
+        got = zt.zen_topk(queries, x, 64, "zen", scales=s)
+        want = zt.zen_topk_scan(queries, x, 64, "zen", scales=s)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            fail(f"zen_topk orders tied duplicate rows unlike its plain "
+                 f"version ({st})")
+        compare(queries, x, s, 64, "zen", f"{st} 64 copies of 1,000 rows")
+    # odd k: rows whose bytes are not a multiple of 16 (the TMA bulk copy's
+    # tail), k = 1, 2 and 13 (the MMA plan) and 130 (the SIMT plan); Zen,
+    # whose distances stay off zero (Lwb's nearest rows of 200,003 random
+    # ones at k <= 2 sit where any two f32 summation orders differ by more
+    # than the tolerance, the SIMT plan's as much as the MMA plan's)
+    for kk in (1, 2, 13, 130):
+        xk = torch.randn((200_003, kk), generator=gen, device=dev)
+        xk[:, -1].abs_()
+        qk = torch.randn((64, kk), generator=gen, device=dev)
+        qk[:, -1].abs_()
+        for st in quant.SCALAR_STORAGE_DTYPES:
+            x, s = quant.encode_rows(xk, st)
+            compare(qk, x, s, 64, "zen", f"{st} k={kk} Q=64 n=64 N=200003")
+    del xk, qk
+    # the MMA plan's tensor cores only filter: its keys are the SIMT plan's,
+    # bit for bit, in every mode
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for st in quant.SCALAR_STORAGE_DTYPES:
+        x, s = encoded[st]
+        for m in ("zen", "lwb", "upb"):
+            got = zt.zen_topk(queries, x, 64, m, scales=s)
+            want = zt.zen_topk(queries, x, 64, m, scales=s, plan=zt.simt_plan(
+                64, x.shape[0], 64, k, n_sms))
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f"the MMA and SIMT plans of zen_topk differ ({st} {m})")
+    log("    the MMA and SIMT plans agree bit for bit at N = 1,000,003 "
+        "(3 storages x 3 modes)")
     # wide lists: widths 512 to 16,384 (past 8,192 the lists live in global
     # memory, one query a block), on 200,003 rows; and k = 300
     wide_ns = (300, 2_048) if quick else (300, 600, 2_048, 5_000, 10_000)
@@ -1566,8 +1666,9 @@ def main() -> None:
                                       .multi_processor_count)
             compare(queries, x[:200_003], None if s is None else s[:200_003],
                     n, "zen", f"{st} Q=64 n={n} N=200003 (width {plan.w}, "
-                    f"{plan.queries_per_block} a block, lists in "
-                    f"{'global' if plan.global_lists else 'shared'} memory)")
+                    f"{plan.kernel} plan, {plan.queries_per_block} a block, "
+                    f"lists in {'global' if plan.global_lists else 'shared'}"
+                    f" memory)")
     wide_k = torch.randn((100_000, 300), generator=gen, device=dev)
     wide_k[:, -1].abs_()
     wide_q = torch.randn((64, 300), generator=gen, device=dev)
@@ -1673,18 +1774,29 @@ def main() -> None:
     nq, n = 64, 64
     qt = queries[:nq].contiguous()
     x32 = coords[:1_000_000].contiguous()
+    n_sms = torch.cuda.get_device_properties(qt.device).multi_processor_count
     records = {}
     log(f"[6] zen_topk at Q={nq}, N=1,000,000, k={k}, n={n}; {smi}")
     for st in quant.SCALAR_STORAGE_DTYPES:
         x, s = quant.encode_rows(x32, st)
+        plan = zt.launch_geometry(nq, x.shape[0], n, k, n_sms,
+                                  x.element_size())
         nbytes = (qt.numel() * 4 + x.numel() * x.element_size()
                   + (0 if s is None else s.numel() * 4) + nq * n * 8)
         flops = 2 * nq * x.shape[0] * k
-        bound, bound_by = bound_of(nbytes, flops)
+        # the f32 CUDA-core bound, and the bound of the plan's route: 3xTF32
+        # is three products on the tensor cores
+        f32_bound, f32_by = bound_of(nbytes, flops)
+        bound, bound_by = f32_bound, f32_by
+        if plan.kernel == "mma":
+            tb, tf = nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_FLOPS
+            bound = max(tb, tf) * 1e3
+            bound_by = "bytes" if tb > tf else "operations"
         before = zt.zen_topk.launches
         ms = timed(lambda: zt.zen_topk(qt, x, n, "zen", scales=s), 20)
         ms2 = timed(lambda: zt.zen_topk(qt, x, n, "zen", scales=s), 20)
         dev = queued_ms(lambda: zt.zen_topk(qt, x, n, "zen", scales=s), 20)
+        split = kernel_split(lambda: zt.zen_topk(qt, x, n, "zen", scales=s))
         zt.zen_topk.launches = before  # timing launches are not the path's
         plain = timed(lambda: zt.zen_topk_scan(qt, x, n, "zen", scales=s),
                       3, warmup=1)
@@ -1699,28 +1811,32 @@ def main() -> None:
         lib = timed(library, 10)
         lib_dev = queued_ms(library, 10)
         records[st] = dict(ms=dev, plain_ms=plain, bound_ms=bound,
-                           bound_by=bound_by, library_ms=lib_dev)
-        log(f"    {st:8s}: kernel {ms:.4f} / {ms2:.4f} ms, device time "
-            f"{dev:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) = "
-            f"{bound / dev:.1%} of bound; plain {plain:.3f} ms; library "
-            f"{lib:.4f} ms, device time {lib_dev:.4f} ms")
+                           bound_by=bound_by, library_ms=lib_dev,
+                           bound_f32_ms=f32_bound, bound_f32_by=f32_by,
+                           pass1_ms=split["pass 1"], pass2_ms=split["pass 2"])
+        log(f"    {st:8s}: {describe_plan(plan, n)}")
+        log(f"      kernel {ms:.4f} / {ms2:.4f} ms, device time {dev:.4f} ms "
+            f"({_fmt_split(split)}); bound of the route {bound:.4f} ms "
+            f"({bound_by}) = {bound / dev:.1%}, f32 CUDA-core bound "
+            f"{f32_bound:.4f} ms ({f32_by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) = {f32_bound / dev:.1%}; plain "
+            f"{plain:.3f} ms; library {lib:.4f} ms, device time "
+            f"{lib_dev:.4f} ms")
     main_rec = records["float32"]
-    # wider lists at the same shape: width 512 (8 queries a block, one block
-    # an SM), 2,048 (4 a block) and 16,384 (lists in global memory)
-    n_sms = torch.cuda.get_device_properties(qt.device).multi_processor_count
-    for n in (65 * 4, 300 * 4, 10_000):
+    # narrower and wider lists at the same shape: width 16 (n = 10), and
+    # widths 512 (n = 65 x 4), 2,048 (n = 300 x 4) and 16,384 (lists in
+    # global memory)
+    for n in (10, 65 * 4, 300 * 4, 10_000):
         plan = zt.launch_geometry(nq, x32.shape[0], n, k, n_sms)
         before = zt.zen_topk.launches
-        wide_ms = queued_ms(lambda: zt.zen_topk(qt, x32, n, "zen"), 5)
+        wide_ms = queued_ms(lambda: zt.zen_topk(qt, x32, n, "zen"),
+                            20 if n <= 1_200 else 5)
+        split = kernel_split(lambda: zt.zen_topk(qt, x32, n, "zen"),
+                             10 if n <= 1_200 else 3)
         zt.zen_topk.launches = before
-        log(f"    float32 n={n:5d} (width {plan.w}, {plan.queries_per_block} "
-            f"queries a block, {plan.n_split} splits, {plan.smem:,} B of "
-            f"shared memory, {plan.blocks_per_sm} block(s) an SM, lists in "
-            f"{'global' if plan.global_lists else 'shared'} memory, pass 2 "
-            f"in {'shared' if plan.merge_smem else 'global'} memory): "
-            f"device time {wide_ms:.4f} ms, {main_rec['bound_ms'] / wide_ms:.1%}"
-            f" of the n = 64 bound")
+        log(f"    float32 n={n:5d}: {describe_plan(plan, n)}")
+        log(f"      device time {wide_ms:.4f} ms ({_fmt_split(split)}), "
+            f"{main_rec['bound_ms'] / wide_ms:.1%} of the n = 64 bound")
     del coords, x32
 
     # -- 8. IVF serving at full width --------------------------------------

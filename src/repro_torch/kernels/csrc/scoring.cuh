@@ -138,6 +138,20 @@ __device__ __forceinline__ void merge_sorted_segments(uint64_t* l,
   }
 }
 
+// Bitonic sort of 32 keys held one a lane of one warp, by shuffles.
+__device__ __forceinline__ void sort32(uint64_t& a) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      const uint64_t p = __shfl_xor_sync(~0u, a, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & size) == 0);
+      a = keep_min ? (a < p ? a : p) : (a < p ? p : a);
+    }
+  }
+}
+
 // Bitonic sort of 64 keys held two a lane of one warp (elements lane and
 // lane + 32), by shuffles.
 __device__ __forceinline__ void sort64(uint64_t& a, uint64_t& b) {

@@ -16,41 +16,50 @@
 // picks one and sizes it, and the kernels take every number of the plan as
 // an argument.
 //
-// MMA plan (list widths up to 512, and k whose tiles fit the ring): one
-// block an SM walks a contiguous split of N for up to 64 queries.
-//   - One producer warp fills a ring of 2-8 stages of 32-128 rows with TMA
+// MMA plan (lists up to 64 wide, k <= 16: the serving batch): one block an
+// SM walks a contiguous split of N for up to 64 queries.
+//   - One producer warp fills a ring of up to 8 stages of 128 rows with TMA
 //     bulk copies (cp.async.bulk, completing on an mbarrier a stage). A
 //     tile of consecutive rows is one contiguous byte range, so the 1-D
 //     copy describes every k, also where k x element size is not a
-//     multiple of 16; a tail under 16 bytes is copied by the producer.
-//   - Each consumer warp owns 8 queries and scores every row: mma.sync
-//     m16n8k8 with rows as M and its queries as N, in split TF32 (x = hi +
-//     lo, dot = hi.hi + hi.lo + lo.hi accumulated in f32) so the dot keeps
-//     f32 accuracy. Rows are dequantised (x row scale) to f32 as they are
-//     read from the stage, and their norms and altitudes summed on the
-//     CUDA cores in f32 (dead rows, 1e15 a coordinate, stay ~1.6e31). The
-//     altitude column is zero in the query operand.
-//   - Each accumulator is compared in registers with its query's threshold
-//     (squared_bound of the n-th best key as of the last flush: stale, so
-//     only looser; a row tied with the n-th best passes, and the merge
-//     compares full keys, so a lower id still wins the tie), and survivors
-//     are appended to the query's buffer with __ballot_sync and a prefix
-//     count. A buffer that might not hold the next step is flushed by its
-//     warp alone: a warp-wide bitonic sort and merge into the query's
-//     running best of w keys, by shuffles up to 64 keys and in shared
-//     memory past that. No block-wide barrier runs after set-up.
-// SIMT plan (wider lists, or rows too wide for the ring): the previous
-// design. A (Q/KQ, S) grid of 256-thread blocks scores KQ in {8, 4, 2, 1}
-// queries against one split of N in 512-row tiles staged in shared memory
-// through a register double buffer, with FMAs on the CUDA cores; candidates
-// are buffered (cap keys a query) and merged into the running best by
-// block-wide bitonic flushes. Past what one query's lists can keep in shared
-// memory (w >= 16,384 at k = 16) the lists and buffers live in global
-// memory (the wrapper's scratch).
-// Pass 2 (both plans): one block a query merges the S partial lists
-// pairwise, in a tree padded to a power of two, in shared memory when they
-// fit (merge_smem) and in place in global memory otherwise, and writes the
-// first n.
+//     multiple of 16 (no tensor map is needed); a tail under 16 bytes is
+//     copied by the producer itself.
+//   - Consumer warps own 8 queries each, in up to 16 warps: groups of 8
+//     queries times row streams (stream s scores every streams-th tile;
+//     the streams' lists merge in the block at the end). A warp scores its
+//     rows with mma.sync m16n8k8, rows as M and its queries as N, in split
+//     TF32 (x = hi + lo; dot = hi.hi + hi.lo + lo.hi, f32 accumulators),
+//     the altitude column zero in the query operand. Rows are dequantised
+//     (x row scale) as they leave the stage, and their norms and altitudes
+//     summed on the CUDA cores in f32 (dead rows, 1e15 a coordinate, stay
+//     ~1.6e31).
+//   - The tensor cores only filter: an accumulator passes when its squared
+//     estimate, less a margin above the split-TF32 error, is within its
+//     query's bound (squared_bound of the n-th best key as of the last
+//     flush: stale, so only looser; a row tied with the n-th best passes).
+//     Survivors' row ids are appended to the query's buffer with
+//     __ballot_sync and a prefix count. A buffer that might not hold the
+//     next step is flushed by its warp alone: each candidate's key is
+//     computed again from its row in f32 FMAs, as the SIMT plan computes
+//     it, then a bitonic sort and merge into the query's running best of w
+//     keys, by shuffles. Keys are f32-exact and compared in full (a lower
+//     id wins a tie). No block-wide barrier runs after set-up.
+//   - Lists share a bound across blocks: each publishes its best key into
+//     one of n buckets of its query (atomicMin); once all n buckets hold
+//     keys (n different rows), their largest bounds the n-th best, and
+//     every list filters with it (read at each flush).
+// SIMT plan (wider lists or rows): the previous design. A (Q/KQ, S) grid of
+// 256-thread blocks scores KQ in {8, 4, 2, 1} queries against one split of
+// N in 512-row tiles staged in shared memory through a register double
+// buffer, with FMAs on the CUDA cores; candidates are buffered (cap keys a
+// query) and merged into the running best by block-wide bitonic flushes.
+// Past what one query's lists can keep in shared memory (w >= 16,384 at k
+// = 16) the lists and buffers live in global memory (the wrapper's
+// scratch).
+// Pass 2 (both plans): one block a query merges the S partial lists in a
+// tree of pairs, in shared memory when they fit (merge_smem: lists up to
+// 64 keys merge pairwise in one warp's registers) and in place in global
+// memory otherwise, and writes the first n.
 // Scoring and merging live in scoring.cuh, shared with the clustered probe.
 #include <cstdint>
 
@@ -441,7 +450,8 @@ constexpr int kStepRows = 32;    // rows a warp scores a step: two m16 tiles
 constexpr int kMaxWarps = 16;    // consumer warps a block, at most
 constexpr int kMaxStages = 8;
 constexpr int kBarBytes = 16 * kMaxStages;  // a full and an empty mbarrier
-constexpr int kMinCap = 64;      // buffer keys a query, at least
+constexpr int kCap = 64;         // buffer keys a query
+constexpr int kMaxW = 64;        // the widest running list
 
 // Bytes of one ring stage: the rows (rounded up to 16 B), then their
 // scales. Mirrored by kernels/zen_topk.py::mma_stage_bytes.
@@ -451,12 +461,12 @@ __host__ __device__ inline size_t stage_bytes(int tile_rows, int k, int es) {
 }
 
 // Dynamic shared memory of an MMA block: the mbarriers, the ring, then each
-// consumer warp's 8 running lists (w keys) and 8 buffers (cap keys).
+// consumer warp's 8 running lists (w keys) and 8 buffers (kCap keys).
 // Mirrored by kernels/zen_topk.py::mma_smem; the launcher refuses less.
-inline size_t smem_bytes(int k, int es, int w, int cap, int warps,
-                         int tile_rows, int stages) {
+inline size_t smem_bytes(int k, int es, int w, int warps, int tile_rows,
+                         int stages) {
   return kBarBytes + size_t(stages) * stage_bytes(tile_rows, k, es) +
-         sizeof(uint64_t) * warps * kWarpQueries * (size_t(w) + cap);
+         sizeof(uint64_t) * warps * kWarpQueries * (size_t(w) + kCap);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -521,17 +531,15 @@ __device__ __forceinline__ int stage_copy(unsigned char* dst,
   return bulk;
 }
 
-// x = hi + lo, both rounded to TF32 (round to nearest, ties away from
-// zero: half an ulp added to the magnitude bits, the low 13 cleared; as
-// cvt.rna.tf32.f32 for finite x, in two integer operations).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
+// x = hi + lo: hi rounded to TF32 (round to nearest, ties away from zero:
+// half an ulp added to the magnitude bits, the low 13 cleared; as
+// cvt.rna.tf32.f32 for finite x, in two integer operations), lo = x - hi
+// exactly in f32, of which the MMA reads the TF32 part (|lo| <= 2^-11 |x|,
+// so what it drops is below 2^-22 |x|).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // d += a * b, m16n8k8, TF32 operands, f32 accumulators.
@@ -588,66 +596,22 @@ __device__ __forceinline__ void query_chunk(const float* qg, bool g_ok, int k,
   }
 }
 
-// Bitonic sort of p keys (p a power of two) in shared memory, one warp.
-__device__ __forceinline__ void warp_sort(uint64_t* a, int p) {
-  const int lane = threadIdx.x & 31;
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int i = lane; i < (p >> 1); i += 32) {
-        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-        const uint64_t x = a[lo], y = a[lo + j];
-        if ((x > y) == ((lo & size) == 0)) {
-          a[lo] = y;
-          a[lo + j] = x;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// The running best l (w keys, ascending) becomes the w smallest of l and
-// the sorted b (p keys): min(l[i], b[w-1-i]) is bitonic, and a half-cleaner
-// cascade sorts it. One warp.
-__device__ __forceinline__ void warp_merge(uint64_t* l, int w,
-                                           const uint64_t* b, int p) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < w; i += 32) {
-    const int j = w - 1 - i;
-    if (j < p && b[j] < l[i]) l[i] = b[j];
-  }
-  __syncwarp();
-  for (int j = w >> 1; j > 0; j >>= 1) {
-    for (int i = lane; i < (w >> 1); i += 32) {
-      const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-      const uint64_t x = l[lo], y = l[lo + j];
-      if (x > y) {
-        l[lo] = y;
-        l[lo + j] = x;
-      }
-    }
-    __syncwarp();
-  }
-}
-
 // The bound that the lists of all blocks share. bests holds n_out buckets
 // a query (all ones before the launch); every list publishes its best key
 // into bucket list_id % n_out with atomicMin, so each bucket holds the key
 // of a real row, a different row in each bucket. Once every bucket is
 // filled, n_out rows lie at or below the largest bucket: no row beyond it
 // can be among the query's n_out nearest, and each list may filter with
-// it. It is only read stale, so only looser. One warp; all ones (no bound)
-// until every bucket is filled, and without bests.
+// it. It is only read stale, so only looser. One warp, n_out <= 64; all
+// ones (no bound) until every bucket is filled, and without bests.
 __device__ __forceinline__ uint64_t shared_bound(const uint64_t* bests, int q,
                                                  int n_out) {
-  uint64_t most = 0;
   if (bests == nullptr) return ~uint64_t(0);
   const int lane = threadIdx.x & 31;
-  for (int i = lane; i < n_out; i += 32) {
-    const uint64_t b = *reinterpret_cast<const volatile uint64_t*>(
-        bests + int64_t(q) * n_out + i);
-    most = b > most ? b : most;
-  }
+  const uint64_t* b = bests + int64_t(q) * n_out;
+  const uint64_t b0 = lane < n_out ? __ldcg(b + lane) : 0;
+  const uint64_t b1 = lane + 32 < n_out ? __ldcg(b + lane + 32) : 0;
+  uint64_t most = b0 > b1 ? b0 : b1;
 #pragma unroll
   for (int j = 16; j > 0; j >>= 1) {
     const uint64_t o = __shfl_xor_sync(~0u, most, j);
@@ -665,96 +629,119 @@ __device__ __forceinline__ void publish_best(uint64_t* bests, int q,
               static_cast<unsigned long long>(best));
 }
 
-// Tightens this lane's bounds (queries 2t and 2t + 1 of the warp's 8 at
-// qw0) with the shared bound; the 8 queries' buckets are read at once.
-__device__ __forceinline__ void refresh_bounds(const uint64_t* bests, int qw0,
-                                               int nq, int n_out,
-                                               float (&bnd)[2]) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  uint64_t most[kWarpQueries];
+// One row of k <= 16 coordinates from global memory, as f32 (zero past
+// k): four 16-byte loads at most where the row starts on a 16-byte
+// boundary (k x element size a multiple of 16), else one load a column.
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int k,
+                                         bool vec16, float (&x)[16]) {
+  if (vec16) {
+    uint4 raw[4];
+    const int n16 = int(k * sizeof(T)) >> 4;
 #pragma unroll
-  for (int ql = 0; ql < kWarpQueries; ++ql) {
-    most[ql] = 0;
-    for (int i = lane; i < n_out && qw0 + ql < nq; i += 32) {
-      const uint64_t b = *reinterpret_cast<const volatile uint64_t*>(
-          bests + int64_t(qw0 + ql) * n_out + i);
-      most[ql] = b > most[ql] ? b : most[ql];
-    }
-  }
+    for (int i = 0; i < 4; ++i)
+      raw[i] = i < n16 ? __ldg(reinterpret_cast<const uint4*>(row) + i)
+                       : make_uint4(0, 0, 0, 0);
+    const T* vals = reinterpret_cast<const T*>(raw);
 #pragma unroll
-  for (int ql = 0; ql < kWarpQueries; ++ql) {
+    for (int c = 0; c < 16; ++c) {
+      if (c * sizeof(T) < sizeof(raw)) x[c] = c < k ? zen::to_float(vals[c])
+                                                    : 0.0f;
+    }
+  } else {
 #pragma unroll
-    for (int j = 16; j > 0; j >>= 1) {
-      const uint64_t o = __shfl_xor_sync(~0u, most[ql], j);
-      most[ql] = o > most[ql] ? o : most[ql];
-    }
-    if (t == (ql >> 1) && most[ql] <= zen::kEmptyKey) {
-      const float b = zen::squared_bound(zen::key_distance(most[ql]));
-      bnd[ql & 1] = fminf(bnd[ql & 1], b);
-    }
+    for (int c = 0; c < 16; ++c) x[c] = c < k ? zen::to_float(row[c]) : 0.0f;
   }
 }
 
-// A buffered key holds max(z2, 0)'s bits (the squared estimate) above the
-// row id; a flush turns it into the distance key before sorting.
-__device__ __forceinline__ uint64_t to_distance_key(uint64_t z2_key) {
-  const float d = zen::distance(__uint_as_float(uint32_t(z2_key >> 32)));
-  return (uint64_t(__float_as_uint(d)) << 32) | (z2_key & 0xffffffffu);
+// The keys of two buffered candidates (row ids in the low 32 bits; ok0,
+// ok1: whether each is one), computed as the SIMT plan computes keys: the
+// row dequantised, its norm and the dot with the query accumulated in f32
+// FMAs over the columns in order, then the estimator and the distance.
+// The tensor cores only filtered them; their keys are f32-exact. Both
+// rows' loads are in flight at once.
+template <typename T>
+__device__ __forceinline__ void exact_keys(uint64_t& a, uint64_t& b, bool ok0,
+                                           bool ok1,
+                                           const T* __restrict__ index,
+                                           const float* __restrict__ scales,
+                                           const float* __restrict__ q,
+                                           float qn, float qa, int k,
+                                           int mode) {
+  const bool vec16 = (k * sizeof(T)) % 16 == 0;
+  const uint32_t id[2] = {uint32_t(a & 0xffffffffu),
+                          uint32_t((ok1 ? b : a) & 0xffffffffu)};
+  float x[2][16], qv[16];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) load_row(index + int64_t(id[i]) * k, k, vec16,
+                                       x[i]);
+#pragma unroll
+  for (int c = 0; c < 16; ++c) qv[c] = c < k - 1 ? __ldg(q + c) : 0.0f;
+  uint64_t key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float sc = scales ? __ldg(scales + id[i]) : 1.0f;
+    float nx = 0.0f, dot = 0.0f, xa = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const float v = x[i][c] * sc;
+      if (c < k - 1) {
+        nx = fmaf(v, v, nx);
+        dot = fmaf(qv[c], v, dot);
+      } else if (c == k - 1) {
+        xa = v;
+      }
+    }
+    nx = fmaf(xa, xa, nx);
+    key[i] = zen::make_key(
+        zen::distance(zen::estimate_sq(qn, nx, dot, qa, xa, mode)), true,
+        id[i]);
+  }
+  if (ok0) a = key[0];
+  if (ok1) b = key[1];
 }
 
-// Sorts a query's c >= 1 buffered keys (squared-estimate keys, made
-// distance keys first, with `convert`) and merges them into its running
-// best; returns the new n-th best key. One warp; the buffer holds cap >=
-// pow2(c) keys. Up to 64 keys (cap 64, w <= 64) the sort and the merge run
-// in registers, by shuffles; wider ones in shared memory.
-__device__ __noinline__ uint64_t warp_flush(uint64_t* list, uint64_t* buf,
-                                            int c, int w, int n_out, int cap,
-                                            bool convert) {
+// Sorts a query's c <= 64 buffered keys and merges them into its running
+// best of w <= 64 keys, in registers, by shuffles; returns the new n-th
+// best key. Buffered candidates (`q` not null) get their exact keys first;
+// lists (q null) are merged as they are. One warp.
+template <typename T>
+__device__ __noinline__ uint64_t warp_flush(uint64_t* list,
+                                            const uint64_t* buf, int c, int w,
+                                            int n_out, const T* index,
+                                            const float* scales,
+                                            const float* q, float qn,
+                                            float qa, int k, int mode) {
   const int lane = threadIdx.x & 31;
-  if (cap <= 64) {
-    uint64_t a = lane < c ? buf[lane] : zen::kEmptyKey;
-    uint64_t b = lane + 32 < c ? buf[lane + 32] : zen::kEmptyKey;
-    if (convert) {
-      if (lane < c) a = to_distance_key(a);
-      if (lane + 32 < c) b = to_distance_key(b);
-    }
+  uint64_t a = lane < c ? buf[lane] : zen::kEmptyKey;
+  uint64_t b = lane + 32 < c ? buf[lane + 32] : zen::kEmptyKey;
+  if (q != nullptr && lane < c)
+    exact_keys(a, b, true, lane + 32 < c, index, scales, q, qn, qa, k, mode);
+  if (c <= 32)
+    zen::sort32(a);  // b holds no key
+  else
     zen::sort64(a, b);
-    uint64_t l0 = lane < w ? list[lane] : zen::kEmptyKey;
-    uint64_t l1 = lane + 32 < w ? list[lane + 32] : zen::kEmptyKey;
-    zen::merge64(l0, l1, a, b, w);
-    if (lane < w) list[lane] = l0;
-    if (lane + 32 < w) list[lane + 32] = l1;
-    __syncwarp();
-    const int e = n_out - 1;
-    return __shfl_sync(~0u, e < 32 ? l0 : l1, e & 31);
-  }
-  int p = 1;
-  while (p < c) p <<= 1;
-  for (int i = lane; i < p; i += 32) {
-    if (i >= c)
-      buf[i] = zen::kEmptyKey;
-    else if (convert)
-      buf[i] = to_distance_key(buf[i]);
-  }
+  uint64_t l0 = lane < w ? list[lane] : zen::kEmptyKey;
+  uint64_t l1 = lane + 32 < w ? list[lane + 32] : zen::kEmptyKey;
+  zen::merge64(l0, l1, a, b, w);
+  if (lane < w) list[lane] = l0;
+  if (lane + 32 < w) list[lane + 32] = l1;
   __syncwarp();
-  warp_sort(buf, p);
-  warp_merge(list, w, buf, p);
-  const uint64_t nth = list[n_out - 1];
-  __syncwarp();
-  return nth;
+  const int e = n_out - 1;
+  return __shfl_sync(~0u, e < 32 ? l0 : l1, e & 31);
 }
 
 // Pass 1 of the MMA plan. Block (query block x, split y): `streams` row
 // streams of `groups` consumer warps (8 queries each) and one producer
 // warp. Stream s scores the tiles t = s mod streams of the split with its
-// own lists, and the streams' lists merge at the end. KC > 0: k <= 16 KC
-// and the query operand sits in registers; KC = 0: any k, the query
-// operand read per chunk. kVec: k % 4 == 0, four columns a load.
-template <typename T, int KC, bool kVec>
+// own lists, and the streams' lists merge at the end. k <= 16: one
+// 16-column chunk, two k-steps; the query operand sits in registers.
+// kVec: k % 4 == 0, four columns a load.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
     zen_topk_mma(const float* __restrict__ queries, const T* __restrict__ index,
                  const float* __restrict__ scales, int nq, int64_t n_index,
-                 int k, int n_out, int w, int cap, int tile_rows, int stages,
+                 int k, int n_out, int w, int tile_rows, int stages,
                  int streams, int64_t split_rows, int n_lists, int mode,
                  uint64_t* __restrict__ partial, uint64_t* __restrict__ bests) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -809,12 +796,12 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
   const int qw0 = (blockIdx.x * groups + group) * kWarpQueries;
   const bool idle = qw0 >= nq;
   uint64_t* list = lists + size_t(warp) * kWarpQueries * w;
-  uint64_t* buf = bufs + size_t(warp) * kWarpQueries * cap;
+  uint64_t* buf = bufs + size_t(warp) * kWarpQueries * kCap;
   for (int i = lane; i < kWarpQueries * w; i += 32) list[i] = zen::kEmptyKey;
   __syncwarp();
   // this lane's accumulator queries 2t and 2t + 1: norms, altitudes, and the
   // squared distance bound of the n-th best as of the last flush
-  float qn[2], qa[2], bnd[2];
+  float qn[2], qa[2], cross[2], bnd[2];
   int cnt[2];
   bool qok[2];
 #pragma unroll
@@ -828,25 +815,23 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
     }
     qn[j] = s;
     qa[j] = qok[j] ? __ldg(queries + int64_t(q) * k + k - 1) : 0.0f;
-    bnd[j] = __int_as_float(0x7f800000);
+    // the filter's rank-1 altitude term, -2 qa xa (Lwb) or + (Upb); a query
+    // slot past Q passes nothing
+    cross[j] = mode == zen::kLwb   ? -2.0f * qa[j]
+               : mode == zen::kUpb ? 2.0f * qa[j]
+                                   : 0.0f;
+    bnd[j] = qok[j] ? __int_as_float(0x7f800000) : -__int_as_float(0x7f800000);
     cnt[j] = 0;
   }
-  // the query operand: query g of the warp (the MMA's column g)
-  const float* qg = queries + int64_t(qw0 + g) * k;
-  const bool g_ok = qw0 + g < nq;
-  uint32_t qhi[KC > 0 ? KC : 1][2][2], qlo[KC > 0 ? KC : 1][2][2];
-  if constexpr (KC > 0) {
-#pragma unroll
-    for (int c = 0; c < KC; ++c)
-      query_chunk(qg, g_ok, k, 16 * c + 4 * t, qhi[c], qlo[c]);
-  }
-  // where the altitude column k - 1 sits: chunk, lane column, element
-  const int alt_c = (k - 1) >> 4, alt_t = ((k - 1) & 15) >> 2,
-            alt_j = (k - 1) & 3;
-  const int n_chunks = (k + 15) >> 4;
+  // the query operand: query g of the warp (the MMA's column g), columns
+  // 4t + 2h and + 1 of k-step h
+  uint32_t bh[2][2], bl[2][2];
+  query_chunk(queries + int64_t(qw0 + g) * k, qw0 + g < nq, k, 4 * t, bh, bl);
+  // where the altitude column k - 1 sits: lane column and element
+  const int alt_t = (k - 1) >> 2, alt_j = (k - 1) & 3;
   // flush a buffer that holds more than lim: 0 until its first flush (so
-  // every list publishes a best key after one step), then cap - 32
-  const int limit = cap - kStepRows;
+  // every list publishes a best key after one step), then kCap - 32
+  const int limit = kCap - kStepRows;
   int lim[2] = {0, 0};
   const uint32_t mine = 0x11111111u << t, below = (1u << lane) - 1u;
   const int list_id = blockIdx.y * streams + stream;
@@ -860,7 +845,6 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
     const int rows = int(min(int64_t(tile_rows), row_end - tile0));
     const T* sx = reinterpret_cast<const T*>(ring + s * sbytes);
     const float* ss = reinterpret_cast<const float*>(ring + s * sbytes + xbytes);
-    if (bests != nullptr && !idle) refresh_bounds(bests, qw0, nq, n_out, bnd);
     for (int r0 = 0; r0 < rows && !idle; r0 += kStepRows) {
       // rows r0 + 16m + 8r + g (m: m16 tile, r: its upper or lower half);
       // the dot's hi.hi products and its cross terms accumulate apart
@@ -871,61 +855,43 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
         for (int i = 0; i < 4; ++i) big[m][i] = small[m][i] = 0.0f;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          nx[m][r] = xa[m][r] = 0.0f;
+          nx[m][r] = 0.0f;
           sc[m][r] = scales ? ss[r0 + 16 * m + 8 * r + g] : 1.0f;
         }
       }
-      const int nc = KC > 0 ? KC : n_chunks;
+      float v[2][2][4];
 #pragma unroll
-      for (int c = 0; c < nc; ++c) {
-        if (KC > 0 && c >= n_chunks) break;
-        const int col = 16 * c + 4 * t;
-        float v[2][2][4];
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          load4<T, kVec>(sx + size_t(r0 + 16 * m + 8 * r + g) * k, 4 * t, k,
+                         v[m][r]);
+          if (scales) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[m][r][j] *= sc[m][r];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            nx[m][r] = fmaf(v[m][r][j], v[m][r][j], nx[m][r]);
+          const float pick = alt_j == 0   ? v[m][r][0]
+                             : alt_j == 1 ? v[m][r][1]
+                             : alt_j == 2 ? v[m][r][2]
+                                          : v[m][r][3];
+          xa[m][r] = t == alt_t ? pick : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            load4<T, kVec>(sx + size_t(r0 + 16 * m + 8 * r + g) * k, col, k,
-                           v[m][r]);
-            if (scales) {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) v[m][r][j] *= sc[m][r];
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              nx[m][r] = fmaf(v[m][r][j], v[m][r][j], nx[m][r]);
-            const float pick = alt_j == 0   ? v[m][r][0]
-                               : alt_j == 1 ? v[m][r][1]
-                               : alt_j == 2 ? v[m][r][2]
-                                            : v[m][r][3];
-            xa[m][r] = (c == alt_c && t == alt_t) ? pick : xa[m][r];
-          }
-        }
-        uint32_t bh[2][2], bl[2][2];
-        if constexpr (KC > 0) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              bh[h][b] = qhi[c][h][b];
-              bl[h][b] = qlo[c][h][b];
-            }
-        } else {
-          query_chunk(qg, g_ok, k, col, bh, bl);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            uint32_t ah[4], al[4];
-            split_tf32(v[m][0][2 * h], ah[0], al[0]);
-            split_tf32(v[m][1][2 * h], ah[1], al[1]);
-            split_tf32(v[m][0][2 * h + 1], ah[2], al[2]);
-            split_tf32(v[m][1][2 * h + 1], ah[3], al[3]);
-            mma_tf32(small[m], al, bh[h][0], bh[h][1]);
-            mma_tf32(small[m], ah, bl[h][0], bl[h][1]);
-            mma_tf32(big[m], ah, bh[h][0], bh[h][1]);
-          }
+          uint32_t ah[4], al[4];
+          split_tf32(v[m][0][2 * h], ah[0], al[0]);
+          split_tf32(v[m][1][2 * h], ah[1], al[1]);
+          split_tf32(v[m][0][2 * h + 1], ah[2], al[2]);
+          split_tf32(v[m][1][2 * h + 1], ah[3], al[3]);
+          mma_tf32(small[m], al, bh[h][0], bh[h][1]);
+          mma_tf32(small[m], ah, bl[h][0], bl[h][1]);
+          mma_tf32(big[m], ah, bh[h][0], bh[h][1]);
         }
       }
       // whole-row norms and altitudes from the four lanes of a row
@@ -939,30 +905,32 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
         }
       }
       // the filter, on the squared distance alone: accumulator (m, r, j)
-      // is row r0 + 16m + 8r + g against query 2t + j. The bound is at or
+      // is row r0 + 16m + 8r + g against query 2t + j. The tensor cores'
+      // estimate (in FMAs) passes when, less a margin far above its error
+      // (< 2^-20 (|q|^2 + |x|^2) at k <= 16), it is within the bound: at or
       // above the n-th best's squared distance, so a row tied with it (a
-      // lower id may still win) passes; the merge compares full keys.
-      float z2[2][2][2];
+      // lower id may still win) passes too.
       bool keep[2][2][2];
       bool any = false;
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int rl = r0 + 16 * m + 8 * r + g;
+          const bool row_ok = r0 + 16 * m + 8 * r + g < rows;
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            z2[m][r][j] = zen::estimate_sq(
-                qn[j], nx[m][r], big[m][2 * r + j] + small[m][2 * r + j],
-                qa[j], xa[m][r], mode);
-            keep[m][r][j] = rl < rows && qok[j] && z2[m][r][j] <= bnd[j];
+            const float sum = qn[j] + nx[m][r];
+            float z2 = fmaf(-2.0f, big[m][2 * r + j] + small[m][2 * r + j],
+                            sum);
+            z2 = fmaf(cross[j], xa[m][r], z2);
+            keep[m][r][j] = row_ok && fmaf(-0x1p-18f, sum, z2) <= bnd[j];
             any |= keep[m][r][j];
           }
         }
       }
       ZEN_PROBE_MARK(1);
-      // append the survivors (squared-estimate keys): the 8 lanes of
-      // column t share queries 2t and 2t + 1
+      // append the survivors' row ids: the 8 lanes of column t share
+      // queries 2t and 2t + 1
       if (__any_sync(~0u, any)) {
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
@@ -972,9 +940,7 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
             for (int j = 0; j < 2; ++j) {
               const uint32_t b = __ballot_sync(~0u, keep[m][r][j]) & mine;
               if (keep[m][r][j])
-                buf[(2 * t + j) * cap + cnt[j] + __popc(b & below)] =
-                    (uint64_t(__float_as_uint(fmaxf(z2[m][r][j], 0.0f)))
-                     << 32) |
+                buf[(2 * t + j) * kCap + cnt[j] + __popc(b & below)] =
                     uint32_t(tile0 + r0 + 16 * m + 8 * r + g);
               cnt[j] += __popc(b);
             }
@@ -991,8 +957,12 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
           if (c <= cl) continue;
           ZEN_PROBE_FLUSH(c);
           const uint64_t shared_nth = shared_bound(bests, qw0 + ql, n_out);
-          uint64_t nth = warp_flush(list + ql * w, buf + ql * cap, c, w,
-                                    n_out, cap, true);
+          const float fqn = __shfl_sync(~0u, (ql & 1) ? qn[1] : qn[0], ql >> 1);
+          const float fqa = __shfl_sync(~0u, (ql & 1) ? qa[1] : qa[0], ql >> 1);
+          uint64_t nth = warp_flush(list + ql * w, buf + ql * kCap, c, w,
+                                    n_out, index, scales,
+                                    queries + int64_t(qw0 + ql) * k, fqn,
+                                    fqa, k, mode);
           publish_best(bests, qw0 + ql, n_out, list_id, list[ql * w]);
           nth = nth < shared_nth ? nth : shared_nth;
           if (t == (ql >> 1)) {
@@ -1013,9 +983,12 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
   if (!idle) {
     for (int ql = 0; ql < kWarpQueries; ++ql) {
       const int c = __shfl_sync(~0u, (ql & 1) ? cnt[1] : cnt[0], ql >> 1);
+      const float fqn = __shfl_sync(~0u, (ql & 1) ? qn[1] : qn[0], ql >> 1);
+      const float fqa = __shfl_sync(~0u, (ql & 1) ? qa[1] : qa[0], ql >> 1);
       if (c > 0) {
         ZEN_PROBE_FLUSH(c);
-        warp_flush(list + ql * w, buf + ql * cap, c, w, n_out, cap, true);
+        warp_flush(list + ql * w, buf + ql * kCap, c, w, n_out, index, scales,
+                   queries + int64_t(qw0 + ql) * k, fqn, fqa, k, mode);
       }
     }
   }
@@ -1029,8 +1002,8 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
       const uint64_t* other = lists + size_t(warp + half * groups) *
                                           kWarpQueries * w;
       for (int ql = 0; ql < kWarpQueries; ++ql)
-        warp_flush(list + ql * w, const_cast<uint64_t*>(other) + ql * w, w,
-                   w, n_out, w, false);
+        warp_flush<T>(list + ql * w, other + ql * w, w, w, n_out, nullptr,
+                      nullptr, nullptr, 0.0f, 0.0f, k, mode);
     }
   }
   if (stream != 0 || idle) return;
@@ -1042,25 +1015,25 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
   }
 }
 
-template <typename T, int KC, bool kVec>
+template <typename T, bool kVec>
 cudaError_t launch(int nq, int n_split, size_t smem, cudaStream_t stream,
                    const float* queries, const void* index,
                    const float* scales, int64_t n_index, int k, int n_out,
                    int w, int cap, int tile_rows, int stages, int warps,
                    int streams, int64_t split_rows, int n_lists, int mode,
                    uint64_t* partial, uint64_t* bests) {
-  const bool pow2 = (cap & (cap - 1)) == 0;
-  if (warps < 1 || warps > kMaxWarps || streams < 1 || warps % streams != 0 ||
+  if (w > kMaxW || cap != kCap || warps < 1 || warps > kMaxWarps ||
+      streams < 1 || warps % streams != 0 ||
       (streams & (streams - 1)) != 0 || stages < 2 || stages > kMaxStages ||
-      tile_rows < kStepRows || tile_rows % kStepRows != 0 || !pow2 ||
-      cap < kMinCap || cap < w || (KC > 0 && k > 16 * KC) ||
-      kVec != (k % 4 == 0) || reinterpret_cast<uintptr_t>(index) % 16 != 0 ||
+      tile_rows < kStepRows || tile_rows % kStepRows != 0 ||
+      k < 1 || k > 16 || kVec != (k % 4 == 0) ||
+      reinterpret_cast<uintptr_t>(index) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(scales) % 16 != 0 ||
       split_rows % tile_rows != 0 ||
-      smem < smem_bytes(k, sizeof(T), w, cap, warps, tile_rows, stages))
+      smem < smem_bytes(k, sizeof(T), w, warps, tile_rows, stages))
     return cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(zen_topk_mma<T, KC, kVec>,
+      cudaFuncSetAttribute(zen_topk_mma<T, kVec>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            int(smem));
   if (err != cudaSuccess) return err;
@@ -1070,10 +1043,9 @@ cudaError_t launch(int nq, int n_split, size_t smem, cudaStream_t stream,
   }
   const int per_block = warps / streams * kWarpQueries;
   const dim3 grid((nq + per_block - 1) / per_block, n_split);
-  zen_topk_mma<T, KC, kVec><<<grid, (warps + 1) * 32, smem, stream>>>(
+  zen_topk_mma<T, kVec><<<grid, (warps + 1) * 32, smem, stream>>>(
       queries, static_cast<const T*>(index), scales, nq, n_index, k, n_out, w,
-      cap, tile_rows, stages, streams, split_rows, n_lists, mode, partial,
-      bests);
+      tile_rows, stages, streams, split_rows, n_lists, mode, partial, bests);
   return cudaGetLastError();
 }
 
@@ -1084,13 +1056,11 @@ cudaError_t launch_dtype(int nq, int n_split, size_t smem, cudaStream_t s,
                          int tile_rows, int stages, int warps, int streams,
                          int64_t split_rows, int n_lists, int mode,
                          uint64_t* part, uint64_t* bests) {
-#define ZEN_MMA(KC, VEC)                                                     \
-  launch<T, KC, VEC>(nq, n_split, smem, s, q, index, sc, n_index, k, n_out, \
-                     w, cap, tile_rows, stages, warps, streams, split_rows, \
-                     n_lists, mode, part, bests)
-  const bool vec = k % 4 == 0;
-  if (k <= 16) return vec ? ZEN_MMA(1, true) : ZEN_MMA(1, false);
-  return vec ? ZEN_MMA(0, true) : ZEN_MMA(0, false);
+#define ZEN_MMA(VEC)                                                        \
+  launch<T, VEC>(nq, n_split, smem, s, q, index, sc, n_index, k, n_out, w, \
+                 cap, tile_rows, stages, warps, streams, split_rows, n_lists, \
+                 mode, part, bests)
+  return k % 4 == 0 ? ZEN_MMA(true) : ZEN_MMA(false);
 #undef ZEN_MMA
 }
 

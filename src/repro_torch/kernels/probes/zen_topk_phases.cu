@@ -304,7 +304,7 @@ __global__ void fill_normal(float* x, int64_t n, int k, uint32_t seed) {
 int run_mma(const float* q, const float* x, int nq, int64_t n_index, int k,
             int n_out, int w, int smem, int merge_smem, uint64_t* part,
             uint64_t* bests, float* out_d, int32_t* out_i) {
-  const int cap = w < 64 ? 64 : w, tile_rows = 128, stages = 4, warps = 16,
+  const int cap = 64, tile_rows = 128, stages = 8, warps = 16,
             streams = 2;
   const int n_split = 131, n_lists = 256;
   const int64_t split_rows = 7680;
@@ -322,7 +322,7 @@ int run_mma(const float* q, const float* x, int nq, int64_t n_index, int k,
     return ms / 20;
   };
   const float t1 = time([&] {
-    mma::launch<float, 1, true>(nq, n_split, smem, 0, q, x, nullptr, n_index,
+    mma::launch<float, true>(nq, n_split, smem, 0, q, x, nullptr, n_index,
                                 k, n_out, w, cap, tile_rows, stages, warps,
                                 streams, split_rows, n_lists, 0, part, bests);
   });
@@ -442,9 +442,9 @@ int run() {
   CK(cudaMalloc(&part2, size_t(nq) * 256 * 64 * 8));
   uint64_t* bests;
   CK(cudaMalloc(&bests, size_t(nq) * 64 * 8));
-  if (run_mma(q, x, nq, n_index, k, 64, 64, 166016, 131072, part2, bests, out_d, out_i) ||
-      run_mma(q, x, nq, n_index, k, 10, 16, 116864, 32768, part2, bests, out_d, out_i) ||
-      run_mma(q, x, nq, n_index, k, 64, 64, 166016, 131072, part2, nullptr, out_d, out_i))
+  if (run_mma(q, x, nq, n_index, k, 64, 64, 200832, 131072, part2, bests, out_d, out_i) ||
+      run_mma(q, x, nq, n_index, k, 10, 16, 151680, 32768, part2, bests, out_d, out_i) ||
+      run_mma(q, x, nq, n_index, k, 64, 64, 200832, 131072, part2, nullptr, out_d, out_i))
     return 1;
   return sorted ? 0 : 1;
 }

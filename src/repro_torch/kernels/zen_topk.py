@@ -59,15 +59,18 @@ _MAX_WARPS = 16
 _MAX_GROUPS = 8
 _MAX_STAGES = 8
 _BAR_BYTES = 16 * _MAX_STAGES
-#: tile heights, tallest first, and the stage bytes a tile should not pass
-_MMA_TILE_ROWS = (128, 64, 32)
-_STAGE_TARGET = 16_384
+#: rows a tile of the ring
+_MMA_TILE_ROWS = 128
 #: bytes of index rows the ring keeps in flight on an SM
-_RING_TARGET = 32_768
-#: buffer keys a query, at least (a flush merges 33 to 64 at w <= 64)
-_MIN_CAP = 64
-#: the widest list the MMA plan keeps; wider ones take the SIMT plan
-MMA_MAX_W = 512
+_RING_TARGET = 65_536
+#: buffer keys a query (a flush merges up to 64 in registers)
+MMA_CAP = 64
+#: the widest list the MMA plan keeps (its flushes sort and merge in
+#: registers) and its widest rows (one 16-column chunk: over longer dots
+#: the tensor cores' truncating accumulation drifts from f32); the rest
+#: takes the SIMT plan
+MMA_MAX_W = 64
+MMA_MAX_K = 16
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNELS = {"simt": 0, "mma": 1}
@@ -145,12 +148,13 @@ def mma_stage_bytes(tile_rows: int, k: int, elem_bytes: int) -> int:
     return ((tile_rows * k * elem_bytes + 15) & ~15) + 4 * tile_rows
 
 
-def mma_smem(k: int, elem_bytes: int, w: int, cap: int, warps: int,
-             tile_rows: int, stages: int) -> int:
+def mma_smem(k: int, elem_bytes: int, w: int, warps: int, tile_rows: int,
+             stages: int) -> int:
     """Dynamic shared memory of an MMA pass-1 block: the mbarriers, the
-    ring, then each consumer warp's 8 lists (w keys) and buffers (cap)."""
+    ring, then each consumer warp's 8 lists (w keys) and buffers
+    (``MMA_CAP`` keys)."""
     return (_BAR_BYTES + stages * mma_stage_bytes(tile_rows, k, elem_bytes)
-            + 8 * warps * _WARP_QUERIES * (w + cap))
+            + 8 * warps * _WARP_QUERIES * (w + MMA_CAP))
 
 
 def _splits(n_index: int, want: int, tile_rows: int, w: int,
@@ -171,16 +175,13 @@ def _splits(n_index: int, want: int, tile_rows: int, w: int,
 
 def _mma_plan(nq: int, n_index: int, w: int, k: int, n_sms: int,
               elem_bytes: int) -> Optional[TopkPlan]:
-    if w > MMA_MAX_W:
+    if w > MMA_MAX_W or k > MMA_MAX_K:
         return None
-    cap = max(_MIN_CAP, w)
-    tile_rows = next((r for r in _MMA_TILE_ROWS
-                      if mma_stage_bytes(r, k, elem_bytes) <= _STAGE_TARGET),
-                     _MMA_TILE_ROWS[-1])
+    tile_rows = _MMA_TILE_ROWS
     stage = mma_stage_bytes(tile_rows, k, elem_bytes)
 
     def fits(warps: int, stages: int) -> bool:
-        return mma_smem(k, elem_bytes, w, cap, warps, tile_rows,
+        return mma_smem(k, elem_bytes, w, warps, tile_rows,
                         stages) <= SMEM_LIMIT
 
     groups = min(_MAX_GROUPS, -(-nq // _WARP_QUERIES))
@@ -193,18 +194,19 @@ def _mma_plan(nq: int, n_index: int, w: int, k: int, n_sms: int,
             groups * streams * 2, min(_MAX_STAGES, 4 * streams)):
         streams *= 2
     warps = groups * streams
-    # ~32 KB in flight, and two stages a stream
+    # ~64 KB in flight, and two stages a stream
     stages = min(_MAX_STAGES, max(2, -(-_RING_TARGET // stage), 2 * streams))
     while not fits(warps, stages):
         stages -= 1
-    smem = mma_smem(k, elem_bytes, w, cap, warps, tile_rows, stages)
+    smem = mma_smem(k, elem_bytes, w, warps, tile_rows, stages)
     blocks_per_sm = max(1, min(_MAX_WARPS // warps,
                                SMEM_SM // (smem + 1_024)))
     per_block = groups * _WARP_QUERIES
     q_blocks = -(-nq // per_block)
     n_split, split_rows, n_lists, merge_smem = _splits(
         n_index, -(-blocks_per_sm * n_sms // q_blocks), tile_rows, w, True)
-    return TopkPlan(kernel="mma", w=w, queries_per_block=per_block, cap=cap,
+    return TopkPlan(kernel="mma", w=w, queries_per_block=per_block,
+                    cap=MMA_CAP,
                     global_lists=False, smem=smem,
                     blocks_per_sm=blocks_per_sm, n_split=n_split,
                     split_rows=split_rows, n_lists=n_lists,
@@ -250,13 +252,13 @@ def launch_geometry(nq: int, n_index: int, n_out: int, k: int, n_sms: int,
     neighbours, on ``n_sms`` SMs.
 
     ``w`` is the list width (a power of two >= n_out). The MMA plan serves
-    w <= ``MMA_MAX_W`` whenever one consumer warp's lists and a ring of two
-    stages fit shared memory: up to 8 query groups of 8 queries a block (as
+    w <= ``MMA_MAX_W`` and k <= ``MMA_MAX_K`` (every flush sorts and merges
+    in registers; the dot is one 16-column chunk): up to 8 query groups of
+    8 queries a block (as
     many as the queries need, fewer where their lists do not fit), as many
     row streams (a power of two) as keep the consumer warps within 16 and
-    their lists within shared memory, tiles of 128, 64
-    or 32 rows (the tallest whose stage stays within 16 KB), as many stages
-    (2 to 8) as keep ~32 KB in flight, buffers of max(64, w) keys, and
+    their lists within shared memory, tiles of 128 rows, as many stages
+    (2 to 8) as keep ~64 KB in flight, buffers of 64 keys, and
     enough splits to give each SM its blocks. Everything else takes the
     SIMT plan: its buffer holds ``max(2 * 512, w)`` keys, a block the most
     queries (8, 4, 2, 1) whose lists fit shared memory, else one query with

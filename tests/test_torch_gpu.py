@@ -124,6 +124,114 @@ def test_kernel_matches_plain_at_wide_widths(cuda, nq, n_index, k, n):
     assert msg is None, (plan, msg)
 
 
+def _check_topk(q, x, n, mode="zen", scales=None, plan=None):
+    before = zt.zen_topk.launches
+    got = zt.zen_topk(q, x, n, mode, scales=scales, plan=plan)
+    torch.cuda.synchronize()
+    assert zt.zen_topk.launches == before + 1
+    want = zt.zen_topk_scan(q, x, n, mode, scales=scales)
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
+    assert msg is None, msg
+    return got, want
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_duplicated_rows_keep_the_lower_id_first(cuda, storage):
+    """Every row of 1,000 appears 37 times: ties in distance are exact, and
+    the ids must equal the plain version's exactly (lax.top_k's order: the
+    lower id first), under both plans."""
+    base = _coords(30, 1_000, 16, cuda)
+    x, s = quant.encode_rows(base.repeat(37, 1), storage)
+    q = _coords(31, 64, 16, cuda)
+    for plan in (None, zt.simt_plan(64, x.shape[0], 64, 16, 132)):
+        got, want = _check_topk(q, x, 64, scales=s, plan=plan)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0]) or \
+            float((got[0] - want[0]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 2, 13, 130, 300])
+def test_kernel_matches_plain_at_odd_k(cuda, storage, k):
+    """Row widths whose bytes are not a multiple of 16 (the TMA bulk copy's
+    tail), k = 1 (no dot, the altitude alone) and wide rows (the SIMT
+    plan). Zen and Upb: at k <= 2, 20,011 random rows put Lwb's nearest
+    within ~1e-3 of a query, where the norm expansion cancels terms ~4 and
+    any two f32 summation orders differ by more than 1e-5 (the SIMT plan's
+    as much as the MMA plan's); the two plans' Lwb keys are held to each
+    other bit for bit in ``test_mma_and_simt_plans_agree_bit_for_bit``."""
+    q = _coords(32, 64, k, cuda)
+    x, s = quant.encode_rows(_coords(33, 20_011, k, cuda), storage)
+    for mode in ("zen", "upb"):
+        _check_topk(q, x, 64, mode, scales=s)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 2, 3, 13, 16])
+def test_mma_and_simt_plans_agree_bit_for_bit(cuda, storage, k):
+    """The MMA plan's tensor cores only filter: every key it keeps is
+    computed in f32 FMAs as the SIMT plan computes it, so both plans give
+    the same distances and ids, bit for bit, in every mode (and with dead
+    rows)."""
+    q = _coords(40, 64, k, cuda)
+    x = _coords(41, 30_011, k, cuda)
+    x[::5] = serve._DEAD_COORD
+    x, s = quant.encode_rows(x, storage)
+    for n in (10, 64):
+        plan = zt.launch_geometry(64, x.shape[0], n, k, 132, x.element_size())
+        assert plan.kernel == "mma"
+        for mode in ("zen", "lwb", "upb"):
+            got = zt.zen_topk(q, x, n, mode, scales=s)
+            want = zt.zen_topk(q, x, n, mode, scales=s,
+                               plan=zt.simt_plan(64, x.shape[0], n, k, 132))
+            assert torch.equal(got[1], want[1]), (n, mode)
+            assert torch.equal(got[0], want[0]), (n, mode)
+
+
+def _n_index_past_a_split(nq, n):
+    """The smallest N = 1 (mod the tile) whose MMA plan leaves one row past
+    a whole number of splits."""
+    for n_index in range(128 * 131 + 1, 128 * 131 * 40, 128):
+        plan = zt.launch_geometry(nq, n_index, n, 16, 132)
+        if (n_index - 1) % plan.split_rows == 0:
+            return n_index
+    raise AssertionError("no such N")
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_ragged_tiles_and_splits(cuda, storage):
+    """N under one tile, N one past a multiple of the tile, N one past a
+    multiple of the split (its last split holds one row), and n > N."""
+    q = _coords(34, 64, 16, cuda)
+    n_split_edge = _n_index_past_a_split(64, 64)
+    for n_index, n in ((37, 10), (100, 128), (128 * 37 + 1, 64),
+                       (n_split_edge, 64), (5_000, 6_000)):
+        x, s = quant.encode_rows(_coords(35, n_index, 16, cuda), storage)
+        plan = zt.launch_geometry(64, n_index, n, 16, 132, x.element_size())
+        _check_topk(q, x, n, "zen", scales=s)
+        if n_index == n_split_edge:
+            assert plan.kernel == "mma"
+            assert (n_index - 1) % plan.split_rows == 0
+
+
+@pytest.mark.parametrize("n", [10, 64, 128, 300, 600, 5_000, 10_000])
+def test_dead_rows_never_win_at_every_width(cuda, n):
+    """Dead rows (the mutable index's 1e15 sentinel) under every plan: the
+    MMA plan's widths and the SIMT plan's shared and global lists."""
+    x = _coords(36, 60_000, 16, cuda)
+    index = serve.ZenIndex(None, x, None).delete(list(range(0, 60_000, 3)))
+    q = _coords(37, 16, 16, cuda)
+    got, _ = _check_topk(q, index.coords, n, "lwb")
+    assert (got[1] % 3 != 0).all() and torch.isfinite(got[0]).all()
+
+
+@pytest.mark.parametrize("nq", [1, 2, 3, 64, 65])
+def test_query_padding(cuda, nq):
+    """Q = 1, 2, 3 fill one warp's 8 query slots; 65 takes two query
+    blocks, the second with one query."""
+    _check_topk(_coords(38, nq, 16, cuda), _coords(39, 50_000, 16, cuda), 64)
+
+
 def test_server_on_card_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(0)
     corpus = torch.randn((6_000, 48), generator=gen)

@@ -167,6 +167,7 @@ def test_launch_geometry_covers_the_index(nq, n_index, n_out):
     assert w >= n_out and w & (w - 1) == 0
     assert plan.n_lists == tzt._pow2_ceil(n_split)
     assert plan.merge_smem == 8 * plan.n_lists * w <= tzt.SMEM_LIMIT
-    assert plan.kernel == "mma" and split_rows % plan.tile_rows == 0
+    assert plan.kernel == ("mma" if w <= 64 else "simt")
+    assert split_rows % plan.tile_rows == 0
     assert n_split * split_rows >= n_index           # every row in a split
     assert (n_split - 1) * split_rows < n_index      # no split wholly empty
