@@ -1641,8 +1641,8 @@ def main() -> None:
             x, s = quant.encode_rows(xk, st)
             compare(qk, x, s, 64, "zen", f"{st} k={kk} Q=64 n=64 N=200003")
     del xk, qk
-    # the MMA plan's tensor cores only filter: its keys are the SIMT plan's,
-    # bit for bit, in every mode
+    # the MMA plan (3xTF32 on the tensor cores) against the SIMT plan (f32
+    # FMAs) on the same inputs, every mode
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for st in quant.SCALAR_STORAGE_DTYPES:
         x, s = encoded[st]
@@ -1650,11 +1650,13 @@ def main() -> None:
             got = zt.zen_topk(queries, x, 64, m, scales=s)
             want = zt.zen_topk(queries, x, 64, m, scales=s, plan=zt.simt_plan(
                 64, x.shape[0], 64, k, n_sms))
-            if not (torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1])):
-                fail(f"the MMA and SIMT plans of zen_topk differ ({st} {m})")
-    log("    the MMA and SIMT plans agree bit for bit at N = 1,000,003 "
-        "(3 storages x 3 modes)")
+            msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=RTOL,
+                                atol=atol)
+            if msg is not None:
+                fail(f"the MMA and SIMT plans of zen_topk differ ({st} {m}): "
+                     f"{msg}")
+    log("    the MMA and SIMT plans agree at N = 1,000,003 (3 storages x 3 "
+        "modes)")
     # wide lists: widths 512 to 16,384 (past 8,192 the lists live in global
     # memory, one query a block), on 200,003 rows; and k = 300
     wide_ns = (300, 2_048) if quick else (300, 600, 2_048, 5_000, 10_000)

@@ -16,8 +16,10 @@
 // picks one and sizes it, and the kernels take every number of the plan as
 // an argument.
 //
-// MMA plan (lists up to 64 wide, k <= 16: the serving batch): one block an
-// SM walks a contiguous split of N for up to 64 queries.
+// MMA plan (lists up to 64 wide, k <= 16: the serving batch; wider lists
+// flush too slowly in registers, and longer dots drift from f32 in the
+// tensor cores' accumulation): one block an SM walks a contiguous split of
+// N for up to 64 queries.
 //   - One producer warp fills a ring of up to 8 stages of 128 rows with TMA
 //     bulk copies (cp.async.bulk, completing on an mbarrier a stage). A
 //     tile of consecutive rows is one contiguous byte range, so the 1-D
@@ -33,17 +35,17 @@
 //     (x row scale) as they leave the stage, and their norms and altitudes
 //     summed on the CUDA cores in f32 (dead rows, 1e15 a coordinate, stay
 //     ~1.6e31).
-//   - The tensor cores only filter: an accumulator passes when its squared
-//     estimate, less a margin above the split-TF32 error, is within its
-//     query's bound (squared_bound of the n-th best key as of the last
-//     flush: stale, so only looser; a row tied with the n-th best passes).
-//     Survivors' row ids are appended to the query's buffer with
-//     __ballot_sync and a prefix count. A buffer that might not hold the
-//     next step is flushed by its warp alone: each candidate's key is
-//     computed again from its row in f32 FMAs, as the SIMT plan computes
-//     it, then a bitonic sort and merge into the query's running best of w
-//     keys, by shuffles. Keys are f32-exact and compared in full (a lower
-//     id wins a tie). No block-wide barrier runs after set-up.
+//   - Each accumulator's squared estimate (the dot's error is below
+//     2^-21 (|q|^2 + |x|^2), a few f32 roundings: one 16-column chunk, so
+//     the tensor cores' truncating accumulation stays short) is compared in
+//     registers with its query's bound (squared_bound of the n-th best key
+//     as of the last flush: stale, so only looser; a row tied with the
+//     n-th best passes), and survivors are appended to the query's buffer
+//     with __ballot_sync and a prefix count. A buffer that might not hold
+//     the next step is flushed by its warp alone: a bitonic sort and merge
+//     into the query's running best of w keys, by shuffles. Keys compare
+//     in full (a lower id wins a tie). No block-wide barrier runs after
+//     set-up.
 //   - Lists share a bound across blocks: each publishes its best key into
 //     one of n buckets of its query (atomicMin); once all n buckets hold
 //     keys (n different rows), their largest bounds the n-th best, and
@@ -602,24 +604,8 @@ __device__ __forceinline__ void query_chunk(const float* qg, bool g_ok, int k,
 // of a real row, a different row in each bucket. Once every bucket is
 // filled, n_out rows lie at or below the largest bucket: no row beyond it
 // can be among the query's n_out nearest, and each list may filter with
-// it. It is only read stale, so only looser. One warp, n_out <= 64; all
-// ones (no bound) until every bucket is filled, and without bests.
-__device__ __forceinline__ uint64_t shared_bound(const uint64_t* bests, int q,
-                                                 int n_out) {
-  if (bests == nullptr) return ~uint64_t(0);
-  const int lane = threadIdx.x & 31;
-  const uint64_t* b = bests + int64_t(q) * n_out;
-  const uint64_t b0 = lane < n_out ? __ldcg(b + lane) : 0;
-  const uint64_t b1 = lane + 32 < n_out ? __ldcg(b + lane + 32) : 0;
-  uint64_t most = b0 > b1 ? b0 : b1;
-#pragma unroll
-  for (int j = 16; j > 0; j >>= 1) {
-    const uint64_t o = __shfl_xor_sync(~0u, most, j);
-    most = o > most ? o : most;
-  }
-  return most;
-}
-
+// it (warp_flush reads it). It is only read stale, so only looser; all
+// ones (no bound) until every bucket is filled.
 __device__ __forceinline__ void publish_best(uint64_t* bests, int q,
                                              int n_out, int list_id,
                                              uint64_t best) {
@@ -629,94 +615,35 @@ __device__ __forceinline__ void publish_best(uint64_t* bests, int q,
               static_cast<unsigned long long>(best));
 }
 
-// One row of k <= 16 coordinates from global memory, as f32 (zero past
-// k): four 16-byte loads at most where the row starts on a 16-byte
-// boundary (k x element size a multiple of 16), else one load a column.
-template <typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int k,
-                                         bool vec16, float (&x)[16]) {
-  if (vec16) {
-    uint4 raw[4];
-    const int n16 = int(k * sizeof(T)) >> 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      raw[i] = i < n16 ? __ldg(reinterpret_cast<const uint4*>(row) + i)
-                       : make_uint4(0, 0, 0, 0);
-    const T* vals = reinterpret_cast<const T*>(raw);
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      if (c * sizeof(T) < sizeof(raw)) x[c] = c < k ? zen::to_float(vals[c])
-                                                    : 0.0f;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 16; ++c) x[c] = c < k ? zen::to_float(row[c]) : 0.0f;
-  }
+// A buffered key holds max(z2, 0)'s bits (the squared estimate) above the
+// row id; a flush turns it into the distance key before sorting.
+__device__ __forceinline__ uint64_t to_distance_key(uint64_t z2_key) {
+  const float d = zen::distance(__uint_as_float(uint32_t(z2_key >> 32)));
+  return (uint64_t(__float_as_uint(d)) << 32) | (z2_key & 0xffffffffu);
 }
 
-// The keys of two buffered candidates (row ids in the low 32 bits; ok0,
-// ok1: whether each is one), computed as the SIMT plan computes keys: the
-// row dequantised, its norm and the dot with the query accumulated in f32
-// FMAs over the columns in order, then the estimator and the distance.
-// The tensor cores only filtered them; their keys are f32-exact. Both
-// rows' loads are in flight at once.
-template <typename T>
-__device__ __forceinline__ void exact_keys(uint64_t& a, uint64_t& b, bool ok0,
-                                           bool ok1,
-                                           const T* __restrict__ index,
-                                           const float* __restrict__ scales,
-                                           const float* __restrict__ q,
-                                           float qn, float qa, int k,
-                                           int mode) {
-  const bool vec16 = (k * sizeof(T)) % 16 == 0;
-  const uint32_t id[2] = {uint32_t(a & 0xffffffffu),
-                          uint32_t((ok1 ? b : a) & 0xffffffffu)};
-  float x[2][16], qv[16];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) load_row(index + int64_t(id[i]) * k, k, vec16,
-                                       x[i]);
-#pragma unroll
-  for (int c = 0; c < 16; ++c) qv[c] = c < k - 1 ? __ldg(q + c) : 0.0f;
-  uint64_t key[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float sc = scales ? __ldg(scales + id[i]) : 1.0f;
-    float nx = 0.0f, dot = 0.0f, xa = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const float v = x[i][c] * sc;
-      if (c < k - 1) {
-        nx = fmaf(v, v, nx);
-        dot = fmaf(qv[c], v, dot);
-      } else if (c == k - 1) {
-        xa = v;
-      }
-    }
-    nx = fmaf(xa, xa, nx);
-    key[i] = zen::make_key(
-        zen::distance(zen::estimate_sq(qn, nx, dot, qa, xa, mode)), true,
-        id[i]);
-  }
-  if (ok0) a = key[0];
-  if (ok1) b = key[1];
-}
-
-// Sorts a query's c <= 64 buffered keys and merges them into its running
+// Sorts a query's c <= 64 buffered keys (squared-estimate keys, made
+// distance keys first, with `convert`) and merges them into its running
 // best of w <= 64 keys, in registers, by shuffles; returns the new n-th
-// best key. Buffered candidates (`q` not null) get their exact keys first;
-// lists (q null) are merged as they are. One warp.
-template <typename T>
+// best key, tightened by the shared bound when `buckets` (the query's
+// n_out buckets) is given. One warp.
 __device__ __noinline__ uint64_t warp_flush(uint64_t* list,
                                             const uint64_t* buf, int c, int w,
-                                            int n_out, const T* index,
-                                            const float* scales,
-                                            const float* q, float qn,
-                                            float qa, int k, int mode) {
+                                            int n_out, bool convert,
+                                            const uint64_t* buckets) {
   const int lane = threadIdx.x & 31;
+  uint64_t most = ~uint64_t(0);
+  if (buckets != nullptr) {
+    const uint64_t b0 = lane < n_out ? __ldcg(buckets + lane) : 0;
+    const uint64_t b1 = lane + 32 < n_out ? __ldcg(buckets + lane + 32) : 0;
+    most = b0 > b1 ? b0 : b1;
+  }
   uint64_t a = lane < c ? buf[lane] : zen::kEmptyKey;
   uint64_t b = lane + 32 < c ? buf[lane + 32] : zen::kEmptyKey;
-  if (q != nullptr && lane < c)
-    exact_keys(a, b, true, lane + 32 < c, index, scales, q, qn, qa, k, mode);
+  if (convert) {
+    if (lane < c) a = to_distance_key(a);
+    if (lane + 32 < c) b = to_distance_key(b);
+  }
   if (c <= 32)
     zen::sort32(a);  // b holds no key
   else
@@ -728,7 +655,14 @@ __device__ __noinline__ uint64_t warp_flush(uint64_t* list,
   if (lane + 32 < w) list[lane + 32] = l1;
   __syncwarp();
   const int e = n_out - 1;
-  return __shfl_sync(~0u, e < 32 ? l0 : l1, e & 31);
+  const uint64_t nth = __shfl_sync(~0u, e < 32 ? l0 : l1, e & 31);
+  if (buckets == nullptr) return nth;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const uint64_t o = __shfl_xor_sync(~0u, most, j);
+    most = o > most ? o : most;
+  }
+  return nth < most ? nth : most;
 }
 
 // Pass 1 of the MMA plan. Block (query block x, split y): `streams` row
@@ -801,7 +735,7 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
   __syncwarp();
   // this lane's accumulator queries 2t and 2t + 1: norms, altitudes, and the
   // squared distance bound of the n-th best as of the last flush
-  float qn[2], qa[2], cross[2], bnd[2];
+  float qn[2], qa[2], bnd[2];
   int cnt[2];
   bool qok[2];
 #pragma unroll
@@ -815,11 +749,7 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
     }
     qn[j] = s;
     qa[j] = qok[j] ? __ldg(queries + int64_t(q) * k + k - 1) : 0.0f;
-    // the filter's rank-1 altitude term, -2 qa xa (Lwb) or + (Upb); a query
-    // slot past Q passes nothing
-    cross[j] = mode == zen::kLwb   ? -2.0f * qa[j]
-               : mode == zen::kUpb ? 2.0f * qa[j]
-                                   : 0.0f;
+    // a query slot past Q passes nothing
     bnd[j] = qok[j] ? __int_as_float(0x7f800000) : -__int_as_float(0x7f800000);
     cnt[j] = 0;
   }
@@ -904,12 +834,11 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
           xa[m][r] = __shfl_sync(~0u, xa[m][r], (lane & ~3) | alt_t);
         }
       }
-      // the filter, on the squared distance alone: accumulator (m, r, j)
-      // is row r0 + 16m + 8r + g against query 2t + j. The tensor cores'
-      // estimate (in FMAs) passes when, less a margin far above its error
-      // (< 2^-20 (|q|^2 + |x|^2) at k <= 16), it is within the bound: at or
-      // above the n-th best's squared distance, so a row tied with it (a
-      // lower id may still win) passes too.
+      // the filter: accumulator (m, r, j) is row r0 + 16m + 8r + g against
+      // query 2t + j; its squared estimate passes when within the bound (at
+      // or above the n-th best's squared distance, so a row tied with it,
+      // which a lower id may win, passes too)
+      float z2[2][2][2];
       bool keep[2][2][2];
       bool any = false;
 #pragma unroll
@@ -919,18 +848,17 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
           const bool row_ok = r0 + 16 * m + 8 * r + g < rows;
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const float sum = qn[j] + nx[m][r];
-            float z2 = fmaf(-2.0f, big[m][2 * r + j] + small[m][2 * r + j],
-                            sum);
-            z2 = fmaf(cross[j], xa[m][r], z2);
-            keep[m][r][j] = row_ok && fmaf(-0x1p-18f, sum, z2) <= bnd[j];
+            z2[m][r][j] = zen::estimate_sq(
+                qn[j], nx[m][r], big[m][2 * r + j] + small[m][2 * r + j],
+                qa[j], xa[m][r], mode);
+            keep[m][r][j] = row_ok && z2[m][r][j] <= bnd[j];
             any |= keep[m][r][j];
           }
         }
       }
       ZEN_PROBE_MARK(1);
-      // append the survivors' row ids: the 8 lanes of column t share
-      // queries 2t and 2t + 1
+      // append the survivors (squared-estimate keys): the 8 lanes of
+      // column t share queries 2t and 2t + 1
       if (__any_sync(~0u, any)) {
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
@@ -941,6 +869,8 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
               const uint32_t b = __ballot_sync(~0u, keep[m][r][j]) & mine;
               if (keep[m][r][j])
                 buf[(2 * t + j) * kCap + cnt[j] + __popc(b & below)] =
+                    (uint64_t(__float_as_uint(fmaxf(z2[m][r][j], 0.0f)))
+                     << 32) |
                     uint32_t(tile0 + r0 + 16 * m + 8 * r + g);
               cnt[j] += __popc(b);
             }
@@ -956,15 +886,10 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
           const int cl = __shfl_sync(~0u, (ql & 1) ? lim[1] : lim[0], ql >> 1);
           if (c <= cl) continue;
           ZEN_PROBE_FLUSH(c);
-          const uint64_t shared_nth = shared_bound(bests, qw0 + ql, n_out);
-          const float fqn = __shfl_sync(~0u, (ql & 1) ? qn[1] : qn[0], ql >> 1);
-          const float fqa = __shfl_sync(~0u, (ql & 1) ? qa[1] : qa[0], ql >> 1);
-          uint64_t nth = warp_flush(list + ql * w, buf + ql * kCap, c, w,
-                                    n_out, index, scales,
-                                    queries + int64_t(qw0 + ql) * k, fqn,
-                                    fqa, k, mode);
+          const uint64_t nth = warp_flush(
+              list + ql * w, buf + ql * kCap, c, w, n_out, true,
+              bests ? bests + int64_t(qw0 + ql) * n_out : nullptr);
           publish_best(bests, qw0 + ql, n_out, list_id, list[ql * w]);
-          nth = nth < shared_nth ? nth : shared_nth;
           if (t == (ql >> 1)) {
             const float b = zen::squared_bound(zen::key_distance(nth));
             if (ql & 1) {
@@ -983,12 +908,9 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
   if (!idle) {
     for (int ql = 0; ql < kWarpQueries; ++ql) {
       const int c = __shfl_sync(~0u, (ql & 1) ? cnt[1] : cnt[0], ql >> 1);
-      const float fqn = __shfl_sync(~0u, (ql & 1) ? qn[1] : qn[0], ql >> 1);
-      const float fqa = __shfl_sync(~0u, (ql & 1) ? qa[1] : qa[0], ql >> 1);
       if (c > 0) {
         ZEN_PROBE_FLUSH(c);
-        warp_flush(list + ql * w, buf + ql * kCap, c, w, n_out, index, scales,
-                   queries + int64_t(qw0 + ql) * k, fqn, fqa, k, mode);
+        warp_flush(list + ql * w, buf + ql * kCap, c, w, n_out, true, nullptr);
       }
     }
   }
@@ -1002,8 +924,7 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
       const uint64_t* other = lists + size_t(warp + half * groups) *
                                           kWarpQueries * w;
       for (int ql = 0; ql < kWarpQueries; ++ql)
-        warp_flush<T>(list + ql * w, other + ql * w, w, w, n_out, nullptr,
-                      nullptr, nullptr, 0.0f, 0.0f, k, mode);
+        warp_flush(list + ql * w, other + ql * w, w, w, n_out, false, nullptr);
     }
   }
   if (stream != 0 || idle) return;

@@ -1,19 +1,28 @@
 // Probe of where zen_topk's pass 1 spends its time at the serving shape
-// (Q = 64, N = 1,000,000, k = 16 f32, n = 64), and how long pass 2 takes.
+// (Q = 64, N = 1,000,000, k = 16 f32, n = 64 and 10), and how long pass 2
+// takes.
 //
 // This is a measurement, not a kernel of the port: it explains the design
-// of csrc/zen_topk.cu (PERF.md, section 6). It carries a copy of the
-// SIMT pass 1 that csrc/zen_topk.cu kept as its "simt" plan (8 queries a
-// block, 512-row tiles staged through a register double buffer, an FMA
-// loop, a candidate filter with a shared atomicAdd, a block-wide count
-// scan, block-wide bitonic flushes), with clock64() marks at the phase
-// boundaries read by thread 0 of every block: each phase ends at a
-// __syncthreads, so thread 0's clock splits the block's time. It prints
-// the mean cycles a block spends in each phase, the flushes and buffered
-// candidates a block sees, and the device time of pass 1 (without the
-// marks) and of pass 2 (zen_topk_merge, one block a query) apart, by CUDA
-// events over 20 launches. The plan is the one launch_geometry gives the
-// serving batch: 33 splits of 30,720 rows, 105,088 B, two blocks an SM.
+// of csrc/zen_topk.cu (PERF.md, section 6). Two parts:
+//   - The SIMT pass 1 (the design before the MMA plan, kept as its "simt"
+//     plan: 8 queries a block, 512-row tiles staged through a register
+//     double buffer, an FMA loop, a candidate filter with a shared
+//     atomicAdd, a block-wide count scan, block-wide bitonic flushes), a
+//     copy with clock64() marks at the phase boundaries read by thread 0
+//     of every block: each phase ends at a __syncthreads, so thread 0's
+//     clock splits the block's time. The plan is the one launch_geometry
+//     gave the serving batch: 33 splits of 30,720 rows, 105,088 B, two
+//     blocks an SM. It prints the mean cycles a block spends in each
+//     phase, the flushes and buffered candidates a block sees, and pass 1
+//     (without the marks) and pass 2 (one block a query) apart, by CUDA
+//     events over 20 launches.
+//   - The MMA plan, csrc/zen_topk.cu itself compiled with its phase marks:
+//     lane 0 of every consumer warp splits the warp's time into waiting
+//     for a stage, scoring and filtering, appending, and flushing, and
+//     counts flushes and flushed keys; pass 1 alone and both passes, at n
+//     = 64 with and without the bound shared across blocks, and at n = 10,
+//     with the plan launch_geometry gives (131 splits of 7,680 rows, 16
+//     consumer warps in two row streams, 8 stages of 128 rows).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/zen_topk_phases src/repro_torch/kernels/probes/zen_topk_phases.cu

@@ -157,9 +157,9 @@ def test_kernel_matches_plain_at_odd_k(cuda, storage, k):
     tail), k = 1 (no dot, the altitude alone) and wide rows (the SIMT
     plan). Zen and Upb: at k <= 2, 20,011 random rows put Lwb's nearest
     within ~1e-3 of a query, where the norm expansion cancels terms ~4 and
-    any two f32 summation orders differ by more than 1e-5 (the SIMT plan's
-    as much as the MMA plan's); the two plans' Lwb keys are held to each
-    other bit for bit in ``test_mma_and_simt_plans_agree_bit_for_bit``."""
+    any two f32 summation orders differ by more than 1e-5 (the SIMT plan as
+    much as the MMA plan); the two plans' Lwb results are held to each
+    other in ``test_mma_and_simt_plans_agree``."""
     q = _coords(32, 64, k, cuda)
     x, s = quant.encode_rows(_coords(33, 20_011, k, cuda), storage)
     for mode in ("zen", "upb"):
@@ -168,24 +168,27 @@ def test_kernel_matches_plain_at_odd_k(cuda, storage, k):
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("k", [1, 2, 3, 13, 16])
-def test_mma_and_simt_plans_agree_bit_for_bit(cuda, storage, k):
-    """The MMA plan's tensor cores only filter: every key it keeps is
-    computed in f32 FMAs as the SIMT plan computes it, so both plans give
-    the same distances and ids, bit for bit, in every mode (and with dead
-    rows)."""
+def test_mma_and_simt_plans_agree(cuda, storage, k):
+    """The MMA plan (3xTF32 dots on the tensor cores) against the SIMT plan
+    (f32 FMAs) on the same inputs, with dead rows: within the tolerance,
+    ids equal outside near-ties. Zen and Upb at every k; Lwb from k = 13,
+    where its nearest rows stay ~1 off each query (at k <= 3 they come
+    within ~1e-2, where the expansion's f32 roundings alone, ~1e-6 on z2,
+    move the distance by more than 1e-5 in either plan, as against the
+    plain version)."""
     q = _coords(40, 64, k, cuda)
-    x = _coords(41, 30_011, k, cuda)
+    x = _coords(41, 3_011, k, cuda)
     x[::5] = serve._DEAD_COORD
     x, s = quant.encode_rows(x, storage)
     for n in (10, 64):
         plan = zt.launch_geometry(64, x.shape[0], n, k, 132, x.element_size())
         assert plan.kernel == "mma"
-        for mode in ("zen", "lwb", "upb"):
+        for mode in ("zen", "upb") + (("lwb",) if k >= 13 else ()):
             got = zt.zen_topk(q, x, n, mode, scales=s)
             want = zt.zen_topk(q, x, n, mode, scales=s,
                                plan=zt.simt_plan(64, x.shape[0], n, k, 132))
-            assert torch.equal(got[1], want[1]), (n, mode)
-            assert torch.equal(got[0], want[0]), (n, mode)
+            msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
+            assert msg is None, (n, mode, msg)
 
 
 def _n_index_past_a_split(nq, n):
