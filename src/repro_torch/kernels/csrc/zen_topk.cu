@@ -668,8 +668,10 @@ __device__ __noinline__ uint64_t warp_flush(uint64_t* list,
 // Pass 1 of the MMA plan. Block (query block x, split y): `streams` row
 // streams of `groups` consumer warps (8 queries each) and one producer
 // warp. Stream s scores the tiles t = s mod streams of the split with its
-// own lists, and the streams' lists merge at the end. k <= 16: one
-// 16-column chunk, two k-steps; the query operand sits in registers.
+// own lists, and the streams' lists merge at the end; stages is a multiple
+// of streams, so a stage serves one stream and its consumers wait on each
+// of its mbarrier phases in turn (a parity wait cannot skip one). k <= 16:
+// one 16-column chunk, two k-steps; the query operand sits in registers.
 // kVec: k % 4 == 0, four columns a load.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
@@ -945,7 +947,8 @@ cudaError_t launch(int nq, int n_split, size_t smem, cudaStream_t stream,
                    uint64_t* partial, uint64_t* bests) {
   if (w > kMaxW || cap != kCap || warps < 1 || warps > kMaxWarps ||
       streams < 1 || warps % streams != 0 ||
-      (streams & (streams - 1)) != 0 || stages < 2 || stages > kMaxStages ||
+      (streams & (streams - 1)) != 0 || stages % streams != 0 ||
+      stages < 2 || stages > kMaxStages ||
       tile_rows < kStepRows || tile_rows % kStepRows != 0 ||
       k < 1 || k > 16 || kVec != (k % 4 == 0) ||
       reinterpret_cast<uintptr_t>(index) % 16 != 0 ||

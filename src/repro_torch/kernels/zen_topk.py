@@ -53,10 +53,11 @@ _BLOCK_QUERIES = (8, 4, 2, 1)
 #: queries a consumer warp owns (the MMA's n), rows it scores a step
 _WARP_QUERIES = 8
 _STEP_ROWS = 32
-#: consumer warps a block, query groups (8 queries each) among them, and
-#: ring stages, at most; the mbarriers' bytes
+#: consumer warps a block, query groups (8 queries each) and row streams
+#: among them, and ring stages, at most; the mbarriers' bytes
 _MAX_WARPS = 16
 _MAX_GROUPS = 8
+_MAX_STREAMS = 4
 _MAX_STAGES = 8
 _BAR_BYTES = 16 * _MAX_STAGES
 #: rows a tile of the ring
@@ -189,15 +190,20 @@ def _mma_plan(nq: int, n_index: int, w: int, k: int, n_sms: int,
         if groups == 1:
             return None
         groups //= 2
-    streams = 1  # more streams while their warps and two stages each fit
-    while groups * streams * 2 <= _MAX_WARPS and fits(
-            groups * streams * 2, min(_MAX_STAGES, 4 * streams)):
+    # more row streams (up to 4) while their warps and two stages each fit;
+    # a stage always serves one stream (stages a multiple of streams), so
+    # each stream waits on its stages' mbarrier phases in turn
+    streams = 1
+    while (2 * streams <= _MAX_STREAMS
+           and groups * streams * 2 <= _MAX_WARPS
+           and fits(groups * streams * 2, 4 * streams)):
         streams *= 2
     warps = groups * streams
-    # ~64 KB in flight, and two stages a stream
-    stages = min(_MAX_STAGES, max(2, -(-_RING_TARGET // stage), 2 * streams))
+    # ~64 KB in flight, two stages a stream at least
+    stages = min(_MAX_STAGES, max(-(-_RING_TARGET // stage), 2 * streams))
+    stages -= stages % streams
     while not fits(warps, stages):
-        stages -= 1
+        stages -= streams
     smem = mma_smem(k, elem_bytes, w, warps, tile_rows, stages)
     blocks_per_sm = max(1, min(_MAX_WARPS // warps,
                                SMEM_SM // (smem + 1_024)))
@@ -256,9 +262,10 @@ def launch_geometry(nq: int, n_index: int, n_out: int, k: int, n_sms: int,
     in registers; the dot is one 16-column chunk): up to 8 query groups of
     8 queries a block (as
     many as the queries need, fewer where their lists do not fit), as many
-    row streams (a power of two) as keep the consumer warps within 16 and
-    their lists within shared memory, tiles of 128 rows, as many stages
-    (2 to 8) as keep ~64 KB in flight, buffers of 64 keys, and
+    row streams (1, 2 or 4) as keep the consumer warps within 16 and their
+    lists within shared memory, tiles of 128 rows, as many stages (a
+    multiple of the streams, 2 to 8) as keep ~64 KB in flight, buffers of
+    64 keys, and
     enough splits to give each SM its blocks. Everything else takes the
     SIMT plan: its buffer holds ``max(2 * 512, w)`` keys, a block the most
     queries (8, 4, 2, 1) whose lists fit shared memory, else one query with

@@ -228,11 +228,16 @@ def test_dead_rows_never_win_at_every_width(cuda, n):
     assert (got[1] % 3 != 0).all() and torch.isfinite(got[0]).all()
 
 
-@pytest.mark.parametrize("nq", [1, 2, 3, 64, 65])
+@pytest.mark.parametrize("nq", [1, 2, 3, 9, 33, 64, 65])
 def test_query_padding(cuda, nq):
-    """Q = 1, 2, 3 fill one warp's 8 query slots; 65 takes two query
-    blocks, the second with one query."""
-    _check_topk(_coords(38, nq, 16, cuda), _coords(39, 50_000, 16, cuda), 64)
+    """Q = 1, 2, 3 fill one warp's 8 query slots (four row streams); 9 and
+    33 leave a group part-filled; 65 takes two query blocks, the second with
+    one query. 600,000 rows give each block more tiles than its ring has
+    stages, so every stage serves its stream several times."""
+    x = _coords(39, 600_000, 16, cuda)
+    plan = zt.launch_geometry(nq, x.shape[0], 64, 16, 132)
+    assert plan.split_rows > plan.stages * plan.tile_rows
+    _check_topk(_coords(38, nq, 16, cuda), x, 64)
 
 
 def test_server_on_card_matches_cpu(cuda):
