@@ -355,10 +355,17 @@ __global__ void __launch_bounds__(kMergeThreads)
   const int q = blockIdx.x;
   uint64_t* src = partial + int64_t(q) * n_lists * w;
   uint64_t* lists = src;  // [n_lists][w]
-  if (in_smem) {
+  if (in_smem) {  // 16-byte loads where the query's lists start on one
     lists = reinterpret_cast<uint64_t*>(smem);
-    for (int t = threadIdx.x; t < n_split * w; t += blockDim.x)
-      lists[t] = src[t];
+    const int n = n_split * w;
+    int t0 = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      t0 = n & ~1;
+      for (int t = threadIdx.x; 2 * t < t0; t += blockDim.x)
+        reinterpret_cast<uint4*>(lists)[t] =
+            __ldcg(reinterpret_cast<const uint4*>(src) + t);
+    }
+    for (int t = t0 + threadIdx.x; t < n; t += blockDim.x) lists[t] = src[t];
   }
   __syncthreads();
   if (in_smem && w <= 64) {

@@ -50,9 +50,8 @@ _X_STRIDE = 17
 _BLOCK_QUERIES = (8, 4, 2, 1)
 
 # The MMA plan (csrc/zen_topk.cu, namespace mma)
-#: queries a consumer warp owns (the MMA's n), rows it scores a step
+#: queries a consumer warp owns (the MMA's n)
 _WARP_QUERIES = 8
-_STEP_ROWS = 32
 #: consumer warps a block, query groups (8 queries each) and row streams
 #: among them, and ring stages, at most; the mbarriers' bytes
 _MAX_WARPS = 16
