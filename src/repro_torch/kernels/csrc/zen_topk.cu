@@ -526,18 +526,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // Copies `bytes` of one array into a stage: the 16-byte multiple by a bulk
-// copy, the tail here (before the producer's arrival, which publishes it).
-// Returns the bytes the bulk copy brings.
-__device__ __forceinline__ int stage_copy(unsigned char* dst,
-                                          const unsigned char* src, int bytes,
-                                          uint64_t* bar, bool issue) {
+// copy (issue), the tail under 16 B here (!issue, before the producer's
+// arrival, which publishes it).
+__device__ __forceinline__ void stage_copy(unsigned char* dst,
+                                           const unsigned char* src, int bytes,
+                                           uint64_t* bar, bool issue) {
   const int bulk = bytes & ~15;
   if (!issue) {
     for (int i = bulk; i < bytes; ++i) dst[i] = src[i];
   } else if (bulk > 0) {
     bulk_load(dst, src, bulk, bar);
   }
-  return bulk;
 }
 
 // x = hi + lo: hi rounded to TF32 (round to nearest, ties away from zero:
@@ -589,9 +588,9 @@ __device__ __forceinline__ void load4(const T* row, int col, int k,
   }
 }
 
-// The query operand of one 16-column chunk: query g's columns c0 + 4t + 2h
-// and + 1 for the chunk's two k-steps h, split hi/lo; zero for the
-// altitude column, past k, and for a query slot past Q.
+// The query operand: query g's columns col + 2h and col + 2h + 1 (col = 4t)
+// for the two k-steps h, split hi/lo; zero for the altitude column, past
+// k, and for a query slot past Q.
 __device__ __forceinline__ void query_chunk(const float* qg, bool g_ok, int k,
                                             int col, uint32_t (&hi)[2][2],
                                             uint32_t (&lo)[2][2]) {
@@ -682,11 +681,13 @@ __device__ __noinline__ uint64_t warp_flush(uint64_t* list,
 // kVec: k % 4 == 0, four columns a load.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
-    zen_topk_mma(const float* __restrict__ queries, const T* __restrict__ index,
+    zen_topk_mma(const float* __restrict__ queries,
+                 const T* __restrict__ index,
                  const float* __restrict__ scales, int nq, int64_t n_index,
                  int k, int n_out, int w, int tile_rows, int stages,
                  int streams, int64_t split_rows, int n_lists, int mode,
-                 uint64_t* __restrict__ partial, uint64_t* __restrict__ bests) {
+                 uint64_t* __restrict__ partial,
+                 uint64_t* __restrict__ bests) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x / 32 - 1, groups = warps / streams;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -720,7 +721,8 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
         unsigned char* sx = ring + s * sbytes;
         const auto* gx =
             reinterpret_cast<const unsigned char*>(index + tile0 * k);
-        const auto* gs = reinterpret_cast<const unsigned char*>(scales + tile0);
+        const auto* gs =
+            reinterpret_cast<const unsigned char*>(scales + tile0);
         const int xb = rows * k * int(sizeof(T)), sb = scales ? rows * 4 : 0;
         // the tails first: the arrival below publishes them
         stage_copy(sx, gx, xb, &full[s], false);
@@ -783,7 +785,8 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
     const int64_t tile0 = row_begin + int64_t(tl) * tile_rows;
     const int rows = int(min(int64_t(tile_rows), row_end - tile0));
     const T* sx = reinterpret_cast<const T*>(ring + s * sbytes);
-    const float* ss = reinterpret_cast<const float*>(ring + s * sbytes + xbytes);
+    const float* ss =
+        reinterpret_cast<const float*>(ring + s * sbytes + xbytes);
     for (int r0 = 0; r0 < rows && !idle; r0 += kStepRows) {
       // rows r0 + 16m + 8r + g (m: m16 tile, r: its upper or lower half);
       // the dot's hi.hi products and its cross terms accumulate apart
@@ -1004,12 +1007,12 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16, 2 int8. scales may be null. The plan comes
 // from kernels/zen_topk.py::launch_geometry: kernel 1 is the MMA plan (w,
 // cap, smem, n_split, split_rows, n_lists, tile_rows, stages, warps,
-// streams; index and scales 16-byte aligned), kernel 0 the SIMT plan (w, kq, cap,
-// global_lists, smem, n_split, split_rows, n_lists); merge_smem is pass 2's.
-// partial holds nq * n_lists * w keys. gscratch: under the SIMT plan with
-// global lists nq * n_split * cap keys; under the MMA plan the shared
-// bound's nq * n_out buckets (filled with ones here), or null for none. Returns the CUDA error code of the launches (0 on
-// success).
+// streams; index and scales 16-byte aligned), kernel 0 the SIMT plan (w,
+// kq, cap, global_lists, smem, n_split, split_rows, n_lists); merge_smem
+// is pass 2's. partial holds nq * n_lists * w keys. gscratch: under the
+// SIMT plan with global lists nq * n_split * cap keys; under the MMA plan
+// the shared bound's nq * n_out buckets (filled with ones here), or null
+// for none. Returns the CUDA error code of the launches (0 on success).
 int zen_topk_launch(const void* queries, const void* index, const void* scales,
                     int dtype, int nq, long long n_index, int k, int n_out,
                     int mode, int kernel, int w, int kq, int cap,

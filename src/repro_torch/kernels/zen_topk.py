@@ -93,14 +93,15 @@ class TopkPlan:
     ``tile_rows`` rows by TMA bulk copies; each (query, stream) keeps a
     sorted list of ``w`` keys and a buffer of ``cap`` candidates in
     ``smem`` bytes of shared memory, ``blocks_per_sm`` blocks an SM.
-    ``"simt"``: a grid of 256-thread blocks of ``queries_per_block`` queries
-    scoring 512-row tiles on the CUDA cores, the lists and buffers in shared
-    memory or, when even one query a block does not fit
+    ``"simt"``: a grid of 256-thread blocks of ``queries_per_block``
+    queries scoring 512-row tiles on the CUDA cores, the lists and buffers
+    in shared memory or, when even one query a block does not fit
     (``global_lists``), in global scratch that the wrapper allocates
-    (``warps``, ``streams``, ``stages``: 0). Both cut N into ``n_split`` splits of
-    ``split_rows`` rows. Pass 2 merges each query's ``n_lists`` lists
-    (``n_split`` padded to a power of two) in ``merge_smem`` bytes of
-    shared memory, or in place in global memory when ``merge_smem`` is 0.
+    (``warps``, ``streams``, ``stages``: 0). Both cut N into ``n_split``
+    splits of ``split_rows`` rows. Pass 2 merges each query's
+    ``n_lists`` lists (``n_split`` padded to a power of two) in
+    ``merge_smem`` bytes of shared memory, or in place in global memory
+    when ``merge_smem`` is 0.
     """
     kernel: str
     w: int
