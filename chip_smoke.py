@@ -36,19 +36,26 @@ Phases:
      4,000 clusters of 128-row tiles: every mode x f32/bf16/int8 and PQ at
      M = 4, Q in {2, 64}, n in {10, 64, 128}, nprobe in {1, 8, 64}, plus a
      tombstoned index where query 0 probes clusters holding one live row;
+     then the warp plan's edge cases on small tiles: duplicated rows in two
+     probed clusters (the lower visit position first), tombstoned and
+     dummy-slot clusters, k in {1, 2, 13, 16, 130}, ragged T * rows, PQ M
+     in {1, 5, 256}, and the warp and block plans at n = 33 and 64;
   8. IVF serving: build_index(index="ivf") on the 1,000,000 x 256 corpus
      (4,000 clusters, 128-row tiles, nprobe 8, re-rank 4), f32 then PQ,
-     8 batches of 64 queries, recall@10 and p50/p99; the probe kernel's
-     launch count must advance. On a 20,000-row index nprobe = n_clusters
+     8 batches of 64 queries, recall@10 (beside the same index served
+     through the probe's plain version on the card) and p50/p99; the probe
+     kernel's launch count must advance. On a 20,000-row index nprobe = n_clusters
      gives the flat zen_topk answer, and one index built on the card and
      moved to the CPU serves the same answers on both;
   9. IVF churn: delete (served ids too), upsert until T grows, query,
      compact(), query, compact(recluster=True), query; no deleted id may
      come back;
  10. time both probe kernels at the serving shape (Q = 64, nprobe 8, the
-     index's T, n = 64) beside their bounds, plain versions and library
+     index's T, n = 64) with their plans, passes (profiler) and the host's
+     cost a call, split into the plan, the allocations and the ctypes call
+     with its launches, beside their bounds, plain versions and library
      composites (gather + matmul-form estimator or table gather +
-     torch.topk);
+     torch.topk); then at n = 512 and 2,048, at nprobe 64 and at Q = 2;
  11. dma_copy_blocks against dma_copy_blocks_plain, byte for byte:
      f32/bf16/int8/int32/uint8 x block shapes (128, 16), (128,), (128, 13),
      (5, 7, 3) x B in {1, 2, 3, 257, 1024}, from pinned buffers filled from
@@ -87,7 +94,8 @@ Phases:
      kernel's launch count must advance;
  16. the dense kernels timed at their working shapes (CUDA events, queued
      behind a spin kernel) beside their bounds, plain versions and library
-     calls;
+     calls, pdist_sq also at the shapes phase 15 launches (2,048 x 2,048 x
+     256 and x 16);
  17. wide result lists: the flat, IVF f32, IVF PQ and tiered servers of
      phases 4, 8 and 12 at n in {65, 128, 300} with re-rank 4 (fetch widths
      512, 512 and 2,048) and at n = 10, 8 batches each: every kernel of
@@ -264,11 +272,19 @@ def probe_cost(index, probes, n: int, luts=None):
     return nbytes, flops
 
 
-def kernel_split(fn, iters: int = 10):
-    """Device ms a call of ``fn`` by zen_topk's kernel (torch.profiler):
-    pass 1 (the MMA or SIMT kernel), pass 2 (the merge) and the memset of
-    the shared bound's buckets; None where the profiler shows no device
-    time."""
+#: the kernels of each pass of zen_topk and of the probes (names as the
+#: profiler shows them)
+TOPK_PARTS = {"pass 1": ("zen_topk_mma", "zen_topk_partial"),
+              "pass 2": ("zen_topk_merge",), "memset": ("emset",)}
+PROBE_PARTS = {"pass 1": ("ivf_probe_warp", "ivf_probe_pq_warp",
+                          "ivf_probe_partial", "ivf_probe_pq_partial"),
+               "pass 2": ("ivf_probe_merge",)}
+
+
+def kernel_split(fn, parts=TOPK_PARTS, iters: int = 10):
+    """Device ms a call of ``fn`` by pass (torch.profiler): the summed time
+    of the kernels whose names hold each part's strings; None where the
+    profiler shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -278,17 +294,14 @@ def kernel_split(fn, iters: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {"pass 1": 0.0, "pass 2": 0.0, "memset": 0.0}
+    out = {part: 0.0 for part in parts}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = e.self_device_time_total / iters / 1e3
-        if "zen_topk_mma" in e.key or "zen_topk_partial" in e.key:
-            out["pass 1"] += ms
-        elif "zen_topk_merge" in e.key:
-            out["pass 2"] += ms
-        elif "emset" in e.key:
-            out["memset"] += ms
+        for part, names in parts.items():
+            if any(name in e.key for name in names):
+                out[part] += e.self_device_time_total / iters / 1e3
+                break
     if out["pass 1"] == 0.0:
         return {key: None for key in out}
     return out
@@ -297,8 +310,20 @@ def kernel_split(fn, iters: int = 10):
 def _fmt_split(split) -> str:
     if split["pass 1"] is None:
         return "passes not measured: the profiler shows no device time"
-    return (f"pass 1 {split['pass 1']:.4f} ms, pass 2 {split['pass 2']:.4f} "
-            f"ms, memset {split['memset']:.4f} ms")
+    return ", ".join(f"{part} {ms:.4f} ms" for part, ms in split.items())
+
+
+def host_split(module, fn) -> dict:
+    """Host microseconds a probe wrapper's call issued back to back and its
+    parts (src/repro_torch/kernels/probes/probe_timing.py::host_split)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
+                        "repro_torch", "kernels", "probes", "probe_timing.py")
+    spec = importlib.util.spec_from_file_location("probe_timing", path)
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    return timing.host_split(module, fn)
 
 
 def describe_plan(plan, n_out: int) -> str:
@@ -424,7 +449,8 @@ def check_ivf_kernels(coords, queries, atol: float):
     pq256 = ivf.IVFZenIndex.build(wide, 64, tile_rows=TILE_ROWS, n_iters=3,
                                   storage="pq", pq_m=256,
                                   generator=torch.Generator().manual_seed(0))
-    plan = ip.probe_plan(64, NPROBE, pq_m=256)
+    plan = ip.probe_plan(64, NPROBE, pq_m=256, nq=64,
+                         cluster_rows=pq256.tiles_per_cluster * TILE_ROWS)
     for n in (10, 300):
         probes = pq256.probe_clusters(wide[:64] + 0.01, NPROBE)
         luts = pq.build_luts(wide[:64] + 0.01, pq256.centroids,
@@ -445,11 +471,164 @@ def check_ivf_kernels(coords, queries, atol: float):
         n_cases += 1
     del wide, pq256
     log(f"    {n_cases} cases agree (ids equal outside near-ties; widths up "
-        f"to 16,384; PQ at M = 256 with {plan.m_smem} tables in shared "
-        f"memory); max |d - d_plain| ivf_probe {max_err['ivf_probe']:.3g}, "
-        f"ivf_probe_pq {max_err['ivf_probe_pq']:.3g}; "
+        f"to 16,384; PQ at M = 256 with {plan.m_smem} tables a column in "
+        f"shared memory); max |d - d_plain| ivf_probe "
+        f"{max_err['ivf_probe']:.3g}, ivf_probe_pq "
+        f"{max_err['ivf_probe_pq']:.3g}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    edge_cases, edge_err = check_probe_edges(coords.device, atol)
+    max_err["ivf_probe"] = max(max_err["ivf_probe"], edge_err)
+    log(f"    the warp plan's edge cases: {edge_cases} agree (duplicated "
+        f"rows in two clusters, ids equal, the lower visit position first; "
+        f"tombstoned and dummy-slot clusters; k in 1, 2, 13, 16, 130; T * "
+        f"rows 144, 100, 65, 896; PQ M 1, 5, 256; the warp and block plans "
+        f"at n = 33 and 64); max |d - d_plain| {edge_err:.3g}; "
         f"{time.perf_counter() - t0:.1f} s")
     return max_err
+
+
+def check_probe_edges(dev, atol: float):
+    """Phase 7, the warp plan's edge cases on small synthetic tiles, each
+    kernel against its plain version: duplicated rows in two probed
+    clusters (ids equal exactly, the lower visit position first), an
+    all-tombstone cluster and dummy-slot probes (whole queries of them
+    answered (+inf, -1)), every k (1, 2, 13, 16, 130) in f32/bf16/int8 with
+    per-cluster scales, ragged T * rows (144, 100, 65, 896), PQ at M = 1,
+    5 and 256, and both plans agreeing at the widths 33 and 64. Returns
+    (cases, max |d - d_plain|)."""
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.testing import topk_mismatch
+
+    def coords(seed, n, k):
+        g = torch.Generator(dev).manual_seed(seed)
+        x = torch.randn((n, k), generator=g, device=dev)
+        x[:, -1].abs_()
+        return x
+
+    def tiles(seed, C, T, rows, k, storage):
+        slots = C * T * rows
+        values, scales = ivf._encode_packed(
+            coords(seed, slots, k).reshape(C, -1, k), storage)
+        ids = torch.arange(slots, dtype=torch.int32, device=dev)
+        dead = torch.rand(slots, generator=torch.Generator(dev).manual_seed(
+            seed + 1), device=dev) < 0.2
+        ids[dead] = -1
+        return values.reshape(-1, rows, k), ids.reshape(-1, rows), scales
+
+    cases, max_err = 0, 0.0
+
+    def check(label, fn, plain, args, kw):
+        nonlocal cases, max_err
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=RTOL,
+                            atol=atol)
+        if msg is not None:
+            fail(f"{label} disagrees with its plain version: {msg}")
+        fin = torch.isfinite(want[0])
+        if fin.any():
+            max_err = max(max_err, float((got[0] - want[0])[fin].abs().max()))
+        cases += 1
+        return got, want
+
+    # duplicated rows: cluster 3 copies cluster 0 and is probed first
+    for st in ("float32", "bfloat16", "int8"):
+        x, ids, sc = tiles(31, 6, 2, 64, 16, st)
+        x = x.reshape(6, 128, 16).clone()
+        x[3] = x[0]
+        x = x.reshape(12, 64, 16)
+        if sc is not None:
+            sc = sc.clone()
+            sc[3] = sc[0]
+        q = x.reshape(6, 128, 16)[0, :40].float() * (1.0 if sc is None
+                                                     else sc[0])
+        q = q + 0.1 * coords(32, 40, 16)  # off the row: no cancellation
+        q[:, -1].abs_()
+        probes = torch.tensor([3, 0, 1, 5], dtype=torch.int32,
+                              device=dev).repeat(40, 1)
+        got, want = check(f"duplicated rows ({st})", ip.ivf_probe,
+                          ip.ivf_probe_scan, (q, x, ids, probes, 64, "lwb"),
+                          dict(tiles_per_cluster=2, tile_scales=sc))
+        # each query's two nearest: its row's copies, tied, cluster 3's
+        # (the lower visit position) first
+        ids0 = ids.reshape(6, 128)
+        both = (ids0[0, :40] >= 0) & (ids0[3, :40] >= 0)
+        first = got[1][both, :2]
+        if not (torch.equal(first[:, 0], ids0[3, :40][both])
+                and torch.equal(first[:, 1], ids0[0, :40][both])
+                and torch.equal(got[0][both, 0], got[0][both, 1])
+                and torch.equal(want[1][both, :2], first)):
+            fail(f"duplicated rows ({st}): a tie did not go to the lower "
+                 f"visit position")
+    # an all-tombstone cluster and the dummy slot
+    for st in ("float32", "int8"):
+        x, ids, sc = tiles(41, 9, 3, 128, 16, st)
+        ids = ids.reshape(9, -1).clone()
+        ids[2] = -1
+        ids[8] = -1
+        ids = ids.reshape(-1, 128)
+        probes = torch.tensor([0, 2, 4, 8, 8, 8, 1, 8], dtype=torch.int32,
+                              device=dev).repeat(64, 1)
+        probes[:8] = 8
+        (d, i), _ = check(f"tombstoned and dummy clusters ({st})",
+                          ip.ivf_probe, ip.ivf_probe_scan,
+                          (coords(42, 64, 16), x, ids, probes, 40),
+                          dict(tiles_per_cluster=3, tile_scales=sc))
+        if not ((i[:8] == -1).all() and torch.isinf(d[:8]).all()):
+            fail(f"tombstoned and dummy clusters ({st}): a query probing "
+                 f"only empty clusters got rows")
+    # every k, and ragged T * rows
+    for st in ("float32", "bfloat16", "int8"):
+        for k in (1, 2, 13, 16, 130):
+            x, ids, sc = tiles(50 + k, 12, 2, 128, k, st)
+            probes = torch.randperm(12, generator=torch.Generator(
+                dev).manual_seed(k), device=dev)[:5].to(torch.int32)
+            check(f"k={k} ({st})", ip.ivf_probe, ip.ivf_probe_scan,
+                  (coords(60 + k, 33, k), x, ids, probes.repeat(33, 1), 20),
+                  dict(tiles_per_cluster=2, tile_scales=sc))
+    for rows, T in ((48, 3), (100, 1), (13, 5), (128, 7)):
+        x, ids, _ = tiles(70 + rows, 10, T, rows, 16, "float32")
+        probes = torch.rand((64, 10), generator=torch.Generator(
+            dev).manual_seed(rows), device=dev).argsort(1)[:, :6].to(
+                torch.int32)  # 6 distinct clusters a query
+        for mode in ("zen", "lwb", "upb"):
+            check(f"T * rows = {T * rows} ({mode})", ip.ivf_probe,
+                  ip.ivf_probe_scan,
+                  (coords(71, 64, 16), x, ids, probes, 64, mode),
+                  dict(tiles_per_cluster=T))
+    # PQ at M = 1, 5 and 256 (tables past shared memory)
+    for m in (1, 5, 256):
+        g = torch.Generator(dev).manual_seed(m)
+        codes = torch.randint(0, 256, (40, 64, m), dtype=torch.uint8,
+                              device=dev, generator=g)
+        ids = torch.arange(40 * 64, dtype=torch.int32,
+                           device=dev).reshape(40, 64)
+        ids[:, ::5] = -1
+        probes = torch.randperm(20, generator=g, device=dev)[:6].to(
+            torch.int32).repeat(64, 1)
+        luts = torch.rand((64, 6, m, 256), device=dev, generator=g)
+        check(f"PQ M={m}", ip.ivf_probe_pq, ip.ivf_probe_pq_scan,
+              (codes, ids, probes, luts, 64), dict(tiles_per_cluster=2))
+    # both plans at the boundary widths
+    x, ids, sc = tiles(81, 40, 3, 128, 16, "int8")
+    q = coords(82, 64, 16)
+    probes = torch.rand((64, 40), generator=torch.Generator(
+        dev).manual_seed(83), device=dev).argsort(1)[:, :8].to(torch.int32)
+    for n in (33, 64):
+        args = (q, x, ids, probes, n)
+        kw = dict(tiles_per_cluster=3, tile_scales=sc)
+        warp = ip.ivf_probe(*args, **kw)
+        block = ip.ivf_probe(*args, **kw, plan=ip.block_plan(n, 8, k=16))
+        torch.cuda.synchronize()
+        msg = topk_mismatch(warp[0], warp[1], block[0], block[1], rtol=RTOL,
+                            atol=atol)
+        if msg is not None:
+            fail(f"the warp and block plans disagree at n={n}: {msg}")
+        cases += 1
+    return cases, max_err
 
 
 def serve_ivf(corpus, batches, k: int, storage: str):
@@ -494,10 +673,22 @@ def serve_ivf(corpus, batches, k: int, storage: str):
     if launches == 0:
         fail(f"the IVF ({storage}) serving path never launched "
              f"{kernel.__name__}")
+    # the same index and batches through the probe's plain version on the
+    # card: the recall the kernel must keep (the index itself differs from
+    # run to run, as the card's k-means sums in no fixed order)
+    with plain_dispatch():
+        plain_recall = np.mean([
+            serve.recall(server.query(q, 10)[1],
+                         serve.exact_topk(q, corpus, 10))
+            for q in batches[1:]])
+    if abs(plain_recall - np.mean(recalls)) > 0.002:
+        fail(f"IVF ({storage}) recall@10 {np.mean(recalls):.4f} with the "
+             f"kernel against {plain_recall:.4f} with its plain version")
     lat_ms = np.asarray(lat) * 1e3
     log(f"    served {len(lat)} batches x 64 queries at nprobe {NPROBE}: "
-        f"recall@10 {np.mean(recalls):.4f} (min batch {np.min(recalls):.4f})"
-        f"; request latency p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+        f"recall@10 {np.mean(recalls):.4f} (min batch {np.min(recalls):.4f};"
+        f" the probe's plain version on the card: {plain_recall:.4f}); "
+        f"request latency p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
         f"{np.percentile(lat_ms, 99):.3f} ms; {kernel.__name__} launches "
         f"{launches}")
     sweep = []
@@ -603,27 +794,62 @@ def churn_ivf(server, batches, gen, corpus_rows: int):
         f"rows")
 
 
+def describe_probe_plan(plan) -> str:
+    """One line of a probe launch plan."""
+    if plan.kernel == "warp":
+        return (f"warp plan, width {plan.w}: one launch, clusters of "
+                f"{plan.cluster} blocks of {plan.warps} warps, {plan.cols} "
+                f"probe columns a block in {plan.splits} splits of "
+                f"{plan.split_rows} rows, {plan.smem:,} B"
+                + (f", PQ tables of {plan.m_smem} subspaces a column in "
+                   f"shared memory" if plan.m_smem else ""))
+    return (f"block plan, width {plan.w}: pass 1 and pass 2, a block a "
+            f"(query, probe column), buffer {plan.cap}, {plan.smem:,} B, "
+            f"lists in {'global' if plan.global_lists else 'shared'} "
+            f"memory, pass 2 over {plan.group} lists at a time in "
+            f"{'shared' if plan.merge_smem else 'global'} memory")
+
+
 def time_ivf(index_f32, index_pq, queries, smi: str):
-    """Phase 10: both probe kernels at the serving shape; returns their
-    records for the kernels line."""
+    """Phase 10: both probe kernels at the serving shape (Q = 64, nprobe 8,
+    the index's T, n = 64) with their plan, their passes, the host's cost a
+    call and its parts, beside bound, plain version and library composite;
+    then at n = 512 and 2,048, at nprobe 64 and at Q = 2 (device time, plan
+    and passes). Returns the serving shape's records for the kernels
+    line."""
     import torch
     from repro_torch.kernels import ivf_probe as ip
     from repro_torch.kernels import pq
     from repro_torch.kernels.scoring import MODE_IDS
 
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     n, records = 64, {}
     for name, index in (("ivf_probe", index_f32), ("ivf_probe_pq", index_pq)):
         iv = index.ivf
         qp = index.transform.transform(queries).contiguous()
-        probes = iv.probe_clusters(qp, NPROBE)
         T, rows, C = iv.tiles_per_cluster, iv.tile_rows, iv.n_clusters
         kw = dict(tiles_per_cluster=T)
+        pq_m = iv.tile_coords.shape[-1] if name == "ivf_probe_pq" else 0
         if name == "ivf_probe_pq":
-            luts = pq.build_luts(qp, iv.centroids, iv.codebooks, probes,
-                                 MODE_IDS["zen"])
-            args = (iv.tile_coords, iv.tile_ids, probes, luts, n)
             kernel, plain = ip.ivf_probe_pq, ip.ivf_probe_pq_scan
+        else:
+            kw["tile_scales"] = iv.tile_scales
+            kernel, plain = ip.ivf_probe, ip.ivf_probe_scan
 
+        def call_args(nq: int, n_out: int, n_probe: int):
+            """(args, probes, tables) of a call at this shape."""
+            q = qp[:nq]
+            probes = iv.probe_clusters(q, n_probe)
+            if name == "ivf_probe":
+                return (q, iv.tile_coords, iv.tile_ids, probes, n_out,
+                        "zen"), probes, None
+            luts = pq.build_luts(q, iv.centroids, iv.codebooks, probes,
+                                 MODE_IDS["zen"])
+            return (iv.tile_coords, iv.tile_ids, probes, luts, n_out), \
+                probes, luts
+
+        args, probes, luts = call_args(qp.shape[0], n, NPROBE)
+        if name == "ivf_probe_pq":
             def library():
                 codes = iv.tile_coords.reshape(C, T * rows, -1)[probes.long()]
                 idx = codes.long().permute(0, 1, 3, 2)   # (Q, P, M, T*rows)
@@ -635,10 +861,6 @@ def time_ivf(index_f32, index_pq, queries, smi: str):
                                   largest=False)
             nbytes, flops = probe_cost(iv, probes, n, luts)
         else:
-            args = (qp, iv.tile_coords, iv.tile_ids, probes, n, "zen")
-            kw["tile_scales"] = iv.tile_scales
-            kernel, plain = ip.ivf_probe, ip.ivf_probe_scan
-
             def library():
                 x = iv.tile_coords.reshape(C, T * rows, -1)[probes.long()]
                 x = x.float()                         # (Q, P, T*rows, k)
@@ -661,28 +883,55 @@ def time_ivf(index_f32, index_pq, queries, smi: str):
                      * iv.tile_coords.element_size())
             + (luts.numel() * 4 if iv.codebooks is not None else 0),
             2 * slots * iv.dim)
+        plan = ip.probe_plan(n, NPROBE, k=0 if pq_m else iv.dim, pq_m=pq_m,
+                             nq=qp.shape[0], cluster_rows=T * rows,
+                             n_sms=n_sms)
         before = kernel.launches
         ms = timed(lambda: kernel(*args, **kw), 20)
         ms2 = timed(lambda: kernel(*args, **kw), 20)
         dev = queued_ms(lambda: kernel(*args, **kw), 20)
         dev2 = queued_ms(lambda: kernel(*args, **kw), 20)
-        kernel.launches = before  # timing launches are not the path's
+        split = kernel_split(lambda: kernel(*args, **kw), PROBE_PARTS)
+        host = host_split(ip, lambda: kernel(*args, **kw))
         plain_ms = timed(lambda: plain(*args, **kw), 3, warmup=1)
         lib = timed(library, 10)
         lib_dev = queued_ms(library, 10)
         records[name] = dict(ms=min(dev, dev2), plain_ms=plain_ms,
                              bound_ms=bound, bound_by=bound_by,
-                             library_ms=lib_dev)
+                             library_ms=lib_dev, pass1_ms=split["pass 1"],
+                             pass2_ms=split["pass 2"],
+                             host_us=host["whole_us"])
         log(f"[10] {name} at Q={qp.shape[0]}, nprobe={NPROBE}, T={T}, "
             f"rows={rows}, n={n} ({iv.storage}): kernel device time "
-            f"{dev:.4f} / {dev2:.4f} ms (per call with the host "
-            f"{ms:.4f} / {ms2:.4f} ms), bound {bound:.4f} ms ({bound_by}; "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP) = "
-            f"{bound / min(dev, dev2):.1%} of bound (bound of the padded "
+            f"{dev:.4f} / {dev2:.4f} ms ({_fmt_split(split)}), per call "
+            f"with the host {ms:.4f} / {ms2:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP) "
+            f"= {bound / min(dev, dev2):.1%} of bound (bound of the padded "
             f"tiles as the blocks read them {read_bound:.4f} ms); plain "
-            f"{plain_ms:.3f} "
-            f"ms; library device time {lib_dev:.4f} ms (per call with the "
-            f"host {lib:.4f} ms); {smi}")
+            f"{plain_ms:.3f} ms; library device time {lib_dev:.4f} ms (per "
+            f"call with the host {lib:.4f} ms); {smi}")
+        rest = host["whole_us"] - host["plan_us"] - host["outputs_us"] \
+            - host["library_us"]
+        log(f"    {describe_probe_plan(plan)}; host cost a call issued back "
+            f"to back {host['whole_us']:.1f} us: probe_plan "
+            f"{host['plan_us']:.1f} us, allocations "
+            f"{host['outputs_us']:.1f} us, the ctypes call and its launches "
+            f"{host['library_us']:.1f} us, the rest (checks, conversions, "
+            f"stream) {rest:.1f} us")
+        for label, nq, n_out, n_probe in (
+                ("n=512", 64, 512, NPROBE), ("n=2,048", 64, 2_048, NPROBE),
+                ("nprobe=64", 64, n, 64), ("Q=2", 2, n, NPROBE)):
+            args2, _, _ = call_args(nq, n_out, n_probe)
+            plan2 = ip.probe_plan(n_out, n_probe, k=0 if pq_m else iv.dim,
+                                  pq_m=pq_m, nq=nq, cluster_rows=T * rows,
+                                  n_sms=n_sms)
+            dev_ms = min(queued_ms(lambda: kernel(*args2, **kw), 20),
+                         queued_ms(lambda: kernel(*args2, **kw), 20))
+            split2 = kernel_split(lambda: kernel(*args2, **kw), PROBE_PARTS)
+            log(f"[10] {name} at {label} ({iv.storage}): kernel device time "
+                f"{dev_ms:.4f} ms ({_fmt_split(split2)}); "
+                f"{describe_probe_plan(plan2)}; {smi}")
+        kernel.launches = before  # timing launches are not the path's
     return records
 
 
@@ -1472,6 +1721,14 @@ def time_dense(corpus, transform, gen, smi: str):
          metrics.sqeuclidean_pdist, False),
         ("pdist_sq", f"evaluation square {SQUARE:,} x {SQUARE:,} x 256",
          square, (), metrics.sqeuclidean_pdist, True),
+        # the shapes phase 15 launches: its sample's distances (delta) and
+        # the reduced coordinates' (zeta)
+        ("pdist_sq", f"phase 15's delta {EVAL_ROWS:,} x {EVAL_ROWS:,} x 256",
+         (corpus[:EVAL_ROWS], corpus[EVAL_ROWS:2 * EVAL_ROWS]), (),
+         metrics.sqeuclidean_pdist, False),
+        ("pdist_sq", f"phase 15's zeta {EVAL_ROWS:,} x {EVAL_ROWS:,} x 16",
+         (coords[:EVAL_ROWS], coords[EVAL_ROWS:2 * EVAL_ROWS]), (),
+         metrics.sqeuclidean_pdist, False),
         ("zen_estimate", f"({SQUARE:,} x 16)^2",
          (coords[:SQUARE], coords[SQUARE:2 * SQUARE]), ("zen",),
          zen.estimate_pdist, True),
@@ -1834,7 +2091,7 @@ def main() -> None:
         wide_ms = queued_ms(lambda: zt.zen_topk(qt, x32, n, "zen"),
                             20 if n <= 1_200 else 5)
         split = kernel_split(lambda: zt.zen_topk(qt, x32, n, "zen"),
-                             10 if n <= 1_200 else 3)
+                             iters=10 if n <= 1_200 else 3)
         zt.zen_topk.launches = before
         log(f"    float32 n={n:5d}: {describe_plan(plan, n)}")
         log(f"      device time {wide_ms:.4f} ms ({_fmt_split(split)}), "

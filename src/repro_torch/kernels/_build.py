@@ -44,19 +44,23 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
     },
     "ivf_probe": {
         # queries, tiles, tile_ids, probes, scales, dtype, nq, n_probe,
-        # n_clusters, cluster_rows, k, n_out, mode, then the plan (w, cap,
-        # global_lists, smem, group, merge_smem), partial, gscratch,
+        # n_clusters, cluster_rows, k, n_out, mode, then the plan (kernel,
+        # w, cap, global_lists, smem, group, merge_smem, warps, splits,
+        # split_rows, cols, cluster), vec, partial, gscratch,
         # mscratch, out_d, out_i, stream
         "ivf_probe_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                              _P, _P], ctypes.c_int),
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                              _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                             ctypes.c_int),
         # codes, tile_ids, probes, luts, nq, n_probe, n_clusters,
-        # cluster_rows, m, n_out, then the plan (w, cap, global_lists, smem,
-        # m_smem, group, merge_smem), partial, gscratch, mscratch, out_d,
-        # out_i, stream
+        # cluster_rows, m, n_out, then the plan (kernel, w, cap,
+        # global_lists, smem, m_smem, group, merge_smem, warps, splits,
+        # split_rows, cols, cluster), vec, partial, gscratch,
+        # mscratch, out_d, out_i, stream
         "ivf_probe_pq_launch": ([_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _P], ctypes.c_int),
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I,
+                                 _I, _I, _P, _P, _P, _P, _P, _P],
+                                ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "pdist": {

@@ -203,4 +203,70 @@ __device__ __forceinline__ void merge64(uint64_t& l0, uint64_t& l1,
   }
 }
 
+// Columns col .. col + 3 of a row in global memory, f32, through the
+// read-only cache; zero past k. With kVec (k % 4 == 0 and the row on a
+// boundary of 4 elements) the four are one 16-, 8- or 4-byte load.
+template <typename T, bool kVec>
+__device__ __forceinline__ void ldg4(const T* __restrict__ row, int col,
+                                     int k, float (&v)[4]) {
+  if constexpr (kVec) {
+    if (col >= k) {
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
+    } else if constexpr (sizeof(T) == 4) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(row + col));
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    } else if constexpr (sizeof(T) == 2) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + col));
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+    } else {
+      const char4 u = __ldg(reinterpret_cast<const char4*>(row + col));
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = col + j < k ? to_float(__ldg(row + col + j)) : 0.0f;
+  }
+}
+
+// One warp: sorts the c <= 64 keys of buf (read as elements lane and
+// lane + 32) and merges them into the list (l0, l1) of w <= 64 keys held
+// as merge64 holds it.
+__device__ __forceinline__ void flush64(uint64_t& l0, uint64_t& l1,
+                                        const uint64_t* buf, int c, int w) {
+  const int lane = threadIdx.x & 31;
+  uint64_t a = lane < c ? buf[lane] : kEmptyKey;
+  uint64_t b = lane + 32 < c ? buf[lane + 32] : kEmptyKey;
+  if (c <= 32)
+    sort32(a);  // b holds no key
+  else
+    sort64(a, b);
+  if (__shfl_sync(~0u, l0, 0) == kEmptyKey) {  // an empty list: the keys
+    l0 = lane < w ? a : kEmptyKey;
+    l1 = lane + 32 < w ? b : kEmptyKey;
+  } else {
+    merge64(l0, l1, a, b, w);
+  }
+}
+
+// Sum over the four lanes 4g .. 4g + 3 of a warp, transposed: each lane
+// holds its partial sums a[0..3] of four rows, and lane 4g + c returns the
+// total of row c, summed (a0 + a2) + (a1 + a3) over the lanes' partials in
+// whichever lane it ends (float addition commutes), so a row's total does
+// not depend on where the row lies.
+__device__ __forceinline__ float sum4_transposed(const float (&a)[4]) {
+  const int c = threadIdx.x & 3;
+  const bool hi2 = c & 2, hi1 = c & 1;
+  float s0 = hi2 ? a[2] : a[0], s1 = hi2 ? a[3] : a[1];
+  const float o0 = hi2 ? a[0] : a[2], o1 = hi2 ? a[1] : a[3];
+  s0 += __shfl_xor_sync(~0u, o0, 2);
+  s1 += __shfl_xor_sync(~0u, o1, 2);
+  const float keep = hi1 ? s1 : s0, send = hi1 ? s0 : s1;
+  return keep + __shfl_xor_sync(~0u, send, 1);
+}
+
 }  // namespace zen

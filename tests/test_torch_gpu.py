@@ -408,6 +408,165 @@ def test_ivf_probe_pq_matches_plain_past_shared_tables(cuda, pq_m):
                  probes, luts, 64, tiles_per_cluster=2)
 
 
+def _tiles(dev, seed, n_clusters, tiles_per_cluster, rows, k, storage,
+           dead=0.2):
+    """Random packed tiles (C*T, rows, k) in ``storage`` with their ids
+    (a fraction ``dead`` of the slots -1, the rest unique) and per-cluster
+    scales (int8)."""
+    slots = n_clusters * tiles_per_cluster * rows
+    x = _coords(seed, slots, k, dev).reshape(n_clusters, -1, k)
+    values, scales = ivf._encode_packed(x, storage)
+    gen = np.random.default_rng(seed + 1)
+    ids = np.arange(slots, dtype=np.int32)
+    ids[gen.random(slots) < dead] = -1
+    ids = torch.from_numpy(ids).to(dev).reshape(-1, rows)
+    return values.reshape(-1, rows, k), ids, scales
+
+
+def _warp_vs_plain(q, tiles, ids, probes, n, tiles_per_cluster, scales=None,
+                   mode="zen"):
+    """The warp plan against the plain version (ids equal outside
+    near-ties); returns both results."""
+    plan = ip.probe_plan(n, probes.shape[1], k=q.shape[1], nq=q.shape[0],
+                         cluster_rows=tiles_per_cluster * tiles.shape[1],
+                         n_sms=torch.cuda.get_device_properties(
+                             q.device).multi_processor_count)
+    assert plan.kernel == "warp"
+    got = _check_probe(ip.ivf_probe, ip.ivf_probe_scan, q, q, tiles, ids,
+                       probes, n, mode, tiles_per_cluster=tiles_per_cluster,
+                       tile_scales=scales)
+    want = ip.ivf_probe_scan(q, tiles, ids, probes, n, mode,
+                             tiles_per_cluster=tiles_per_cluster,
+                             tile_scales=scales)
+    return got, want
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_ivf_probe_duplicated_rows_keep_the_lower_visit_position(cuda,
+                                                                 storage):
+    """Cluster 3 holds exact copies of cluster 0's rows (other ids, the
+    same scale) and is probed first; queries sit next to cluster 0's rows
+    (Lwb: its row's copies are nearest). Each query's two nearest are the
+    copies of its row, tied exactly, the one at the lower visit position
+    (cluster 3's) first, as in the plain version."""
+    tiles, ids, scales = _tiles(cuda, 31, 6, 2, 64, 16, storage)
+    tiles = tiles.reshape(6, 128, 16).clone()
+    tiles[3] = tiles[0]
+    tiles = tiles.reshape(12, 64, 16)
+    if scales is not None:
+        scales = scales.clone()
+        scales[3] = scales[0]
+    q = (tiles.reshape(6, 128, 16)[0, :40].float()
+         * (1.0 if scales is None else scales[0]))
+    q = q + 0.1 * _coords(32, 40, 16, cuda)  # off the row: no cancellation
+    q[:, -1].abs_()
+    probes = torch.tensor([3, 0, 1, 5], dtype=torch.int32,
+                          device=cuda).repeat(40, 1)
+    got, want = _warp_vs_plain(q, tiles, ids, probes, 64, 2, scales,
+                               mode="lwb")
+    ids0 = ids.reshape(6, 128)
+    both = (ids0[0, :40] >= 0) & (ids0[3, :40] >= 0)
+    assert int(both.sum()) >= 20
+    first = got[1][both, :2]
+    assert torch.equal(first[:, 0], ids0[3, :40][both])
+    assert torch.equal(first[:, 1], ids0[0, :40][both])
+    assert torch.equal(got[0][both, 0], got[0][both, 1])  # an exact tie
+    assert torch.equal(want[1][both, :2], first)
+
+
+@pytest.mark.parametrize("storage", ["float32", "int8", "pq"])
+def test_ivf_probe_all_tombstone_and_dummy_clusters(cuda, storage):
+    """A probed cluster whose rows are all tombstoned, and probe columns
+    pointing at an always-empty trailing cluster (the tiered store's dummy
+    slot), whole queries of them: no row of theirs is returned, and the
+    unfilled slots are (+inf, -1)."""
+    n_clusters = 9
+    if storage == "pq":
+        idx, q = _ivf_index(cuda, "pq")
+        codes = idx.tile_coords
+        ids = idx.tile_ids.clone().reshape(idx.n_clusters, -1)
+        ids[2] = -1  # every row of cluster 2 tombstoned
+        ids[-1] = -1  # the last cluster empty: the dummy slot
+        ids = ids.reshape(codes.shape[:2])
+        dummy = idx.n_clusters - 1
+        probes = idx.probe_clusters(q, 8)
+        probes[:, 1] = 2
+        probes[:, 3:] = dummy
+        probes[:8] = dummy  # queries that probe nothing but it
+        luts = pq.build_luts(q, idx.centroids, idx.codebooks, probes, 0)
+        got = _check_probe(ip.ivf_probe_pq, ip.ivf_probe_pq_scan, q, codes,
+                           ids, probes, luts, 40,
+                           tiles_per_cluster=idx.tiles_per_cluster)
+    else:
+        tiles, ids, scales = _tiles(cuda, 41, n_clusters, 3, 128, 16,
+                                    storage)
+        ids = ids.reshape(n_clusters, -1).clone()
+        ids[2] = -1
+        ids[-1] = -1
+        ids = ids.reshape(-1, 128)
+        q = _coords(42, 64, 16, cuda)
+        probes = torch.tensor([0, 2, 4, 8, 8, 8, 1, 8], dtype=torch.int32,
+                              device=cuda).repeat(64, 1)
+        probes[:8] = n_clusters - 1
+        got, _ = _warp_vs_plain(q, tiles, ids, probes, 40, 3, scales)
+    d, i = got
+    assert (i[:8] == -1).all() and torch.isinf(d[:8]).all()
+    assert (i[8:] >= 0).any()
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 2, 13, 16, 130])
+def test_ivf_probe_warp_plan_at_odd_k(cuda, storage, k):
+    """Every k, also where rows start off a 16-byte boundary (13, 130) and
+    past one 16-column chunk (130); int8 with per-cluster scales."""
+    tiles, ids, scales = _tiles(cuda, 50 + k, 12, 2, 128, k, storage)
+    q = _coords(60 + k, 33, k, cuda)
+    probes = torch.randperm(12, generator=torch.Generator(cuda).manual_seed(
+        k), device=cuda)[:5].to(torch.int32).repeat(33, 1)
+    _warp_vs_plain(q, tiles, ids, probes, 20, 2, scales)
+
+
+@pytest.mark.parametrize("rows,tiles_per_cluster", [(48, 3), (100, 1),
+                                                    (13, 5), (128, 7)])
+def test_ivf_probe_warp_plan_at_ragged_tiles(cuda, rows, tiles_per_cluster):
+    """T * rows off the 64-row step (144, 100, 65) and longer than a split
+    (896): the last step of a split is partial."""
+    tiles, ids, _ = _tiles(cuda, 70 + rows, 10, tiles_per_cluster, rows, 16,
+                           "float32")
+    q = _coords(71, 64, 16, cuda)
+    probes = torch.rand((64, 10), generator=torch.Generator(
+        cuda).manual_seed(rows), device=cuda).argsort(1)[:, :6].to(
+            torch.int32)  # 6 distinct clusters a query
+    for mode in ("zen", "lwb", "upb"):
+        _warp_vs_plain(q, tiles, ids, probes, 64, tiles_per_cluster,
+                       mode=mode)
+
+
+@pytest.mark.parametrize("storage", ["float32", "int8", "pq"])
+@pytest.mark.parametrize("n", [33, 64])
+def test_ivf_probe_plans_agree_at_the_boundary_width(cuda, storage, n):
+    """The widest lists of the warp plan (33 to 64) served by both plans:
+    the same answers (ids equal outside near-ties)."""
+    idx, q = _ivf_index(cuda, storage)
+    probes = idx.probe_clusters(q, 8)
+    kw = dict(tiles_per_cluster=idx.tiles_per_cluster)
+    if storage == "pq":
+        luts = pq.build_luts(q, idx.centroids, idx.codebooks, probes, 0)
+        args = (idx.tile_coords, idx.tile_ids, probes, luts, n)
+        fn, plan = ip.ivf_probe_pq, ip.block_plan(n, 8, pq_m=4)
+    else:
+        args = (q, idx.tile_coords, idx.tile_ids, probes, n)
+        kw["tile_scales"] = idx.tile_scales
+        fn, plan = ip.ivf_probe, ip.block_plan(n, 8, k=16)
+    warp = fn(*args, **kw)
+    block = fn(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    atol = 1e-5 * float(q.norm(dim=1).median())
+    msg = topk_mismatch(warp[0], warp[1], block[0], block[1], rtol=1e-5,
+                        atol=atol)
+    assert msg is None, msg
+
+
 @pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8", "pq"])
 def test_ivf_server_on_card_matches_cpu(cuda, storage):
     """One IVF index, built once on the CPU and moved to the card: the same

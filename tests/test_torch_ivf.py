@@ -506,3 +506,60 @@ def test_cli_ivf_cpu_rehearsal(capsys):
     assert "ivf: 219 clusters" in out and "storage=pq" in out
     rec = float(out.split("recall@10: ")[1].split()[0])
     assert rec > 0.5, out
+
+
+#: (cluster, cols, splits) the warp plan gives nq queries over P probed
+#: clusters of 384 rows (T = 3 tiles of 128) on an H100's 132 SMs: as many
+#: blocks a query as the SMs share among the queries (at most 8), more
+#: where a warp would take more than two items; splits of whole 64-row
+#: steps that give the blocks' 16 warps about an item each
+_WARP_GEOMETRY = {
+    (64, 1): (1, 1, 6), (64, 2): (2, 1, 6), (64, 8): (2, 4, 3),
+    (64, 64): (2, 32, 1), (64, 512): (8, 64, 1),
+    (2, 1): (1, 1, 6), (2, 2): (2, 1, 6), (2, 8): (8, 1, 6),
+    (2, 64): (8, 8, 2), (2, 512): (8, 64, 1),
+}
+
+
+@pytest.mark.parametrize("n", [1, 10, 64, 65, 2048, 16384])
+@pytest.mark.parametrize("nq", [1, 2, 64])
+def test_probe_plan_picks_the_plan(nq, n):
+    """Lists up to 64 wide take the warp plan (one launch), wider ones the
+    block plan (pass 1 and pass 2), at every Q and nprobe."""
+    w = 1 << max(n - 1, 0).bit_length()
+    for n_probe in (1, 2, 8, 64, 512):
+        plan = tip.probe_plan(n, n_probe, k=16, nq=nq, cluster_rows=384)
+        assert plan.w == w and plan.smem <= tip.SMEM_LIMIT
+        if n > 64:
+            assert plan == tip.block_plan(n, n_probe, k=16)
+            assert plan.kernel == "block"  # pass 1 and pass 2
+            assert plan.group >= 1 and plan.warps == plan.cluster == 0
+            continue
+        assert plan.kernel == "warp" and plan.cap == 0
+        assert plan.group == plan.merge_smem == 0  # one launch, no pass 2
+        geometry = (plan.cluster, plan.cols, plan.splits)
+        assert geometry == _WARP_GEOMETRY[(max(nq, 2), n_probe)]
+        assert plan.warps == min(16, plan.cols * plan.splits)
+        assert plan.split_rows * plan.splits >= 384
+        assert plan.split_rows * (plan.splits - 1) < 384
+        # a candidate slot for every row of the block's columns
+        assert plan.smem == tip.warp_smem(plan.cols * 384, plan.cols, 0,
+                                          plan.cluster)
+        # the plan is cached: the same object for the same arguments
+        assert tip.probe_plan(n, n_probe, k=16, nq=nq,
+                              cluster_rows=384) is plan
+
+
+@pytest.mark.parametrize("cluster_rows", [1, 100, 384, 3_000, 29_000])
+def test_probe_plan_past_shared_memory_takes_the_block_plan(cluster_rows):
+    """A block's candidate slots (8 bytes a row of its columns' clusters)
+    must fit shared memory: the planner gives a query more blocks first,
+    then takes the block plan."""
+    plan = tip.probe_plan(64, 8, k=16, nq=64, cluster_rows=cluster_rows)
+    if tip.warp_smem(cluster_rows, 1, 0, 8) > tip.SMEM_LIMIT:
+        assert plan.kernel == "block"
+    else:
+        assert plan.kernel == "warp"
+        assert plan.smem == tip.warp_smem(plan.cols * cluster_rows,
+                                          plan.cols, 0, plan.cluster)
+        assert plan.smem <= tip.SMEM_LIMIT

@@ -290,3 +290,33 @@ def test_pq_full_probe_is_the_flat_search_over_decoded_rows():
         msg = topk_mismatch(got[0], got[1], want[0], want[1], rtol=1e-4,
                             atol=1e-4)
         assert msg is None, msg
+
+
+@pytest.mark.parametrize("n", [1, 10, 64, 65, 2048, 16384])
+@pytest.mark.parametrize("pq_m", [1, 4, 256])
+def test_pq_probe_plan_picks_the_plan(pq_m, n):
+    """The PQ probe's plans at every Q and nprobe: the warp plan (one
+    launch) up to width 64, with the tables of as many of each column's
+    first subspaces as fit beside the block's candidates in shared memory
+    (all 4 at the serving shape), the rest read from global memory; the
+    block plan (two launches) past it."""
+    w = 1 << max(n - 1, 0).bit_length()
+    for nq, n_probe in itertools.product((1, 2, 64), (1, 2, 8, 64, 512)):
+        plan = tip.probe_plan(n, n_probe, pq_m=pq_m, nq=nq,
+                              cluster_rows=384)
+        assert plan.w == w and plan.smem <= tip.SMEM_LIMIT
+        assert 0 <= plan.m_smem <= pq_m
+        if n > 64:
+            assert plan == tip.block_plan(n, n_probe, pq_m=pq_m)
+            assert plan.kernel == "block" and plan.m_smem >= 1
+            continue
+        assert plan.kernel == "warp" and plan.group == 0  # one launch
+        slots = plan.cols * 384
+        assert plan.smem == tip.warp_smem(slots, plan.cols, plan.m_smem,
+                                          plan.cluster)
+        # as many tables as fit: one more subspace of every column would not
+        if plan.m_smem < pq_m:
+            assert tip.warp_smem(slots, plan.cols, plan.m_smem + 1,
+                                 plan.cluster) > tip.SMEM_LIMIT
+    serving = tip.probe_plan(64, 8, pq_m=pq_m, nq=64, cluster_rows=384)
+    assert serving.m_smem == min(pq_m, 52)

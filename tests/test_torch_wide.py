@@ -275,30 +275,57 @@ def test_probe_plan_fits_every_width(w):
     for n_probe in (1, 8, 64):
         for k, pq_m in ((1, 0), (16, 0), (300, 0), (1024, 0), (0, 4),
                         (0, 192), (0, 256), (0, 300)):
-            plan = tip.probe_plan(w, n_probe, k=k, pq_m=pq_m)
-            assert plan.w == w and plan.cap >= max(w, 1024)
-            assert plan.smem <= tzt.SMEM_LIMIT
-            lists = 0 if plan.global_lists else 8 * (w + plan.cap)
-            if pq_m:
-                assert 1 <= plan.m_smem <= pq_m
-                assert plan.smem == lists + 1024 * plan.m_smem
-            else:
-                assert plan.m_smem == 0 and plan.smem == (
-                    0 if plan.global_lists else lists + 4 * k)
-            assert plan.group >= 1
-            if plan.merge_smem:
-                assert plan.merge_smem == 8 * (plan.group + 1) * w
-                assert plan.merge_smem <= tzt.SMEM_LIMIT
-                assert plan.group <= max(1, 2 * n_probe - 1)
-            else:
-                assert 16 * w > tzt.SMEM_LIMIT
+            plan = tip.probe_plan(w, n_probe, k=k, pq_m=pq_m, nq=64)
+            assert plan.w == w and plan.smem <= tzt.SMEM_LIMIT
+            if w <= tip.WARP_MAX_W:  # the warp plan: lists in registers
+                assert plan.kernel == "warp" and not plan.global_lists
+                assert 1 <= plan.warps <= 16 and 1 <= plan.cluster <= 8
+                assert plan.smem == tip.warp_smem(plan.cols * 384, plan.cols,
+                                                  plan.m_smem, plan.cluster)
+                assert plan.m_smem == 0 if not pq_m else \
+                    0 <= plan.m_smem <= pq_m
+                # every block of a cluster gets a column, every column a
+                # block
+                assert plan.cols * plan.cluster >= n_probe
+                assert plan.cols * (plan.cluster - 1) < n_probe
+                assert plan.split_rows % 64 == 0
+                assert plan.splits * plan.split_rows >= 384
+                assert (plan.splits - 1) * plan.split_rows < 384
+                assert plan.group == plan.merge_smem == 0  # no pass 2
+            else:  # the block plan
+                assert plan.kernel == "block"
+                assert plan.cap >= max(w, 1024)
+                lists = 0 if plan.global_lists else 8 * (w + plan.cap)
+                if pq_m:
+                    assert 1 <= plan.m_smem <= pq_m
+                    assert plan.smem == lists + 1024 * plan.m_smem
+                else:
+                    assert plan.m_smem == 0 and plan.smem == (
+                        0 if plan.global_lists else lists + 4 * k)
+                assert plan.group >= 1
+                if plan.merge_smem:
+                    assert plan.merge_smem == 8 * (plan.group + 1) * w
+                    assert plan.merge_smem <= tzt.SMEM_LIMIT
+                    assert plan.group <= max(1, 2 * n_probe - 1)
+                else:
+                    assert 16 * w > tzt.SMEM_LIMIT
 
 
 def test_probe_plan_keeps_the_serving_geometry():
-    """nprobe 8 at width 64 merges all 8 lists at once, as before; M = 256
-    keeps 217 of its tables in shared memory and reads 39 from global."""
-    plan = tip.probe_plan(64, 8, k=16)
+    """nprobe 8 at width 64 over 64 queries is one launch of 64 clusters of
+    2 blocks (4 probe columns each) of 12 warps, each warp a third of one
+    probed cluster, with a candidate slot for each of a block's 1,536 rows
+    and an inbox for the other block's list; M = 256 keeps the tables of
+    the first 52 subspaces of a block's 4 columns in shared memory and
+    reads the rest from global memory. Width 128 takes the block plan,
+    which merges all 8 lists at once."""
+    plan = tip.probe_plan(64, 8, k=16, nq=64, cluster_rows=384)
+    assert (plan.kernel, plan.cluster, plan.cols, plan.warps, plan.splits,
+            plan.split_rows, plan.smem) == ("warp", 2, 4, 12, 3, 128,
+                                            8 * (1536 + 128 + 64) + 1024)
+    plan = tip.probe_plan(64, 8, pq_m=256, nq=64, cluster_rows=384)
+    assert plan.m_smem == 52 and not plan.global_lists
+    plan = tip.probe_plan(128, 8, k=16, nq=64)
+    assert plan.kernel == "block"
     assert (plan.group, plan.global_lists, plan.smem) == (8, False,
-                                                          8 * 1088 + 64)
-    plan = tip.probe_plan(64, 8, pq_m=256)
-    assert plan.m_smem == 217 and not plan.global_lists
+                                                          8 * 1152 + 64)
