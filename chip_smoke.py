@@ -79,8 +79,11 @@ Phases:
  14. the dense kernels pdist_sq, zen_estimate and jsd_pdist against their
      plain versions, in squared space: the sweeps of repro_torch.testing
      (f32 and bf16; ragged N, K and m; every mode, k in {1, 2, 16, 130};
-     sparse probability rows and disjoint supports), X against X, and the
-     working shapes of phases 15 and 16;
+     sparse probability rows and disjoint supports), pdist_sq at the edges
+     of its launch plans (PDIST_PLAN_CASES), at m = 4,096 and on nearly
+     equal rows of norm ~1,000, operands of two dtypes (bf16 with f32 and
+     the reverse) for all three, X against X, and the working shapes of
+     phases 15 and 16; pdist_sq's MMA plan also against its SIMT tile;
  15. the paper's evaluation through the public dispatch
      repro_torch.kernels: on the 1,000,000 x 256 corpus, Zen (random,
      farthest_first and maxvol pivots), PCA, RP, MDS (400 witnesses) and
@@ -95,7 +98,9 @@ Phases:
  16. the dense kernels timed at their working shapes (CUDA events, queued
      behind a spin kernel) beside their bounds, plain versions and library
      calls, pdist_sq also at the shapes phase 15 launches (2,048 x 2,048 x
-     256 and x 16);
+     256 and x 16, and x 256 in bf16), with its plan, the bound of its
+     route (3xTF32 or bf16 on the tensor cores, or the bytes) and the f32
+     CUDA-core bound, and torch.cdist beside the library composite;
  17. wide result lists: the flat, IVF f32, IVF PQ and tiered servers of
      phases 4, 8 and 12 at n in {65, 128, 300} with re-rank 4 (fetch widths
      512, 512 and 2,048) and at n = 10, 8 batches each: every kernel of
@@ -133,6 +138,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 #: kernel vs plain tolerance: both evaluate the same f32 norm expansion,
 #: in another summation order (per-thread FMA chain vs cuBLAS f32 GEMM)
 RTOL = 1e-5
@@ -342,6 +348,17 @@ def describe_plan(plan, n_out: int) -> str:
             f"{'global' if plan.global_lists else 'shared'} memory, pass 2 "
             f"in {'shared' if plan.merge_smem else 'global'} memory; "
             f"{plan.route}")
+
+
+def describe_pdist_plan(plan) -> str:
+    """One line of a pdist_sq launch plan."""
+    if plan.kernel == "mma":
+        return (f"MMA plan: {plan.grid} persistent blocks walk "
+                f"{plan.tile[0]} x {plan.tile[1]} tiles, a {plan.stages}-"
+                f"stage TMA ring of {plan.chunk} features, TMA stores from "
+                f"an output tile, {plan.smem:,} B; {plan.route}")
+    return (f"{plan.kernel} plan: {plan.grid:,} blocks of {plan.tile[0]} x "
+            f"{plan.tile[1]}, {plan.chunk} features a step; {plan.route}")
 
 
 def bound_of(nbytes: int, flops: int):
@@ -1454,6 +1471,8 @@ def check_dense_kernels(corpus, coords, gen):
     """Phase 14: the dense kernels against their plain versions on the
     card; returns each kernel's max |out - out_plain| on its own output
     (squared distances for pdist_sq, distances for the others)."""
+    import importlib
+
     import torch
     from repro_torch import testing
     from repro_torch.data import synthetic as syn
@@ -1477,6 +1496,25 @@ def check_dense_kernels(corpus, coords, gen):
         for i, shape in enumerate(testing.JSD_CASES):
             X, Y = testing.dense_inputs("jsd", shape, i, dt, dev)
             cases.append(("jsd_pdist", f"{tag} {shape} sparse", X, Y, ()))
+        # pdist_sq at the edges of its plans (kernels/pdist.py::pdist_plan)
+        for i, shape in enumerate(testing.PDIST_PLAN_CASES):
+            X, Y = testing.dense_inputs("pdist", shape, 100 + i, dt, dev)
+            cases.append(("pdist_sq", f"{tag} plan edge {shape}", X, Y, ()))
+        # m = 4,096 and nearly equal rows of norm ~1,000 (MMA plan)
+        for kind, shape in (("pdist", (300, 260, 4_096)),
+                            ("near", (256, 200, 256)),
+                            ("near", (130, 140, 4_096))):
+            X, Y = testing.dense_inputs(kind, shape, 11, dt, dev)
+            cases.append(("pdist_sq", f"{tag} {kind} {shape}", X, Y, ()))
+    # operands of two dtypes: each keeps its own values (both launch as f32)
+    for name, kind in (("pdist_sq", "pdist"), ("zen_estimate", "zen"),
+                       ("jsd_pdist", "jsd")):
+        for da, db in ((torch.bfloat16, torch.float32),
+                       (torch.float32, torch.bfloat16)):
+            X, _ = testing.dense_inputs(kind, (130, 72, 64), 3, da, dev)
+            _, Y = testing.dense_inputs(kind, (130, 72, 64), 3, db, dev)
+            cases.append((name, f"X {da} with Y {db}", X, Y,
+                          ("zen",) if kind == "zen" else ()))
     sparse_x = torch.tensor([[0.5, 0.5, 0.0, 0.0], [0.25] * 4], device=dev)
     sparse_y = torch.tensor([[0.0, 0.0, 0.5, 0.5]], device=dev)
     cases.append(("jsd_pdist", "disjoint supports", sparse_x, sparse_y, ()))
@@ -1516,9 +1554,18 @@ def check_dense_kernels(corpus, coords, gen):
                                     torch.float32, dev)
         cases.append((name, f"3 x {WIDE_COLS:,} x 8", X, Y,
                       ("zen",) if kind == "zen" else ()))
+    pk = importlib.import_module("repro_torch.kernels.pdist")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = {name: [0.0, 0.0, 0.0] for name in funcs}  # out, squared, D
+    plans = {}  # pdist_sq's cases by plan
     for name, label, X, Y, extra in cases:
         kernel, plain, kind = funcs[name]
+        if name == "pdist_sq":
+            Xp, Yp = (X, Y) if X.dtype == Y.dtype else (X.float(), Y.float())
+            plan = pk.pdist_plan(X.shape[0], Y.shape[0], X.shape[1],
+                                 Xp.dtype, pk.operands_aligned(Xp, Yp),
+                                 n_sms=n_sms).kernel
+            plans[plan] = plans.get(plan, 0) + 1
         got = kernel(X, Y, *extra)
         torch.cuda.synchronize()
         want = plain(X, Y, *extra)
@@ -1531,10 +1578,29 @@ def check_dense_kernels(corpus, coords, gen):
         w = worst[name]
         w[0] = max(w[0], float((got - want).abs().max()))
         w[1], w[2] = max(w[1], err_sq), max(w[2], err_d)
+    # the MMA plan against the SIMT tile on the same working shapes
+    for label, X, Y in ((f"X vs X {EVAL_ROWS} x 256", sample, sample),
+                        (f"{SQUARE} x {SQUARE} x 256", square,
+                         corpus[SQUARE:2 * SQUARE]),
+                        (f"3 x {WIDE_COLS:,} x 8", *testing.dense_inputs(
+                            "pdist", (3, WIDE_COLS, 8), 5, torch.float32,
+                            dev))):
+        got = pk.pdist_sq(X, Y)
+        simt = pk.pdist_sq(X, Y, plan=pk.dense_plan(X.shape[0], Y.shape[0],
+                                                    X.shape[1]))
+        torch.cuda.synchronize()
+        _, _, why = testing.dense_errors("pdist", X, Y, got, simt)
+        if why is not None:
+            fail(f"pdist_sq's MMA plan and SIMT tile differ ({label}): {why}")
     log(f"[14] dense kernels vs their plain versions: {len(cases)} cases "
-        f"(f32/bf16 sweeps of repro_torch.testing, X vs X, the working "
-        f"shapes, zen_estimate at k = 300 and 600, {WIDE_COLS:,} columns) "
-        f"agree in squared space; {time.perf_counter() - t0:.1f} s")
+        f"(f32/bf16 sweeps of repro_torch.testing, pdist_sq's plan edges, "
+        f"m = 4,096 and near rows of norm 1e3, X vs X, operands of two "
+        f"dtypes, the working shapes, zen_estimate at k = 300 and 600, "
+        f"{WIDE_COLS:,} columns) agree in squared space; pdist_sq's cases "
+        f"by plan {plans}; its MMA plan agrees with the SIMT tile at "
+        f"{EVAL_ROWS:,}^2 x 256, {SQUARE:,}^2 x 256 and {WIDE_COLS:,} "
+        f"columns; "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"    tolerance: pdist_sq and zen_estimate |d^2 - d^2_plain| <= "
         f"{testing.SQ_RTOL:g} x (|x|^2 + |y|^2) (the norm expansion's f32 "
         f"sums in another order), jsd_pdist |K - K_plain| <= "
@@ -1697,6 +1763,8 @@ def run_evaluation(corpus, gen, k: int):
 def time_dense(corpus, transform, gen, smi: str):
     """Phase 16: the dense kernels at their working shapes; returns each
     kernel's record for the kernels line, and logs the others."""
+    import importlib
+
     import torch
     from repro_torch.core import metrics, zen
     from repro_torch.data import synthetic as syn
@@ -1711,6 +1779,7 @@ def time_dense(corpus, transform, gen, smi: str):
     refs = transform.refs
     coords = transform.transform(X)
     square = (corpus[:SQUARE], corpus[SQUARE:2 * SQUARE])
+    delta = (corpus[:EVAL_ROWS], corpus[EVAL_ROWS:2 * EVAL_ROWS])
     probs = syn.probability_space(2 * SQUARE, 256, generator=gen)
     kernels = {name: (kernel, plain) for name, kernel, plain, _
                in dense_kernels()}
@@ -1720,14 +1789,16 @@ def time_dense(corpus, transform, gen, smi: str):
         ("pdist_sq", "transform 1,000,000 x 16 x 256", (X, refs), (),
          metrics.sqeuclidean_pdist, False),
         ("pdist_sq", f"evaluation square {SQUARE:,} x {SQUARE:,} x 256",
-         square, (), metrics.sqeuclidean_pdist, True),
+         square, (), metrics.sqeuclidean_pdist, False),
         # the shapes phase 15 launches: its sample's distances (delta) and
-        # the reduced coordinates' (zeta)
+        # the reduced coordinates' (zeta); delta also in bf16
         ("pdist_sq", f"phase 15's delta {EVAL_ROWS:,} x {EVAL_ROWS:,} x 256",
-         (corpus[:EVAL_ROWS], corpus[EVAL_ROWS:2 * EVAL_ROWS]), (),
-         metrics.sqeuclidean_pdist, False),
+         delta, (), metrics.sqeuclidean_pdist, True),
         ("pdist_sq", f"phase 15's zeta {EVAL_ROWS:,} x {EVAL_ROWS:,} x 16",
          (coords[:EVAL_ROWS], coords[EVAL_ROWS:2 * EVAL_ROWS]), (),
+         metrics.sqeuclidean_pdist, False),
+        ("pdist_sq", f"phase 15's delta in bf16 {EVAL_ROWS:,} x "
+         f"{EVAL_ROWS:,} x 256", tuple(t.bfloat16() for t in delta), (),
          metrics.sqeuclidean_pdist, False),
         ("zen_estimate", f"({SQUARE:,} x 16)^2",
          (coords[:SQUARE], coords[SQUARE:2 * SQUARE]), ("zen",),
@@ -1737,12 +1808,14 @@ def time_dense(corpus, transform, gen, smi: str):
         ("jsd_pdist", f"{SQUARE:,} x {SQUARE:,} x 256",
          (probs[:SQUARE], probs[SQUARE:]), (), None, True),
     ]
+    pk = importlib.import_module("repro_torch.kernels.pdist")
     records = {}
     for name, label, (A, B), extra, library, keep in shapes:
         kernel, plain = kernels[name]
         n, m = A.shape
         kk = B.shape[0]
-        nbytes = (A.numel() + B.numel() + n * kk) * 4
+        nbytes = (A.numel() + B.numel()) * A.element_size() + n * kk * 4
+        pdist_note = ""
         if name == "jsd_pdist":
             # one log2 per (i, j, l) on the special-function units
             t_ops = n * kk * m / log_rate
@@ -1755,6 +1828,24 @@ def time_dense(corpus, transform, gen, smi: str):
                 + 2 * (n + kk) * m
             bound, bound_by = bound_of(nbytes, flops)
             ops_note = f"{flops / 1e9:.2f} GFLOP"
+        if name == "pdist_sq":
+            # the bound of the plan's route (3xTF32: three products on the
+            # tensor cores; bf16: one) beside the f32 CUDA-core bound
+            plan = pk.pdist_plan(n, kk, m, A.dtype, pk.operands_aligned(A, B),
+                                 n_sms=n_sms)
+            f32_bound, f32_by = bound, bound_by
+            if plan.kernel == "mma":
+                tf = (2 * n * kk * m / PEAK_BF16_FLOPS
+                      if A.dtype == torch.bfloat16
+                      else 3 * 2 * n * kk * m / PEAK_TF32_FLOPS)
+                tb = nbytes / PEAK_BYTES_S
+                bound = max(tb, tf) * 1e3
+                bound_by = "bytes" if tb > tf else "operations"
+            Af, Bf = A.float(), B.float()  # cdist on f32 (bf16 copied first)
+            cdist_ms = min(queued_ms(lambda: torch.cdist(
+                Af, Bf, compute_mode="use_mm_for_euclid_dist"), 20)
+                for _ in range(2))
+            del Af, Bf
         iters = 5 if name == "jsd_pdist" else 20
         before = kernel.launches
         dev = queued_ms(lambda: kernel(A, B, *extra), iters)
@@ -1765,17 +1856,34 @@ def time_dense(corpus, transform, gen, smi: str):
             queued_ms(lambda: library(A, B, *extra), iters),
             queued_ms(lambda: library(A, B, *extra), iters))
         ms = min(dev, dev2)
-        log(f"[16] {name} at {label}: device time {dev:.4f} / {dev2:.4f} ms,"
-            f" bound {bound:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
-            f"{ops_note}) = {bound / ms:.1%} of bound; plain {plain_ms:.3f} "
-            f"ms; library "
-            + ("none (no single PyTorch call computes it)" if lib_ms is None
-               else f"{library.__module__}.{library.__name__} {lib_ms:.4f} "
-                    f"ms") + f"; {smi}")
+        if name == "pdist_sq":
+            log(f"[16] pdist_sq at {label}: {describe_pdist_plan(plan)}; "
+                f"device time {dev:.4f} / {dev2:.4f} ms; bound of the route "
+                f"{bound:.4f} ms ({bound_by}) = {bound / ms:.1%}, f32 "
+                f"CUDA-core bound {f32_bound:.4f} ms ({f32_by}; "
+                f"{nbytes / 1e6:.1f} MB, {ops_note}) = {f32_bound / ms:.1%};"
+                f" plain {plain_ms:.3f} ms; library "
+                f"{library.__module__}.{library.__name__} {lib_ms:.4f} ms, "
+                f"torch.cdist (use_mm_for_euclid_dist, f32) {cdist_ms:.4f} "
+                f"ms; {smi}")
+        else:
+            log(f"[16] {name} at {label}: device time {dev:.4f} / "
+                f"{dev2:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+                f"{nbytes / 1e6:.1f} MB, {ops_note}) = {bound / ms:.1%} of "
+                f"bound; plain {plain_ms:.3f} ms; library "
+                + ("none (no single PyTorch call computes it)"
+                   if lib_ms is None
+                   else f"{library.__module__}.{library.__name__} "
+                        f"{lib_ms:.4f} ms") + f"; {smi}")
         if keep:
             records[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                  bound_by=bound_by, library_ms=lib_ms,
                                  at=label)
+            if name == "pdist_sq":
+                records[name].update(
+                    plan=describe_pdist_plan(plan), bound_f32_ms=f32_bound,
+                    bound_f32_by=f32_by, share_of_bound=bound / ms,
+                    share_of_f32_bound=f32_bound / ms, cdist_ms=cdist_ms)
     return records
 
 

@@ -64,8 +64,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "pdist": {
-        # x, y, dtype, n, k, m, out, stream
-        "pdist_sq_launch": ([_P, _P, _I, _L, _L, _I, _P, _P], ctypes.c_int),
+        # x, y, dtype, n, k, m, then the plan (kernel, grid, stages,
+        # smem), out, stream
+        "pdist_sq_launch": ([_P, _P, _I, _L, _L, _I, _I, _I, _I, _I, _P, _P],
+                            ctypes.c_int),
         "zen_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "zen_estimate": {

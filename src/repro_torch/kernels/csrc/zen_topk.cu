@@ -68,6 +68,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "scoring.cuh"
 
 // Phase marks of the MMA consumers for probes/zen_topk_phases.cu, which
@@ -478,52 +479,7 @@ inline size_t smem_bytes(int k, int es, int w, int warps, int tile_rows,
          sizeof(uint64_t) * warps * kWarpQueries * (size_t(w) + kCap);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return uint32_t(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count));
-}
-
-// Waits until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// The producer's arrival, announcing `bytes` that bulk copies will bring.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-aligned)
-// from global to shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+using namespace hopper;  // mbarriers, bulk copies, split TF32, mma.sync
 
 // Copies `bytes` of one array into a stage: the 16-byte multiple by a bulk
 // copy (issue), the tail under 16 B here (!issue, before the producer's
@@ -537,26 +493,6 @@ __device__ __forceinline__ void stage_copy(unsigned char* dst,
   } else if (bulk > 0) {
     bulk_load(dst, src, bulk, bar);
   }
-}
-
-// x = hi + lo: hi rounded to TF32 (round to nearest, ties away from zero:
-// half an ulp added to the magnitude bits, the low 13 cleared; as
-// cvt.rna.tf32.f32 for finite x, in two integer operations), lo = x - hi
-// exactly in f32, of which the MMA reads the TF32 part (|lo| <= 2^-11 |x|,
-// so what it drops is below 2^-22 |x|).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a * b, m16n8k8, TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Columns col .. col + 3 of a staged row, f32; zero past k. With kVec

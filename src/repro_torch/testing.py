@@ -72,6 +72,19 @@ JSD_KTOL = 1e-5
 PDIST_CASES = [(8, 8, 16), (128, 128, 512), (100, 37, 129), (256, 64, 1000),
                (1, 5, 3), (130, 257, 640), (1000, 16, 256), (777, 13, 33),
                (5, 1, 70)]
+#: (N, K, m) shapes at the edges of pdist_sq's launch plans
+#: (kernels/pdist.py::pdist_plan), in f32 and bf16: K = 16 (narrow tile),
+#: 17 and 130 (output rows off 16 bytes: SIMT tile) and 20 (MMA plan); m %
+#: 4 != 0 (f32: SIMT tile) and m % 8 != 0 (bf16: SIMT tile, f32: MMA plan
+#: with a last k-step half zero fill); N or K of 1; m past one 32- or
+#: 64-feature stage with a ragged last stage; ragged tiles of 128; more
+#: tiles (160) than the persistent grid's blocks; and m = 4,096 (128 stages
+#: of the MMA plan)
+PDIST_PLAN_CASES = [(300, 16, 64), (300, 17, 64), (300, 20, 64),
+                    (300, 130, 64), (200, 132, 70), (200, 132, 36),
+                    (1, 300, 64), (300, 1, 64), (1, 132, 36), (300, 200, 12),
+                    (300, 200, 40), (129, 260, 100), (2048, 1200, 32),
+                    (256, 256, 4096)]
 #: (N, M, k) shapes of the zen_estimate sweep, k in {1, 2, 16, 130}
 ZEN_CASES = [(n, m, k) for k in (1, 2, 16, 130)
              for n, m in ((16, 16), (100, 300), (7, 1), (65, 129))]
@@ -83,8 +96,10 @@ JSD_CASES = [(8, 8, 48), (64, 64, 256), (40, 100, 100), (16, 16, 48),
 def dense_inputs(kind: str, shape, seed: int, dtype, device):
     """(X, Y) of one case of a dense sweep, drawn from ``seed`` with numpy:
     normal rows for "pdist", normal coordinates with a non-negative last
-    column (an altitude) for "zen", and l1-normalised rows for "jsd", a
-    third of whose entries are zero (0 log 0)."""
+    column (an altitude) for "zen", l1-normalised rows for "jsd", a
+    third of whose entries are zero (0 log 0), and for "near" rows of norm
+    ~1,000 that all lie within ~0.03 of one another (the norm expansion
+    cancels |x|^2 + |y|^2 ~ 2e6 down to distances ~1e-3)."""
     import torch
 
     n, k, m = shape
@@ -96,6 +111,11 @@ def dense_inputs(kind: str, shape, seed: int, dtype, device):
         X[:, 0] += 1e-3  # no all-zero row
         Y[:, 0] += 1e-3
         X, Y = X / X.sum(1, keepdims=True), Y / Y.sum(1, keepdims=True)
+    elif kind == "near":
+        base = rng.standard_normal(m)
+        base *= 1e3 / np.linalg.norm(base)
+        X = base + 1e-3 * rng.standard_normal((n, m))
+        Y = base + 1e-3 * rng.standard_normal((k, m))
     else:
         X, Y = rng.standard_normal((n, m)), rng.standard_normal((k, m))
         if kind == "zen":

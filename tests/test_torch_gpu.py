@@ -17,8 +17,11 @@ tiered store against the resident index on the card: the same probe kernel
 scores the same rows, so distances are bit-equal and ids equal outside
 exact ties.
 """
+import ctypes
 import functools
 import importlib
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.index import ivf  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ivf_probe as ip  # noqa: E402
 from repro_torch.kernels import jsd as jk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -37,8 +41,8 @@ from repro_torch.kernels.scoring import MODE_IDS  # noqa: E402
 from repro_torch.kernels import zen_topk as zt  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
-    JSD_CASES, JSD_KTOL, PDIST_CASES, SQ_RTOL, ZEN_CASES, dense_errors,
-    dense_inputs, topk_mismatch)
+    JSD_CASES, JSD_KTOL, PDIST_CASES, PDIST_PLAN_CASES, SQ_RTOL, ZEN_CASES,
+    dense_errors, dense_inputs, topk_mismatch)
 
 # the package exports the function ``pdist``, which shadows the module name
 pk = importlib.import_module("repro_torch.kernels.pdist")
@@ -831,6 +835,126 @@ def test_dense_ops_dispatch_on_card(cuda):
     ops.jsd_pdist(P, Q)
     assert (zk.zen_estimate.launches, jk.jsd_pdist.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _plan(X, Y):
+    return pk.pdist_plan(X.shape[0], Y.shape[0], X.shape[1], X.dtype,
+                         pk.operands_aligned(X, Y),
+                         n_sms=torch.cuda.get_device_properties(
+                             X.device).multi_processor_count)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", PDIST_PLAN_CASES)
+def test_pdist_sq_plans_match_plain(cuda, dtype, shape):
+    """Each plan at its boundaries against the plain version; where the
+    shape takes the MMA plan, also against the SIMT tile on the same
+    inputs."""
+    X, Y = dense_inputs("pdist", shape, sum(shape), dtype, cuda)
+    got = _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, Y)
+    if _plan(X, Y).kernel == "mma":
+        simt = pk.pdist_sq(X, Y, plan=pk.dense_plan(*shape))
+        _, _, why = dense_errors("pdist", X, Y, got, simt)
+        assert why is None, why
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("kind,shape", [
+    ("pdist", (300, 260, 4096)), ("near", (256, 200, 256)),
+    ("near", (130, 140, 4096))])
+def test_pdist_sq_mma_plan_holds_long_and_near_rows(cuda, dtype, kind, shape):
+    """m = 4,096 (128 stages: each stage's tensor-core partial goes into an
+    f32 total, so the truncating accumulation does not grow with m), and
+    nearly equal rows of norm ~1,000 (|x|^2 + |y|^2 ~ 2e6 cancels down to
+    distances ~1e-3), within SQ_RTOL x (|x|^2 + |y|^2)."""
+    X, Y = dense_inputs(kind, shape, 11, dtype, cuda)
+    assert _plan(X, Y).kernel == "mma"
+    _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, Y)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_pdist_sq_mma_plan_self_matrix(cuda, dtype):
+    """X against X in the MMA plan: the diagonal cancels to ~0."""
+    X, _ = dense_inputs("pdist", (300, 1, 256), 4, dtype, cuda)
+    assert _plan(X, X).kernel == "mma"
+    d2 = _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, X)
+    assert float(d2.diagonal().max()) <= SQ_RTOL * 2 * float(
+        (X.float() ** 2).sum(1).max())
+
+
+@pytest.fixture(scope="module")
+def smem_fill(tmp_path_factory):
+    """probes/smem_fill.cu built and loaded: ``smem_fill_launch(byte,
+    stream)`` fills every SM's shared memory with ``byte``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the Hopper kernels cannot run here)")
+    src = Path(pk.__file__).parent / "probes" / "smem_fill.cu"
+    out = tmp_path_factory.mktemp("smem_fill") / "smem_fill.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lib.smem_fill_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.smem_fill_launch.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (200, 132, 36)), (torch.float32, (129, 260, 100)),
+    (torch.float32, (300, 200, 12)), (torch.float32, (300, 200, 4)),
+    (torch.bfloat16, (300, 200, 40))])
+def test_pdist_sq_mma_plan_reads_no_stale_shared_memory(cuda, smem_fill,
+                                                       dtype, shape):
+    """A last stage whose last k-step is half zero fill (f32 m % 8 == 4,
+    bf16 m % 16 == 8), launched on shared memory filled with 0xff bytes
+    (NaN words) first: the wgmmas read only what the stage's TMA copy and
+    preparation wrote, so the distances stay finite and match the plain
+    version."""
+    X, Y = dense_inputs("pdist", shape, 5, dtype, cuda)
+    assert _plan(X, Y).kernel == "mma"
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert smem_fill.smem_fill_launch(0xff, stream) == 0
+    got = _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, Y)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_pdist_sq_offset_views(cuda):
+    """A contiguous view 4 bytes off a 16-byte boundary takes the SIMT tile
+    (the TMA cannot read it); one whole row in stays in the MMA plan."""
+    base = torch.randn(300 * 64 + 4, device=cuda)
+    X = base[:300 * 64].view(300, 64)
+    off = base[1:300 * 64 + 1].view(300, 64)
+    Y = X[100:]
+    assert _plan(off, X).kernel == "simt" and _plan(Y, X).kernel == "mma"
+    _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, off, X)
+    _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, Y, X)
+
+
+def test_pdist_sq_wide_cols_through_the_mma_plan(cuda):
+    """phase 14's 4,195,240 columns: 32,776 column tiles walked by the
+    persistent grid (no grid-y limit), and the same on the SIMT tile."""
+    k = 65_535 * 64 + 1_000
+    X, Y = dense_inputs("pdist", (3, k, 8), 7, torch.float32, cuda)
+    assert _plan(X, Y).kernel == "mma"
+    got = _check_dense("pdist", pk.pdist_sq, pk.pdist_sq_plain, X, Y)
+    simt = pk.pdist_sq(X, Y, plan=pk.dense_plan(3, k, 8))
+    _, _, why = dense_errors("pdist", X, Y, got, simt)
+    assert why is None, why
+
+
+@pytest.mark.parametrize("kind", ["pdist", "zen", "jsd"])
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16)])
+def test_dense_kernels_keep_each_operands_dtype(cuda, kind, dtypes):
+    """X and Y in different dtypes: both launch as f32, so each keeps its
+    own values, as the plain versions and the TPU kernels do (a launch in
+    X's bf16 would round an f32 Y, ~1e-3 relative)."""
+    fn, plain, extra = {
+        "pdist": (pk.pdist_sq, pk.pdist_sq_plain, ()),
+        "zen": (zk.zen_estimate, zk.zen_estimate_plain, ("zen",)),
+        "jsd": (jk.jsd_pdist, jk.jsd_pdist_plain, ())}[kind]
+    X, _ = dense_inputs(kind, (130, 72, 64), 3, dtypes[0], cuda)
+    _, Y = dense_inputs(kind, (130, 72, 64), 3, dtypes[1], cuda)
+    _check_dense(kind, fn, plain, X, Y, *extra)
 
 
 def test_dense_kernels_reject_what_they_do_not_take(cuda):

@@ -172,6 +172,142 @@ def test_ops_dispatch_cpu_matches_jax_ops():
     _check("jsd", Pt, Pt, tops.jsd_pdist(Pt, Pt), jops.jsd_pdist(Pj, Pj))
 
 
+def _mixed(kind, rng, dtypes):
+    """(JAX X, JAX Y, torch X, torch Y) of one dense case with X and Y in
+    the two dtypes of ``dtypes``: the same values on both sides."""
+    if kind == "jsd":
+        X, Y = _simplex_rows(rng, 40, 96), _simplex_rows(rng, 24, 96)
+    else:
+        X, Y = rng.normal(size=(40, 96)), rng.normal(size=(24, 96))
+        if kind == "zen":
+            X[:, -1], Y[:, -1] = np.abs(X[:, -1]), np.abs(Y[:, -1])
+    Xj, _, Xt, _ = _pair(X, X, dtypes[0])
+    Yj, _, Yt, _ = _pair(Y, Y, dtypes[1])
+    return Xj, Yj, Xt, Yt
+
+
+@pytest.mark.parametrize("kind", ["pdist", "zen", "jsd"])
+@pytest.mark.parametrize("dtypes", [("bfloat16", "float32"),
+                                    ("float32", "bfloat16")])
+def test_dense_kernels_keep_each_operands_dtype(kind, dtypes):
+    """X and Y in different dtypes: the TPU kernels cast each operand to
+    f32 on its own, so an f32 operand keeps its f32 values (rounding it to
+    the other's bf16 moves d^2 by ~1e-3 relative, 100x the tolerance)."""
+    rng = np.random.default_rng(len(kind) * 10 + len(dtypes[0]))
+    Xj, Yj, Xt, Yt = _mixed(kind, rng, dtypes)
+    if kind == "pdist":
+        want = jpdist.pdist_sq(Xj, Yj, interpret=True)
+        got = tops.pdist_sq(Xt, Yt)
+    elif kind == "zen":
+        want = jzen.zen_estimate(Xj, Yj, "zen", interpret=True)
+        got = tops.zen_estimate(Xt, Yt, "zen")
+    else:
+        want = jjsd.jsd_pdist(Xj, Yj, interpret=True)
+        got = tops.jsd_pdist(Xt, Yt)
+    _check(kind, Xt, Yt, got, want)
+    # and the f32 operand rounded to bf16 gives another answer
+    if kind == "pdist":
+        rounded = tops.pdist_sq(Xt.bfloat16(), Yt.bfloat16())
+        assert not np.allclose(rounded.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtypes,code", [
+    (("bfloat16", "float32"), 0), (("float32", "bfloat16"), 0),
+    (("float32", "float32"), 0), (("bfloat16", "bfloat16"), 1)])
+def test_launch_operands_never_round_an_operand_down(dtypes, code):
+    """The operands as a dense kernel launches them
+    (``launch_operands``, the end of ``kernel_operands``): in their dtype
+    where they share one, else both as f32, each with its own values,
+    contiguous."""
+    rng = np.random.default_rng(7)
+    X = torch.from_numpy(rng.standard_normal((5, 8)).astype(np.float32))
+    Y = torch.from_numpy(rng.standard_normal((8, 6)).astype(np.float32))
+    X, Y = X.to(getattr(torch, dtypes[0])), Y.to(getattr(torch, dtypes[1])).T
+    Xl, Yl, got = tpdist.launch_operands(X, Y)
+    assert got == code
+    assert Xl.dtype == Yl.dtype == (torch.bfloat16 if code else torch.float32)
+    assert Xl.is_contiguous() and Yl.is_contiguous()
+    assert torch.equal(Xl.float(), X.float())
+    assert torch.equal(Yl.float(), Y.float())
+
+
+#: (n, k, m, dtype, operands aligned) -> the plan's kernel: the K = 16 / 17
+#: boundary, K % 4 != 0 (output rows off 16 bytes), m off 16 bytes (f32
+#: m % 4, bf16 m % 8), operands off 16 bytes, m = 0, n or K of 1, K past
+#: 65,535 tiles of 128 (no grid-y limit: the MMA plan's grid is persistent)
+PLAN_CASES = [
+    (2048, 2048, 256, "float32", True, "mma"),
+    (2048, 2048, 16, "float32", True, "mma"),
+    (2048, 2048, 256, "bfloat16", True, "mma"),
+    (2048, 2048, 64, "bfloat16", True, "mma"),
+    (2048, 2049, 256, "float32", True, "simt"),
+    (1_000_000, 16, 256, "float32", True, "narrow"),
+    (300, 16, 64, "float32", True, "narrow"),
+    (300, 17, 64, "float32", True, "simt"),
+    (300, 20, 64, "float32", True, "mma"),
+    (200, 130, 64, "float32", True, "simt"),
+    (200, 132, 70, "float32", True, "simt"),
+    (200, 132, 36, "float32", True, "mma"),
+    (200, 132, 36, "bfloat16", True, "simt"),
+    (200, 132, 40, "bfloat16", True, "mma"),
+    (200, 132, 64, "float32", False, "simt"),
+    (200, 132, 0, "float32", True, "simt"),
+    (1, 300, 64, "float32", True, "mma"),
+    (300, 1, 64, "float32", True, "narrow"),
+    (3, 65_535 * 128 + 4, 8, "float32", True, "mma"),
+]
+
+
+@pytest.mark.parametrize("n,k,m,dtype,aligned,kernel", PLAN_CASES)
+def test_pdist_plan_picks_the_kernel(n, k, m, dtype, aligned, kernel):
+    td = getattr(torch, dtype)
+    plan = tpdist.pdist_plan(n, k, m, td, aligned, n_sms=132)
+    assert plan.kernel == kernel
+    tiles = -(-n // plan.tile[0]) * -(-k // plan.tile[1])
+    if kernel == "mma":
+        es = 4 if td == torch.float32 else 2
+        assert plan.tile == (128, 128) and plan.chunk * es == 128
+        assert plan.grid == min(tiles, 132)  # persistent: at most one an SM
+        assert 2 <= plan.stages <= tpdist.MMA_MAX_STAGES
+        assert plan.smem == tpdist.mma_smem(es, plan.stages)
+        assert plan.smem <= tpdist.SMEM_LIMIT
+        # the TMA stores need 16-byte output rows
+        assert k % 4 == 0
+        assert "tensor cores" in plan.route
+    else:
+        assert plan.tile == (tpdist.NARROW_TILE if k <= 16
+                             else tpdist.SIMT_TILE)
+        assert plan.grid == tiles
+        assert plan.stages == plan.smem == 0
+        assert plan.route == "f32 on the CUDA cores"
+
+
+def test_pdist_plan_is_cached_and_follows_the_card():
+    tpdist.pdist_plan.cache_clear()
+    a = tpdist.pdist_plan(2048, 2048, 256, torch.float32, True, n_sms=132)
+    b = tpdist.pdist_plan(2048, 2048, 256, torch.float32, True, n_sms=132)
+    assert a is b and tpdist.pdist_plan.cache_info().hits == 1
+    assert tpdist.pdist_plan(2048, 2048, 256, torch.float32, True,
+                             n_sms=114).grid == 114
+    assert tpdist.pdist_plan(100, 100, 256, torch.float32, True,
+                             n_sms=132).grid == 1  # one tile
+    assert tpdist.dense_plan(300, 17, 64).kernel == "simt"
+
+
+def test_operands_aligned_on_offset_views():
+    base = torch.zeros(300 * 64 + 4)
+    X = base[:300 * 64].view(300, 64)
+    assert tpdist.operands_aligned(X, X)
+    off = base[1:300 * 64 + 1].view(300, 64)  # 4 bytes in
+    assert off.is_contiguous() and not tpdist.operands_aligned(off, X)
+    rows = X[1:]  # one 256-byte row in: still on a 16-byte boundary
+    assert tpdist.operands_aligned(rows, X)
+    n, m = off.shape
+    assert tpdist.pdist_plan(n, 200, m, torch.float32,
+                             tpdist.operands_aligned(off, X)).kernel == "simt"
+
+
 def test_package_exports_the_dispatch():
     assert tkernels.pdist_sq is tops.pdist_sq
     assert tkernels.pdist is tops.pdist
