@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the Hopper
 kernels, holds each against its plain PyTorch version, serves the flat, the
 IVF and the tiered (host-offloaded) IVF index end to end at full size,
-churns, snapshots and reloads them, runs the paper's evaluation (Zen
+churns, snapshots and reloads them, serves them through the micro-batching
+frontend and a hot-swapping replica, runs the paper's evaluation (Zen
 against PCA, RP, MDS and LMDS) through the dense kernels, and times the
 kernels.
 
@@ -106,10 +107,35 @@ Phases:
      512, 512 and 2,048) and at n = 10, 8 batches each: every kernel of
      the path counted from 0 around them, one batch's answers against the
      same server with the search kernels' plain versions on the card, and
-     the p50 at n = 300 beside the p50 at n = 10.
+     the p50 at n = 300 beside the p50 at n = 10;
+ 18. the frontend and batch invariance: phase 4's flat, phase 8's IVF f32
+     and PQ indexes served with ZenServer(frontend=True, max_batch=64,
+     cache_size=1,024, re-rank 4): 64 one-row submissions coalesce into
+     one dispatch whose rows equal, bit for bit, the same rows served
+     alone (Q bucket 2) and in the 64-row batch; the 64 resubmitted rows
+     are cache hits equal to the misses; after deleting every row's top
+     answer no stale entry is served and the re-served rows equal fresh
+     direct ones; the search kernels' launch counts advance. Then, on
+     the flat and IVF f32 indexes, the direct path's capacity C = 64 / p50
+     of a 64-row batch, the QPS of 1-row direct queries from one caller,
+     and run_open_loop (wall clock, 1-row Poisson arrivals) at 0.25, 0.5,
+     1.0 and 1.5 C: achieved QPS, p50 / p99, batch occupancy, rejects and
+     the device's busy share (torch.profiler, a shorter run);
+ 19. replication and fault tolerance: an IndexLeader over phase 8's IVF
+     f32 server publishes, a QueryReplica loads it onto the card; two
+     rounds of delete + upsert -> publish -> poll while a thread keeps
+     querying the replica: every in-flight answer is one generation's,
+     the replica equals its leader bit for bit at every generation, the
+     retired generations are released; publish and swap seconds. Then
+     phase 12's tiered store re-offloaded over 4 logical shards under
+     enable_fault_tolerance (a fake clock): shard 2 silent past its
+     deadline answers as set_dead_shards([2]) applied directly, bit for
+     bit, stats()["degraded_shards"] names it, a beat restores the
+     healthy answers; a preemption request writes a snapshot that reloads
+     to the same answers.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phase 17 runs after phase 12. Phase 3 also holds zen_topk at
+kernel); phases 17, 18 and 19 run after phase 12. Phase 3 also holds zen_topk at
 widths up to 16,384 (lists in global memory) and k = 300, phase 7 the
 probes at widths up to 16,384 and PQ at M = 256, phase 14 zen_estimate at
 k = 300 and 600 and every dense kernel past 65,535 grid rows of column
@@ -1453,6 +1479,304 @@ def check_snapshots(index, tiered_server, batches, corpus, k: int):
 
 
 
+def _bits(res):
+    """(distances as int32 bits, ids) on the host, for bit-equality."""
+    d, ids = res
+    if not isinstance(d, np.ndarray):
+        d, ids = d.cpu().numpy(), ids.cpu().numpy()
+    return d.view(np.int32), ids
+
+
+def _same_bits(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(_bits(a), _bits(b)))
+
+
+def device_busy(fn) -> tuple:
+    """(result of ``fn``, wall seconds, device-busy seconds): ``fn`` runs
+    under torch.profiler, and the busy time is its CUDA kernels' time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, wall, busy_us * 1e-6
+
+
+def check_frontend(servers, batches, smi: str):
+    """Phase 18: the micro-batching frontend on the full-size flat, IVF f32
+    and PQ indexes. 64 one-row submissions coalesce into one dispatch whose
+    rows equal the same rows served alone (Q bucket 2) and in the 64-row
+    batch, bit for bit; cache hits equal the misses; after a churn no
+    stale answer is served; then open-loop Poisson load of 1-row arrivals
+    at 0.25, 0.5, 1.0 and 1.5 x the direct path's capacity."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import run_open_loop
+
+    t0 = time.perf_counter()
+    log(f"[18] frontend (max_batch 64, cache 1,024 rows, re-rank 4) on the "
+        f"1,000,000-row servers; {smi}")
+    q = batches[1]
+    for name, index, kernels in servers:
+        for kern in kernels:
+            kern.launches = 0
+        fe = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4,
+                             frontend=True, max_batch=64, cache_size=1_024)
+        sched = fe.frontend
+        handles = [sched.submit(q[i], 10) for i in range(64)]
+        if sched.tick() != 1:
+            fail(f"{name}: 64 one-row submissions did not coalesce into "
+                 f"one dispatch")
+        batch = fe.query(q, 10, direct=True)
+        for i, h in enumerate(handles):
+            alone = fe.query(q[i:i + 1], 10, direct=True)
+            row = (batch[0][i:i + 1], batch[1][i:i + 1])
+            got = h.result()
+            if not (_same_bits(got, alone) and _same_bits(got, row)):
+                fail(f"{name}: row {i} coalesced differs from the same row "
+                     f"served alone or in the 64-row batch")
+        hits = [sched.submit(q[i], 10) for i in range(64)]
+        if not all(h.done() for h in hits) or sched.stats.cache_hits != 64:
+            fail(f"{name}: resubmitted rows were not all cache hits")
+        if not all(_same_bits(a.result(), b.result())
+                   for a, b in zip(hits, handles)):
+            fail(f"{name}: a cache hit differs from its miss")
+        counts = {kern.__name__: kern.launches for kern in kernels}
+        if min(counts.values()) == 0:
+            fail(f"{name}: the frontend did not launch {counts}")
+        churn = ""
+        if name != "ivf pq":  # churn: delete every row's top answer
+            victims = sorted(set(batch[1][:, 0].tolist()))
+            fe.delete(victims)
+            again = [sched.submit(q[i], 10) for i in range(64)]
+            if any(h.done() for h in again):
+                fail(f"{name}: a pre-churn cache entry answered after the "
+                     f"churn")
+            sched.tick()
+            fresh = fe.query(q, 10, direct=True)
+            for i, h in enumerate(again):
+                if not _same_bits(h.result(),
+                                  (fresh[0][i:i + 1], fresh[1][i:i + 1])):
+                    fail(f"{name}: row {i} after the churn differs from a "
+                         f"fresh direct query")
+                if set(h.result()[1].ravel().tolist()) & set(victims):
+                    fail(f"{name}: a deleted id was served after the churn")
+            churn = (f"; after deleting {len(victims)} ids no stale entry "
+                     f"answered and the re-served rows equal fresh ones")
+        log(f"    {name:7s}: 64 one-row submissions in 1 dispatch equal the "
+            f"rows alone (Q bucket 2) and in the 64-row batch bit for bit; "
+            f"64 cache hits equal the misses{churn}; launches {counts}")
+
+    # open loop, real clock: capacity from the direct path's 64-row p50
+    for name, index, kernels in servers[:2]:
+        direct = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4)
+        lat = []
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            direct.query(b, 10)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+        p50 = float(np.percentile(lat, 50))
+        cap = 64 / p50
+        n1 = 0
+        t = time.perf_counter()
+        while time.perf_counter() - t < 1.0:
+            direct.query(q[n1 % 64:n1 % 64 + 1], 10)
+            n1 += 1
+        one_qps = n1 / (time.perf_counter() - t)
+        _, wall, busy = device_busy(
+            lambda: [direct.query(q[i:i + 1], 10) for i in range(200)])
+        log(f"    {name} open loop: direct 64-row p50 {p50 * 1e3:.3f} ms, "
+            f"capacity C = {cap:,.0f} queries/s; 1-row direct queries "
+            f"from one caller {one_qps:,.0f} queries/s (device busy "
+            f"{busy / wall:.1%})")
+        pool = torch.cat(batches[1:]).cpu().numpy()
+        for frac in (0.25, 0.5, 1.0, 1.5):
+            fe = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4,
+                                 frontend=True, max_batch=64)
+            rep = run_open_loop(fe, pool, offered_qps=frac * cap,
+                                duration_s=1.0, n_neighbors=10, seed=1,
+                                drain_timeout_s=20.0)
+            occ = fe.stats()["frontend"]["batch_occupancy"]
+            fe_p = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4,
+                                   frontend=True, max_batch=64)
+            _, wall, busy = device_busy(lambda: run_open_loop(
+                fe_p, pool, offered_qps=frac * cap, duration_s=0.5,
+                n_neighbors=10, seed=2, drain_timeout_s=20.0))
+            if rep.failures or rep.timeouts or rep.completed == 0:
+                fail(f"{name} open loop at {frac} C: {rep.row()}")
+            log(f"      offered {frac:4.2f} C = {frac * cap:9,.0f}/s: "
+                f"achieved {rep.achieved_qps:9,.0f}/s, p50 "
+                f"{rep.p50_ms:.3f} ms, p99 {rep.p99_ms:.3f} ms, occupancy "
+                f"{occ:.3f}, rejected {rep.rejected}, completed "
+                f"{rep.completed}; device busy {busy / wall:.1%} "
+                f"(profiled 0.5 s run)")
+    log(f"    {time.perf_counter() - t0:.1f} s")
+
+
+def check_replication(ivf_index, batches, corpus):
+    """Phase 19: an IndexLeader over the full-size IVF f32 server publishes;
+    a QueryReplica on the card polls and swaps, also under a thread that
+    keeps querying it, bit-identical to its leader at every generation;
+    fault tolerance on phase 12's tiered store re-offloaded over 4 logical
+    shards, one silent past its deadline (fake clock), against
+    set_dead_shards applied directly; and a preemption snapshot that
+    reloads to the same answers."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.launch import serve
+    from repro_torch.launch.replicate import IndexLeader, QueryReplica
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    q = batches[1]
+    tmp = tempfile.mkdtemp(prefix="zen-replicate-")
+    try:
+        leader_srv = serve.ZenServer(ivf_index, nprobe=NPROBE,
+                                     rerank_factor=4)
+        leader = IndexLeader(leader_srv, os.path.join(tmp, "pub"), keep=2)
+        t = time.perf_counter()
+        leader.publish()
+        pub_s = [time.perf_counter() - t]
+        rep = QueryReplica(os.path.join(tmp, "pub"), device=corpus.device,
+                           frontend=True, cache_size=1_024)
+        t = time.perf_counter()
+        if not rep.poll():
+            fail("the replica did not swap in the first publish")
+        torch.cuda.synchronize()
+        swap_s = [time.perf_counter() - t]
+
+        def coherent(label):
+            want = leader_srv.query(q, 10, direct=True)
+            got = rep.query(q, 10)
+            if rep.generation != leader.generation or \
+                    not _same_bits(got, want):
+                fail(f"the replica differs from its leader {label}")
+            return want
+
+        gens = [coherent("at generation 0")]
+        served = [rep.generation]
+        stop, seen, errors = threading.Event(), [], []
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    seen.append(_bits(rep.query(q, 10, direct=True)))
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(exc)
+
+        gen = torch.Generator(device=corpus.device).manual_seed(19)
+        for round_ in range(2):
+            th = threading.Thread(target=reader)
+            th.start()
+            try:
+                victims = sorted(set(gens[-1][1][:, 0].tolist()))
+                leader.delete(victims)
+                fresh = corpus[:500] + 0.01 * torch.randn(
+                    (500, corpus.shape[1]), generator=gen,
+                    device=corpus.device)
+                leader.upsert(list(range(corpus.shape[0] + 500 * round_,
+                                         corpus.shape[0] + 500 * round_
+                                         + 500)), fresh)
+                t = time.perf_counter()
+                leader.publish()
+                pub_s.append(time.perf_counter() - t)
+                t = time.perf_counter()
+                if not rep.poll():
+                    fail(f"the replica did not swap in round {round_}")
+                torch.cuda.synchronize()
+                swap_s.append(time.perf_counter() - t)
+            finally:
+                stop.set()
+                th.join(timeout=300)
+                stop.clear()
+            if errors:
+                fail(f"a query in flight across the swap failed: {errors}")
+            gens.append(coherent(f"at generation {leader.generation}"))
+            served.append(rep.generation)
+            known = [_bits(g) for g in gens[-2:]]
+            for d, ids in seen:
+                if not any(np.array_equal(d, a) and np.array_equal(ids, b)
+                           for a, b in known):
+                    fail("an in-flight answer is no generation's answer")
+            n_seen, seen[:] = len(seen), []
+            log(f"[19] round {round_}: deleted {len(victims)} ids, upserted "
+                f"500; publish {pub_s[-1]:.2f} s, swap (load onto the card) "
+                f"{swap_s[-1]:.2f} s; {n_seen} in-flight batches each equal "
+                f"to one generation's answers; replica at generation "
+                f"{rep.generation} equals its leader bit for bit")
+        if rep.poll_errors or \
+                rep.released_generations() != tuple(served[:-1]):
+            fail(f"replica poll errors {rep.poll_errors}, released "
+                 f"{rep.released_generations()} of {served}")
+        log(f"    first publish {pub_s[0]:.2f} s, first swap "
+            f"{swap_s[0]:.2f} s; generations {served[:-1]} released once "
+            f"idle; replica stats {rep.stats()['server']['frontend']}")
+        del rep, leader, leader_srv
+
+        # fault tolerance on a tiered index: shard 2 of 4 goes silent
+        clock = [0.0]
+        tiered = ivf.TieredIVFZenIndex.from_index(
+            ivf_index.ivf, hot_fraction=0.1, n_shards=4)
+        oracle_t = tiered.to(corpus.device)
+        oracle_t.set_dead_shards([2])
+        ft = serve.ZenServer(dataclasses.replace(ivf_index, ivf=tiered),
+                             nprobe=NPROBE, rerank_factor=4)
+        healthy = ft.query(q, 10)
+        ft.enable_fault_tolerance(deadline_s=10.0, clock=lambda: clock[0],
+                                  snapshot_dir=os.path.join(tmp, "pre"))
+        for s in range(4):
+            ft.heartbeat(s)
+        clock[0] = 11.0
+        for s in (0, 1, 3):
+            ft.heartbeat(s)
+        degraded = ft.query(q, 10)
+        oracle = serve.ZenServer(dataclasses.replace(ivf_index,
+                                                     ivf=oracle_t),
+                                 nprobe=NPROBE, rerank_factor=4)
+        if ft.stats()["degraded_shards"] != ["shard2"]:
+            fail(f"degraded shards {ft.stats()['degraded_shards']}")
+        if not _same_bits(degraded, oracle.query(q, 10)):
+            fail("the silent shard's answers differ from set_dead_shards "
+                 "applied directly")
+        ft.heartbeat(2)
+        if not _same_bits(ft.query(q, 10), healthy):
+            fail("the revived shard's answers differ from the healthy ones")
+        ft.preemption.request()
+        t = time.perf_counter()
+        ft.query(q, 10)              # the next tick writes the snapshot
+        pre_s = time.perf_counter() - t
+        back = serve.ZenServer.load(os.path.join(tmp, "pre"),
+                                    device=corpus.device)
+        got = back.query(q, 10)
+        atol = RTOL * float(q.norm(dim=1).median())
+        msg = topk_mismatch(got[0], got[1], healthy[0], healthy[1],
+                            rtol=RTOL, atol=atol)
+        if msg is not None:
+            fail(f"the preemption snapshot reloads to other answers: {msg}")
+        log(f"    fault tolerance on a tiered index (4 shards): shard2 "
+            f"silent past 10 s answers as set_dead_shards([2]) bit for "
+            f"bit, stats degraded_shards {['shard2']}; revived, the healthy "
+            f"answers; a preemption request saved a snapshot in "
+            f"{pre_s:.2f} s that reloads to the same answers")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"    {time.perf_counter() - t0:.1f} s")
+
+
 def dense_kernels():
     """(name, kernel wrapper, plain version, ``testing.dense_errors`` kind)
     of the three dense kernels."""
@@ -2239,7 +2563,15 @@ def main() -> None:
                                    rerank_factor=4), (ip.ivf_probe_pq,)),
         ("tiered", tiered_server, (ip.ivf_probe, ts.dma_copy_blocks))),
         batches)
+    # -- 18. the frontend on the full-size servers ---------------------------
+    check_frontend((("flat", server.index, (zt.zen_topk,)),
+                    ("ivf f32", ivf_index_f32, (ip.ivf_probe,)),
+                    ("ivf pq", ivf_index_pq, (ip.ivf_probe_pq,))),
+                   batches, smi)
     del ivf_index_pq
+
+    # -- 19. replication and fault tolerance ---------------------------------
+    check_replication(ivf_index_f32, batches, corpus)
 
     # -- 13. snapshots -----------------------------------------------------
     check_snapshots(ivf_index_f32, tiered_server, batches, corpus, k)

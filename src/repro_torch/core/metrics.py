@@ -4,6 +4,17 @@ PyTorch counterpart of ``repro.core.metrics``. Every metric is exposed as
 ``<name>_pdist(X, Y) -> (N, M)`` and through the registry
 ``get_metric(name)``. All pairwise computations accumulate in float32 (or
 float64 for float64 inputs) even for bf16 inputs; TF32 is off package-wide.
+
+Row-invariant forms. A served query row must come out with the same bits
+whatever batch it rides in, as the JAX package's do. A matmul does not
+promise that: the library picks its kernel, blocking and split of the
+inner dimension by the row count, so the same row's dot products round
+differently at Q = 2 and Q = 64. ``Metric.rows`` is each metric's pairwise
+function written with elementwise products and ``fixed_sum`` /
+``fixed_dot`` (``kernels.scoring``): a pairwise tree of elementwise adds
+in float64 whose order depends on the summed length alone, so every entry
+depends only on its own two rows, on the CPU and on the card. The query
+projection uses it; the fit and the evaluation keep the matmul forms.
 """
 from __future__ import annotations
 
@@ -12,6 +23,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.kernels.scoring import fixed_dot, fixed_sum
+
 Tensor = torch.Tensor
 
 _EPS = 1e-12
@@ -19,6 +32,31 @@ _EPS = 1e-12
 
 def _acc_dtype(x: Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
+
+
+#: elements of one (rows, K, m) product block of the row-invariant forms
+#: (256 MiB of f64 products): longer inputs go through in row chunks
+ROW_BLOCK_ELEMS = 1 << 25
+
+
+def _row_chunks(n_rows: int, per_row: int):
+    """Row slices of at most ``ROW_BLOCK_ELEMS // per_row`` rows."""
+    step = max(1, ROW_BLOCK_ELEMS // max(per_row, 1))
+    return [slice(lo, min(lo + step, n_rows))
+            for lo in range(0, n_rows, step)] or [slice(0, 0)]
+
+
+def map_rows(fn, X: Tensor, Y: Tensor, per_row: int) -> Tensor:
+    """``fn(X[rows], Y)`` over row chunks of X, concatenated."""
+    out = [fn(X[s], Y) for s in _row_chunks(X.shape[0], per_row)]
+    return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def row_dot(X: Tensor, Y: Tensor) -> Tensor:
+    """(N, m) x (K, m) -> (N, K) dot products, each a :func:`fixed_sum` of
+    its elementwise products (row-invariant; chunked over the rows of X)."""
+    return map_rows(lambda a, b: fixed_dot(a[:, None, :], b[None, :, :]),
+                     X, Y, Y.shape[0] * X.shape[1])
 
 
 def _zero_diagonal(d2: Tensor) -> Tensor:
@@ -41,19 +79,38 @@ def sqeuclidean_pdist(X: Tensor, Y: Tensor) -> Tensor:
     return torch.clamp_min(d2, 0.0)
 
 
+def _sqeuclidean_block(X: Tensor, Y: Tensor) -> Tensor:
+    diff = X[:, None, :] - Y[None, :, :]  # exact in f64 for f32 inputs
+    return fixed_sum(diff * diff)
+
+
+def sqeuclidean_rows(X: Tensor, Y: Tensor) -> Tensor:
+    """Squared Euclidean distances, row-invariant: the sum of squared
+    differences taken in float64 (each difference and square exact for
+    f32 inputs) and rounded once, so it is also free of the norm
+    expansion's cancellation. A dozen elementwise launches a block."""
+    f64 = torch.float64
+    return map_rows(_sqeuclidean_block, X.to(f64), Y.to(f64),
+                     Y.shape[0] * X.shape[1]).to(_acc_dtype(X))
+
+
 def euclidean_pdist(X: Tensor, Y: Tensor) -> Tensor:
     return torch.sqrt(sqeuclidean_pdist(X, Y))
 
 
+def euclidean_rows(X: Tensor, Y: Tensor) -> Tensor:
+    return torch.sqrt(sqeuclidean_rows(X, Y))
+
+
 def l2_normalize(X: Tensor, eps: float = _EPS) -> Tensor:
-    n = torch.linalg.vector_norm(X, dim=-1, keepdim=True)
+    n = torch.sqrt(fixed_dot(X, X))[..., None]
     return X / torch.clamp_min(n, eps)
 
 
 def l1_normalize(X: Tensor, eps: float = _EPS) -> Tensor:
     """Project onto the probability simplex (for JSD / triangular)."""
     Xp = torch.clamp_min(X, 0.0)
-    s = torch.sum(Xp, dim=-1, keepdim=True)
+    s = fixed_sum(Xp)[..., None]
     return Xp / torch.clamp_min(s, eps)
 
 
@@ -68,6 +125,28 @@ def _h(x: Tensor) -> Tensor:
     """h(x) = -x log2(x), with 0 log 0 := 0 (paper Eq. 14)."""
     safe = torch.where(x > 0, x, torch.ones_like(x))
     return torch.where(x > 0, -x * torch.log2(safe), torch.zeros_like(x))
+
+
+def _h_rows(x: Tensor) -> Tensor:
+    """:func:`_h` in float64 (for :func:`fixed_sum`): a vectorised f32
+    log2 and its scalar tail loop can differ by an ulp, and which elements
+    fall in the tail depends on the tensor's size."""
+    x = x.to(torch.float64)
+    safe = torch.where(x > 0, x, torch.ones_like(x))
+    return torch.where(x > 0, -x * torch.log2(safe), torch.zeros_like(x))
+
+
+def jsd_rows(X: Tensor, Y: Tensor) -> Tensor:
+    """:func:`jsd_pdist` of l1-normalised rows, row-invariant."""
+    acc = _acc_dtype(X)
+    X, Y = X.to(acc), Y.to(acc)
+    hx = fixed_sum(_h_rows(X)).to(acc)
+    hy = fixed_sum(_h_rows(Y)).to(acc)
+    cross = map_rows(
+        lambda a, b: fixed_sum(_h_rows(a[:, None, :] + b[None, :, :])),
+        X, Y, Y.shape[0] * X.shape[1]).to(acc)
+    K = 1.0 - 0.5 * (hx[:, None] + hy[None, :] - cross)
+    return torch.sqrt(torch.clamp_min(K, 0.0))
 
 
 def jsd_pdist(X: Tensor, Y: Tensor, *, assume_normalized: bool = False
@@ -101,6 +180,21 @@ def triangular_pdist(X: Tensor, Y: Tensor, *,
     return torch.sqrt(0.5 * torch.sum(frac, dim=-1))
 
 
+def _triangular_block(Xa: Tensor, Ya: Tensor) -> Tensor:
+    num = (Xa[:, None, :] - Ya[None, :, :]) ** 2
+    den = Xa[:, None, :] + Ya[None, :, :]
+    frac = torch.where(den > 0, num / torch.clamp_min(den, _EPS),
+                       torch.zeros_like(num))
+    return torch.sqrt(0.5 * fixed_sum(frac))
+
+
+def triangular_rows(X: Tensor, Y: Tensor) -> Tensor:
+    """:func:`triangular_pdist` of l1-normalised rows, row-invariant."""
+    acc = _acc_dtype(X)
+    return map_rows(_triangular_block, X.to(acc), Y.to(acc),
+                     Y.shape[0] * X.shape[1])
+
+
 def qform_pdist(X: Tensor, Y: Tensor, M: Tensor) -> Tensor:
     """Quadratic-form distance (paper Eq. 16) with PSD matrix ``M``.
 
@@ -120,6 +214,17 @@ def qform_pdist(X: Tensor, Y: Tensor, M: Tensor) -> Tensor:
     return torch.sqrt(torch.clamp_min(d2, 0.0))
 
 
+def qform_rows(X: Tensor, Y: Tensor, M: Tensor) -> Tensor:
+    """:func:`qform_pdist`'s expansion, row-invariant."""
+    acc = _acc_dtype(X)
+    Xa, Ya, Mt = X.to(acc), Y.to(acc), M.to(acc).T
+    XM, YM = row_dot(Xa, Mt), row_dot(Ya, Mt)
+    xmx = fixed_dot(XM, Xa)
+    ymy = fixed_dot(YM, Ya)
+    d2 = xmx[:, None] + ymy[None, :] - 2.0 * row_dot(XM, Ya)
+    return torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
 def default_qform_matrix(m: int, *, rho: float = 0.5, device=None) -> Tensor:
     """Kac-Murdock-Szego matrix ``M[i, j] = rho^|i - j|`` (strictly PD),
     the registry ``qform`` metric's fixed form matrix."""
@@ -134,6 +239,8 @@ class Metric:
     normalize: Optional[Callable[[Tensor], Tensor]]
     hilbert_embeddable: bool
     has_coordinates: bool  # False => only distance-based DR applies
+    #: ``pdist`` in its row-invariant form (inputs normalised likewise)
+    rows: Callable[[Tensor, Tensor], Tensor]
 
 
 def _qform_registry(X: Tensor, Y: Tensor) -> Tensor:
@@ -141,20 +248,28 @@ def _qform_registry(X: Tensor, Y: Tensor) -> Tensor:
                                                   device=X.device))
 
 
+def _qform_registry_rows(X: Tensor, Y: Tensor) -> Tensor:
+    return qform_rows(X, Y, default_qform_matrix(X.shape[-1],
+                                                 device=X.device))
+
+
 _REGISTRY = {
-    "euclidean": Metric("euclidean", euclidean_pdist, None, True, True),
+    "euclidean": Metric("euclidean", euclidean_pdist, None, True, True,
+                        euclidean_rows),
     "sqeuclidean": Metric("sqeuclidean", sqeuclidean_pdist, None, False,
-                          True),
+                          True, sqeuclidean_rows),
     # callers pre-normalise: the pairwise function is plain euclidean
-    "cosine": Metric("cosine", euclidean_pdist, l2_normalize, True, True),
+    "cosine": Metric("cosine", euclidean_pdist, l2_normalize, True, True,
+                     euclidean_rows),
     "jsd": Metric("jsd",
                   lambda X, Y: jsd_pdist(X, Y, assume_normalized=True),
-                  l1_normalize, True, False),
+                  l1_normalize, True, False, jsd_rows),
     "triangular": Metric(
         "triangular",
         lambda X, Y: triangular_pdist(X, Y, assume_normalized=True),
-        l1_normalize, True, False),
-    "qform": Metric("qform", _qform_registry, None, True, True),
+        l1_normalize, True, False, triangular_rows),
+    "qform": Metric("qform", _qform_registry, None, True, True,
+                    _qform_registry_rows),
 }
 
 

@@ -8,14 +8,15 @@ PyTorch counterpart of ``repro.core.projection``:
     tr = NSimplexTransform.from_distances(D_refs)      # coordinate-free
     Xp = tr.transform_from_distances(D_x_refs)
 
-``select_references`` draws from a ``torch.Generator`` or takes explicit
-row ids: ``jax.random`` streams cannot be replayed in torch, so parity with
-the JAX package goes through the ids it chose.
+``select_references`` and ``fit_transform`` draw from a
+``torch.Generator`` or take explicit row ids: ``jax.random`` streams cannot
+be replayed in torch, so parity with the JAX package goes through the ids
+it chose.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -78,7 +79,10 @@ class NSimplexTransform:
         return simplex_lib.simplex_is_degenerate(self.base)
 
     def reference_distances(self, X: Tensor) -> Tensor:
-        """(N, k) distances from each row of X to every reference object."""
+        """(N, k) distances from each row of X to every reference object,
+        in the metric's row-invariant form (``metrics.Metric.rows``): a
+        row's distances, and so its projection, have the same bits
+        whatever batch it is transformed in."""
         self._check_fitted()
         if self.refs is None:
             raise ValueError(
@@ -87,11 +91,23 @@ class NSimplexTransform:
         m = metrics_lib.get_metric(self.metric)
         if m.normalize is not None:
             X = m.normalize(X)
-        return m.pdist(X, self.refs)
+        return m.rows(X, self.refs)
 
     def transform(self, X: Tensor) -> Tensor:
-        """Project (N, m) objects to (N, k) apex coordinates."""
-        return simplex_lib.apex_project(self.base, self.reference_distances(X))
+        """Project (N, m) objects to (N, k) apex coordinates.
+
+        Row by row the result does not depend on N; long inputs go through
+        in row blocks that bound the row-invariant forms' (rows, k, m)
+        temporaries (``metrics.ROW_BLOCK_ELEMS``).
+        """
+        step = max(1, metrics_lib.ROW_BLOCK_ELEMS // (self.k * X.shape[-1]))
+        if X.shape[0] <= step:
+            return simplex_lib.apex_project(self.base,
+                                            self.reference_distances(X))
+        return torch.cat([
+            simplex_lib.apex_project(self.base,
+                                     self.reference_distances(X[lo:lo + step]))
+            for lo in range(0, X.shape[0], step)])
 
     def transform_from_distances(self, dists: Tensor) -> Tensor:
         """Project from precomputed (N, k) object-to-reference distances."""
@@ -139,3 +155,26 @@ def select_references(
         if not last.degenerate():
             return last
     return last
+
+
+def fit_transform(
+    X: Tensor,
+    k: int,
+    *,
+    ids: Optional[Sequence[int]] = None,
+    generator: Optional[torch.Generator] = None,
+    metric: str = "euclidean",
+    pivots: str = "random",
+) -> Tuple[NSimplexTransform, Tensor]:
+    """Select k references under a pivot strategy, fit, and project X.
+
+    ``pivots`` is one of ``core.pivots.PIVOT_STRATEGIES``; the default
+    "random" is :func:`select_references`'s redraw loop. ``ids`` fixes the
+    reference rows (one fit, any strategy); otherwise they are drawn from
+    ``generator``.
+    """
+    from . import pivots as pivots_lib  # deferred: it imports this module
+
+    tr = pivots_lib.select_references(X, k, ids=ids, generator=generator,
+                                      metric=metric, strategy=pivots)
+    return tr, tr.transform(X)

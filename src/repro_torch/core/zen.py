@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 
+from .metrics import map_rows, fixed_sum
+
 Tensor = torch.Tensor
 
 MODES = ("zen", "lwb", "upb")
@@ -50,8 +52,46 @@ def estimate_pdist(X: Tensor, Y: Tensor, mode: str = "zen") -> Tensor:
     return torch.sqrt(torch.clamp_min(z2, 0.0))
 
 
+def estimate_pdist_rows(X: Tensor, Y: Tensor, mode: str = "zen") -> Tensor:
+    """:func:`estimate_pdist` in a row-invariant form: row i has the same
+    bits whatever other rows X holds. The serving path's coarse ranking and
+    dense search use it.
+
+    The estimators in their difference form, in float64 and rounded once:
+    Zen^2 = |x' - y'|^2 + x_k^2 + y_k^2 over the first k-1 columns x', y',
+    and Lwb^2 / Upb^2 with (x_k -/+ y_k)^2 for the altitude term (the norm
+    expansion's value without its cancellation), summed by
+    ``metrics.fixed_sum``.
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    acc = _acc(X)
+    f64 = torch.float64
+
+    def block(a: Tensor, b: Tensor) -> Tensor:
+        diff = a[:, None, :-1] - b[None, :, :-1]
+        xa, ya = a[:, None, -1], b[None, :, -1]
+        if mode == "zen":
+            alt = xa * xa + ya * ya
+        else:
+            alt = xa - ya if mode == "lwb" else xa + ya
+            alt = alt * alt
+        return fixed_sum(diff * diff) + alt
+
+    z2 = map_rows(block, X.to(f64), Y.to(f64), Y.shape[0] * X.shape[1])
+    return torch.sqrt(z2).to(acc)
+
+
 def zen_pdist(X: Tensor, Y: Tensor) -> Tensor:
     return estimate_pdist(X, Y, "zen")
+
+
+def lwb_pdist(X: Tensor, Y: Tensor) -> Tensor:
+    return estimate_pdist(X, Y, "lwb")
+
+
+def upb_pdist(X: Tensor, Y: Tensor) -> Tensor:
+    return estimate_pdist(X, Y, "upb")
 
 
 def estimate_triple(X: Tensor, Y: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -67,9 +107,9 @@ def estimate_triple(X: Tensor, Y: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 
 def _dense_topk(queries: Tensor, index: Tensor, n_neighbors: int,
                 mode: str) -> Tuple[Tensor, Tensor]:
-    """Dense path: full (Q, N) estimator matrix + a stable ascending sort
-    (``lax.top_k``'s tie order)."""
-    d = estimate_pdist(queries, index, mode)
+    """Dense path: full (Q, N) estimator matrix (row-invariant) + a stable
+    ascending sort (``lax.top_k``'s tie order)."""
+    d = estimate_pdist_rows(queries, index, mode)
     d, ids = torch.sort(d, dim=1, stable=True)
     return d[:, :n_neighbors], ids[:, :n_neighbors].to(torch.int32)
 

@@ -35,12 +35,13 @@ search uploads the cold clusters it probes in chunks through the staging
 kernel (``kernels.tile_stage``), one chunk's copy on a staging stream while
 the chunk before is scored.
 
-``ShardedIVFZenIndex`` (ROADMAP A12) is not ported: it raises
+``ShardedIVFZenIndex`` (ROADMAP A4) is not ported: it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -684,14 +685,14 @@ def _ivf_from_snapshot(arrays: dict, meta: dict, dev, *, prefix: str = "",
 
 
 class ShardedIVFZenIndex:
-    """The IVF index sharded over a device mesh: not ported yet (A12)."""
+    """The IVF index sharded over a device mesh: not ported yet (A4)."""
 
     def __init__(self, *args, **kwargs):
-        raise not_ported("ShardedIVFZenIndex", "A12")
+        raise not_ported("ShardedIVFZenIndex", "A4")
 
     @classmethod
     def build(cls, *args, **kwargs):
-        raise not_ported("ShardedIVFZenIndex", "A12")
+        raise not_ported("ShardedIVFZenIndex", "A4")
 
 
 @dataclasses.dataclass
@@ -739,6 +740,10 @@ class TieredIVFZenIndex:
     Clusters are partitioned over ``n_shards`` logical shards (cluster
     ``c`` on shard ``c % n_shards``); :meth:`set_dead_shards` masks a dead
     shard's clusters out of both passes (degraded serving).
+
+    A search reuses the staging slots and stream and updates the traffic
+    and hot-set counters, so concurrent searches (a frontend's ticker
+    thread beside ``query(direct=True)`` callers) take turns on a lock.
 
     The tier is immutable serving state: churn the resident index and
     offload again (:meth:`from_index`). It serves from the device of
@@ -801,6 +806,7 @@ class TieredIVFZenIndex:
         self._slots: list = []
         self._next_slot = 0
         self._stream = None
+        self._search_lock = threading.Lock()
         if hot_clusters is None:
             hot_clusters = np.empty(0, np.int64)
         self._set_hot(np.asarray(hot_clusters, np.int64))
@@ -920,8 +926,9 @@ class TieredIVFZenIndex:
         """Re-pick the hot set from observed probe traffic and re-upload."""
         H = (self.hot_clusters.size if hot_clusters is None
              else max(0, min(int(hot_clusters), self.n_clusters)))
-        order = np.argsort(self._traffic, kind="stable")[::-1]
-        self._set_hot(np.sort(order[:H]))
+        with self._search_lock:  # not under a search
+            order = np.argsort(self._traffic, kind="stable")[::-1]
+            self._set_hot(np.sort(order[:H]))
 
     # -- degraded serving ----------------------------------------------------
     def shard_of_cluster(self) -> np.ndarray:
@@ -935,9 +942,10 @@ class TieredIVFZenIndex:
             if not 0 <= s < self.n_shards:
                 raise ValueError(
                     f"shard {s} out of range for n_shards={self.n_shards}")
-        self.dead_shards = dead
-        self._dead_cluster = np.isin(self.shard_of_cluster(), dead)
-        self._refresh_slot()
+        with self._search_lock:  # never between a search's two passes
+            self.dead_shards = dead
+            self._dead_cluster = np.isin(self.shard_of_cluster(), dead)
+            self._refresh_slot()
 
     # -- memory accounting ---------------------------------------------------
     def _resident_bytes(self) -> int:
@@ -1081,7 +1089,13 @@ class TieredIVFZenIndex:
 
         Same contract as ``IVFZenIndex.search``; dead shards' clusters are
         skipped (degraded mode), which lowers recall but never raises.
+        Concurrent callers are served one at a time.
         """
+        with self._search_lock:
+            return self._search(queries, n_neighbors, nprobe, mode)
+
+    def _search(self, queries: Tensor, n_neighbors: int, nprobe: int,
+                mode: str) -> Tuple[Tensor, Tensor]:
         if n_neighbors <= 0:
             raise ValueError(f"n_neighbors must be > 0, got {n_neighbors}")
         dev = self.device
@@ -1230,8 +1244,9 @@ def _probe_clusters(queries: Tensor, centroids: Tensor, nprobe: int,
                     mode: str) -> Tensor:
     """The ``nprobe`` estimator-nearest centroids per query, ascending by
     distance, the lower centroid id first on ties (``lax.top_k``'s order:
-    a stable sort, since the probe kernels' tie order follows it)."""
-    cd = zen_lib.estimate_pdist(queries, centroids, mode)
+    a stable sort, since the probe kernels' tie order follows it). The
+    estimates are row-invariant (``zen.estimate_pdist_rows``)."""
+    cd = zen_lib.estimate_pdist_rows(queries, centroids, mode)
     order = torch.sort(cd, dim=1, stable=True).indices
     return order[:, :nprobe].to(torch.int32)
 
@@ -1254,19 +1269,36 @@ def _ivf_search(index: IVFZenIndex, queries: Tensor, *, n_neighbors: int,
         tile_scales=index.tile_scales)
 
 
+#: queries a re-rank block holds: every library call of the re-rank sees
+#: this many rows whatever the batch, so its kernel (and each row's bits)
+#: cannot change with the batch size
+RERANK_BLOCK = 64
+
+
 def _batched_pdist(name: str, q: Tensor, c: Tensor) -> Tensor:
     """(Q, C) distances between each query (Q, m) and its own candidates
     (Q, C, m) under the metric's pairwise function (inputs normalised).
 
     The Euclidean family uses the norm expansion of ``sqeuclidean_pdist``
-    batched over queries; any other metric calls its pairwise function
-    once per query.
+    batched over queries, in blocks of ``RERANK_BLOCK`` queries (the last
+    block padded with copies of its first row), so a row's distances do
+    not depend on how many rows share the batch; any other metric calls
+    its pairwise function once per query.
     """
     if name in ("euclidean", "sqeuclidean", "cosine"):
-        x2 = torch.sum(q * q, dim=-1)[:, None]              # (Q, 1)
-        y2 = torch.sum(c * c, dim=-1)                       # (Q, C)
-        xy = torch.bmm(c, q[:, :, None])[..., 0]            # (Q, C)
-        d2 = torch.clamp_min(x2 + y2 - 2.0 * xy, 0.0)
+        n_q = q.shape[0]
+        pad = -n_q % RERANK_BLOCK
+        if pad:
+            q = torch.cat([q, q[-1:].expand(pad, -1)])
+            c = torch.cat([c, c[-1:].expand(pad, -1, -1)])
+        out = []
+        for lo in range(0, q.shape[0], RERANK_BLOCK):
+            qb, cb = q[lo:lo + RERANK_BLOCK], c[lo:lo + RERANK_BLOCK]
+            x2 = torch.sum(qb * qb, dim=-1)[:, None]        # (B, 1)
+            y2 = torch.sum(cb * cb, dim=-1)                 # (B, C)
+            xy = torch.bmm(cb, qb[:, :, None])[..., 0]      # (B, C)
+            out.append(torch.clamp_min(x2 + y2 - 2.0 * xy, 0.0))
+        d2 = torch.cat(out)[:n_q]
         return d2 if name == "sqeuclidean" else torch.sqrt(d2)
     m = metrics_lib.get_metric(name)
     return torch.stack([m.pdist(q[i:i + 1], c[i])[0]

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from .scoring import fixed_sum
+
 Tensor = torch.Tensor
 
 #: codebook entries per subspace — one uint8 code addresses exactly this
@@ -140,10 +142,12 @@ def build_luts(queries: Tensor, centroids: Tensor, codebooks: Tensor,
     cb = codebooks.to(torch.float32)
     pr = probes.long()
     r = (qp[:, None, :] - cp[pr]).reshape(q_n, pr.shape[1], m, ds)
-    rn = torch.sum(r * r, dim=-1)                        # (Q, P, M)
-    cn = torch.sum(cb * cb, dim=-1)                      # (M, E)
-    dot = torch.einsum("qpmd,med->qpme", r, cb)
-    lut = rn[..., None] + cn[None, None] - 2.0 * dot     # (Q, P, M, E)
+    # the squared distances in their difference form, summed in float64
+    # in a fixed order (scoring.fixed_sum): a query's tables keep their
+    # bits whatever batch it rides in
+    diff = (r[:, :, :, None, :].to(torch.float64)
+            - cb[None, None].to(torch.float64))           # (Q, P, M, E, ds)
+    lut = fixed_sum(diff * diff).to(torch.float32)       # (Q, P, M, E)
     if mode != 1:
         ma, da = (kdim - 1) // ds, (kdim - 1) % ds
         qa = qf[:, -1]                                   # (Q,)

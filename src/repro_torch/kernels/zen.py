@@ -67,11 +67,11 @@ def zen_estimate_plain(X: Tensor, Y: Tensor, mode: str = "zen", *,
                        budget: int = 1 << 26) -> Tensor:
     """Plain PyTorch version: the norm expansion of
     ``scoring.estimate_tile`` over blocks of X's rows, each block's
-    (rows, M) matrix at most ``budget`` entries."""
+    (rows, M, k) products at most ``budget`` entries."""
     _check_mode(mode)
     out = torch.empty((X.shape[0], Y.shape[0]), dtype=torch.float32,
                       device=X.device)
-    chunk = max(1, budget // max(Y.shape[0], 1))
+    chunk = max(1, budget // max(Y.shape[0] * Y.shape[1], 1))
     for s in range(0, X.shape[0], chunk):
         out[s:s + chunk] = estimate_tile(X[s:s + chunk], Y,
                                          mode=MODE_IDS[mode])

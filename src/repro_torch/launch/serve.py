@@ -30,14 +30,27 @@ Persist:  ``ZenServer.save`` writes the transform, the flat coordinates or
           snapshot (``checkpoint.index_io``), the JAX package's format;
           ``ZenServer.load`` restores it, optionally serving the IVF tier
           from a tile-pool snapshot (``pool=``, memory-mapped).
+Frontend: ``ZenServer(frontend=True)`` attaches the micro-batching
+          scheduler (``repro_torch.serving``): many small concurrent callers
+          coalesce into one shape-bucketed dispatch per tick, with an LRU
+          result cache keyed on the index ``generation`` and reject-on-full
+          backpressure. Every row is served with the same bits whatever
+          batch it rides in (``core.metrics``' row-invariant forms), so
+          scheduled, cached and direct answers are bit-identical.
+Faults:   ``ZenServer.enable_fault_tolerance`` attaches a heartbeat
+          registry and a preemption guard (``distributed.fault``): a shard
+          silent past its deadline is masked out of a tiered index's
+          probes (degraded answers, not errors), and a preemption notice
+          saves a snapshot at the next tick. ``launch.replicate`` builds
+          the leader / hot-swapping replica tier on the snapshots.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: the micro-batching frontend (A8), fault tolerance (A11) and
-mesh sharding (A12).
+ROADMAP item: mesh sharding (A4).
 
 CLI:  python -m repro_torch.launch.serve --n 20000 --dim 256 --k 16 \
           --queries 64 [--index ivf --nprobe 8 [--offload]] \
-          [--checkpoint DIR] [--device cpu]
+          [--checkpoint DIR] [--frontend [--max-batch N --cache ROWS]] \
+          [--device cpu]
 """
 from __future__ import annotations
 
@@ -63,7 +76,7 @@ from repro_torch.index.ivf import _ivf_from_snapshot, snapshot_payload
 from repro_torch.kernels import quantize as quant
 from repro_torch.kernels.scoring import mask_invalid
 from repro_torch.serving import (
-    DEFAULT_NEIGHBOR_MENU, bucket_neighbors, bucket_q,
+    DEFAULT_NEIGHBOR_MENU, MicroBatchScheduler, bucket_neighbors, bucket_q,
 )
 
 Tensor = torch.Tensor
@@ -76,8 +89,6 @@ SERVER_SNAPSHOT_KIND = "zen-server"
 _DEAD_COORD = 1.0e15
 #: flat capacity growth quantum
 _GROW_ROWS = 4096
-#: largest power-of-two Q bucket; longer batches round up to a multiple
-_MAX_BATCH = 64
 
 
 @dataclasses.dataclass
@@ -385,7 +396,7 @@ def build_index(
             "degraded serving over its logical shards replaces mesh "
             "sharding (offload_shards=...)")
     if mesh is not None:
-        raise not_ported("mesh sharding", "A12")
+        raise not_ported("mesh sharding", "A4")
     pivots_lib.check_strategy(pivots)
     quant.check_storage(storage)
     if storage == "pq" and index != "ivf":
@@ -416,18 +427,13 @@ def build_index(
                     storage=storage, coord_scales=coord_scales)
 
 
-#: the saved server settings that only the micro-batching frontend reads
-#: (A8, not ported): a snapshot without a frontend carries them, and the
-#: port's server takes no such options
-_FRONTEND_KEYS = ("frontend", "max_batch", "cache_size")
-
-
 def load_index_snapshot(
     directory: str,
     *,
     mesh=None,
     mmap: bool = False,
     pool: Optional[str] = None,
+    pool_kw: Optional[dict] = None,
     device=None,
 ) -> Tuple[ZenIndex, dict]:
     """Load a :meth:`ZenServer.save` snapshot (of either package) into a
@@ -441,8 +447,9 @@ def load_index_snapshot(
       pool:      optional ``TILE_POOL_SNAPSHOT_KIND`` snapshot directory:
                  the IVF tier is opened as a serve-only
                  ``TieredIVFZenIndex`` over that pool (``load(mmap=...)``)
-                 instead of packing resident tiles, with its default hot
-                 set. IVF snapshots only.
+                 instead of packing resident tiles. IVF snapshots only.
+      pool_kw:   extra ``TieredIVFZenIndex.load`` options (``hot_clusters``,
+                 ``hot_fraction``, ``prefetch_cols``, ``n_shards``).
 
     Returns ``(index, server_kw)``: the restored index (with the saved
     ``generation``) and the saved server settings. Raises
@@ -450,7 +457,7 @@ def load_index_snapshot(
     version or another kind.
     """
     if mesh is not None:
-        raise not_ported("loading onto a mesh", "A12")
+        raise not_ported("loading onto a mesh", "A4")
     dev = resolve_device(device)
     arrays, meta = index_io.load_state(
         directory, expect_kind=SERVER_SNAPSHOT_KIND, mmap=mmap)
@@ -472,7 +479,8 @@ def load_index_snapshot(
             "snapshot holds a flat index")
     if meta["index"] == "ivf":
         if pool is not None:
-            ivf = TieredIVFZenIndex.load(pool, mmap=mmap, device=dev)
+            ivf = TieredIVFZenIndex.load(pool, mmap=mmap, device=dev,
+                                         **dict(pool_kw or {}))
             # the server snapshot's generation is authoritative
             ivf.generation = generation
         else:
@@ -495,19 +503,30 @@ class ZenServer:
     """Batched k-NN serving over a reduced index, flat or IVF.
 
     Every query is served at bucketed shapes — rows padded to a power-of-two
-    Q bucket (floor 2), ``n_neighbors`` rounded up to the width menu — and
-    sliced back, as in the JAX package. A flat index is searched by the
-    Hopper ``zen_topk`` kernel on the card; on the CPU ``chunk`` picks the
-    streaming scan (index longer than ``chunk``) or the dense path. An IVF
-    index probes the ``nprobe`` nearest clusters per query (the recall /
-    latency knob; ``nprobe = n_clusters`` gives the flat answer).
+    Q bucket (floor 2; past ``max_batch`` to a multiple of it),
+    ``n_neighbors`` rounded up to the width menu — and sliced back, as in
+    the JAX package. A flat index is searched by the Hopper ``zen_topk``
+    kernel on the card; on the CPU ``chunk`` picks the streaming scan
+    (index longer than ``chunk``) or the dense path. An IVF index probes
+    the ``nprobe`` nearest clusters per query (the recall / latency knob;
+    ``nprobe = n_clusters`` gives the flat answer). A row's answer has the
+    same bits whatever batch it is served in.
+
+    ``frontend=True`` attaches a ``serving.MicroBatchScheduler``: ``query``
+    then submits its rows to the scheduler (coalescing across concurrent
+    callers, an LRU result cache of ``cache_size`` rows keyed on the index
+    generation, reject-on-full backpressure past ``queue_limit`` rows) and
+    waits for the answer; ``query(..., direct=True)`` serves on the calling
+    thread. ``clock`` replaces the scheduler's monotonic clock (tests).
     """
 
     def __init__(self, index: ZenIndex, *, mode: str = "zen",
                  rerank_factor: int = 0, chunk: int = 8192, nprobe: int = 8,
-                 frontend: bool = False):
-        if frontend:
-            raise not_ported("the micro-batching frontend", "A8")
+                 frontend: bool = False, max_batch: int = 64,
+                 cache_size: int = 0, queue_limit: int = 4096,
+                 tick_interval: float = 0.002,
+                 neighbor_menu: Sequence[int] = DEFAULT_NEIGHBOR_MENU,
+                 clock=None):
         if mode not in zen_lib.MODES:
             raise ValueError(f"mode must be one of {zen_lib.MODES}, got "
                              f"{mode!r}")
@@ -516,15 +535,34 @@ class ZenServer:
         self.rerank_factor = rerank_factor
         self.chunk = chunk
         self.nprobe = nprobe
+        self.neighbor_menu = tuple(neighbor_menu)
+        self.max_batch = max_batch
+        self.cache_size = cache_size
         self._stats = {"queries": 0, "batches": 0, "latency_s": [],
                        "upserts": 0, "deletes": 0}
+        # fault tolerance (enable_fault_tolerance): the liveness registry,
+        # the preemption guard, and the degraded state they imply
+        self.heartbeats = None
+        self.preemption = None
+        self._snapshot_dir: Optional[str] = None
+        self._ft_shards: Tuple[str, ...] = ()
+        self._degraded: Tuple[int, ...] = ()
+        self.frontend: Optional[MicroBatchScheduler] = None
+        if frontend:
+            kw = {"clock": clock} if clock is not None else {}
+            self.frontend = MicroBatchScheduler(
+                self, max_batch=max_batch, cache_size=cache_size,
+                queue_limit=queue_limit, tick_interval=tick_interval,
+                neighbor_menu=self.neighbor_menu, **kw)
 
     # -- bucketed dispatch core ----------------------------------------------
     def _query_geometry(self, n_neighbors: int) -> Tuple[int, int]:
-        """(n_bucket, fetch width) a request dispatches at."""
-        n_bucket = bucket_neighbors(n_neighbors, DEFAULT_NEIGHBOR_MENU)
+        """(n_bucket, fetch width) a request dispatches at; shared with the
+        scheduler, so direct and coalesced dispatches (and their cache
+        keys) agree."""
+        n_bucket = bucket_neighbors(n_neighbors, self.neighbor_menu)
         width = bucket_neighbors(
-            n_neighbors * max(self.rerank_factor, 1), DEFAULT_NEIGHBOR_MENU)
+            n_neighbors * max(self.rerank_factor, 1), self.neighbor_menu)
         return n_bucket, max(width, n_bucket)
 
     def _query_block(self, queries: Tensor, width: int, n_bucket: int,
@@ -532,7 +570,13 @@ class ZenServer:
                      ) -> Tuple[Tensor, Tensor]:
         """Serve one padded block: project, search, optional exact re-rank,
         external-id mapping, and the (+inf, -1) fill for slots the index
-        cannot serve. Returns (distances, ids), each (Qp, n_bucket)."""
+        cannot serve. Returns (distances, ids), each (Qp, n_bucket).
+
+        The whole block is served from one ``index`` snapshot (the current
+        ``self.index`` unless given; the scheduler passes the one it keys
+        its cache entries on), so churn swapping the live index cannot mix
+        two states within a query. Both the direct path and the scheduler
+        dispatch through here."""
         index = index if index is not None else self.index
         if index.size == 0:  # fully deleted index: all slots unfilled
             shape = (queries.shape[0], n_bucket)
@@ -561,30 +605,46 @@ class ZenServer:
             ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
         return d, ids
 
-    def query(self, queries: Tensor, n_neighbors: int = 10
-              ) -> Tuple[Tensor, Tensor]:
+    def query(self, queries: Tensor, n_neighbors: int = 10, *,
+              direct: bool = False) -> Tuple[Tensor, Tensor]:
         """Serve one batch: (Q, m) raw queries -> (distances, ids).
 
-        Returns (distances, ids), each (Q, n_neighbors), ascending, on the
-        index's device. Ids are external ids; slots the index cannot fill
-        come back as (+inf, -1). The latency recorded in ``stats`` waits
-        for the device.
+        ``direct`` bypasses the frontend scheduler (when one is attached)
+        and serves on the calling thread; the answers are bit-identical
+        either way. Returns (distances, ids), each (Q, n_neighbors),
+        ascending, on the index's device. Ids are external ids; slots the
+        index cannot fill come back as (+inf, -1). The latency recorded in
+        ``stats`` waits for the device.
         """
         t0 = time.perf_counter()
+        self.on_tick()  # refresh shard liveness / a pending preemption save
         dev = self.index.device
+        n_rows = len(queries)
+        if (self.frontend is not None and not direct
+                and n_rows <= self.frontend.queue_limit):
+            # a batch past queue_limit takes the direct path: it is far past
+            # any coalescing benefit, and a permanent reject would read as
+            # transient overload
+            handle = self.frontend.submit(queries, n_neighbors)
+            if not self.frontend.running:  # no ticker: drive it inline
+                self.frontend.flush()
+            d_np, ids_np = handle.result()
+            d = torch.from_numpy(d_np).to(dev)
+            ids = torch.from_numpy(ids_np).to(dev)
+            self._record(n_rows, t0)
+            return d, ids
         queries = torch.as_tensor(queries).to(device=dev,
                                               dtype=torch.float32)
-        n_rows = int(queries.shape[0])
         if n_rows == 0:
             d = torch.full((0, n_neighbors), float("inf"), device=dev)
             ids = torch.full((0, n_neighbors), -1, dtype=torch.int32,
                              device=dev)
         else:
             n_bucket, width = self._query_geometry(n_neighbors)
-            if n_rows <= _MAX_BATCH:
+            if n_rows <= self.max_batch:
                 qp_rows = bucket_q(n_rows)
-            else:  # round up to a multiple instead
-                qp_rows = -(-n_rows // _MAX_BATCH) * _MAX_BATCH
+            else:  # round up to a multiple of max_batch instead
+                qp_rows = -(-n_rows // self.max_batch) * self.max_batch
             if qp_rows > n_rows:  # pad with copies of a real row
                 queries = torch.cat([queries, queries[:1].expand(
                     qp_rows - n_rows, -1)])
@@ -592,10 +652,13 @@ class ZenServer:
             d, ids = d[:n_rows, :n_neighbors], ids[:n_rows, :n_neighbors]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        self._record(n_rows, t0)
+        return d, ids
+
+    def _record(self, n_rows: int, t0: float) -> None:
         self._stats["queries"] += n_rows
         self._stats["batches"] += 1
         self._stats["latency_s"].append(time.perf_counter() - t0)
-        return d, ids
 
     @staticmethod
     def _map_row_ids(d: Tensor, ids: Tensor, index: ZenIndex
@@ -667,8 +730,95 @@ class ZenServer:
                         is not None and ivf.imbalance > mi else {}))
         return True
 
+    # -- fault tolerance ------------------------------------------------------
+    def _default_shard_count(self) -> int:
+        """Logical shard count of the index layout: a tiered index's
+        ``n_shards``, else 1."""
+        if self.index._is_tiered():
+            return int(self.index.ivf.n_shards)
+        return 1
+
+    def enable_fault_tolerance(self, shards=None, *,
+                               deadline_s: float = 60.0, clock=None,
+                               snapshot_dir: Optional[str] = None,
+                               install_signal: bool = False):
+        """Attach liveness and preemption handling (``distributed.fault``).
+
+        Args:
+          shards:      logical shard names expected to heartbeat: a count
+                       (names ``shard0..shardN-1``) or a sequence of names.
+                       Defaults to the index's own shards (a tiered index's
+                       ``n_shards``, else 1).
+          deadline_s:  silence longer than this marks a shard dead.
+          clock:       monotonic time source (tests inject a fake).
+          snapshot_dir: when set, a preemption notice (SIGTERM or
+                       ``preemption.request()``) saves a full server
+                       snapshot here at the next tick.
+          install_signal: install the real SIGTERM handler (off by default).
+
+        Each shard's supervisor then calls :meth:`heartbeat`; every query
+        and every frontend tick refreshes the verdicts (:meth:`on_tick`).
+        A dead shard's clusters are masked out of a tiered index's probes
+        (``TieredIVFZenIndex.set_dead_shards``), so queries keep answering
+        from the survivors; ``stats()["degraded_shards"]`` reports the
+        outage. Returns the registry.
+        """
+        from repro_torch.distributed.fault import (HeartbeatRegistry,
+                                                   PreemptionGuard)
+
+        if shards is None:
+            shards = self._default_shard_count()
+        if isinstance(shards, int):
+            shards = [f"shard{i}" for i in range(shards)]
+        self._ft_shards = tuple(str(s) for s in shards)
+        kw = {"now": clock} if clock is not None else {}
+        self.heartbeats = HeartbeatRegistry(deadline_s=deadline_s, **kw)
+        for name in self._ft_shards:
+            self.heartbeats.register(name)
+        self.preemption = PreemptionGuard(install_signal=install_signal)
+        self._snapshot_dir = snapshot_dir
+        self._degraded = ()
+        return self.heartbeats
+
+    def heartbeat(self, shard) -> None:
+        """Record a liveness beat for ``shard`` (index or name)."""
+        if self.heartbeats is None:
+            raise RuntimeError("call enable_fault_tolerance() first")
+        name = (self._ft_shards[shard] if isinstance(shard, int)
+                else str(shard))
+        self.heartbeats.beat(name)
+
+    def on_tick(self) -> None:
+        """Refresh the liveness verdicts and run a pending preemption save.
+
+        Called on every query and every frontend tick; a no-op until
+        :meth:`enable_fault_tolerance`. The mask changes only when the
+        verdict does, so the steady state costs one clock read.
+        """
+        reg = self.heartbeats
+        if reg is not None:
+            dead_names = set(reg.dead_hosts())
+            dead = tuple(i for i, n in enumerate(self._ft_shards)
+                         if n in dead_names)
+            if dead != self._degraded:
+                self._degraded = dead
+                if self.index._is_tiered():
+                    self.index.ivf.set_dead_shards(dead)
+                # any other single-host index has nothing to mask: the
+                # registry still tracks external replicas for stats()
+        guard = self.preemption
+        if (guard is not None and guard.should_save()
+                and self._snapshot_dir is not None):
+            self.save(self._snapshot_dir)
+            guard.clear()
+
     def stats(self) -> dict:
-        """Serving counters: query/batch totals, latency percentiles, churn."""
+        """Serving counters: query/batch totals, latency percentiles, churn.
+
+        With fault tolerance, ``"degraded_shards"`` names the dead shards;
+        with a frontend, ``"frontend"`` adds its SLO counters (latency
+        percentiles, batch occupancy, cache hit rate, dispatch shapes,
+        backpressure) and ``"cache"`` the LRU state."""
         lat = np.asarray(self._stats["latency_s"] or [0.0])
         out = {
             "queries": self._stats["queries"],
@@ -678,8 +828,14 @@ class ZenServer:
             "p50_ms": float(np.percentile(lat, 50) * 1e3),
             "p99_ms": float(np.percentile(lat, 99) * 1e3),
         }
+        if self.heartbeats is not None:
+            out["degraded_shards"] = [self._ft_shards[i]
+                                      for i in self._degraded]
         if self.index._is_tiered():
             out["tier"] = self.index.ivf.stats()  # hot/cold traffic, bytes
+        if self.frontend is not None:
+            out["frontend"] = self.frontend.stats.snapshot()
+            out["cache"] = self.frontend.cache.info()
         return out
 
     # -- persistence ---------------------------------------------------------
@@ -713,9 +869,9 @@ class ZenServer:
                 "rerank_factor": self.rerank_factor,
                 "chunk": self.chunk,
                 "nprobe": self.nprobe,
-                "frontend": False,
-                "max_batch": _MAX_BATCH,
-                "cache_size": 0,
+                "frontend": self.frontend is not None,
+                "max_batch": self.max_batch,
+                "cache_size": self.cache_size,
             },
         }
         if index.ivf is not None:
@@ -744,26 +900,19 @@ class ZenServer:
              pool: Optional[str] = None, device=None,
              **server_kw) -> "ZenServer":
         """Restore a server from :meth:`save` (or from the JAX package's)
-        on ``device``: the same answers as before the save.
+        on ``device``: the same answers as before the save, with the saved
+        settings (the frontend's included).
 
         ``mmap`` and ``pool`` as in :func:`load_index_snapshot`;
         ``server_kw`` overrides the saved settings (``mode``,
-        ``rerank_factor``, ``chunk``, ``nprobe``). A snapshot of a server
-        with the micro-batching frontend raises (A8 is not ported); the
-        frontend's own settings of one without it are dropped.
+        ``rerank_factor``, ``chunk``, ``nprobe``, ``frontend``,
+        ``max_batch``, ``cache_size``, ...).
         """
         index, saved_kw = load_index_snapshot(
             directory, mesh=mesh, mmap=mmap, pool=pool, device=device)
-        if saved_kw.get("frontend"):
-            raise not_ported("a snapshot of a server with the "
-                             "micro-batching frontend", "A8")
-        kw = {k: v for k, v in saved_kw.items() if k not in _FRONTEND_KEYS}
+        kw = dict(saved_kw)
         kw.update(server_kw)
         return cls(index, **kw)
-
-    # -- not ported yet ------------------------------------------------------
-    def enable_fault_tolerance(self, *args, **kwargs):
-        raise not_ported("fault tolerance", "A11")
 
 
 def exact_topk(queries: Tensor, corpus: Tensor, n_neighbors: int,
@@ -814,6 +963,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--checkpoint", default=None, metavar="DIR",
                    help="restore the server from DIR if a snapshot exists "
                         "there, else build and save one (versioned, atomic)")
+    p.add_argument("--frontend", action="store_true",
+                   help="serve through the micro-batching frontend "
+                        "(coalesced, shape-bucketed dispatches + result "
+                        "cache; repro_torch.serving)")
+    p.add_argument("--max-batch", type=int, default=64,
+                   help="largest coalesced dispatch (frontend mode)")
+    p.add_argument("--cache", type=int, default=0, metavar="ROWS",
+                   help="LRU result-cache capacity in rows (frontend mode; "
+                        "0 disables)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--seed", type=int, default=0)
@@ -823,12 +981,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    frontend_kw = dict(frontend=args.frontend, max_batch=args.max_batch,
+                       cache_size=args.cache)
     corpus = syn.manifold_space(args.n, args.dim, args.dim // 8,
                                 generator=gen)
     if args.checkpoint and os.path.exists(
             os.path.join(args.checkpoint, "manifest.json")):
         server = ZenServer.load(args.checkpoint, device=dev,
-                                rerank_factor=args.rerank, nprobe=args.nprobe)
+                                rerank_factor=args.rerank, nprobe=args.nprobe,
+                                **frontend_kw)
         index = server.index
         ref_dim = int(index.transform.refs.shape[1])
         if ref_dim != args.dim:
@@ -845,7 +1006,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             offload=args.offload, hot_clusters=args.hot_clusters or None,
             offload_shards=args.offload_shards)
         server = ZenServer(index, rerank_factor=args.rerank,
-                           nprobe=args.nprobe)
+                           nprobe=args.nprobe, **frontend_kw)
         if args.checkpoint:
             print(f"saved snapshot to {server.save(args.checkpoint)}")
     print(f"index: {index.size} x {args.k} (from dim {args.dim}, "

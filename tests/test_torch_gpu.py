@@ -17,6 +17,7 @@ tiered store against the resident index on the card: the same probe kernel
 scores the same rows, so distances are bit-equal and ids equal outside
 exact ties.
 """
+import contextlib
 import ctypes
 import functools
 import importlib
@@ -970,3 +971,188 @@ def test_dense_kernels_reject_what_they_do_not_take(cuda):
     _check_dense("zen", zk.zen_estimate, zk.zen_estimate_plain, wide, wide)
     with pytest.raises(ValueError, match="mode"):
         zk.zen_estimate(X.to(cuda), X.to(cuda), "exact")
+
+
+# -- batch invariance, the frontend and replication on the card ----------------
+
+#: query counts a served row must keep its bits across: alone (bucket 2),
+#: odd buckets, a full max_batch, one past it (two dispatch blocks), and 200
+INVARIANT_Q = (1, 2, 3, 17, 64, 65, 200)
+
+
+@pytest.fixture(scope="module")
+def card_servers():
+    """The 1,000,000 x 256 manifold corpus (k = 16) as the smoke run serves
+    it: flat, IVF f32 and PQ (4,000 clusters of 128-row tiles) and the f32
+    index tiered (hot fraction 0.1); 200 queries. Built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the Hopper kernels cannot run here)")
+    import dataclasses
+
+    from repro_torch.data import synthetic as syn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    corpus = syn.manifold_space(1_000_000, 256, 32, generator=gen)
+    queries = syn.manifold_space(200, 256, 32, generator=gen)
+
+    def build(**kw):
+        return serve.build_index(corpus, 16, device=dev,
+                                 generator=torch.Generator().manual_seed(0),
+                                 **kw)
+
+    ivf_kw = dict(index="ivf", n_clusters=4_000, tile_rows=128)
+    indexes = {"flat": build(), "ivf": build(**ivf_kw),
+               "ivf_pq": build(storage="pq", **ivf_kw)}
+    indexes["tiered"] = dataclasses.replace(
+        indexes["ivf"], ivf=ivf.TieredIVFZenIndex.from_index(
+            indexes["ivf"].ivf, hot_fraction=0.1, n_shards=4))
+    return indexes, queries
+
+
+def _bits(res):
+    d, ids = res
+    return d.contiguous().view(torch.int32).cpu(), ids.cpu()
+
+
+@pytest.mark.parametrize("rerank", [0, 4])
+@pytest.mark.parametrize("kind", ["flat", "ivf", "ivf_pq", "tiered"])
+def test_rows_keep_their_bits_in_any_batch_on_card(card_servers, kind,
+                                                   rerank):
+    """Every served row has the same bits at Q = 1, 2, 3, 17, 64, 65 and
+    200 (past max_batch: blocks of 64) as in the 200-row batch."""
+    indexes, queries = card_servers
+    server = serve.ZenServer(indexes[kind], nprobe=8, rerank_factor=rerank)
+    wd, wi = _bits(server.query(queries, 10))
+    assert torch.isfinite(wd.view(torch.float32)).all()
+    for nq in INVARIANT_Q:
+        for lo in sorted({0, 200 - nq, (200 - nq) // 2}):
+            d, ids = _bits(server.query(queries[lo:lo + nq], 10))
+            assert torch.equal(d, wd[lo:lo + nq]), (kind, nq, lo)
+            assert torch.equal(ids, wi[lo:lo + nq]), (kind, nq, lo)
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf", "ivf_pq"])
+def test_coalesced_and_cached_rows_equal_direct_on_card(card_servers, kind):
+    indexes, queries = card_servers
+    server = serve.ZenServer(indexes[kind], nprobe=8, rerank_factor=4,
+                             frontend=True, cache_size=1_024)
+    sched = server.frontend
+    handles = [sched.submit(queries[i], 10) for i in range(64)]
+    assert sched.tick() == 1
+    hits = [sched.submit(queries[i], 10) for i in range(64)]
+    assert all(h.done() for h in hits) and sched.stats.cache_hits == 64
+    for i, (h, c) in enumerate(zip(handles, hits)):
+        alone = _bits(server.query(queries[i:i + 1], 10, direct=True))
+        got = h.result()  # (1, 10) host arrays
+        assert np.array_equal(got[0].view(np.int32), alone[0].numpy())
+        assert np.array_equal(got[1], alone[1].numpy())
+        assert np.array_equal(c.result()[0], got[0])
+        assert np.array_equal(c.result()[1], got[1])
+
+
+@contextlib.contextmanager
+def _plain_search():
+    """``kernels.ops`` sends CUDA tensors to the search kernels' plain
+    versions (the reference of the concurrency test)."""
+    saved = ops.zen_topk, ops.ivf_probe, ops.ivf_probe_pq
+    ops.zen_topk = zt.zen_topk_scan
+    ops.ivf_probe, ops.ivf_probe_pq = ip.ivf_probe_scan, ip.ivf_probe_pq_scan
+    try:
+        yield
+    finally:
+        ops.zen_topk, ops.ivf_probe, ops.ivf_probe_pq = saved
+
+
+def test_ticker_and_direct_callers_on_a_tiered_index_on_card(card_servers):
+    """The ticker thread and 16 direct or frontend callers search one
+    tiered index at once: every answer equals the same query served alone
+    (bit for bit) and the plain versions' (within the tolerance)."""
+    import threading
+
+    indexes, queries = card_servers
+    server = serve.ZenServer(indexes["tiered"], nprobe=8, rerank_factor=4,
+                             frontend=True, tick_interval=0.0005)
+    alone = {i: _bits(server.query(queries[i:i + 1], 10, direct=True))
+             for i in range(16)}
+    with _plain_search():
+        plain = server.query(queries[:16], 10, direct=True)
+    launches = ip.ivf_probe.launches
+    server.frontend.start()
+    got, errors = {}, []
+
+    def caller(i):
+        try:
+            for r in range(4):
+                got[(i, r)] = _bits(server.query(
+                    queries[i:i + 1], 10, direct=(i + r) % 2 == 0))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=caller, args=(i,))
+               for i in range(16)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        server.frontend.stop()
+    assert not errors, errors
+    assert len(got) == 64 and ip.ivf_probe.launches > launches
+    atol = 1e-5 * float(queries[:16].norm(dim=1).median())
+    for (i, _), (d, ids) in got.items():
+        assert torch.equal(d, alone[i][0]) and torch.equal(ids, alone[i][1])
+        msg = topk_mismatch(d.view(torch.float32), ids, plain[0][i:i + 1],
+                            plain[1][i:i + 1], rtol=1e-5, atol=atol)
+        assert msg is None, (i, msg)
+
+
+def test_replica_swap_with_queries_in_flight_on_card(card_servers,
+                                                     tmp_path):
+    """A card replica hot-swaps under a thread that keeps querying it:
+    every in-flight answer is one generation's, bit for bit, the old
+    generation is released once idle, and the new one equals the leader."""
+    import threading
+
+    from repro_torch.launch.replicate import IndexLeader, QueryReplica
+
+    indexes, queries = card_servers
+    leader_srv = serve.ZenServer(indexes["ivf"], nprobe=8, rerank_factor=4)
+    leader = IndexLeader(leader_srv, str(tmp_path))
+    leader.publish()
+    rep = QueryReplica(str(tmp_path))
+    assert rep.poll() and rep.server.index.device.type == "cuda"
+    q = queries[:64]
+    gen0 = _bits(leader_srv.query(q, 10, direct=True))
+    assert all(torch.equal(a, b) for a, b in zip(_bits(rep.query(q, 10)),
+                                                gen0))
+    stop, seen, errors = threading.Event(), [], []
+
+    def reader():
+        try:
+            while not stop.is_set():
+                seen.append(_bits(rep.query(q, 10)))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        victims = gen0[1][:, 0].tolist()[:8]
+        leader.delete(victims)
+        leader.publish()
+        assert rep.poll()
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not errors, errors
+    gen1 = _bits(leader_srv.query(q, 10, direct=True))
+    assert rep.generation == leader.generation == 1
+    assert all(torch.equal(a, b) for a, b in zip(_bits(rep.query(q, 10)),
+                                                gen1))
+    for d, ids in seen:
+        assert any(torch.equal(d, g[0]) and torch.equal(ids, g[1])
+                   for g in (gen0, gen1))
+    assert rep.released_generations() == (0,)
+    assert not set(gen1[1].ravel().tolist()) & set(victims)

@@ -23,7 +23,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.kernels.pdist, repro_torch.kernels.zen, "
         "repro_torch.kernels.jsd, repro_torch.core.pivots, "
         "repro_torch.core.baselines, repro_torch.core.reducers, "
-        "repro_torch.core.quality, repro_torch.data.synthetic\n"
+        "repro_torch.core.quality, repro_torch.data.synthetic, "
+        "repro_torch.serving, repro_torch.distributed.fault, "
+        "repro_torch.launch.replicate\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")

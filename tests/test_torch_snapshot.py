@@ -440,12 +440,21 @@ def _saved(server, path):
 
 
 def test_unported_snapshot_options_raise(tmp_path):
-    jsv, _ = _jax_server("flat", "float32", False)
+    """A snapshot of a JAX server with the frontend on loads with its
+    frontend settings (it raised while the frontend was unported);
+    loading onto a mesh still raises, naming ROADMAP A4."""
+    jsv, q = _jax_server("flat", "float32", False)
     jsv.frontend = object()  # saved as a server with the frontend on
+    jsv.max_batch, jsv.cache_size = 32, 256
     jsv.save(str(tmp_path / "fe"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        tserve.ZenServer.load(str(tmp_path / "fe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    back = tserve.ZenServer.load(str(tmp_path / "fe"), device="cpu")
+    assert back.frontend is not None
+    assert (back.max_batch, back.cache_size) == (32, 256)
+    assert back.frontend.cache.capacity == 256
+    jsv.frontend = None
+    _close(back.query(torch.from_numpy(q), NN),
+           jsv.query(jnp.asarray(q), NN))
+    with pytest.raises(NotImplementedError, match="A4"):
         tserve.ZenServer.load(str(tmp_path / "fe"), mesh=object(),
                               device="cpu")
 

@@ -185,3 +185,87 @@ def test_select_references_by_ids_and_by_generator():
     assert torch.equal(a.refs, b.refs) and not a.degenerate()
     with pytest.raises(ValueError, match="expected 4 references"):
         tprojection.NSimplexTransform(k=4).fit(torch.from_numpy(X[:3]))
+
+
+# -- the core API remainder: fit_transform, verify_base_simplex, oracles -----
+
+
+@pytest.mark.parametrize("pivots", ["random", "farthest_first", "maxvol"])
+def test_fit_transform_from_the_references_ids(pivots):
+    """fit_transform with the JAX package's chosen rows: the same
+    references and projection; the strategy chooses them itself."""
+    X = _data(13, 60, 10)
+    jt, jy = jprojection.fit_transform(jnp.asarray(X), 5,
+                                       jax.random.PRNGKey(1), pivots=pivots)
+    refs = np.asarray(jt.refs)
+    ids = [int(np.flatnonzero((X == r).all(1))[0]) for r in refs]
+    tt, ty = tprojection.fit_transform(torch.from_numpy(X), 5, ids=ids)
+    np.testing.assert_array_equal(tt.refs.numpy(), refs)
+    _assert_apex_close(ty.numpy(), np.asarray(jy))
+    # without ids the strategy picks (a generator for the random draws)
+    gt, gy = tprojection.fit_transform(
+        torch.from_numpy(X), 5, pivots=pivots,
+        generator=torch.Generator().manual_seed(2))
+    assert gy.shape == (60, 5) and not gt.degenerate()
+    if pivots != "random":  # deterministic strategies: the same rows
+        from repro_torch.core import pivots as tpivots
+        want = tpivots.select_references(torch.from_numpy(X), 5,
+                                         strategy=pivots)
+        assert torch.equal(gt.refs, want.refs)
+    with pytest.raises(ValueError):
+        tprojection.fit_transform(torch.from_numpy(X), 5, pivots="nope")
+
+
+@pytest.mark.parametrize("perturb", [0.0, 1e-3, 0.5])
+def test_verify_base_simplex_matches_jax(perturb):
+    refs = _data(14, 7, 12)
+    D = np.array(jmetrics.euclidean_pdist(jnp.asarray(refs),
+                                          jnp.asarray(refs)))
+    np.fill_diagonal(D, 0.0)
+    jb = jsimplex.build_base_simplex(jnp.asarray(D))
+    tb = tsimplex.build_base_simplex(torch.from_numpy(D))
+    Dc = D.copy()
+    Dc[2, 5] += perturb
+    Dc[5, 2] += perturb
+    j_ok, j_err = jsimplex.verify_base_simplex(jnp.asarray(Dc), jb)
+    t_ok, t_err = tsimplex.verify_base_simplex(torch.from_numpy(Dc), tb)
+    assert t_ok == j_ok == (perturb <= 1e-4)
+    assert t_err == pytest.approx(j_err, abs=1e-5)
+    assert tsimplex.verify_base_simplex(Dc, tb, atol=1.0)[0]
+
+
+@pytest.mark.parametrize("k", [2, 3, 6, 11])
+def test_paper_oracles_equal_the_jax_packages(k):
+    """The numpy oracles (Algorithms 1 and 2) are a copy: equal outputs."""
+    refs, X = _data(15 + k, k, 14), _data(16 + k, 13, 14)
+    D = np.array(jmetrics.euclidean_pdist(jnp.asarray(refs),
+                                          jnp.asarray(refs)), np.float64)
+    np.fill_diagonal(D, 0.0)
+    Dx = np.array(jmetrics.euclidean_pdist(jnp.asarray(X),
+                                           jnp.asarray(refs)), np.float64)
+    sigma = tsimplex.nsimplex_build_reference(D)
+    np.testing.assert_array_equal(sigma,
+                                  jsimplex.nsimplex_build_reference(D))
+    np.testing.assert_array_equal(
+        tsimplex.apex_addition_reference(sigma, Dx[0]),
+        jsimplex.apex_addition_reference(sigma, Dx[0]))
+    got = tsimplex.apex_project_reference(D, Dx)
+    np.testing.assert_array_equal(got,
+                                  jsimplex.apex_project_reference(D, Dx))
+    # and the port's batched projection agrees with its own oracle
+    tb = tsimplex.build_base_simplex(torch.from_numpy(D.astype(np.float32)))
+    _assert_apex_close(tsimplex.apex_project(
+        tb, torch.from_numpy(Dx.astype(np.float32))).numpy(), got)
+
+
+def test_core_exports_mirror_the_jax_package():
+    import repro.core as jcore
+    import repro.index as jindex
+    import repro_torch.core as tcore
+    import repro_torch.index as tindex
+
+    assert set(jcore.__all__) <= set(tcore.__all__)
+    for name in jcore.__all__:
+        assert hasattr(tcore, name), name
+    assert tindex.IVF_SNAPSHOT_KIND == jindex.IVF_SNAPSHOT_KIND
+    assert set(jindex.__all__) <= set(tindex.__all__)
