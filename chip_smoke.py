@@ -9,6 +9,9 @@ kernels.
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --quick    # build + kernel checks (phases 1-3, 7,
                                      # 11, 14)
+    python3 chip_smoke.py --sharded  # phases 1-3, the f32 build and serve
+                                     # of phase 8, and phase 20 (on four
+                                     # cards where there are four)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -47,7 +50,9 @@ Phases:
      through the probe's plain version on the card) and p50/p99; the probe
      kernel's launch count must advance. On a 20,000-row index nprobe = n_clusters
      gives the flat zen_topk answer, and one index built on the card and
-     moved to the CPU serves the same answers on both;
+     moved to the CPU serves the same answers on both. Each build is made
+     twice from equal generators (PQ only when its build takes under 10
+     s) and its snapshot arrays must be the same bytes;
   9. IVF churn: delete (served ids too), upsert until T grows, query,
      compact(), query, compact(recluster=True), query; no deleted id may
      come back;
@@ -132,10 +137,26 @@ Phases:
      deadline answers as set_dead_shards([2]) applied directly, bit for
      bit, stats()["degraded_shards"] names it, a beat restores the
      healthy answers; a preemption request writes a snapshot that reloads
-     to the same answers.
+     to the same answers;
+ 20. sharded serving on make_mesh(4): every card when there are four,
+     else 4 logical shards of the first card. Flat f32 and int8 indexes
+     built as phase 4's on all 1,000,003 rows (which do not divide by 4,
+     so the shard padding is exercised), saved and reloaded onto the mesh
+     (ZenServer.load(mesh=)), and IVF f32 and int8 indexes built on the
+     mesh from phase 8's corpus and generator (centroids byte-equal to
+     phase 8's); 8 batches each
+     against the single-device server: answers equal up to near ties
+     (bit-equality reported), recall@10, p50 / p99, the search kernel
+     launched once a shard a batch, and the sharded answers against the
+     kernels' plain versions (plain_dispatch). Then shard 2 silent past its
+     deadline (fake clock) on the flat and IVF f32 servers: degraded_shards
+     names it, none of its ids answer, the answers stay finite and equal
+     their plain versions'; the 4-shard IVF save reloaded onto 2 shards and
+     onto no mesh answers the same; storage='pq' with a mesh raises. The
+     sharded flat and IVF f32 servers are profiled as in phases 4 and 8.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17, 18 and 19 run after phase 12. Phase 3 also holds zen_topk at
+kernel); phases 17-20 run after phase 12. Phase 3 also holds zen_topk at
 widths up to 16,384 (lists in global memory) and k = 300, phase 7 the
 probes at widths up to 16,384 and PQ at M = 256, phase 14 zen_estimate at
 k = 300 and 600 and every dense kernel past 65,535 grid rows of column
@@ -171,6 +192,9 @@ RTOL = 1e-5
 #: the IVF configuration served at full size: ~4 sqrt(N) clusters of
 #: 128-row tiles, 8 probed per query (the JAX package's defaults)
 N_CLUSTERS, TILE_ROWS, NPROBE, PQ_M = 4_000, 128, 8, 4
+#: phase 8 builds an IVF index a second time to hold the two to the same
+#: bytes; the PQ index only when its build takes less than this
+REBUILD_MAX_S = 10.0
 #: phase 15: the evaluation's sizes (witness set = pivots.MAX_WITNESS rows;
 #: MDS on 400 witnesses, as benchmarks/paper_quality.py fits it)
 EVAL_ROWS, MDS_WITNESS = 2_048, 400
@@ -682,19 +706,30 @@ def serve_ivf(corpus, batches, k: int, storage: str):
     from repro_torch.launch import serve
 
     kernel = ip.ivf_probe_pq if storage == "pq" else ip.ivf_probe
+
+    def build():
+        return serve.build_index(corpus, k, index="ivf", storage=storage,
+                                 n_clusters=N_CLUSTERS, tile_rows=TILE_ROWS,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device=corpus.device)
+
     t0 = time.perf_counter()
-    index = serve.build_index(corpus, k, index="ivf", storage=storage,
-                              n_clusters=N_CLUSTERS, tile_rows=TILE_ROWS,
-                              generator=torch.Generator().manual_seed(0),
-                              device=corpus.device)
+    index = build()
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     iv = index.ivf
     tile_bytes = (iv.tile_coords.numel() * iv.tile_coords.element_size()
                   + iv.tile_ids.numel() * 4)
     log(f"[8] build_index(index='ivf', storage={storage!r}): {index.size:,}"
         f" rows, {iv.n_clusters} clusters, T = {iv.tiles_per_cluster} tiles "
         f"of {iv.tile_rows} rows, tiles + ids {tile_bytes / 2**20:.1f} MiB; "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{build_s:.2f} s")
+    # C5: a build is the same bytes every time (PQ too when it is cheap)
+    if storage != "pq" or build_s < REBUILD_MAX_S:
+        check_rebuild(index, build, storage)
+    else:
+        log(f"    not rebuilt: the {storage} build takes {build_s:.2f} s, "
+            f"past {REBUILD_MAX_S} s")
     serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4).query(
         batches[0], 10)  # warm-up
     server = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4)
@@ -717,8 +752,7 @@ def serve_ivf(corpus, batches, k: int, storage: str):
         fail(f"the IVF ({storage}) serving path never launched "
              f"{kernel.__name__}")
     # the same index and batches through the probe's plain version on the
-    # card: the recall the kernel must keep (the index itself differs from
-    # run to run, as the card's k-means sums in no fixed order)
+    # card: the recall the kernel must keep
     with plain_dispatch():
         plain_recall = np.mean([
             serve.recall(server.query(q, 10)[1],
@@ -1777,6 +1811,258 @@ def check_replication(ivf_index, batches, corpus):
     log(f"    {time.perf_counter() - t0:.1f} s")
 
 
+def _state_bytes(index) -> dict:
+    """The arrays a ZenServer snapshot of an IVF ``index`` holds, but the
+    re-rank corpus, as flat byte tensors on the device."""
+    import torch
+    from repro_torch.index.ivf import snapshot_payload
+
+    tr = index.transform
+    arrays = {"refs": tr.refs, "base_chol": tr.base.chol,
+              "base_diag_g": tr.base.diag_g, "base_d0": tr.base.d0}
+    arrays.update({f"ivf_{name}": t for name, t in
+                   snapshot_payload(index.ivf)[0].items()})
+    return {name: torch.as_tensor(t).contiguous().reshape(-1)
+            .view(torch.uint8) for name, t in arrays.items()}
+
+
+def check_rebuild(index, rebuild, label: str) -> float:
+    """Phase 8, C5: build the IVF index again from an equal generator and
+    fail unless its snapshot arrays are the same bytes; returns the
+    rebuild's seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    again = rebuild()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    a, b = _state_bytes(index), _state_bytes(again)
+    differ = [name for name in a if not torch.equal(a[name], b[name])]
+    if sorted(a) != sorted(b) or differ:
+        fail(f"two IVF ({label}) builds from equal generators differ in "
+             f"{differ or sorted(set(a) ^ set(b))}")
+    log(f"    rebuilt from an equal generator in {secs:.2f} s: the "
+        f"snapshot arrays ({', '.join(sorted(a))}) are the same bytes")
+    return secs
+
+
+def check_sharded(flat_corpus, ivf_index, corpus, batches, k: int,
+                  smi: str):
+    """Phase 20: sharded serving at full width on ``make_mesh(4)`` (every
+    card when there are four, else 4 logical shards of the first): flat
+    f32 and int8 servers on the 1,000,003 rows of ``flat_corpus`` (phase
+    4's settings; the row count leaves one row of shard padding) reloaded
+    from single-device snapshots onto the mesh, the IVF f32 and int8
+    servers built on it from phase 8's corpus and generator; answers,
+    recall, latency and launches against the single-device servers, the
+    kernels against their plain versions under the sharded path, a silent
+    shard, a reshard onto 2 shards and onto no mesh, and the PQ refusal.
+    Returns the search kernels' launches while the sharded servers served
+    (the batches of the four servers)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import zen_topk as zt
+    from repro_torch.launch import serve
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(4)
+    layout = ("4 cards" if len(set(mesh.devices.flat)) == 4 else
+              f"4 logical shards of {mesh.first_device}")
+    log(f"[20] sharded serving on a mesh of {layout} "
+        f"({[str(d) for d in mesh.devices.flat]}); {smi}")
+    rows = batches[1:]
+    launches = {"zen_topk": 0, "ivf_probe": 0}
+    truths = {}
+
+    def serve_all(server):
+        lat, out = [], []
+        for q in rows:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(server.query(q, 10))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+        ms = np.asarray(lat) * 1e3
+        return out, np.percentile(ms, 50), np.percentile(ms, 99)
+
+    def recall_of(out, data):
+        key = data.shape[0]
+        if key not in truths:
+            truths[key] = [serve.exact_topk(q, data, 10) for q in rows]
+        return float(np.mean([serve.recall(ids, t)
+                              for t, (_, ids) in zip(truths[key], out)]))
+
+    atol = 0.0
+
+    def agree(got, want, label):
+        bit = all(_same_bits(g, w) for g, w in zip(got, want))
+        for (gd, gi), (wd, wi) in zip(got, want):
+            msg = topk_mismatch(gd, gi, wd, wi, rtol=RTOL, atol=atol)
+            if msg is not None:
+                fail(f"{label} disagrees: {msg}")
+        return bit
+
+    def compare(single, sharded, kernel, label, data):
+        nonlocal atol
+        serve.ZenServer(single, nprobe=NPROBE, rerank_factor=4).query(
+            batches[0], 10)  # warm-up
+        serve.ZenServer(sharded, nprobe=NPROBE, rerank_factor=4).query(
+            batches[0], 10)
+        want, w50, w99 = serve_all(serve.ZenServer(single, nprobe=NPROBE,
+                                                   rerank_factor=4))
+        # the served distances are the exact re-rank's, in the corpus space
+        atol = RTOL * float(torch.cat([d for d, _ in want]).median())
+        server = serve.ZenServer(sharded, nprobe=NPROBE, rerank_factor=4)
+        before = kernel.launches
+        got, g50, g99 = serve_all(server)
+        n = kernel.launches - before
+        launches[kernel.__name__] += n
+        if n != 4 * len(rows):
+            fail(f"{label}: {n} {kernel.__name__} launches for {len(rows)} "
+                 f"batches on 4 shards")
+        bit = agree(got, want, f"the sharded {label} server")
+        r_got, r_want = recall_of(got, data), recall_of(want, data)
+        if abs(r_got - r_want) > 0.002:
+            fail(f"{label}: recall@10 {r_got:.4f} sharded against "
+                 f"{r_want:.4f} on one device")
+        with plain_dispatch():
+            plain = [server.query(q, 10) for q in rows[:2]]
+        agree(got[:2], plain, f"the sharded {label} server's kernels "
+              f"against their plain versions")
+        log(f"    {label}: answers {'bit-equal to' if bit else 'equal (near ties aside) to'}"
+            f" the single-device server's; recall@10 {r_got:.4f} "
+            f"(single device {r_want:.4f}); p50 / p99 {g50:.3f} / "
+            f"{g99:.3f} ms against {w50:.3f} / {w99:.3f} ms on one device; "
+            f"{n // len(rows)} {kernel.__name__} launches a batch; "
+            f"kernels = plain versions under the sharded path")
+        return server, got
+
+    tmp = tempfile.mkdtemp(prefix="zen-sharded-")
+    try:
+        # flat: the single-device snapshot reloaded onto the mesh
+        flat_servers = {}
+        for st in ("float32", "int8"):
+            single = serve.build_index(
+                flat_corpus, k, storage=st, device=flat_corpus.device,
+                generator=torch.Generator().manual_seed(0))
+            sdir = os.path.join(tmp, f"flat_{st}")
+            serve.ZenServer(single, rerank_factor=4).save(sdir)
+            t = time.perf_counter()
+            sharded = serve.ZenServer.load(sdir, mesh=mesh).index
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            shutil.rmtree(sdir)
+            log(f"    flat {st}: ZenServer.load(mesh=) {load_s:.2f} s; "
+                f"{sharded.coords.shard_rows:,} rows a shard "
+                f"({sharded.coords.n_rows:,} + "
+                f"{sharded.coords.shape[0] - sharded.coords.n_rows} padding)")
+            flat_servers[st] = compare(single, sharded, zt.zen_topk,
+                                       f"flat {st}", flat_corpus)
+            if st == "float32":
+                profile_serving(flat_servers[st][0], rows[:4])
+            del single
+        # IVF: built on the mesh from phase 8's generator
+        ivf_servers = {}
+        for st in ("float32", "int8"):
+            single = ivf_index if st == "float32" else serve.build_index(
+                corpus, k, index="ivf", storage=st, n_clusters=N_CLUSTERS,
+                tile_rows=TILE_ROWS, device=corpus.device,
+                generator=torch.Generator().manual_seed(0))
+            t = time.perf_counter()
+            sharded = serve.build_index(
+                corpus, k, index="ivf", storage=st, n_clusters=N_CLUSTERS,
+                tile_rows=TILE_ROWS, mesh=mesh,
+                generator=torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            if not torch.equal(sharded.ivf.centroids.cpu(),
+                               ivf_index.ivf.centroids.cpu()):
+                fail(f"the sharded IVF ({st}) build fitted other centroids "
+                     f"than phase 8's from the same generator")
+            log(f"    IVF {st}: build_index(mesh=) {build_s:.2f} s, T = "
+                f"{sharded.ivf.tiles_per_cluster} a shard (one device: "
+                f"{single.ivf.tiles_per_cluster}); centroids byte-equal to "
+                f"phase 8's")
+            ivf_servers[st] = compare(single, sharded, ip.ivf_probe,
+                                      f"IVF {st}", corpus)
+            if st == "float32":
+                profile_serving(ivf_servers[st][0], rows[:4])
+            del single
+
+        # a silent shard: shard 2 past its deadline (fake clock)
+        q = rows[0]
+        for label, (server, _), kernel in (
+                ("flat f32", flat_servers["float32"], zt.zen_topk),
+                ("IVF f32", ivf_servers["float32"], ip.ivf_probe)):
+            clock = [0.0]
+            server.enable_fault_tolerance(deadline_s=10.0,
+                                          clock=lambda: clock[0])
+            for s in range(4):
+                server.heartbeat(s)
+            clock[0] = 11.0
+            for s in (0, 1, 3):
+                server.heartbeat(s)
+            before = kernel.launches
+            d, ids = server.query(q, 10)
+            n = kernel.launches - before
+            if server.stats()["degraded_shards"] != ["shard2"]:
+                fail(f"{label}: degraded shards "
+                     f"{server.stats()['degraded_shards']}")
+            if not torch.isfinite(d).all():
+                fail(f"{label}: degraded answers are not finite")
+            index = server.index
+            if index.ivf is None:
+                r = index.coords.shard_rows
+                held = (ids >= 2 * r) & (ids < 3 * r)
+            else:
+                held = torch.isin(ids, index.ivf.tile_ids.blocks[2]
+                                  .to(ids.device)) & (ids >= 0)
+            if held.any():
+                fail(f"{label}: shard 2's ids answer while it is silent")
+            with plain_dispatch():
+                plain = server.query(q, 10)
+            agree([(d, ids)], [plain], f"the degraded {label} server's "
+                  f"kernels against their plain versions")
+            server.heartbeat(2)
+            log(f"    {label}: shard2 silent past 10 s: degraded_shards "
+                f"['shard2'], {n} {kernel.__name__} launches (3 live "
+                f"shards), no id of shard 2, finite answers, kernels = "
+                f"plain versions under the mask")
+
+        # reshard: the 4-shard IVF save onto 2 shards and onto no mesh
+        server, want = ivf_servers["float32"]
+        sdir = os.path.join(tmp, "ivf4")
+        t = time.perf_counter()
+        server.save(sdir)
+        save_s = time.perf_counter() - t
+        for label, kw in (("2 shards", {"mesh": make_mesh(2)}),
+                          ("no mesh", {"device": corpus.device})):
+            back = serve.ZenServer.load(sdir, **kw)
+            got = [back.query(q, 10) for q in rows]
+            bit = agree(got, want, f"the 4-shard IVF snapshot on {label}")
+            log(f"    the 4-shard IVF f32 save ({save_s:.2f} s) reloaded "
+                f"on {label}: answers "
+                f"{'bit-equal' if bit else 'equal (near ties aside)'}")
+            del back
+        try:
+            serve.build_index(corpus[:2_000], k, index="ivf", storage="pq",
+                              mesh=mesh, n_clusters=16)
+        except NotImplementedError as exc:
+            log(f"    storage='pq' with a mesh raises NotImplementedError "
+                f"({exc})")
+        else:
+            fail("storage='pq' with a mesh did not raise")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"    {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def dense_kernels():
     """(name, kernel wrapper, plain version, ``testing.dense_errors`` kind)
     of the three dense kernels."""
@@ -2225,6 +2511,7 @@ def main() -> None:
     from repro_torch.testing import topk_mismatch
 
     quick = "--quick" in sys.argv[1:]
+    sharded_only = "--sharded" in sys.argv[1:]
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -2286,7 +2573,7 @@ def main() -> None:
              for m in ("zen", "lwb", "upb")
              for nq in (2, 64) for n in (10, 64, 128)
              for nrows in (1_000_000, 1_000_003)]
-    if quick:
+    if quick or sharded_only:
         cases = [c for c in cases if c[2] == 64 and c[3] == 64
                  and c[4] == 1_000_003]
     t0 = time.perf_counter()
@@ -2372,6 +2659,16 @@ def main() -> None:
         f" k up to 300; max |d - d_plain| {max_err:.3g}; "
         f"{time.perf_counter() - t0:.1f} s")
     del encoded, wide_k, wide_q
+    full_corpus = corpus                        # 1,000,003 rows
+    if sharded_only:
+        corpus = corpus[:1_000_000]
+        batches = [syn.manifold_space(64, 256, 32, generator=gen)
+                   for _ in range(9)]
+        ivf_server, _ = serve_ivf(corpus, batches, k, "float32")
+        check_sharded(full_corpus, ivf_server.index, corpus, batches, k,
+                      smi)
+        log("sharded run: stopping after phases 8 (f32) and 20")
+        sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
     ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
     stage_cases, stage_bad, stage_err = check_stage_kernel(dev)
@@ -2573,6 +2870,10 @@ def main() -> None:
     # -- 19. replication and fault tolerance ---------------------------------
     check_replication(ivf_index_f32, batches, corpus)
 
+    # -- 20. sharded serving on a mesh ----------------------------------------
+    sharded_launches = check_sharded(full_corpus, ivf_index_f32, corpus,
+                                     batches, k, smi)
+
     # -- 13. snapshots -----------------------------------------------------
     check_snapshots(ivf_index_f32, tiered_server, batches, corpus, k)
     del tiered_server, ivf_index_f32
@@ -2587,14 +2888,17 @@ def main() -> None:
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",
                     replaces="src/repro/kernels/zen_topk.py:92",
                     launches=serve_launches, max_abs_err=max_err,
+                    sharded_launches=sharded_launches["zen_topk"],
                     **main_rec)]
     for kname, line, launches in (("ivf_probe", 94, ivf_launches),
                                   ("ivf_probe_pq", 296, pq_launches)):
+        extra = ({"sharded_launches": sharded_launches[kname]}
+                 if kname in sharded_launches else {})
         kernels.append(dict(
             name=kname, route="cuda",
             source="src/repro_torch/kernels/csrc/ivf_probe.cu",
             replaces=f"src/repro/kernels/ivf_probe.py:{line}",
-            launches=launches, max_abs_err=ivf_err[kname],
+            launches=launches, max_abs_err=ivf_err[kname], **extra,
             **ivf_records[kname]))
     kernels.append(dict(
         name="dma_copy_blocks", route="cuda",

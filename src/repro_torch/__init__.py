@@ -34,10 +34,3 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path on the CPU")
     return dev
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an entry point of the JAX package that is not ported yet
-    raises, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue A, "
-        f"item {item}); use the JAX package repro for it")

@@ -35,8 +35,10 @@ search uploads the cold clusters it probes in chunks through the staging
 kernel (``kernels.tile_stage``), one chunk's copy on a staging stream while
 the chunk before is scored.
 
-``ShardedIVFZenIndex`` (ROADMAP A4) is not ported: it raises
-``NotImplementedError``.
+``ShardedIVFZenIndex`` row-shards the same layout over a device mesh
+(``distributed.mesh``): one global quantizer, each shard holding ~1/S of
+every inverted list (dealt round-robin within each cluster), searched by
+``distributed.retrieval.sharded_ivf_probe``.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.checkpoint import index_io
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import zen as zen_lib
@@ -97,9 +99,10 @@ def snapshot_payload(index) -> Tuple[dict, dict]:
     in their raw storage dtype (bf16/int8 values, uint8 PQ codes) with the
     quantizer and the decode state (per-cluster scales, PQ codebooks), so a
     load packs them back without a requantise cycle. Shared by
-    ``IVFZenIndex.save`` and ``launch.serve.ZenServer.save``; takes a
-    resident or a tiered index. The arrays and meta equal the JAX
-    package's, key for key."""
+    ``IVFZenIndex.save``, ``ShardedIVFZenIndex.save`` and
+    ``launch.serve.ZenServer.save``; takes a resident, a sharded or a
+    tiered index. The arrays and meta equal the JAX package's, key for
+    key."""
     coords, ids, assign = index._live_members(raw=True)
     arrays = {
         "centroids": index.centroids.to(torch.float32),
@@ -684,15 +687,272 @@ def _ivf_from_snapshot(arrays: dict, meta: dict, dev, *, prefix: str = "",
         generation=int(meta.get("generation", 0)))
 
 
-class ShardedIVFZenIndex:
-    """The IVF index sharded over a device mesh: not ported yet (A4)."""
+def _pack_sharded_tiles(
+    coords: Tensor,
+    assign,
+    ids,
+    n_clusters: int,
+    n_shards: int,
+    tile_rows: int,
+) -> Tuple[Tensor, Tensor, int]:
+    """Pack members into per-shard inverted lists with a common T, on the
+    host.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("ShardedIVFZenIndex", "A4")
+    Members are dealt round-robin across shards *within each cluster* (a
+    stable cluster-then-position sort, strided by shard), so every shard
+    holds ~1/S of every inverted list and its T stays ~1/S of the
+    unsharded one however the rows are ordered. Each shard then packs with
+    :func:`_pack_tiles`, padded to the largest shard's tiles per cluster,
+    so the stacked array splits into S equal row blocks. ``coords`` (n,
+    width) in any storage dtype. Returns ``(tile_coords (S*C*T, tile_rows,
+    width), tile_ids (S*C*T, tile_rows) int32, T)`` as CPU tensors, the
+    bytes of the JAX package's ``_pack_sharded_tiles``.
+    """
+    coords = coords.cpu()
+    assign = np.asarray(torch.as_tensor(assign).cpu(), np.int64)
+    ids = np.asarray(torch.as_tensor(ids).cpu(), np.int64)
+    n = len(ids)
+    order = np.argsort(assign, kind="stable") if n else np.zeros(0, np.int64)
+    shard_of = np.empty(n, np.int64)
+    shard_of[order] = np.arange(n) % n_shards  # round-robin within cluster
+    T = max(
+        max(1, -(-int(np.bincount(assign[shard_of == s],
+                                  minlength=n_clusters).max()
+                      if (shard_of == s).any() else 0) // tile_rows))
+        for s in range(n_shards))
+    packed_s, ids_s = [], []
+    for s in range(n_shards):
+        sel = np.flatnonzero(shard_of == s)
+        sel_t = torch.as_tensor(sel)
+        packed, out_ids, _ = _pack_tiles(
+            coords[sel_t], torch.as_tensor(assign[sel]),
+            torch.as_tensor(ids[sel]), n_clusters, tile_rows, min_tiles=T)
+        packed_s.append(packed)
+        ids_s.append(out_ids)
+    width = coords.shape[1]
+    return (torch.stack(packed_s).reshape(n_shards * n_clusters * T,
+                                          tile_rows, width),
+            torch.stack(ids_s).reshape(n_shards * n_clusters * T, tile_rows),
+            T)
+
+
+_SHARDED_PQ = ("storage='pq' packs uint8 code tiles with their codebooks and "
+               "is only supported by the single-host IVFZenIndex "
+               "(IVFZenIndex.from_members); sharded/tiered layouts take "
+               + "/".join(quant.SCALAR_STORAGE_DTYPES))
+
+
+@dataclasses.dataclass
+class ShardedIVFZenIndex:
+    """IVF index row-sharded over a device mesh.
+
+    One global quantizer; each shard packs its own part of every inverted
+    list (global ids), padded to a common tiles per cluster, so the tiles
+    are S equal row blocks of (C*T, tile_rows, k), block ``s`` on the
+    mesh's ``s``-th shard device. A query probes the same clusters on
+    every shard (the centroids and scales stay on the mesh's first device
+    and are copied to the others a search) and the per-shard candidates
+    merge on the first device (``distributed.sharded_ivf_probe``).
+
+    Mutation is a control-plane concern, as in the reference: churn an
+    ``IVFZenIndex``, ``save`` it, and :meth:`load` the snapshot onto the
+    mesh; a save from S shards reloads onto any other shard count.
+
+    Attributes:
+      centroids:   (C, k) f32, on the mesh's first device.
+      tile_coords: (S*C*T, tile_rows, k) as ``ShardedRows``, in the
+                   ``storage`` dtype.
+      tile_ids:    (S*C*T, tile_rows) int32 global ids as ``ShardedRows``;
+                   -1 marks padding.
+      n_valid:     searchable rows.
+      n_shards:    S.
+      mesh, axis_names: the mesh and the axes the tiles are sharded over.
+      tile_scales: (C, 1) f32 per-cluster int8 scales (from the global
+                   assignment), else ``None``.
+    """
+
+    centroids: Tensor
+    tile_coords: object
+    tile_ids: object
+    n_clusters: int
+    tiles_per_cluster: int
+    tile_rows: int
+    n_valid: int
+    n_shards: int
+    mesh: object
+    axis_names: Tuple[str, ...]
+    storage: str = "float32"
+    tile_scales: Optional[Tensor] = None
+
+    @property
+    def size(self) -> int:
+        return self.n_valid
+
+    @property
+    def dim(self) -> int:
+        return int(self.centroids.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        """The mesh's first device, where answers are merged."""
+        return self.centroids.device
 
     @classmethod
-    def build(cls, *args, **kwargs):
-        raise not_ported("ShardedIVFZenIndex", "A4")
+    def build(
+        cls,
+        coords: Tensor,
+        n_clusters: int,
+        *,
+        mesh,
+        axis=None,
+        tile_rows: int = 128,
+        n_iters: int = 15,
+        chunk: int = 16384,
+        generator: Optional[torch.Generator] = None,
+        storage: str = "float32",
+    ) -> "ShardedIVFZenIndex":
+        """Fit the global quantizer on the mesh's first device and pack the
+        per-shard inverted lists. Arguments as :meth:`IVFZenIndex.build`,
+        plus ``mesh`` and ``axis`` (the mesh axes carrying the shards,
+        default all); the fit is the one ``IVFZenIndex.build`` makes from
+        the same generator on that device."""
+        if storage == "pq":
+            raise NotImplementedError(_SHARDED_PQ)
+        quant.check_storage(storage)
+        n = coords.shape[0]
+        n_clusters = max(1, min(n_clusters, n))
+        x = coords.to(device=mesh.first_device, dtype=torch.float32)
+        centroids, _ = kmeans_fit(x, n_clusters, generator=generator,
+                                  n_iters=n_iters, chunk=chunk)
+        assign = kmeans_assign(x, centroids, chunk=chunk)
+        return cls._from_members(
+            x, torch.arange(n), assign, centroids, n_clusters, tile_rows,
+            mesh=mesh, axis=axis, storage=storage)
+
+    @classmethod
+    def _from_members(
+        cls,
+        coords: Tensor,
+        ids,
+        assign,
+        centroids: Tensor,
+        n_clusters: int,
+        tile_rows: int,
+        *,
+        mesh,
+        axis=None,
+        storage: str = "float32",
+        scales: Optional[Tensor] = None,
+    ) -> "ShardedIVFZenIndex":
+        from repro_torch.distributed import retrieval as retrieval_lib
+
+        if storage == "pq":
+            raise NotImplementedError(_SHARDED_PQ)
+        # quantise *before* the shard split, with per-cluster scales from
+        # the global assignment: the stored bytes are then independent of
+        # the shard count, so a snapshot reloads bit-identically onto any
+        # mesh
+        assign = torch.as_tensor(assign).to(device=coords.device,
+                                            dtype=torch.long)
+        coords, scales = _coerce_member_storage(coords, assign, n_clusters,
+                                                storage, scales)
+        names = retrieval_lib.resolve_axis_names(mesh, axis)
+        n_shards = len(mesh.shard_devices(names))
+        tiles, tids, T = _pack_sharded_tiles(coords, assign, ids, n_clusters,
+                                             n_shards, tile_rows)
+        home = mesh.first_device
+        return cls(
+            centroids=centroids.to(device=home, dtype=torch.float32),
+            tile_coords=retrieval_lib.shard_rows(tiles, mesh=mesh,
+                                                 axis=names)[0],
+            tile_ids=retrieval_lib.shard_rows(tids, mesh=mesh,
+                                              axis=names)[0],
+            n_clusters=n_clusters, tiles_per_cluster=T, tile_rows=tile_rows,
+            n_valid=len(ids), n_shards=n_shards, mesh=mesh, axis_names=names,
+            storage=storage,
+            tile_scales=None if scales is None else scales.to(home))
+
+    # -- persistence ---------------------------------------------------------
+    def _live_members(self, *, raw: bool = False
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+        """Every shard's live rows gathered to the host as (coords, ids
+        int64, assign int64), shard by shard, then by cluster and slot;
+        ``raw`` keeps the storage dtype, the default dequantises to f32."""
+        from repro_torch.distributed.retrieval import host_rows
+
+        tids = host_rows(self.tile_ids)
+        valid = tids >= 0
+        ct = self.n_clusters * self.tiles_per_cluster
+        block_cluster = (torch.arange(tids.shape[0]) % ct) \
+            // self.tiles_per_cluster
+        assign = block_cluster[:, None].expand_as(tids)[valid]
+        tiles = host_rows(self.tile_coords)
+        if not raw:
+            if self.tile_scales is not None:
+                per_block = self.tile_scales.cpu()[:, 0][block_cluster]
+                tiles = quant.dequantize(tiles, per_block[:, None, None])
+            else:
+                tiles = tiles.to(torch.float32)
+        return tiles[valid], tids[valid].long(), assign
+
+    def save(self, directory: str) -> str:
+        """Gather every shard's live rows and write the same canonical
+        snapshot as ``IVFZenIndex.save``: the shard count is a load-time
+        choice, not part of the files."""
+        return index_io.save_state(
+            directory, *snapshot_payload(self), kind=IVF_SNAPSHOT_KIND)
+
+    @classmethod
+    def load(cls, directory: str, *, mesh, axis=None,
+             tile_rows: Optional[int] = None) -> "ShardedIVFZenIndex":
+        """Load an IVF snapshot (of either package, from any shard count)
+        and reshard it onto ``mesh``: the members are dealt into per-shard
+        inverted lists here."""
+        arrays, meta = index_io.load_state(
+            directory, expect_kind=IVF_SNAPSHOT_KIND)
+        return _sharded_from_snapshot(arrays, meta, mesh, axis=axis,
+                                      tile_rows=tile_rows)
+
+    def search(self, queries: Tensor, n_neighbors: int = 10, nprobe: int = 8,
+               mode: str = "zen", *, alive=None) -> Tuple[Tensor, Tensor]:
+        """Probe the ``nprobe`` nearest clusters on every shard and merge
+        (global ids, on the mesh's first device). ``alive`` is an optional
+        (n_shards,) bool mask: a False shard is dropped from the merge
+        (degraded serving)."""
+        from repro_torch.distributed import retrieval as retrieval_lib
+
+        if n_neighbors <= 0:
+            raise ValueError(f"n_neighbors must be > 0, got {n_neighbors}")
+        if self.n_valid == 0:
+            return _empty_result(queries.shape[0], n_neighbors, self.device)
+        n_neighbors = min(n_neighbors, self.n_valid)
+        nprobe = max(1, min(nprobe, self.n_clusters))
+        queries = queries.to(device=self.device, dtype=torch.float32)
+        probes = _probe_clusters(queries, self.centroids, nprobe, mode)
+        return retrieval_lib.sharded_ivf_probe(
+            queries, self.tile_coords, self.tile_ids, probes, n_neighbors,
+            mode, mesh=self.mesh, axis=self.axis_names,
+            tiles_per_cluster=self.tiles_per_cluster,
+            tile_scales=self.tile_scales, alive=alive)
+
+
+def _sharded_from_snapshot(arrays: dict, meta: dict, mesh, *,
+                           prefix: str = "", axis=None,
+                           tile_rows: Optional[int] = None
+                           ) -> ShardedIVFZenIndex:
+    """Deal the members of a snapshot (``arrays`` keyed ``prefix`` + name)
+    onto ``mesh``; the members are read on the host."""
+    storage = meta.get("storage", "float32")
+    scales = arrays.get(prefix + "cluster_scales")
+    return ShardedIVFZenIndex._from_members(
+        index_io.to_tensor(arrays[prefix + "member_coords"], "cpu",
+                           bfloat16=storage == "bfloat16"),
+        np.asarray(arrays[prefix + "member_ids"], np.int64),
+        np.asarray(arrays[prefix + "member_assign"], np.int64),
+        index_io.to_tensor(arrays[prefix + "centroids"], mesh.first_device),
+        int(meta["n_clusters"]), tile_rows or int(meta["tile_rows"]),
+        mesh=mesh, axis=axis, storage=storage,
+        scales=None if scales is None else index_io.to_tensor(scales, "cpu"))
 
 
 @dataclasses.dataclass

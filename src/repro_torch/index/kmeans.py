@@ -3,7 +3,7 @@
 PyTorch counterpart of ``repro.index.kmeans``. The assignment pass walks
 the (N, k) coordinates in row chunks (one (chunk, C) distance block live
 at a time, the tail chunk clamped back as in the JAX scan) and the update
-is two ``index_add_`` segment sums.
+sums each cluster's members with :func:`segment_sums`.
 
 Seeding is k-means++ D² sampling from a ``torch.Generator``; the draws are
 not the JAX package's (``jax.random`` cannot be replayed), so
@@ -14,8 +14,15 @@ reference.
 Tie rules kept from the reference: ``argmin`` takes the first minimum; the
 empty-cluster reseed takes the farthest points in ``lax.top_k`` order
 (descending, lower index first on ties) through a stable descending sort.
-On the card ``index_add_`` adds with float atomics in a varying order, so
-centroids agree with the reference to a tolerance, not bit for bit.
+
+A fit is the same bytes every time on one device: no sum of the fit adds
+in an order that follows thread timing. The Lloyd update sums in an order
+fixed by the data (:func:`segment_sums`, in place of ``index_add_``, whose
+float atomics add in arrival order on the card) and the seeding's
+cumulative weights come from :func:`prefix_sums` (a 1-D CUDA ``cumsum`` is
+a decoupled look-back scan, whose association order follows the blocks'
+timing). The sums are float64, rounded once to f32, so centroids agree
+with the reference's f32 segment sums to a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -24,6 +31,68 @@ from typing import Optional, Tuple
 import torch
 
 Tensor = torch.Tensor
+
+#: rows one fixed-shape partial sum of :func:`segment_sums` adds, and the
+#: row length of :func:`prefix_sums`' two-level scan
+FOLD = 256
+
+
+def segment_sums(rows: Tensor, labels: Tensor,
+                 n_segments: int) -> Tuple[Tensor, Tensor]:
+    """Per-label sums and counts of (N, width) ``rows``, in an order fixed
+    by the data.
+
+    Returns ``(sums (n_segments, width) float64, counts (n_segments,)
+    int64)``; an empty label sums to zero. The rows are sorted stably by
+    label, so each label's rows form one run in their input order. Each
+    level cuts every run into pieces of at most :data:`FOLD` rows from the
+    run's start, writes each piece into its own zero-filled (FOLD, width)
+    slot and sums the slots over their rows, one reduction of one shape;
+    the levels repeat until every run is one row. No two writes share a
+    slot, so the bits follow the rows and labels alone.
+    """
+    width, dev = rows.shape[1], rows.device
+    labels = labels.to(torch.long)
+    counts = torch.bincount(labels, minlength=n_segments)
+    order = torch.argsort(labels, stable=True)
+    x = rows[order].to(torch.float64)
+    lab, lengths = labels[order], counts
+    while x.shape[0] and int(lengths.max()) > 1:
+        starts = torch.cumsum(lengths, 0) - lengths
+        pos = torch.arange(x.shape[0], device=dev) - starts[lab]
+        pieces = torch.div(lengths + (FOLD - 1), FOLD, rounding_mode="floor")
+        first = torch.cumsum(pieces, 0) - pieces
+        slot = first[lab] + torch.div(pos, FOLD, rounding_mode="floor")
+        buf = torch.zeros((int(pieces.sum()), FOLD, width),
+                          dtype=torch.float64, device=dev)
+        buf[slot, pos % FOLD] = x
+        x = buf.sum(dim=1)
+        lab = torch.repeat_interleave(
+            torch.arange(n_segments, device=dev), pieces)
+        lengths = pieces
+    sums = torch.zeros((n_segments, width), dtype=torch.float64, device=dev)
+    sums[lab] = x
+    return sums, counts
+
+
+def prefix_sums(w: Tensor) -> Tensor:
+    """Inclusive float64 prefix sums of a 1-D tensor, in an order fixed by
+    its length.
+
+    Each row of a zero-padded (rows, :data:`FOLD`) view is scanned on its
+    own, then the row totals, as two equal rows of a (2, rows) tensor, and
+    each row's carry is the total of the rows before it. A scan along the
+    last axis of a tensor of two or more rows is a block scan of each row,
+    whose order is fixed; a 1-D tensor would take the look-back scan.
+    """
+    n = w.shape[0]
+    rows = max(2, -(-n // FOLD))
+    v = torch.nn.functional.pad(w.to(torch.float64), (0, rows * FOLD - n))
+    inner = torch.cumsum(v.reshape(rows, FOLD), dim=1)
+    tot = inner[:, -1]
+    carried = torch.cumsum(torch.stack([tot, tot]), dim=1)[0]
+    carry = torch.cat([torch.zeros_like(tot[:1]), carried[:-1]])
+    return (inner + carry[:, None]).reshape(-1)[:n]
 
 
 def _sq_dist(blk: Tensor, centroids: Tensor) -> Tensor:
@@ -78,7 +147,7 @@ def _seed_plus_plus(coords: Tensor, n_clusters: int,
 
     min_d2 = min_d2_to(cents[0])
     for i in range(1, n_clusters):
-        cdf = torch.cumsum(torch.clamp_min(min_d2, 1e-30).double(), 0)
+        cdf = prefix_sums(torch.clamp_min(min_d2, 1e-30))
         idx = torch.searchsorted(cdf, u[i - 1:i] * cdf[-1], right=True)
         c = coords[torch.clamp_max(idx, n - 1)[0]]
         cents[i] = c
@@ -120,18 +189,14 @@ def kmeans_fit(
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         cents = _seed_plus_plus(x, n_clusters, generator)
-    ones = torch.ones(n, dtype=torch.float32, device=x.device)
     inertia = torch.zeros((), dtype=torch.float32, device=x.device)
     for _ in range(n_iters):
         assign, d2own = _assign_pass(x, cents, chunk)
-        a = assign.long()
-        counts = torch.zeros(n_clusters, device=x.device).index_add_(
-            0, a, ones)
-        sums = torch.zeros_like(cents).index_add_(0, a, x)
-        new = sums / torch.clamp_min(counts, 1.0)[:, None]
+        sums, counts = segment_sums(x, assign, n_clusters)
+        new = (sums / torch.clamp_min(counts, 1)[:, None]).to(torch.float32)
         # empty-cluster reseeding: the i-th empty cluster takes the i-th
         # farthest point from its current centroid
-        empty = counts == 0.0
+        empty = counts == 0
         far_ids = torch.sort(d2own, descending=True, stable=True).indices
         far_ids = far_ids[:min(n_clusters, n)]
         rank = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0,

@@ -37,15 +37,21 @@ Frontend: ``ZenServer(frontend=True)`` attaches the micro-batching
           backpressure. Every row is served with the same bits whatever
           batch it rides in (``core.metrics``' row-invariant forms), so
           scheduled, cached and direct answers are bit-identical.
+Mesh:     ``build_index(mesh=)``, ``load_index_snapshot(mesh=)`` and
+          ``ZenServer.load(mesh=)`` row-shard the flat coordinates or the
+          IVF inverted lists over a ``distributed.mesh.Mesh`` (cards, or
+          logical shards of one device); each query runs the search
+          kernel once a shard, on the shard's device, and merges the
+          candidates on the mesh's first device
+          (``distributed.retrieval``). A sharded index is immutable:
+          churn a single-device index, save, and reload onto the mesh.
 Faults:   ``ZenServer.enable_fault_tolerance`` attaches a heartbeat
           registry and a preemption guard (``distributed.fault``): a shard
           silent past its deadline is masked out of a tiered index's
-          probes (degraded answers, not errors), and a preemption notice
-          saves a snapshot at the next tick. ``launch.replicate`` builds
-          the leader / hot-swapping replica tier on the snapshots.
-
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: mesh sharding (A4).
+          probes or a sharded index's merge (degraded answers, not
+          errors), and a preemption notice saves a snapshot at the next
+          tick. ``launch.replicate`` builds the leader / hot-swapping
+          replica tier on the snapshots.
 
 CLI:  python -m repro_torch.launch.serve --n 20000 --dim 256 --k 16 \
           --queries 64 [--index ivf --nprobe 8 [--offload]] \
@@ -63,14 +69,16 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.checkpoint import index_io
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import zen as zen_lib
 from repro_torch.core import pivots as pivots_lib
 from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
-from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
+from repro_torch.distributed import retrieval as retrieval_lib
+from repro_torch.index.ivf import IVFZenIndex, ShardedIVFZenIndex
+from repro_torch.index.ivf import TieredIVFZenIndex, _sharded_from_snapshot
 from repro_torch.index.ivf import _check_ids, _dedupe_last_wins, exact_rerank
 from repro_torch.index.ivf import _ivf_from_snapshot, snapshot_payload
 from repro_torch.kernels import quantize as quant
@@ -99,13 +107,17 @@ class ZenIndex:
       transform:  fitted ``NSimplexTransform``.
       coords:     (cap, k) flat apex coordinates in the storage dtype; rows
                   beyond the live set (tombstones, growth slack) hold a far
-                  sentinel and never win a search. ``None`` for an IVF index,
-                  whose inverted lists are the searchable state.
+                  sentinel and never win a search. Row-sharded over
+                  ``mesh`` they are ``distributed.retrieval.ShardedRows``,
+                  whose ``n_rows`` counts the rows before the shard
+                  padding. ``None`` for an IVF index, whose inverted lists
+                  are the searchable state.
       corpus:     original vectors for exact re-ranking, row ``i`` holding
                   the vector of external id ``i``; optional.
       n_valid:    number of live rows; ``None`` means every row is live.
-      row_ids:    (cap,) int32 external id per row, ``-1`` for dead rows;
-                  ``None`` while ids equal row positions.
+      row_ids:    (cap,) int32 external id per row, ``-1`` for dead rows
+                  (and for shard padding); ``None`` while ids equal row
+                  positions.
       n_deleted:  tombstones since the last build/compact.
       storage:    resident dtype of the searchable state, one of
                   ``kernels.quantize.SCALAR_STORAGE_DTYPES`` (the IVF index
@@ -114,10 +126,14 @@ class ZenIndex:
       generation: churn counter, bumped by every change of the searchable
                   state.
       ivf:        the ``IVFZenIndex`` (or the serve-only
-                  ``TieredIVFZenIndex``) when built with ``index="ivf"``;
+                  ``TieredIVFZenIndex``, or the immutable
+                  ``ShardedIVFZenIndex``) when built with ``index="ivf"``;
                   the mutations and the search then go to it.
+      mesh:       the ``distributed.mesh.Mesh`` a sharded index (flat or
+                  IVF) is spread over, else ``None``.
 
-    Mutations return a new ``ZenIndex`` and leave this one as it was.
+    Mutations return a new ``ZenIndex`` and leave this one as it was; a
+    sharded index refuses them.
     """
 
     transform: NSimplexTransform
@@ -130,6 +146,7 @@ class ZenIndex:
     coord_scales: Optional[Tensor] = None
     generation: int = 0
     ivf: Optional[object] = None
+    mesh: Optional[object] = None
 
     @property
     def size(self) -> int:
@@ -146,7 +163,13 @@ class ZenIndex:
 
     def to(self, device) -> "ZenIndex":
         """A copy of this index (transform included) with every tensor on
-        ``device``."""
+        ``device``. A sharded index moves by reloading its snapshot
+        (``load_index_snapshot(mesh=...)``)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "a mesh-sharded index moves by reloading its snapshot onto "
+                "another mesh or device (load_index_snapshot(mesh=...))")
+
         def mv(t):
             return None if t is None else t.to(device)
         tr = self.transform
@@ -207,6 +230,13 @@ class ZenIndex:
     def _is_tiered(self) -> bool:
         return isinstance(self.ivf, TieredIVFZenIndex)
 
+    def _check_not_sharded(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mutating a mesh-sharded index in place is not supported: "
+                "churn the single-host index, save(), and reload onto the "
+                "mesh (resharding happens at load)")
+
     def _check_not_tiered(self) -> None:
         if self._is_tiered():
             raise NotImplementedError(
@@ -217,6 +247,7 @@ class ZenIndex:
     # -- mutation ------------------------------------------------------------
     def delete(self, ids: Sequence[int]) -> "ZenIndex":
         """Tombstone the given external ids; unknown ids are ignored."""
+        self._check_not_sharded()
         if self.ivf is not None:
             self._check_not_tiered()
             return self._with_ivf(self.ivf.delete(ids))
@@ -242,6 +273,7 @@ class ZenIndex:
         the capacity runs out it grows by multiples of ``_GROW_ROWS`` dead
         rows. An IVF index writes them into its inverted lists.
         """
+        self._check_not_sharded()
         if self.ivf is not None:
             self._check_not_tiered()
             return self._with_ivf(self.ivf.upsert(ids, coords_new))
@@ -298,6 +330,7 @@ class ZenIndex:
         their rows: slicing is the whole repack, with no
         dequantise/requantise cycle.
         """
+        self._check_not_sharded()
         if self.ivf is not None:
             self._check_not_tiered()
             return self._with_ivf(self.ivf.compact(**kw))
@@ -316,8 +349,8 @@ class ZenIndex:
         once live. Growth slack of the flat index is not counted; an IVF
         index also takes the tile-slack and imbalance thresholds of
         ``IVFZenIndex.needs_compact``; a tiered index never does (it is
-        serve-only)."""
-        if self._is_tiered():
+        serve-only), nor a sharded one (it is immutable)."""
+        if self._is_tiered() or self.mesh is not None:
             return False
         if self.ivf is not None:
             return self.ivf.needs_compact(
@@ -375,6 +408,12 @@ def build_index(
       tile_rows:  rows per IVF tile.
       kmeans_iters: Lloyd iterations of the IVF quantizer fit.
       pq_m:      PQ subspace count (default ``pq.default_m(k)``).
+      mesh:      a ``distributed.mesh.Mesh`` to row-shard the index over
+                 (every axis): the flat rows padded once to a multiple of
+                 the shard count, or the IVF inverted lists dealt per
+                 shard (``ShardedIVFZenIndex``). The index then lives on
+                 the mesh's first device (``device`` is not read) and is
+                 immutable.
       offload:   (IVF only) drop the packed tiles to a host pool after the
                  build (``index.ivf.TieredIVFZenIndex``): the centroids,
                  scales and the ``hot_clusters`` largest clusters (default
@@ -395,15 +434,17 @@ def build_index(
             "store already splits device/host residency on one host; "
             "degraded serving over its logical shards replaces mesh "
             "sharding (offload_shards=...)")
-    if mesh is not None:
-        raise not_ported("mesh sharding", "A4")
     pivots_lib.check_strategy(pivots)
     quant.check_storage(storage)
     if storage == "pq" and index != "ivf":
         raise ValueError(
             "storage='pq' is IVF-only (codes are per-cluster residuals); "
             "the flat layout takes " + "/".join(quant.SCALAR_STORAGE_DTYPES))
-    dev = resolve_device(device)
+    if storage == "pq" and mesh is not None:
+        raise NotImplementedError(
+            "storage='pq' is single-host for now; drop the mesh or pick "
+            "one of " + "/".join(quant.SCALAR_STORAGE_DTYPES))
+    dev = resolve_device(device) if mesh is None else mesh.first_device
     corpus = corpus.to(dev)
     tr = pivots_lib.select_references(corpus, k, ids=pivot_ids,
                                       generator=generator, metric=metric,
@@ -413,18 +454,33 @@ def build_index(
     if index == "ivf":
         n = coords.shape[0]
         n_clusters = n_clusters or max(1, min(n, int(round(4 * n ** 0.5))))
-        ivf = IVFZenIndex.build(
-            coords, n_clusters, tile_rows=tile_rows, n_iters=kmeans_iters,
-            generator=generator, storage=storage, pq_m=pq_m)
+        if mesh is not None:
+            ivf = ShardedIVFZenIndex.build(
+                coords, n_clusters, mesh=mesh, tile_rows=tile_rows,
+                n_iters=kmeans_iters, generator=generator, storage=storage)
+        else:
+            ivf = IVFZenIndex.build(
+                coords, n_clusters, tile_rows=tile_rows,
+                n_iters=kmeans_iters, generator=generator, storage=storage,
+                pq_m=pq_m)
         if offload:
             ivf = TieredIVFZenIndex.from_index(
                 ivf, hot_clusters=hot_clusters, n_shards=offload_shards,
                 prefetch_cols=prefetch_cols)
         return ZenIndex(transform=tr, coords=None, corpus=keep,
-                        storage=storage, ivf=ivf)
+                        storage=storage, ivf=ivf, mesh=mesh)
     coords, coord_scales = quant.encode_rows(coords, storage)
+    n_valid = None
+    if mesh is not None:
+        # pad once to a shard-divisible row count so no query batch pays
+        # the O(N) re-pad; the search masks rows >= n_rows
+        coords, n_valid = retrieval_lib.shard_rows(coords, mesh=mesh)
+        if coord_scales is not None:
+            coord_scales, _ = retrieval_lib.shard_rows(coord_scales,
+                                                       mesh=mesh)
     return ZenIndex(transform=tr, coords=coords, corpus=keep,
-                    storage=storage, coord_scales=coord_scales)
+                    storage=storage, coord_scales=coord_scales,
+                    n_valid=n_valid, mesh=mesh)
 
 
 def load_index_snapshot(
@@ -441,6 +497,11 @@ def load_index_snapshot(
 
     Args:
       directory: snapshot directory (``SERVER_SNAPSHOT_KIND``).
+      mesh:      a ``distributed.mesh.Mesh`` to reshard onto, whatever
+                 shard count saved it: flat rows re-padded and re-sharded
+                 (shard padding maps to the dead id -1), IVF members dealt
+                 into per-shard inverted lists. The index then lives on
+                 the mesh's first device (``device`` is not read).
       mmap:      memory-map the snapshot's arrays read-only instead of
                  reading them; for the tiered ``pool`` the cold tiles are
                  then served straight off the mapped files.
@@ -456,9 +517,10 @@ def load_index_snapshot(
     ``checkpoint.CheckpointFormatError`` for a snapshot of an unreadable
     version or another kind.
     """
-    if mesh is not None:
-        raise not_ported("loading onto a mesh", "A4")
-    dev = resolve_device(device)
+    if pool is not None and mesh is not None:
+        raise ValueError("pool=... and mesh are mutually exclusive (the "
+                         "tiered store is single-host)")
+    dev = resolve_device(device) if mesh is None else mesh.first_device
     arrays, meta = index_io.load_state(
         directory, expect_kind=SERVER_SNAPSHOT_KIND, mmap=mmap)
 
@@ -483,10 +545,30 @@ def load_index_snapshot(
                                          **dict(pool_kw or {}))
             # the server snapshot's generation is authoritative
             ivf.generation = generation
+        elif mesh is not None:
+            ivf = _sharded_from_snapshot(arrays, meta, mesh, prefix="ivf_")
         else:
             ivf = _ivf_from_snapshot(arrays, meta, dev, prefix="ivf_")
         index = ZenIndex(transform=tr, coords=None, corpus=corpus,
-                         storage=storage, generation=generation, ivf=ivf)
+                         storage=storage, generation=generation, ivf=ivf,
+                         mesh=mesh)
+    elif mesh is not None:
+        coords, n_valid = retrieval_lib.shard_rows(index_io.to_tensor(
+            arrays["coords"], "cpu", bfloat16=storage == "bfloat16"),
+            mesh=mesh)
+        row_ids = get("row_ids").to(torch.int32)
+        pad = coords.shape[0] - row_ids.shape[0]
+        if pad:  # shard-padding positions map to the dead id
+            row_ids = torch.cat([row_ids, row_ids.new_full((pad,), -1)])
+        coord_scales = None
+        if "coord_scales" in arrays:
+            coord_scales, _ = retrieval_lib.shard_rows(
+                index_io.to_tensor(arrays["coord_scales"], "cpu"),
+                mesh=mesh)
+        index = ZenIndex(transform=tr, coords=coords, corpus=corpus,
+                         n_valid=n_valid, row_ids=row_ids, storage=storage,
+                         coord_scales=coord_scales, generation=generation,
+                         mesh=mesh)
     else:
         index = ZenIndex(
             transform=tr,
@@ -547,6 +629,9 @@ class ZenServer:
         self._snapshot_dir: Optional[str] = None
         self._ft_shards: Tuple[str, ...] = ()
         self._degraded: Tuple[int, ...] = ()
+        # per-shard liveness of a sharded index, None while every shard
+        # is alive
+        self._alive_mask: Optional[np.ndarray] = None
         self.frontend: Optional[MicroBatchScheduler] = None
         if frontend:
             kw = {"clock": clock} if clock is not None else {}
@@ -586,8 +671,20 @@ class ZenServer:
         qp = index.transform.transform(queries)
         n_fetch = min(width, index.size)
         if index.ivf is not None:  # ids are the global ids of the tiles
+            # a sharded IVF takes the alive mask; the tiered store is
+            # masked up front instead (set_dead_shards)
+            kw = ({"alive": self._alive_mask}
+                  if self._alive_mask is not None and index.mesh is not None
+                  else {})
             d, ids = index.ivf.search(qp, n_neighbors=n_fetch,
-                                      nprobe=self.nprobe, mode=self.mode)
+                                      nprobe=self.nprobe, mode=self.mode,
+                                      **kw)
+        elif index.mesh is not None:
+            d, ids = retrieval_lib.sharded_knn_search(
+                qp, index.coords, n_neighbors=n_fetch, mode=self.mode,
+                mesh=index.mesh, chunk=self.chunk, scales=index.coord_scales,
+                alive=self._alive_mask)
+            d, ids = self._map_row_ids(d, ids, index)
         else:
             d, ids = zen_lib.knn_search(
                 qp, index.coords, n_neighbors=n_fetch, mode=self.mode,
@@ -733,9 +830,11 @@ class ZenServer:
     # -- fault tolerance ------------------------------------------------------
     def _default_shard_count(self) -> int:
         """Logical shard count of the index layout: a tiered index's
-        ``n_shards``, else 1."""
+        ``n_shards``, a sharded index's mesh size, else 1."""
         if self.index._is_tiered():
             return int(self.index.ivf.n_shards)
+        if self.index.mesh is not None:
+            return int(self.index.mesh.size)
         return 1
 
     def enable_fault_tolerance(self, shards=None, *,
@@ -748,7 +847,7 @@ class ZenServer:
           shards:      logical shard names expected to heartbeat: a count
                        (names ``shard0..shardN-1``) or a sequence of names.
                        Defaults to the index's own shards (a tiered index's
-                       ``n_shards``, else 1).
+                       ``n_shards``, a sharded index's mesh size, else 1).
           deadline_s:  silence longer than this marks a shard dead.
           clock:       monotonic time source (tests inject a fake).
           snapshot_dir: when set, a preemption notice (SIGTERM or
@@ -759,7 +858,9 @@ class ZenServer:
         Each shard's supervisor then calls :meth:`heartbeat`; every query
         and every frontend tick refreshes the verdicts (:meth:`on_tick`).
         A dead shard's clusters are masked out of a tiered index's probes
-        (``TieredIVFZenIndex.set_dead_shards``), so queries keep answering
+        (``TieredIVFZenIndex.set_dead_shards``) and a dead shard of a
+        sharded index out of its merge (the ``alive`` mask of
+        ``distributed.retrieval``), so queries keep answering
         from the survivors; ``stats()["degraded_shards"]`` reports the
         outage. Returns the registry.
         """
@@ -778,6 +879,7 @@ class ZenServer:
         self.preemption = PreemptionGuard(install_signal=install_signal)
         self._snapshot_dir = snapshot_dir
         self._degraded = ()
+        self._alive_mask = None
         return self.heartbeats
 
     def heartbeat(self, shard) -> None:
@@ -804,6 +906,10 @@ class ZenServer:
                 self._degraded = dead
                 if self.index._is_tiered():
                     self.index.ivf.set_dead_shards(dead)
+                elif self.index.mesh is not None:
+                    alive = np.ones(len(self._ft_shards), bool)
+                    alive[list(dead)] = False
+                    self._alive_mask = None if alive.all() else alive
                 # any other single-host index has nothing to mask: the
                 # registry still tracks external replicas for stats()
         guard = self.preemption
@@ -879,13 +985,21 @@ class ZenServer:
             arrays.update({f"ivf_{k}": v for k, v in ivf_arrays.items()})
             meta.update(ivf_meta)
         else:
-            row_ids = index._host_row_ids()
+            # raw storage-dtype rows and their per-row scales: a sharded
+            # index gathers its blocks without the shard padding
+            coords, scales = index.coords, index.coord_scales
+            if index.mesh is not None:
+                coords = retrieval_lib.host_rows(coords)
+                scales = None if scales is None else \
+                    retrieval_lib.host_rows(scales)
+            row_ids = index._host_row_ids()[:coords.shape[0]]
             live = row_ids >= 0
-            keep = index._on_device(np.flatnonzero(live))
-            arrays["coords"] = index.coords[keep]
+            keep = torch.as_tensor(np.flatnonzero(live),
+                                   device=coords.device)
+            arrays["coords"] = coords[keep]
             arrays["row_ids"] = row_ids[live].astype(np.int32)
-            if index.coord_scales is not None:
-                arrays["coord_scales"] = index.coord_scales[keep].to(f32)
+            if scales is not None:
+                arrays["coord_scales"] = scales[keep].to(f32)
             meta["storage"] = index.storage
         # the wrapper's churn counter is the published generation (set
         # after the IVF meta on purpose, as the reference does)
@@ -903,7 +1017,7 @@ class ZenServer:
         on ``device``: the same answers as before the save, with the saved
         settings (the frontend's included).
 
-        ``mmap`` and ``pool`` as in :func:`load_index_snapshot`;
+        ``mesh``, ``mmap`` and ``pool`` as in :func:`load_index_snapshot`;
         ``server_kw`` overrides the saved settings (``mode``,
         ``rerank_factor``, ``chunk``, ``nprobe``, ``frontend``,
         ``max_batch``, ``cache_size``, ...).

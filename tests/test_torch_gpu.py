@@ -1156,3 +1156,88 @@ def test_replica_swap_with_queries_in_flight_on_card(card_servers,
                    for g in (gen0, gen1))
     assert rep.released_generations() == (0,)
     assert not set(gen1[1].ravel().tolist()) & set(victims)
+
+
+# -- a reproducible IVF build, and sharded serving on the card -------------------
+
+
+def _snapshot_arrays(path):
+    from repro_torch.checkpoint import index_io
+
+    arrays, meta = index_io.load_state(str(path),
+                                       expect_kind=serve.SERVER_SNAPSHOT_KIND)
+    return {k: np.asarray(v) for k, v in arrays.items()}, meta
+
+
+@pytest.mark.parametrize("storage", ["float32", "int8", "pq"])
+def test_ivf_build_is_reproducible_on_the_card(cuda, storage, tmp_path):
+    """Two IVF builds of 100,000 rows from equal generators save the same
+    bytes: the k-means sums (and so the centroids, lists, int8 scales, PQ
+    codebooks and codes) do not depend on the order the card's threads
+    run in."""
+    from repro_torch.data import synthetic as syn
+
+    corpus = syn.manifold_space(
+        100_000, 64, 8, generator=torch.Generator(device=cuda).manual_seed(1))
+    snaps = []
+    for i in range(2):
+        index = serve.build_index(
+            corpus, 16, index="ivf", storage=storage, n_clusters=1_000,
+            generator=torch.Generator().manual_seed(0), device=cuda)
+        serve.ZenServer(index, nprobe=8).save(str(tmp_path / f"b{i}"))
+        snaps.append(_snapshot_arrays(tmp_path / f"b{i}"))
+    (a, meta_a), (b, meta_b) = snaps
+    assert meta_a == meta_b and sorted(a) == sorted(b)
+    for name in a:
+        assert a[name].tobytes() == b[name].tobytes(), name
+
+
+@pytest.fixture(scope="module")
+def sharded_corpus():
+    from repro_torch.data import synthetic as syn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the Hopper kernels cannot run here)")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    return (syn.manifold_space(200_003, 64, 8, generator=gen),
+            syn.manifold_space(64, 64, 8, generator=gen))
+
+
+@pytest.mark.parametrize("kind", ["flat", "flat_int8", "ivf", "ivf_int8"])
+def test_sharded_server_on_card_matches_single_device(sharded_corpus, kind,
+                                                      tmp_path):
+    """A 4-shard server (every card when there are four, else 4 logical
+    shards of cuda:0) answers as the single-device server, up to near
+    ties, launching the search kernel once a shard a batch: the flat one
+    reloaded from the single-device snapshot, the IVF one built from the
+    same generator (the same centroids, bytes and all)."""
+    from repro_torch.distributed import make_mesh
+
+    corpus, queries = sharded_corpus
+    storage = "int8" if kind.endswith("int8") else "float32"
+    kw = dict(index="ivf", n_clusters=500) if kind.startswith("ivf") else {}
+    single = serve.build_index(corpus, 16, storage=storage,
+                               generator=torch.Generator().manual_seed(0),
+                               device="cuda", **kw)
+    mesh = make_mesh(4)
+    if kind.startswith("ivf"):
+        sharded = serve.build_index(
+            corpus, 16, storage=storage, mesh=mesh,
+            generator=torch.Generator().manual_seed(0), **kw)
+        assert torch.equal(sharded.ivf.centroids, single.ivf.centroids)
+        kernel = ip.ivf_probe
+    else:
+        serve.ZenServer(single).save(str(tmp_path / "flat"))
+        sharded = serve.load_index_snapshot(str(tmp_path / "flat"),
+                                            mesh=mesh)[0]
+        kernel = zt.zen_topk
+    want = serve.ZenServer(single, nprobe=8, rerank_factor=4).query(
+        queries, 10)
+    server = serve.ZenServer(sharded, nprobe=8, rerank_factor=4)
+    before = kernel.launches
+    got = server.query(queries, 10)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 4
+    assert got[0].device == mesh.first_device
+    msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
+    assert msg is None, msg

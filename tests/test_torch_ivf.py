@@ -161,6 +161,52 @@ def test_kmeans_iterates_match_jax(seeds, n_iters):
     assert diff.size <= 1
 
 
+@pytest.mark.parametrize("case", ["spread", "empty_clusters",
+                                  "one_cluster_holds_every_row"])
+def test_segment_sums_match_a_float64_sum(case):
+    """The Lloyd update's per-cluster sums (a stable sort, then fixed-shape
+    float64 partial sums) equal a float64 numpy sum within f32 rounding,
+    with empty clusters and with one cluster of 3,000 rows (past one
+    fold of ``FOLD`` rows, so two levels); counts exact."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((3000, 5))
+         * 10.0 ** rng.uniform(-3, 3, (3000, 1))).astype(np.float32)
+    n_seg = 40
+    lab = rng.integers(0, n_seg, 3000)
+    if case == "empty_clusters":
+        lab[lab == 7] = 8
+        lab[lab == n_seg - 1] = 0
+    elif case == "one_cluster_holds_every_row":
+        lab[:] = 5
+    assert 3000 > tkmeans.FOLD
+    sums, counts = tkmeans.segment_sums(torch.from_numpy(x),
+                                        torch.from_numpy(lab), n_seg)
+    want = np.zeros((n_seg, 5))
+    np.add.at(want, lab, x.astype(np.float64))
+    mass = np.zeros((n_seg, 5))
+    np.add.at(mass, lab, np.abs(x.astype(np.float64)))
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(lab, minlength=n_seg))
+    got = sums.to(torch.float32).numpy().astype(np.float64)
+    assert (np.abs(got - want) <= 2.0 ** -24 * mass + 1e-30).all()
+    empty = np.bincount(lab, minlength=n_seg) == 0
+    assert (sums.numpy()[empty] == 0).all()
+    again = tkmeans.segment_sums(torch.from_numpy(x), torch.from_numpy(lab),
+                                 n_seg)[0]
+    assert torch.equal(again, sums)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 5000])
+def test_prefix_sums_match_cumsum(n):
+    """The seeding's prefix sums (block scans of FOLD-row pieces, then of
+    the piece totals) are the float64 cumulative sums."""
+    w = np.random.default_rng(n).uniform(0, 3, n).astype(np.float32)
+    got = tkmeans.prefix_sums(torch.from_numpy(w))
+    assert got.dtype == torch.float64 and got.shape == (n,)
+    np.testing.assert_allclose(got.numpy(), np.cumsum(w.astype(np.float64)),
+                               rtol=1e-13, atol=0)
+
+
 def test_kmeans_seeding_draws_distinct_rows_from_the_generator():
     x = torch.from_numpy(_coords(2, 500, 5))
     g = torch.Generator().manual_seed(4)

@@ -275,18 +275,28 @@ def test_exact_rerank_matches_jax(metric):
 
 
 def test_unported_options_raise_naming_the_roadmap_item():
-    """Mesh sharding is still to port (ROADMAP A4) and raises naming it; the
-    frontend (A2) and fault tolerance (A3), which once raised here, now
-    serve."""
+    """Mesh sharding (ROADMAP A4), the frontend (A2) and fault tolerance
+    (A3), which once raised here, now serve: flat and IVF indexes built on
+    a CPU mesh of 2 logical shards answer as the unsharded ones from the
+    same generator; PQ storage on a mesh raises the reference's
+    ``NotImplementedError``, as the JAX package does."""
+    from repro_torch.distributed import make_mesh
+
     x = torch.randn((40, 6), generator=torch.Generator().manual_seed(1))
-    for kw in [{"mesh": object()}, {"index": "ivf", "mesh": object()}]:
-        with pytest.raises(NotImplementedError, match="A4"):
-            tserve.build_index(x, 4, device="cpu", **kw)
-    for make in [tivf.ShardedIVFZenIndex.build, tivf.ShardedIVFZenIndex]:
-        with pytest.raises(NotImplementedError, match="A4"):
-            make(x, 4)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tserve.ZenServer.load("x", mesh=object())
+    mesh = make_mesh(2, device="cpu")
+    for kw in [{}, {"index": "ivf", "n_clusters": 4}]:
+        built = [tserve.build_index(
+            x, 4, generator=torch.Generator().manual_seed(2), **kw, **where)
+            for where in ({"device": "cpu"}, {"mesh": mesh})]
+        assert built[1].mesh is mesh and built[1].size == 40
+        want, got = (tserve.ZenServer(b, nprobe=4).query(x[:3], 5)
+                     for b in built)
+        assert torch.equal(got[1], want[1])
+        np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), **SAME)
+    with pytest.raises(NotImplementedError, match="single-host"):
+        tserve.build_index(x, 4, index="ivf", storage="pq", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="single-host"):
+        tivf.ShardedIVFZenIndex.build(x, 4, mesh=mesh, storage="pq")
     index = tserve.build_index(x, 4, device="cpu")
     q = x[:3]
     frontend = tserve.ZenServer(index, frontend=True)

@@ -441,8 +441,9 @@ def _saved(server, path):
 
 def test_unported_snapshot_options_raise(tmp_path):
     """A snapshot of a JAX server with the frontend on loads with its
-    frontend settings (it raised while the frontend was unported);
-    loading onto a mesh still raises, naming ROADMAP A4."""
+    frontend settings (it raised while the frontend was unported), and
+    onto a CPU mesh of 2 logical shards (it raised while mesh sharding,
+    ROADMAP A4, was unported) with the same answers."""
     jsv, q = _jax_server("flat", "float32", False)
     jsv.frontend = object()  # saved as a server with the frontend on
     jsv.max_batch, jsv.cache_size = 32, 256
@@ -454,9 +455,13 @@ def test_unported_snapshot_options_raise(tmp_path):
     jsv.frontend = None
     _close(back.query(torch.from_numpy(q), NN),
            jsv.query(jnp.asarray(q), NN))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tserve.ZenServer.load(str(tmp_path / "fe"), mesh=object(),
-                              device="cpu")
+    from repro_torch.distributed import make_mesh
+
+    sharded = tserve.ZenServer.load(str(tmp_path / "fe"),
+                                    mesh=make_mesh(2, device="cpu"))
+    assert sharded.index.mesh is not None and sharded.frontend is not None
+    _close(sharded.query(torch.from_numpy(q), NN),
+           jsv.query(jnp.asarray(q), NN))
 
 
 def test_cli_checkpoint_roundtrip_with_offload(tmp_path, capsys):
