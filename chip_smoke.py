@@ -154,13 +154,34 @@ Phases:
      their plain versions'; the 4-shard IVF save reloaded onto 2 shards and
      onto no mesh answers the same; storage='pq' with a mesh raises. The
      sharded flat and IVF f32 servers are profiled as in phases 4 and 8.
+ 21. the trainer (repro_torch.launch.train) at full width: dlrm-rm2 (26
+     Criteo tables, 33,762,816 x 64 f32) 12 steps at the train_batch
+     cell's B = 65,536 through the CLI's function: loss finite and falling
+     (steps 0 and 11), ms a step (median of the last 8), samples/s, peak
+     device memory (at most 48 GB); autoint and wide-deep 3 steps at B,
+     xdeepfm at B = 4,096 (its CIN's saved activations: 20.4 GB a layer at
+     65,536), autoint with --compress-grads; at full autoint width, 3
+     steps, save_async + wait, 3 steps, a restore and the same 3 steps
+     again: losses and every parameter byte equal; 2 reduced steps of each
+     architecture on the card against the CPU (rtol 1e-4, atol 1e-6);
+ 22. learned embeddings into Zen serving: the two-tower model (dlrm-rm2's
+     tables as the user tower, 1,000,000 x 64 items) trains 50 steps at B
+     = 4,096, 5 epochs of 10 batches (in_batch_acc must rise; a held-out
+     batch's beside it), build_index(index="ivf", k = 16) on
+     the raw item tower as phase 8 builds, 8 batches of 64 user_repr
+     queries through ZenServer (Lwb, nprobe 8, re-rank 4): recall@10
+     against an exact Euclidean top-10 (Zen's beside it), p50/p99,
+     ivf_probe launches; 5 more steps, the upsert of every item they
+     touched, the batches again through the frontend and direct:
+     bit-equal, none answered from the cache's old generation, and every
+     upserted item's own vector finds it in its top-10.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12. Phase 3 also holds zen_topk at
-widths up to 16,384 (lists in global memory) and k = 300, phase 7 the
-probes at widths up to 16,384 and PQ at M = 256, phase 14 zen_estimate at
-k = 300 and 600 and every dense kernel past 65,535 grid rows of column
-tiles; phase 12 also times the staging copy of the coords and of the ids
+kernel); phases 17-20 run after phase 12, phases 21 and 22 last. Phase 3
+also holds zen_topk at widths up to 16,384 (lists in global memory) and
+k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
+phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
+65,535 grid rows of column tiles; phase 12 also times the staging copy of the coords and of the ids
 apart, and splits a tiered request's host time into the gather of cold
 tiles and the waits on the staging slots' copies.
 Prints one JSON line of kernel records, the nvidia-smi line, and last the
@@ -215,6 +236,24 @@ WIDE_N = (65, 128, 300)
 #: Programming Guide, arithmetic instruction throughput, compute
 #: capability 9.0)
 SFU_PER_CLOCK = 16
+#: phase 21: dlrm-rm2's steps (the median of the last 8 is the step time)
+#: and the bound on the trainer's peak device memory at its full width
+#: (parameters, gradients, mu and nu: 4 x 8.64 GB for the table)
+TRAIN_STEPS, TRAIN_PEAK_BYTES = 12, 48e9
+#: phase 21: xDeepFM's batch on one card; its CIN keeps (B, 200 x 39, 10)
+#: f32 a layer for backward, 20.4 GB at the cell's 65,536
+XDEEPFM_BATCH = 4_096
+#: phase 22: the two-tower model's batch, steps, the steps trained again
+#: before the upsert, and its learning rate (benchmarks/retrieval_e2e.py's).
+#: It trains epochs over a dataset of TT_DATASET batches: at the Criteo
+#: vocabularies a click's (user pattern -> item) pair seldom recurs in a
+#: stream of fresh batches (the item hashes a 10M-value field), so the
+#: in-batch accuracy of a fresh batch stays at chance within 50 steps; the
+#: phase prints that accuracy on a held-out batch beside the training one
+TT_BATCH, TT_STEPS, TT_MORE, TT_LR, TT_DATASET = 4_096, 50, 5, 3e-3, 10
+#: phases 21 and 22: a train step on the card against the same step on the
+#: CPU, the tolerance of the CPU parity tests (tests/test_torch_train.py)
+STEP_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def log(*a):
@@ -277,6 +316,13 @@ def queued_ms(fn, iters: int) -> float:
 def profile_serving(server, batches) -> None:
     """Device time by kernel over a few served batches (torch.profiler),
     and the device's busy share of the wall time."""
+    profile_device(lambda: [server.query(q, 10) for q in batches],
+                   f"{len(batches)} batches")
+
+
+def profile_device(fn, label: str, top: int = 8) -> None:
+    """Device time by kernel of ``fn()`` (torch.profiler), and the
+    device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,8 +330,7 @@ def profile_serving(server, batches) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for q in batches:
-            server.query(q, 10)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     # device-side events only: an operator's row repeats its kernels' time
@@ -294,12 +339,13 @@ def profile_serving(server, batches) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"    profile of {len(batches)} batches (profiler on): wall "
+    log(f"    profile of {label} (profiler on): wall "
         f"{wall_us:.0f} us, device busy {busy:.0f} us "
         f"({busy / wall_us:.1%}); by kernel:")
-    for us, count, key in rows[:8]:
+    for us, count, key in rows[:top]:
         log(f"      {us:9.1f} us  {us / max(busy, 1e-9):6.1%}  x{count:<4d} "
             f"{key[:90]}")
+
 
 def probe_cost(index, probes, n: int, luts=None):
     """(bytes, f32 operations) the probe of ``probes`` (Q, P) over ``index``
@@ -2497,6 +2543,359 @@ def time_dense(corpus, transform, gen, smi: str):
     return records
 
 
+def check_trainer(dev, smi: str) -> None:
+    """Phase 21: ``repro_torch.launch.train`` at full width. dlrm-rm2 takes
+    TRAIN_STEPS steps at the train_batch cell's B through the CLI's
+    function (loss finite and falling, step time, samples/s, peak device
+    memory under TRAIN_PEAK_BYTES, the batch as ``configs.input_specs``
+    gives it); autoint and wide-deep 3 steps at B, xdeepfm at
+    XDEEPFM_BATCH; autoint with --compress-grads; a resumed autoint run
+    at full width bit-equal to an uninterrupted one; a reduced step of
+    each architecture on the card against the CPU."""
+    import functools
+    import tempfile
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = C.get_arch("dlrm-rm2")
+    cell = spec.cell("train_batch")
+    B = cell.dims["batch"]
+    held = torch.cuda.memory_allocated(dev)
+    log(f"[21] the trainer at full width, the {cell.shape} cell (B = {B:,}); "
+        f"{smi}; earlier phases hold {held / 1e9:.2f} GB")
+
+    def run(arch, batch, steps, *extra):
+        out = train.main(["--arch", arch, "--steps", str(steps), "--batch",
+                          str(batch), "--device", str(dev), *extra])
+        losses = out["losses"]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            fail(f"{arch} {' '.join(extra)}: losses {losses}")
+        ms = float(np.median(out["step_s"][-8:])) * 1e3
+        return out, ms
+
+    out, ms = run("dlrm-rm2", B, TRAIN_STEPS)
+    losses, peak = out["losses"], out["peak_bytes"]
+    if not losses[-1] < losses[0]:
+        fail(f"dlrm-rm2's loss did not fall: {losses}")
+    want = {k: (v.shape, v.dtype) for k, v in C.input_specs(
+        spec, spec.make_config(), cell)["batch"].items()}
+    if out["batch_shapes"] != want:
+        fail(f"the pipeline's batch {out['batch_shapes']} is not the "
+             f"cell's {want}")
+    if peak > TRAIN_PEAK_BYTES:
+        fail(f"dlrm-rm2's peak device memory {peak / 1e9:.2f} GB is past "
+             f"{TRAIN_PEAK_BYTES / 1e9:.0f} GB")
+    cfg = spec.make_config()
+    mlp = "-".join
+    log(f"    dlrm-rm2 ({cfg.n_sparse} tables, {cfg.padded_rows:,} x "
+        f"{cfg.embed_dim} f32, bottom MLP "
+        f"{mlp(map(str, (cfg.n_dense,) + cfg.bot_mlp))}, top MLP "
+        f"{mlp(map(str, cfg.top_mlp))}), B = {B:,}, {TRAIN_STEPS} steps: "
+        f"{ms:.2f} ms a "
+        f"step (median of the last 8; every step "
+        f"{np.round(np.asarray(out['step_s']) * 1e3, 1).tolist()} ms), "
+        f"{B / ms * 1e3:,.0f} samples/s; loss {losses[0]:.5f} at step 0, "
+        f"{losses[-1]:.5f} at step {TRAIN_STEPS - 1}; peak device memory "
+        f"{peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} GB above the "
+        f"earlier phases'); the batch is the cell's input spec")
+    step_batch = train.batch_fn(cfg, seed=0, batch=B, device=dev)(TRAIN_STEPS)
+    profile_device(lambda: out["trainer"].step(step_batch),
+                   "one dlrm-rm2 step", top=12)
+    del out, step_batch
+    torch.cuda.empty_cache()
+    for arch, batch, extra in (("autoint", B, ()), ("wide-deep", B, ()),
+                               ("xdeepfm", XDEEPFM_BATCH, ()),
+                               ("autoint", B, ("--compress-grads",))):
+        out, ms = run(arch, batch, 3, *extra)
+        log(f"    {arch} {' '.join(extra)}: B = {batch:,}, 3 steps, loss "
+            f"{out['losses'][0]:.5f} -> {out['losses'][-1]:.5f}, "
+            f"{out['step_s'][-1] * 1e3:.2f} ms the last step "
+            f"({batch / out['step_s'][-1]:,.0f} samples/s), peak "
+            f"{out['peak_bytes'] / 1e9:.2f} GB")
+        del out
+        torch.cuda.empty_cache()
+
+    # the gather's backward on ids that repeat thousands of times a batch
+    # (the reduced tables' 512 rows under B x 8 lookups): the same bits in
+    # every run, and against the CPU's sequential sums
+    red = C.get_arch("dlrm-rm2").make_reduced()
+    ids = train.batch_fn(red, seed=0, batch=B, device=dev)(0)["sparse"]
+    ids = ids.long() + torch.tensor(red.offsets, device=dev)
+    go = torch.randn((*ids.shape, red.embed_dim), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    table = torch.zeros((red.padded_rows, red.embed_dim), device=dev,
+                        requires_grad=True)
+    grads = [torch.autograd.grad(recsys.gather_rows(table, ids), table,
+                                 go)[0] for _ in range(3)]
+    if not all(torch.equal(grads[0], g) for g in grads[1:]):
+        fail("the gather's backward differs run to run on the card")
+    cpu_table = table.detach().cpu().requires_grad_(True)
+    want = torch.autograd.grad(recsys.gather_rows(cpu_table, ids.cpu()),
+                               cpu_table, go.cpu())[0]
+    gather_err = float((grads[0].cpu() - want).abs().max())
+    if not torch.allclose(grads[0].cpu(), want, **STEP_TOL):
+        fail(f"the gather's backward on the card is not the CPU's: max "
+             f"|diff| {gather_err}")
+    log(f"    the gather's backward, {ids.numel():,} ids on "
+        f"{red.padded_rows} rows: 3 runs bit-equal on the card; against "
+        f"the CPU {'bit-equal' if gather_err == 0 else f'max |diff| {gather_err:.3g}'}")
+    del grads, table, go
+
+    # a resumed run at full autoint width is the uninterrupted run's bits
+    cfg = C.get_arch("autoint").make_config()
+    make = train.batch_fn(cfg, seed=0, batch=B, device=dev)
+    tr = train.recsys_trainer(cfg, seed=0, device=dev)
+
+    def steps(start):
+        return [tr.step(make(s))[0].item() for s in range(start, start + 3)]
+
+    steps(0)
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   (*tr.params.values(), *tr.opt_state.mu.values(),
+                    *tr.opt_state.nu.values())) / 1e9
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t = time.perf_counter()
+        mgr.save_async(3, tr.state_tree())
+        copy_s = time.perf_counter() - t
+        mgr.wait()
+        save_s = time.perf_counter() - t
+        after = steps(3)
+        want = {n: p.detach().clone() for n, p in tr.params.items()}
+        t = time.perf_counter()
+        step, tree = mgr.restore(like=tr.state_tree())
+        tr.load_state_tree(tree)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    if step != 3:
+        fail(f"restored step {step}, not 3")
+    again = steps(3)
+    if again != after:
+        fail(f"resumed autoint losses {again} differ from the uninterrupted "
+             f"run's {after}")
+    bad = [n for n, p in tr.params.items() if not torch.equal(p, want[n])]
+    if bad:
+        fail(f"resumed autoint parameters differ from the uninterrupted "
+             f"run's: {bad}")
+    log(f"    restart at full autoint width ({state_gb:.2f} GB of "
+        f"parameters, mu and nu): steps 3-5 after a restore of step 3 equal "
+        f"the uninterrupted run's, losses and every parameter byte; "
+        f"save_async {copy_s:.2f} s to the host, {save_s:.2f} s written; "
+        f"restore {restore_s:.2f} s")
+    del tr, want
+    torch.cuda.empty_cache()
+
+    # one reduced step on the card against the same step on the CPU
+    worst = 0.0
+    for arch in C.list_archs():
+        cfg = C.get_arch(arch).make_reduced()
+
+        def trainer(device):
+            model = recsys.init_params(
+                cfg, generator=torch.Generator().manual_seed(0))
+            return train.Trainer(model.to(device),
+                                 functools.partial(recsys.loss_fn, cfg))
+
+        cpu, card = trainer("cpu"), trainer(dev)
+        batch = train.batch_fn(cfg, seed=0, batch=512, device="cpu")(0)
+        for s in range(2):
+            want = cpu.step(batch)[0].item()
+            got = card.step({k: v.to(dev) for k, v in batch.items()})[0]
+            if not np.isclose(got.item(), want, **STEP_TOL):
+                fail(f"{arch} reduced: the card's loss {got.item()} at step "
+                     f"{s} against the CPU's {want}")
+        for name, p in cpu.params.items():
+            q = card.params[name].detach().cpu()
+            if not torch.allclose(q, p.detach(), **STEP_TOL):
+                fail(f"{arch} reduced: {name} after 2 steps on the card "
+                     f"differs from the CPU's")
+            worst = max(worst, float((q - p.detach()).abs().max()))
+    log(f"    2 reduced steps of {C.list_archs()} on the card equal the "
+        f"CPU's (rtol {STEP_TOL['rtol']}, atol {STEP_TOL['atol']}; max "
+        f"|param diff| {worst:.3g}); {time.perf_counter() - t0:.1f} s")
+
+
+def check_learned_serving(dev, smi: str) -> None:
+    """Phase 22: learned embeddings into Zen serving. The two-tower model
+    at full width (dlrm-rm2's Criteo tables as the user tower, the
+    retrieval_cand cell's n_candidates x 64 items) trains TT_STEPS steps
+    of TT_BATCH, epochs over TT_DATASET batches (in_batch_acc must rise);
+    its raw item tower is indexed as
+    phase 8 builds (IVF, k = 16) and serves 8 batches of 64 ``user_repr``
+    queries through ZenServer (recall@10 against an exact Euclidean
+    top-10, p50/p99, ivf_probe launches); TT_MORE more steps, the upsert
+    of every item those steps touched, and the batches again through the
+    frontend and direct: bit-equal, none answered from the cache's old
+    generation, each upserted item's own vector finds it in its top-10.
+
+    The server ranks with Lwb: the Zen estimator has no identity (zen(x,
+    x) = sqrt(2) x altitude), so a row's own vector need not be among its
+    first-stage candidates; Lwb's is 0, and the probe's cluster order is
+    then the quantizer's (both Euclidean in the apex space). Zen's recall
+    on the same batches is printed beside it."""
+    import functools
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.launch import serve, train
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamW
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = C.get_arch("dlrm-rm2")
+    cfg = spec.make_config()
+    n_items = spec.cell("retrieval_cand").dims["n_candidates"]
+    log(f"[22] learned embeddings into Zen serving: two towers, users "
+        f"{cfg.padded_rows:,} x {cfg.embed_dim} (dlrm-rm2's {cfg.n_sparse} "
+        f"tables), items {n_items:,} x {cfg.embed_dim}; {smi}")
+    model = recsys.init_two_tower_params(
+        cfg, n_items, generator=torch.Generator(device=dev).manual_seed(22))
+    tr = train.Trainer(model, functools.partial(recsys.two_tower_loss, cfg),
+                       opt=AdamW(learning_rate=TT_LR))
+
+    def batch(seed, step, n=TT_BATCH):
+        return syn.two_tower_batch(n, cfg.vocab_sizes, n_items,
+                                   generator=syn.batch_generator(seed, step,
+                                                                 dev))
+
+    losses, accs, step_s = [], [], []
+    for s in range(TT_STEPS):
+        b = batch(0, s % TT_DATASET)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, aux = tr.step(b)
+        losses.append(loss.item())
+        accs.append(aux["in_batch_acc"].item())
+        step_s.append(time.perf_counter() - t)
+    if not np.isfinite(losses).all():
+        fail(f"two-tower losses not finite: {losses}")
+    first, last = np.mean(accs[:5]), np.mean(accs[-5:])
+    if not last > first:
+        fail(f"in_batch_acc did not rise: {accs}")
+    with torch.no_grad():
+        held_out = recsys.two_tower_loss(cfg, model, batch(2, 0))[1]
+    log(f"    {TT_STEPS} steps of B = {TT_BATCH:,} ({TT_STEPS // TT_DATASET} "
+        f"epochs of {TT_DATASET} batches, lr {TT_LR}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, in_batch_acc (mean of 5 "
+        f"steps) {first:.4f} -> {last:.4f}, on a held-out batch "
+        f"{held_out['in_batch_acc'].item():.4f}; "
+        f"{np.median(step_s) * 1e3:.2f} ms a step")
+
+    k = 16
+    items = model.items.detach().clone()  # the raw tower, frozen
+    t = time.perf_counter()
+    index = serve.build_index(items, k, index="ivf", n_clusters=N_CLUSTERS,
+                              tile_rows=TILE_ROWS,
+                              generator=torch.Generator().manual_seed(0),
+                              device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    with torch.no_grad():
+        queries = [recsys.user_repr(cfg, model, batch(1, s, 64))
+                   for s in range(9)]
+    fe = serve.ZenServer(index, mode="lwb", nprobe=NPROBE, rerank_factor=4,
+                         frontend=True, max_batch=64, cache_size=1_024)
+    fe.query(queries[0], 10, direct=True)  # warm-up
+    ip.ivf_probe.launches = 0
+    lat, recalls = [], []
+    for q in queries[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, ids = fe.query(q, 10, direct=True)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        if d.shape != (64, 10) or not torch.isfinite(d).all():
+            fail(f"learned serving: distances not finite of shape (64, 10):"
+                 f" {tuple(d.shape)}")
+        recalls.append(serve.recall(ids, serve.exact_topk(q, items, 10)))
+    launches = ip.ivf_probe.launches
+    if launches == 0:
+        fail("learned serving never launched ivf_probe")
+    zen = serve.ZenServer(index, nprobe=NPROBE, rerank_factor=4)
+    zen_recall = np.mean([serve.recall(zen.query(q, 10)[1],
+                                       serve.exact_topk(q, items, 10))
+                          for q in queries[1:]])
+    lat_ms = np.asarray(lat) * 1e3
+    log(f"    build_index(index='ivf', k = {k}) on the raw item tower: "
+        f"{build_s:.2f} s, {index.ivf.n_clusters} clusters, T = "
+        f"{index.ivf.tiles_per_cluster}; 8 batches x 64 user_repr queries "
+        f"(Lwb, nprobe {NPROBE}, re-rank 4): recall@10 "
+        f"{np.mean(recalls):.4f} (min batch {np.min(recalls):.4f}; Zen "
+        f"{zen_recall:.4f}), p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.3f} ms; ivf_probe launches {launches}")
+
+    # the cache holds every batch at this generation, then the tower moves
+    sched = fe.frontend
+    cached = [fe.query(q, 10) for q in queries[1:]]
+    for got, q in zip(cached, queries[1:]):
+        if not _same_bits(got, fe.query(q, 10, direct=True)):
+            fail("learned serving: scheduled and direct answers differ "
+                 "before the upsert")
+    live = sched.submit(queries[1], 10)  # the cache is live
+    if not (live.done() and _same_bits(live.result(), cached[0])):
+        fail("learned serving: a resubmitted batch was not a cache hit "
+             "equal to its miss")
+    touched = []
+    for s in range(TT_STEPS, TT_STEPS + TT_MORE):
+        b = batch(0, s % TT_DATASET)
+        tr.step(b)
+        touched.append(b["items"])
+    touched = torch.unique(torch.cat(touched)).long()
+    gen0 = fe.index.generation
+    t = time.perf_counter()
+    fe.upsert(touched.tolist(), model.items.detach()[touched])
+    torch.cuda.synchronize()
+    upsert_s = time.perf_counter() - t
+    items[touched] = model.items.detach()[touched]
+    ip.ivf_probe.launches = 0
+    hits0 = sched.stats.cache_hits
+    recalls = []
+    for q in queries[1:]:
+        handle = sched.submit(q, 10)
+        if handle.done():
+            fail("learned serving: the cache answered from the old "
+                 "generation")
+        sched.flush()
+        direct = fe.query(q, 10, direct=True)
+        if not _same_bits(handle.result(), direct):
+            fail("learned serving: scheduled and direct answers differ "
+                 "after the upsert")
+        recalls.append(serve.recall(direct[1], serve.exact_topk(q, items,
+                                                                 10)))
+    if sched.stats.cache_hits != hits0:
+        fail(f"learned serving: {sched.stats.cache_hits - hits0} rows "
+             f"answered from the cache's old generation")
+    misses = 0
+    for lo in range(0, touched.numel(), 64):
+        ids = touched[lo:lo + 64]
+        _, got = fe.query(model.items.detach()[ids], 10, direct=True)
+        misses += int((~(got.long() == ids[:, None]).any(1)).sum())
+    if misses:
+        fail(f"learned serving: {misses} of {touched.numel():,} upserted "
+             f"items do not find themselves in their top-10")
+    if ip.ivf_probe.launches == 0:
+        fail("learned serving after the upsert never launched ivf_probe")
+    log(f"    {TT_MORE} more steps, upsert of the {touched.numel():,} items "
+        f"they touched: {upsert_s:.2f} s, generation {gen0} -> "
+        f"{fe.index.generation}, T = {fe.index.ivf.tiles_per_cluster}; "
+        f"scheduled and direct answers bit-equal, none from the old "
+        f"generation ({hits0} cache hits before the upsert, none after); "
+        f"recall@10 "
+        f"{np.mean(recalls):.4f}; every upserted item's own vector finds it"
+        f" in its top-10; ivf_probe launches {ip.ivf_probe.launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -2883,6 +3282,14 @@ def main() -> None:
 
     # -- 16. the dense kernels at their working shapes -----------------------
     dense_records = time_dense(corpus, tr, gen, smi)
+
+    # -- 21. the trainer at full width ------------------------------------------
+    del corpus, full_corpus, index, server, batches, small, queries, tr
+    torch.cuda.empty_cache()
+    check_trainer(torch.device("cuda"), smi)
+
+    # -- 22. learned embeddings into Zen serving ---------------------------------
+    check_learned_serving(torch.device("cuda"), smi)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",

@@ -1,4 +1,6 @@
-"""Versioned, atomic on-disk snapshots of serving indexes."""
+"""Versioned, atomic on-disk snapshots of serving indexes (``index_io``) and
+the trainer's checkpoints (``checkpoint``, the reference's format)."""
+from .checkpoint import CheckpointManager
 from .index_io import (
     INDEX_FORMAT,
     INDEX_FORMAT_VERSION,
@@ -11,6 +13,7 @@ from .index_io import (
 
 __all__ = [
     "CheckpointFormatError",
+    "CheckpointManager",
     "INDEX_FORMAT",
     "INDEX_FORMAT_VERSION",
     "READABLE_VERSIONS",

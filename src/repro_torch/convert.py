@@ -11,10 +11,14 @@ index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
 ``index.ivf.TieredIVFZenIndex`` (``centroids``, ``host_coords``,
 ``host_ids``, ``host_scales``, ``hot_clusters``, ...); the baselines are
 ``core.baselines``' ``PCATransform``, ``RandomProjection``,
-``MDSTransform`` and ``LMDSTransform`` (their fields by name). Feeding
+``MDSTransform`` and ``LMDSTransform`` (their fields by name); the
+recsys models are ``models.recsys``' parameter pytrees and the optimiser
+state ``optim.AdamWState``. Feeding
 both packages one fitted state lets a test hold the search path, or a
 baseline's transform, to the reference without the fit's float noise (or
-the k-means and RP draws, or the SVD/eigh sign choices) in between.
+the k-means and RP draws, or the SVD/eigh sign choices) in between; and
+one set of weights lets it hold a model's forward, gradients and training
+steps to the reference (``jax.random`` cannot be replayed).
 """
 from __future__ import annotations
 
@@ -26,12 +30,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import index_io
+from repro_torch.checkpoint.checkpoint import flat_state
 from repro_torch.core import baselines
 from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
 from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.kernels import quantize as quant
 from repro_torch.launch.serve import ZenIndex
+from repro_torch.models import recsys
+from repro_torch.optim import AdamWState
 
 
 def _tensor(a, dev, dtype=None) -> torch.Tensor:
@@ -175,3 +182,31 @@ def baseline_from_arrays(kind: str, *, k: int, device=None, **arrays):
     return cls(k=int(k), **{
         name: None if a is None else _tensor(a, dev, torch.float32)
         for name, a in arrays.items()})
+
+
+def _flat_tensors(tree, dev) -> dict:
+    """A nested pytree of arrays as dotted name -> tensor (dtype kept)."""
+    return {k: torch.as_tensor(np.array(v), device=dev)
+            for k, v in flat_state(tree).items()}
+
+
+def recsys_params_from_arrays(cfg: recsys.RecsysConfig, tree: dict, *,
+                              device=None):
+    """The port's model holding exactly this parameter pytree: a
+    ``RecsysModel`` from ``init_params``' tree, a ``TwoTowerModel`` from
+    ``init_two_tower_params``' (it has ``items``)."""
+    dev = resolve_device(device)
+    model = (recsys.TwoTowerModel(cfg, int(np.asarray(tree["items"])
+                                           .shape[0]), device=dev)
+             if "items" in tree else recsys.RecsysModel(cfg, device=dev))
+    model.load_state_dict(_flat_tensors(tree, dev), strict=True)
+    return model
+
+
+def adamw_state_from_arrays(tree, *, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the reference's ``(step, mu, nu)``."""
+    dev = resolve_device(device)
+    step, mu, nu = tree
+    return AdamWState(
+        step=torch.as_tensor(np.array(step), dtype=torch.int32, device=dev),
+        mu=_flat_tensors(mu, dev), nu=_flat_tensors(nu, dev))

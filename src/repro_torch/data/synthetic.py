@@ -1,4 +1,5 @@
-"""Synthetic data generators (PyTorch counterpart of ``repro.data.synthetic``).
+"""Synthetic data generators (PyTorch counterpart of ``repro.data.synthetic``):
+the paper's spaces and the recsys click batches.
 
 Draws come from a ``torch.Generator``: the distributions are the JAX
 package's, the bits are not (``jax.random`` streams cannot be replayed).
@@ -61,3 +62,60 @@ def probability_space(n: int, dim: int, intrinsic: Optional[int] = None, *,
         x = torch.nn.functional.softplus(
             manifold_space(n, dim, intrinsic, generator=generator))
     return x / torch.clamp_min(torch.sum(x, dim=1, keepdim=True), 1e-12)
+
+
+# -- model-family batches ---------------------------------------------------------
+
+
+def batch_generator(seed: int, step: int, device=None) -> torch.Generator:
+    """The generator of batch ``step`` of stream ``seed``: a fresh generator
+    seeded from the pair, so a batch is a pure function of (seed, step) and
+    a restarted trainer gets the same batches (on the same device type)."""
+    if not (0 <= seed < 2**31 and 0 <= step < 2**32):
+        raise ValueError(f"seed {seed} / step {step} out of range")
+    gen = torch.Generator(device=device if device is not None else "cpu")
+    return gen.manual_seed((seed << 32) | step)
+
+
+def recsys_batch(batch: int, vocab_sizes, n_dense: int = 0, *,
+                 generator: torch.Generator) -> dict:
+    """Criteo-shaped click log: Zipf-skewed (``u**3``) sparse ids per field,
+    Bernoulli(0.25) labels and, with ``n_dense``, normal dense features;
+    drawn on the generator's device."""
+    dev = generator.device
+    maxes = torch.as_tensor(tuple(vocab_sizes), dtype=torch.int32,
+                            device=dev)
+    u = torch.rand((batch, len(vocab_sizes)), generator=generator,
+                   device=dev)
+    # zipf-ish skew: hot rows are hit much more often (realistic table
+    # traffic); the product is f32 and truncates, as the reference's
+    sparse = torch.minimum((u**3 * maxes[None, :].float()).to(torch.int32),
+                           maxes[None, :] - 1)
+    labels = (torch.rand((batch,), generator=generator, device=dev)
+              < 0.25).float()
+    out = {"sparse": sparse, "labels": labels}
+    if n_dense:
+        out["dense"] = torch.randn((batch, n_dense), generator=generator,
+                                   device=dev)
+    return out
+
+
+def item_hash(sparse: Tensor, n_items: int) -> Tensor:
+    """The positive item of each user row: a hash of its three leading
+    fields with the multipliers 131 + 62 j, in int32 arithmetic that wraps
+    as the reference's does, then a floor modulo ``n_items``."""
+    n_hash = min(3, sparse.shape[1])
+    mult = 131 + 62 * torch.arange(n_hash, dtype=torch.int64,
+                                   device=sparse.device)
+    total = (sparse[:, :n_hash].long() * mult[None, :]).sum(1)
+    wrapped = (total + 2**31) % 2**32 - 2**31      # int32 overflow
+    return torch.remainder(wrapped, n_items).to(torch.int32)
+
+
+def two_tower_batch(batch: int, vocab_sizes, n_items: int, *,
+                    generator: torch.Generator) -> dict:
+    """Criteo-shaped sparse user features and a co-clicked positive item id
+    (``item_hash`` of the user's leading fields): a consistent user pattern
+    -> item mapping to learn, under ``recsys_batch``'s skew."""
+    sparse = recsys_batch(batch, vocab_sizes, generator=generator)["sparse"]
+    return {"sparse": sparse, "items": item_hash(sparse, n_items)}

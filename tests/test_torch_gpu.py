@@ -1241,3 +1241,87 @@ def test_sharded_server_on_card_matches_single_device(sharded_corpus, kind,
     assert got[0].device == mesh.first_device
     msg = topk_mismatch(got[0], got[1], want[0], want[1], **TOL)
     assert msg is None, msg
+
+
+# -- the recsys trainer on the card ----------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "autoint", "wide-deep",
+                                  "xdeepfm"])
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """Two steps of the reduced model on the card and on the CPU from equal
+    weights and batches: losses and parameters within the CPU parity
+    tests' step tolerance (rtol 1e-4, atol 1e-6)."""
+    import functools
+
+    from repro_torch import configs as C
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+
+    cfg = C.get_arch(arch).make_reduced()
+
+    def trainer(device):
+        model = recsys.init_params(cfg,
+                                   generator=torch.Generator().manual_seed(0))
+        return train.Trainer(model.to(device),
+                             functools.partial(recsys.loss_fn, cfg))
+
+    cpu, card = trainer("cpu"), trainer(cuda)
+    make = train.batch_fn(cfg, seed=0, batch=256, device="cpu")
+    for s in range(2):
+        batch = make(s)
+        want = cpu.step(batch)[0].item()
+        got = card.step({k: v.to(cuda) for k, v in batch.items()})[0].item()
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+    for name, p in cpu.params.items():
+        np.testing.assert_allclose(card.params[name].detach().cpu().numpy(),
+                                   p.detach().numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_gather_backward_is_deterministic_on_card(cuda):
+    """The recsys gather's backward on ids that repeat ~500 times: the same
+    bits in three runs, and the CPU's sequential sums within 1e-6."""
+    from repro_torch.models import recsys
+
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (32_768, 8))).to(cuda)
+    go = torch.randn((32_768, 8, 16), device=cuda)
+    table = torch.zeros((600, 16), device=cuda, requires_grad=True)
+    grads = [torch.autograd.grad(recsys.gather_rows(table, ids), table,
+                                 go)[0] for _ in range(3)]
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0],
+                                                           grads[2])
+    cpu_table = table.detach().cpu().requires_grad_(True)
+    want = torch.autograd.grad(recsys.gather_rows(cpu_table, ids.cpu()),
+                               cpu_table, go.cpu())[0]
+    np.testing.assert_allclose(grads[0].cpu().numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert not grads[0][512:].any()
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "wide-deep"])
+def test_resumed_training_on_card_is_bit_exact(cuda, arch, tmp_path):
+    """The trainer's CLI on the card: 6 steps with a checkpoint at 3, then a
+    run resumed from it; the resumed steps' losses and the final parameters
+    are the uninterrupted run's bits (the gather's backward, the
+    reductions and the GEMMs are deterministic on one stream). The batch
+    is large enough that ids repeat (duplicated rows in the backward)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+
+    args = ["--arch", arch, "--reduced", "--device", "cuda", "--batch",
+            "4096", "--ckpt-every", "3"]
+    full = train.main(args + ["--steps", "6", "--ckpt-dir",
+                              str(tmp_path / "a")])
+    mgr = CheckpointManager(str(tmp_path / "a"))
+    assert mgr.all_steps() == [3, 6]
+    # resume from step 3: keep only that checkpoint in a second directory
+    CheckpointManager(str(tmp_path / "b")).save(
+        3, mgr.restore(3, like=full["trainer"].state_tree())[1])
+    resumed = train.main(args + ["--steps", "6", "--resume", "--ckpt-dir",
+                                 str(tmp_path / "b")])
+    assert resumed["start_step"] == 3
+    assert resumed["losses"] == full["losses"][3:]
+    for name, p in full["trainer"].params.items():
+        assert torch.equal(resumed["trainer"].params[name], p), name

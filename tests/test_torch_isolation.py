@@ -26,7 +26,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.core.quality, repro_torch.data.synthetic, "
         "repro_torch.serving, repro_torch.distributed.fault, "
         "repro_torch.distributed.mesh, repro_torch.distributed.retrieval, "
-        "repro_torch.launch.replicate\n"
+        "repro_torch.launch.replicate, repro_torch.data.pipeline, "
+        "repro_torch.models.recsys, repro_torch.configs, "
+        "repro_torch.optim, repro_torch.checkpoint.checkpoint, "
+        "repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")
