@@ -175,9 +175,33 @@ Phases:
      touched, the batches again through the frontend and direct:
      bit-equal, none answered from the cache's old generation, and every
      upserted item's own vector finds it in its top-10.
+ 23. the LM family in the trainer at published width: qwen1.5-0.5b 12
+     steps of lm_batch at the train_4k cell's S = 4,096, B = 4 through the
+     CLI's function (loss finite and falling, ms a step, tokens/s, the
+     share of the bf16 peak, peak device memory at most 70 GB; a profiled
+     step split into GEMMs, attention, logits + cross-entropy and AdamW);
+     a restart at full qwen width bit-equal; gemma2-2b and
+     granite-moe-3b-a800m 3 steps at B = 1, S = 4,096, and one more step
+     of each profiled; gemma2-2b's prefill of 8,192 tokens (the ring
+     buffer wraps) and 16 decode steps against forward, in bf16 and f32,
+     and the same with two planted faults that the check must catch; 2
+     reduced steps of each LM architecture on the card against the CPU;
+     matmul_f32's bf16 branch at the qwen step's shapes, and qwen reduced
+     in bf16 against the CPU;
+ 24. LM next-token rows into Zen's JSD index at full qwen width
+     (benchmarks/retrieval_e2e.py's jsd_lm_leg): train_lm 40 Markov steps,
+     16,384 + 512 contexts, rows of 152,064 at temperature 6, flat and IVF
+     build_index(metric="jsd", k = 16) from explicit reference ids, 8
+     batches of 64 through ZenServer (re-rank 16, n = 10): recall@10
+     against the jsd_pdist kernel's exact top-10, p50/p99, a batch's peak
+     memory, the launches of zen_topk, ivf_probe and jsd_pdist in each
+     server's 8 timed batches and the exact top-10's apart, LMDS's
+     recall beside Zen's; the flat server (Lwb) returns 24 corpus rows
+     first at JSD < 2e-3, the answers equal the plain dispatch's, and
+     jsd_pdist equals its plain version at this width.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21 and 22 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-24 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -191,10 +215,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -251,9 +277,55 @@ XDEEPFM_BATCH = 4_096
 #: in-batch accuracy of a fresh batch stays at chance within 50 steps; the
 #: phase prints that accuracy on a held-out batch beside the training one
 TT_BATCH, TT_STEPS, TT_MORE, TT_LR, TT_DATASET = 4_096, 50, 5, 3e-3, 10
-#: phases 21 and 22: a train step on the card against the same step on the
-#: CPU, the tolerance of the CPU parity tests (tests/test_torch_train.py)
+#: phases 21, 22 and 23: a train step on the card against the same step on
+#: the CPU, the tolerance of the CPU parity tests (tests/test_torch_train.py,
+#: tests/test_torch_lm_train.py)
 STEP_TOL = dict(rtol=1e-4, atol=1e-6)
+#: phase 23: a reduced LM step on the card against the CPU is held in two
+#: parts, the loss and gradients, then both sides' AdamW updates of the
+#: card's gradients (STEP_TOL each). AdamW divides each gradient by its own
+#: root mean square, so an element whose f32 sum cancels to ~1e-5 of its
+#: leaf's scale (its last digits set by the summation order, ~1% apart on
+#: the two backends) moves ~1% of the learning rate apart after two steps
+#: of whole-step trajectories: a few elements of the LMs' leaves do.
+#: phase 23: qwen1.5-0.5b's steps at the train_4k cell's S = 4,096 (the
+#: median of the last 8 is the step time), its batch (the cell's global
+#: batch of 256 spans the reference's pod; one card takes 4 sequences,
+#: 16,384 tokens a step) and the bound on its peak device memory
+LM_STEPS, LM_BATCH, LM_PEAK_BYTES = 12, 4, 70e9
+#: phase 23: gemma2-2b's prompt (past its 4,096-token window: the ring
+#: buffer wraps) and its decode steps, each step's logits held to forward's
+#: over the whole sequence at that position (max and mean |diff|), in bf16
+#: and in f32. Both compute the same functions with the same roundings;
+#: only the f32 accumulation order of the products differs (one row
+#: against 8,208 picks another GEMM kernel). In bf16 an intermediate then
+#: lands on the other side of a rounding boundary now and then, moves by
+#: one ulp (2^-8 relative), and 26 layers carry it on: the sound run reads
+#: max 1.0231, mean 0.07086 (the same bits on every card run so far), and
+#: a planted fault, the local layers' ring written one slot ahead, only
+#: max 1.1439, mean 0.09128; each position one ahead max 3.0871, mean
+#: 0.2197. The bf16 limits sit between the sound and the faulty readings.
+#: In f32 the two differ by f32 roundings alone (~1e-3 expected at most),
+#: while the ring fault's own share of bf16's mean is ~0.05 (0.09128 over
+#: a noise of 0.07086, added in quadrature): the f32 limits sit between,
+#: max 0.05 and mean 0.005. Each planted fault must read past a limit.
+DECODE_PROMPT, DECODE_STEPS = 8_192, 16
+DECODE_TOL = {"torch.bfloat16": (1.08, 0.081), "torch.float32": (0.05, 0.005)}
+#: phase 24: the JSD leg of benchmarks/retrieval_e2e.py at qwen1.5-0.5b's
+#: full width: the LM's steps, batch and sequence (the leg's), the corpus
+#: rows (the leg's 1,024 raised so the rows load the card: 16,384 x 152,064
+#: f32 is 10 GB), the queries (8 batches of 64), the contexts' length, the
+#: rows' temperature, k, the re-rank factor and n (the leg's)
+JSD_LM_STEPS, JSD_LM_BATCH, JSD_LM_SEQ = 40, 8, 64
+JSD_N, JSD_Q, JSD_CTX, JSD_TEMPERATURE = 16_384, 512, 32, 6.0
+JSD_K, JSD_RERANK, JSD_NN = 16, 16, 10
+#: phase 24: jsd_pdist against jsd_pdist_plain on K = D^2 at the rows'
+#: width. testing.JSD_KTOL (1e-5) holds at m ~ 1,000; the kernel adds
+#: m / 32 chunk partials into one f32 accumulator a sum (4,752 at m =
+#: 152,064), whose rounding error grows as the square root of their count,
+#: so the tolerance scales by sqrt(m / 1,000): 1.23e-4 (a numpy model of
+#: that summation on softmax rows of 10.5 bits of entropy: 1.9e-5)
+JSD_WIDE_KTOL_PER_SQRT_M = 1e-5 / 1_000**0.5
 
 
 def log(*a):
@@ -320,9 +392,10 @@ def profile_serving(server, batches) -> None:
                    f"{len(batches)} batches")
 
 
-def profile_device(fn, label: str, top: int = 8) -> None:
+def profile_device(fn, label: str, top: int = 8):
     """Device time by kernel of ``fn()`` (torch.profiler), and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time; returns ((device us, count,
+    kernel name) rows, busy us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -345,6 +418,52 @@ def profile_device(fn, label: str, top: int = 8) -> None:
     for us, count, key in rows[:top]:
         log(f"      {us:9.1f} us  {us / max(busy, 1e-9):6.1%}  x{count:<4d} "
             f"{key[:90]}")
+    return rows, busy
+
+
+class GcClock:
+    """The seconds Python's cyclic garbage collector ran, its collections
+    and its full (generation 2) collections, while the block runs (``with
+    GcClock() as gc_clock``), in any thread."""
+
+    def __init__(self):
+        self.s, self.n, self.full, self._t = 0.0, 0, 0, None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.s += time.perf_counter() - self._t
+            self.n += 1
+            self.full += info["generation"] == 2
+            self._t = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+def host_state() -> str:
+    """What else holds this process's host: its live threads, the objects
+    the garbage collector tracks, its resident memory, the host's
+    available memory and load average."""
+    names = sorted(t.name for t in threading.enumerate())
+    mem = {}
+    for path in ("/proc/self/status", "/proc/meminfo"):
+        with open(path) as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key in ("VmRSS", "MemAvailable"):
+                    mem[key] = int(value.split()[0]) * 1024
+    return (f"{len(names)} threads {names}; {len(gc.get_objects()):,} "
+            f"objects tracked by the garbage collector; resident "
+            f"{mem['VmRSS'] / 1e9:.2f} GB, the host's available "
+            f"{mem['MemAvailable'] / 1e9:.2f} GB; load average "
+            f"{os.getloadavg()[0]:.2f} on {len(os.sched_getaffinity(0))} "
+            f"cores")
 
 
 def probe_cost(index, probes, n: int, luts=None):
@@ -1713,7 +1832,6 @@ def check_replication(ivf_index, batches, corpus):
     import dataclasses
     import shutil
     import tempfile
-    import threading
 
     import torch
     from repro_torch.index import ivf
@@ -2694,7 +2812,9 @@ def check_trainer(dev, smi: str) -> None:
 
     # one reduced step on the card against the same step on the CPU
     worst = 0.0
-    for arch in C.list_archs():
+    recsys_archs = [a for a in C.list_archs()
+                    if C.get_arch(a).family == "recsys"]
+    for arch in recsys_archs:
         cfg = C.get_arch(arch).make_reduced()
 
         def trainer(device):
@@ -2717,7 +2837,7 @@ def check_trainer(dev, smi: str) -> None:
                 fail(f"{arch} reduced: {name} after 2 steps on the card "
                      f"differs from the CPU's")
             worst = max(worst, float((q - p.detach()).abs().max()))
-    log(f"    2 reduced steps of {C.list_archs()} on the card equal the "
+    log(f"    2 reduced steps of {recsys_archs} on the card equal the "
         f"CPU's (rtol {STEP_TOL['rtol']}, atol {STEP_TOL['atol']}; max "
         f"|param diff| {worst:.3g}); {time.perf_counter() - t0:.1f} s")
 
@@ -2894,6 +3014,701 @@ def check_learned_serving(dev, smi: str) -> None:
         f"{np.mean(recalls):.4f}; every upserted item's own vector finds it"
         f" in its top-10; ivf_probe launches {ip.ivf_probe.launches}; "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def _gemm_kernel(name: str) -> bool:
+    """Whether a device kernel's name is a library GEMM's (cuBLAS and
+    CUTLASS name their products so on Hopper)."""
+    key = name.lower()
+    return any(t in key for t in ("gemm", "xmma", "nvjet", "cutlass",
+                                  "wgmma"))
+
+
+def _lm_model_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of a training step: 6 x parameters x tokens for the
+    products with weights, plus 12 x layers x S x d x tokens for
+    attention's two products (forward and backward)."""
+    return (6 * cfg.param_count() * tokens
+            + 12 * cfg.n_layers * seq * cfg.d_model * tokens)
+
+
+def check_lm_trainer(dev, smi: str) -> None:
+    """Phase 23: the LM family in ``repro_torch.launch.train`` at published
+    width.
+
+    qwen1.5-0.5b (24 layers, d 1,024, 16 heads, d_ff 2,816, vocab 151,936
+    padded to 152,064, QKV bias, tied embeddings, bf16, remat "minimal")
+    takes LM_STEPS steps of ``lm_batch`` at the train_4k cell's S = 4,096,
+    B = LM_BATCH, through the CLI's function: loss finite and falling, ms a
+    step (median of the last 8), tokens/s, the share of the bf16 peak
+    (``_lm_model_flops`` over 989 TFLOP/s), peak device memory (at most
+    LM_PEAK_BYTES); a profiled step split into GEMMs (by kernel name) and,
+    timed apart with CUDA events, attention (forward twice under remat,
+    backward once, 24 layers), the logits and cross-entropy, and AdamW.
+    Then a restart at full qwen width: 3 steps, save_async + wait, 3 steps;
+    a restore and the same 3 steps again, losses and every parameter byte
+    equal. gemma2-2b (the local/global alternation, both softcaps, the
+    post-norms, (1 + w) norms) and granite-moe-3b-a800m (40 experts padded
+    to 48, top-8, capacity 856 a group of 4,096) take 3 steps each at B =
+    1, S = 4,096, each run's allocator counts and one more step profiled
+    and timed outside the loop; gemma2-2b prefills an 8,192-token prompt
+    and decodes 16 tokens, in bf16 and in f32, each step's logits against
+    forward's over the whole sequence (DECODE_TOL), and again with each of
+    two planted faults, which must read past the limits (negative
+    controls). Then 2 reduced steps of each of the five LM architectures on
+    the card against the CPU (STEP_TOL); last, bf16 on the card:
+    ``matmul_f32``'s mixed-precision branch at the full-width step's shapes
+    against f64 products of the same values
+    (``testing.matmul_f32_errors``), and qwen1.5-0.5b's reduced config in
+    bf16 against the CPU (``testing.bf16_lm_mismatch``).
+
+    granite-8b (8.2e9 parameters: ~16 GB in bf16, ~16 GB of gradients and
+    ~66 GB of f32 moments, ~98 GB) and qwen2-moe-a2.7b (~14.3e9 padded
+    parameters, ~170 GB) do not fit one 80 GB card: they wait for the
+    multi-card trainer (ROADMAP A, item 3) and run here at reduced width
+    only.
+    """
+    import functools
+    import tempfile
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch import testing
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import layers, transformer
+    from repro_torch.optim import apply_updates
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = C.get_arch("qwen1.5-0.5b")
+    cfg = spec.make_config()
+    cell = spec.cell("train_4k")
+    S, B = cell.dims["seq_len"], LM_BATCH
+    held = torch.cuda.memory_allocated(dev)
+    log(f"[23] the LM trainer at full width, the {cell.shape} cell (S = "
+        f"{S:,}; B = {B} of its global {cell.dims['global_batch']}); {smi}; "
+        f"earlier phases hold {held / 1e9:.2f} GB; the host: {host_state()}")
+
+    def run(arch, batch, steps):
+        out = train.main(["--arch", arch, "--steps", str(steps), "--batch",
+                          str(batch), "--seq", str(S), "--device",
+                          str(dev)])
+        losses = out["losses"]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            fail(f"{arch}: losses {losses}")
+        return out
+
+    out = run("qwen1.5-0.5b", B, LM_STEPS)
+    losses, peak = out["losses"], out["peak_bytes"]
+    if not losses[-1] < losses[0]:
+        fail(f"qwen1.5-0.5b's loss did not fall: {losses}")
+    if peak > LM_PEAK_BYTES:
+        fail(f"qwen1.5-0.5b's peak device memory {peak / 1e9:.2f} GB is "
+             f"past {LM_PEAK_BYTES / 1e9:.0f} GB")
+    want = {k: ((B,) + v.shape[1:], v.dtype) for k, v in C.input_specs(
+        spec, cfg, cell)["batch"].items()}
+    if out["batch_shapes"] != want:
+        fail(f"the pipeline's batch {out['batch_shapes']} is not the "
+             f"cell's {want} at B = {B}")
+    ms = float(np.median(out["step_s"][-8:])) * 1e3
+    tokens = B * S
+    flops = _lm_model_flops(cfg, tokens, S)
+    log(f"    qwen1.5-0.5b ({cfg.param_count():,} parameters; vocab "
+        f"{cfg.vocab_size:,} padded to {cfg.padded_vocab:,}), B = {B}, S = "
+        f"{S:,}, {LM_STEPS} steps: {ms:.2f} ms a step (median of the last 8;"
+        f" every step {np.round(np.asarray(out['step_s']) * 1e3, 1).tolist()}"
+        f" ms), {tokens / ms * 1e3:,.0f} tokens/s; model FLOPs "
+        f"{flops / 1e12:.1f} T a step = {flops / (ms / 1e3) / PEAK_BF16_FLOPS:.1%}"
+        f" of the bf16 peak; loss {losses[0]:.5f} at step 0, {losses[-1]:.5f} "
+        f"at step {LM_STEPS - 1}; peak device memory {peak / 1e9:.2f} GB "
+        f"({(peak - held) / 1e9:.2f} GB above the earlier phases'); the "
+        f"batch is the cell's input spec at B = {B}")
+
+    # one step under the profiler, the GEMMs' share by kernel name; then
+    # attention, the logits + cross-entropy and AdamW timed apart
+    tr = out["trainer"]
+    step_batch = train.lm_batch_fn(cfg, seed=0, batch=B, seq=S,
+                                   device=dev)(LM_STEPS)
+    rows, busy = profile_device(lambda: tr.step(step_batch),
+                                "one qwen1.5-0.5b step", top=12)
+    gemm_us = sum(us for us, _, key in rows if _gemm_kernel(key))
+    del out
+    H, dh, D = cfg.n_heads, cfg.head_dim, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+
+    q, k, v = (rand(B, S, H, dh).requires_grad_(True) for _ in range(3))
+    pos = torch.arange(S, device=dev).expand(B, S)
+
+    def attn():
+        return layers.attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                query_chunk=cfg.query_chunk)
+
+    def attn_fwd():
+        with torch.no_grad():
+            attn()
+
+    def attn_fwd_bwd():
+        torch.autograd.grad(attn().float().sum(), (q, k, v))
+
+    attn_ms = cfg.n_layers * (timed(attn_fwd, 3, 1)
+                              + timed(attn_fwd_bwd, 3, 1))
+    del q, k, v
+    model = tr.model
+    x = rand(B, S, D).requires_grad_(True)
+
+    def head_ce():
+        logits = transformer._lm_logits(cfg, model, x)[:, :-1]
+        tgt = step_batch["tokens"][:, 1:].long()
+        nll = (torch.logsumexp(logits, -1)
+               - torch.gather(logits, -1, tgt[..., None])[..., 0])
+        torch.autograd.grad(nll.mean(), (x, model.embed))
+
+    head_ms = timed(head_ce, 3, 1)
+    del x
+    grads = {n: torch.zeros_like(p) for n, p in tr.params.items()}
+
+    def adamw():
+        upd, tr.opt_state = tr.opt.update(grads, tr.opt_state, tr.params)
+        apply_updates(tr.params, upd)
+
+    adam_ms = timed(adamw, 3, 1)
+    del grads
+    log(f"    where a step's device time goes ({busy / 1e3:.1f} ms busy "
+        f"under the profiler): GEMM kernels {gemm_us / 1e3:.1f} ms "
+        f"({gemm_us / busy:.1%}, by name, attention's products included); "
+        f"timed apart (CUDA events): attention {attn_ms:.1f} ms "
+        f"({attn_ms * 1e3 / busy:.1%}: 24 layers x (forward + forward and "
+        f"backward), its products included), logits + cross-entropy "
+        f"forward and backward {head_ms:.1f} ms ({head_ms * 1e3 / busy:.1%}),"
+        f" AdamW over {sum(p.numel() for p in tr.params.values()):,} "
+        f"parameters {adam_ms:.1f} ms ({adam_ms * 1e3 / busy:.1%})")
+    del tr, model, step_batch
+    torch.cuda.empty_cache()
+
+    # a resumed run at full qwen width is the uninterrupted run's bits
+    tr = train.lm_trainer(cfg, seed=0, device=dev)
+    make = train.lm_batch_fn(cfg, seed=0, batch=B, seq=S, device=dev)
+
+    def steps(start):
+        return [tr.step(make(s))[0].item() for s in range(start, start + 3)]
+
+    steps(0)
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   (*tr.params.values(), *tr.opt_state.mu.values(),
+                    *tr.opt_state.nu.values())) / 1e9
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t = time.perf_counter()
+        mgr.save_async(3, tr.state_tree())
+        copy_s = time.perf_counter() - t
+        mgr.wait()
+        save_s = time.perf_counter() - t
+        after = steps(3)
+        want = {n: p.detach().clone() for n, p in tr.params.items()}
+        t = time.perf_counter()
+        step, tree = mgr.restore(like=tr.state_tree())
+        tr.load_state_tree(tree)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    if step != 3:
+        fail(f"restored step {step}, not 3")
+    again = steps(3)
+    if again != after:
+        fail(f"resumed qwen losses {again} differ from the uninterrupted "
+             f"run's {after}")
+    bad = [n for n, p in tr.params.items() if not torch.equal(p, want[n])]
+    if bad:
+        fail(f"resumed qwen parameters differ from the uninterrupted run's:"
+             f" {bad}")
+    log(f"    restart at full qwen width ({state_gb:.2f} GB of parameters, "
+        f"mu and nu): steps 3-5 after a restore of step 3 equal the "
+        f"uninterrupted run's, losses {after} and every parameter byte; "
+        f"save_async {copy_s:.2f} s to the host, {save_s:.2f} s written; "
+        f"restore {restore_s:.2f} s")
+    del tr, want
+    torch.cuda.empty_cache()
+
+    # granite-moe runs twice: the second time with the objects of the
+    # earlier phases frozen out of the garbage collector's reach, as a fresh
+    # process holds none of them
+    for arch, frozen in (("gemma2-2b", False), ("granite-moe-3b-a800m", False),
+                         ("granite-moe-3b-a800m", True)):
+        if frozen:
+            gc.collect()
+            gc.freeze()
+        free = torch.cuda.mem_get_info(dev)[0]
+        before = torch.cuda.memory_stats(dev)
+        with GcClock() as gc_run:
+            out = run(arch, 1, 3)
+        if frozen:
+            gc.unfreeze()
+        after = torch.cuda.memory_stats(dev)
+        alloc = {k: after.get(k, 0) - before.get(k, 0) for k in (
+            "num_alloc_retries", "num_device_alloc", "num_device_free")}
+        acfg = C.get_arch(arch).make_config()
+        log(f"    {arch} ({acfg.param_count():,} parameters"
+            + (f", {acfg.n_experts} experts padded to "
+               f"{transformer.moe_lib.padded_experts(acfg.n_experts)}, top-"
+               f"{acfg.top_k}, capacity "
+               f"{transformer.moe_lib.capacity(S, acfg.top_k, transformer.moe_lib.padded_experts(acfg.n_experts), acfg.capacity_factor)}"
+               f" a group of {acfg.moe_group_size:,}" if acfg.is_moe else
+               ", local window 4,096 / global, softcaps 30 and 50")
+            + f"), B = 1, S = {S:,}, 3 steps: loss {out['losses'][0]:.5f} -> "
+            f"{out['losses'][-1]:.5f}, {out['step_s'][-1] * 1e3:.1f} ms the "
+            f"last step ({S / out['step_s'][-1]:,.0f} tokens/s; every step "
+            f"{np.round(np.asarray(out['step_s']) * 1e3, 1).tolist()} ms), "
+            f"peak {out['peak_bytes'] / 1e9:.2f} GB; {free / 1e9:.2f} GB of "
+            f"the card free before the run, the allocator in it {alloc}; the "
+            f"garbage collector in the run {gc_run.n} times ({gc_run.full} "
+            f"full), {gc_run.s * 1e3:.1f} ms"
+            + (f", {len(gc.get_objects()):,} objects tracked" if not frozen
+               else ", the earlier phases' objects frozen"))
+        if not frozen:
+            # where a step's time goes: one more step under the profiler
+            # (the card's busy share), then one timed with the garbage
+            # collector's share of it
+            tr = out["trainer"]
+            step_batch = train.lm_batch_fn(acfg, seed=0, batch=1, seq=S,
+                                           device=dev)(3)
+            profile_device(lambda: tr.step(step_batch), f"one {arch} step",
+                           top=4)
+            with GcClock() as gc_clock:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tr.step(step_batch)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t) * 1e3
+            log(f"    {arch}: one more step outside the loop {step_ms:.1f} "
+                f"ms, the garbage collector {gc_clock.n} times, "
+                f"{gc_clock.s * 1e3:.1f} ms of it")
+            del tr, step_batch
+        del out
+        torch.cuda.empty_cache()
+
+    # gemma2-2b: prefill past the window, then decode against forward, in
+    # the model's bf16 and in f32; the same runs with a planted fault show
+    # that the check sees it
+    gcfg = C.get_arch("gemma2-2b").make_config()
+    total = DECODE_PROMPT + DECODE_STEPS
+    toks = torch.randint(0, gcfg.vocab_size, (1, total), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+
+    def decode(model, cfg, fault=None):
+        """The prompt's prefill, then DECODE_STEPS decode steps: (each
+        step's logits, ms a step, prefill seconds, a ring buffer's shape).
+        ``fault`` plants a bug: "position" hands each step a position one
+        ahead of its own; "slot" writes the local layers' ring buffers one
+        slot ahead (the cache moved after each step)."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = transformer.prefill(
+                cfg, model, toks[:, :DECODE_PROMPT], pad_to=total)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            rings = [c for pos, c in cache.items()
+                     if cfg.layer_pattern[int(pos[3:])]]
+            W = rings[0]["k"].shape[2]
+            planted = [(c, key) for c in rings for key in ("k", "v")
+                       if fault == "slot"]
+            got, step_ms = [logits], []
+            for i in range(DECODE_STEPS):
+                n = DECODE_PROMPT + i
+                kept = [c[key][:, :, n % W].clone() for c, key in planted]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = transformer.decode_step(
+                    cfg, model, cache, toks[:, n:n + 1],
+                    n + (fault == "position"))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                for (c, key), old in zip(planted, kept):
+                    c[key][:, :, (n + 1) % W] = c[key][:, :, n % W]
+                    c[key][:, :, n % W] = old
+                got.append(logits)
+            if fault is None and cfg.dtype == torch.bfloat16:
+                # the last step once more, under the profiler
+                profile_device(lambda: transformer.decode_step(
+                    cfg, model, cache, toks[:, n:n + 1], n),
+                    "one gemma2-2b decode step", top=4)
+        return (torch.cat(got[:-1]), step_ms, prefill_s,
+                tuple(rings[0]["k"].shape))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg_d = dataclasses.replace(gcfg, dtype=dtype)
+        model = transformer.init_params(
+            cfg_d, generator=torch.Generator(device=dev).manual_seed(23))
+        with torch.no_grad():
+            want = transformer.forward(cfg_d, model, toks)
+        # the last step's logits predict past the end
+        want = want[0, DECODE_PROMPT - 1:][:DECODE_STEPS].clone()
+        tol_max, tol_mean = DECODE_TOL[str(dtype)]
+        readings = {}
+        for fault in (None, "position", "slot"):
+            got, step_ms, prefill_s, ring = decode(model, cfg_d, fault)
+            diff = (got - want).abs()
+            readings[fault] = (float(diff.max()), float(diff.mean()),
+                               int((got.argmax(-1) == want.argmax(-1)).sum()))
+            if fault is None:
+                if not (torch.isfinite(got).all() and diff.max() <= tol_max
+                        and diff.mean() <= tol_mean):
+                    fail(f"gemma2-2b's {dtype} decode logits differ from "
+                         f"forward's: max |diff| {float(diff.max()):.4g} "
+                         f"(tolerance {tol_max}), mean "
+                         f"{float(diff.mean()):.4g} (tolerance {tol_mean})")
+                sound = step_ms, prefill_s, ring
+            elif not (readings[fault][0] > tol_max
+                    or readings[fault][1] > tol_mean):
+                fail(f"gemma2-2b's {dtype} decode check cannot see a planted "
+                     f"fault ({fault}): max |diff| {readings[fault][0]:.4g}, "
+                     f"mean {readings[fault][1]:.4g}")
+            del got, diff
+        worst, mean, same_top = readings[None]
+        step_ms, prefill_s, ring = sound
+        log(f"    gemma2-2b in {str(dtype)[6:]}: prefill of "
+            f"{DECODE_PROMPT:,} tokens ({prefill_s:.2f} s; the local "
+            f"layers' ring buffer {ring}) and {DECODE_STEPS} decode steps: "
+            f"{np.median(step_ms):.2f} ms a step (median; "
+            f"{min(step_ms):.2f}-{max(step_ms):.2f}); logits against "
+            f"forward over all {total:,} tokens at each position: max |diff|"
+            f" {worst:.4g} (tolerance {tol_max}), mean {mean:.4g} "
+            f"(tolerance {tol_mean}), the same argmax at {same_top} of "
+            f"{DECODE_STEPS}; planted faults, "
+            + "; ".join(f"{what}: max {readings[f][0]:.4g}, mean "
+                        f"{readings[f][1]:.4g}, argmax {readings[f][2]} of "
+                        f"{DECODE_STEPS}"
+                        for f, what in (("position", "each step's position "
+                                         "one ahead"),
+                                        ("slot", "the ring buffers written "
+                                         "one slot ahead")))
+            + " (each past a tolerance)")
+        del model, want
+        torch.cuda.empty_cache()
+
+    # two reduced steps of each LM architecture on the card against the CPU
+    worst = worst_g = 0.0
+    lm_archs = [a for a in C.list_archs() if C.get_arch(a).family == "lm"]
+    for arch in lm_archs:
+        rcfg = C.get_arch(arch).make_reduced()
+
+        def trainer(device):
+            model = transformer.init_params(
+                rcfg, generator=torch.Generator().manual_seed(0))
+            return train.Trainer(model.to(device), functools.partial(
+                transformer.loss_fn, rcfg))
+
+        def loss_and_grads(tr, batch):
+            loss, _ = tr.loss_fn(tr.model, batch)
+            return loss.item(), dict(zip(tr.params, torch.autograd.grad(
+                loss, list(tr.params.values()))))
+
+        cpu, card = trainer("cpu"), trainer(dev)
+        make = train.lm_batch_fn(rcfg, seed=0, batch=8, seq=64, device="cpu")
+        for s in range(2):
+            # the step in its two parts: the loss and gradients, then both
+            # sides' AdamW update of the card's gradients
+            batch = make(s)
+            want, want_g = loss_and_grads(cpu, batch)
+            got, got_g = loss_and_grads(card, {k: v.to(dev)
+                                               for k, v in batch.items()})
+            if not np.isclose(got, want, **STEP_TOL):
+                fail(f"{arch} reduced: the card's loss {got} at step {s} "
+                     f"against the CPU's {want}")
+            for name, g in want_g.items():
+                if not torch.allclose(got_g[name].cpu(), g, **STEP_TOL):
+                    fail(f"{arch} reduced: the card's gradient of {name} at "
+                         f"step {s} differs from the CPU's")
+                worst_g = max(worst_g, float((got_g[name].cpu() - g).abs()
+                                             .max()))
+            for tr, grads in ((cpu, {n: g.cpu().clone() for n, g in got_g.items()}),
+                              (card, got_g)):
+                upd, tr.opt_state = tr.opt.update(grads, tr.opt_state,
+                                                  tr.params)
+                apply_updates(tr.params, upd)
+        for name, p in cpu.params.items():
+            q = card.params[name].detach().cpu()
+            if not torch.allclose(q, p.detach(), **STEP_TOL):
+                fail(f"{arch} reduced: {name} after 2 steps on the card "
+                     f"differs from the CPU's")
+            worst = max(worst, float((q - p.detach()).abs().max()))
+    log(f"    2 reduced steps of {lm_archs} on the card equal the CPU's "
+        f"(rtol {STEP_TOL['rtol']}, atol {STEP_TOL['atol']}: losses, each "
+        f"step's gradients, max |grad diff| {worst_g:.3g}, and the "
+        f"parameters after both sides' AdamW updates of the card's "
+        f"gradients, max |param diff| {worst:.3g})")
+
+    # bf16 on the card: matmul_f32's mixed-precision branch at the shapes of
+    # the full-width qwen step, then qwen's reduced config in bf16 against
+    # the CPU (f32 products of the same values)
+    F, V = cfg.d_ff, cfg.padded_vocab
+    G = cfg.n_heads // cfg.n_kv_heads
+    qc, BKV = cfg.query_chunk, B * cfg.n_kv_heads
+    ratios = {}
+    for label, case in (
+            ("q projection", ((B, S, D), (D, D), False)),
+            ("MLP down", ((B * S, F), (F, D), False)),
+            ("attention scores", ((BKV, G * qc, dh), (BKV, dh, S), False)),
+            ("attention values", ((BKV, G * qc, S), (BKV, S, dh), False)),
+            ("tied head", ((S // 2, D), (D, V), True))):
+        errs = testing.matmul_f32_errors(*testing.matmul_inputs(*case, 23,
+                                                                dev))
+        if not max(errs.values()) <= 1:
+            fail(f"matmul_f32's bf16 branch, {label} {case[:2]}: errors "
+                 f"over their bounds {errs}")
+        ratios[label] = max(errs.values())
+        torch.cuda.empty_cache()
+    rcfg = dataclasses.replace(C.get_arch("qwen1.5-0.5b").make_reduced(),
+                               dtype=torch.bfloat16)
+    cpu = transformer.init_params(rcfg,
+                                  generator=torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, rcfg.vocab_size, (2, 96)).astype(np.int32))
+    msg = testing.bf16_lm_mismatch(
+        *testing.lm_outputs(rcfg, cpu.to(dev), toks.to(dev)),
+        *testing.lm_outputs(rcfg, transformer.init_params(
+            rcfg, generator=torch.Generator().manual_seed(1)), toks))
+    if msg is not None:
+        fail(f"qwen1.5-0.5b reduced in bf16 on the card against the CPU: "
+             f"{msg}")
+    log(f"    bf16 on the card: matmul_f32's result and gradients within "
+        f"their bounds of f64 products of the same values (largest error "
+        f"over bound: {', '.join(f'{k} {v:.3f}' for k, v in ratios.items())}"
+        f"); qwen1.5-0.5b reduced in bf16, logits, loss and every gradient "
+        f"leaf equal the CPU's (testing.bf16_lm_mismatch: logits "
+        f"{testing.BF16_LOGITS_TOL:g} of the largest, loss rtol "
+        f"{testing.BF16_LOSS_RTOL:g}, gradients {testing.BF16_GRAD_TOL:g} "
+        f"of each leaf's largest); {time.perf_counter() - t0:.1f} s")
+
+
+def check_lm_serving(dev, smi: str) -> dict:
+    """Phase 24: the LM's next-token rows into Zen's JSD index at
+    qwen1.5-0.5b's full width, after benchmarks/retrieval_e2e.py's
+    ``jsd_lm_leg``: ``train_lm`` (JSD_LM_STEPS steps of ``lm_markov_batch``,
+    B = 8, S = 64, lr 1e-3), JSD_N + JSD_Q Markov contexts of 32 tokens,
+    their next-token rows at temperature 6 (152,064 wide, the padded
+    columns exact zeros), ``build_index(metric="jsd", k=16)`` flat and IVF
+    from explicit reference ids (nprobe max(8, C // 2)), ZenServer at
+    re-rank 16, n = 10, 8 batches of 64 queries: recall@10 against an exact
+    top-10 by ``kernels.ops.jsd_pdist`` (the jsd_pdist kernel), p50/p99,
+    the peak device memory of a served batch, the launches of zen_topk,
+    ivf_probe and jsd_pdist in each server's 8 batches (counted from 0
+    after its warm-up; the exact re-rank is core/metrics.py's plain JSD,
+    so the served path launches no jsd_pdist) and the exact top-10's
+    jsd_pdist launches apart, LMDS's recall beside Zen's, and how
+    concentrated the rows are. Gates: 24 corpus rows come back first from
+    the flat server at JSD < 2e-3 (the reference's own check,
+    tests/test_retrieval_e2e.py), served with Lwb, whose first stage has
+    the identity that Zen's lacks (Zen's count is printed beside); every served
+    answer equals the same server's on the search kernels' plain versions
+    (phase 17's standard); jsd_pdist equals jsd_pdist_plain on K = D^2 on a
+    64 x 1,024 slice of the rows (JSD_WIDE_KTOL_PER_SQRT_M x sqrt(m)).
+    Returns the served batches' launches by kernel, and the exact
+    top-10's jsd_pdist launches as ``jsd_pdist_truth``."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core import make_reducer
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ivf_probe as ip
+    from repro_torch.kernels import jsd as jk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import zen_topk as zt
+    from repro_torch.launch import serve
+    from repro_torch.launch import train_lm
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = C.get_arch("qwen1.5-0.5b").make_config()
+    m = cfg.padded_vocab
+    log(f"[24] LM next-token rows into Zen's JSD index at full qwen width "
+        f"({m:,}-wide rows); {smi}")
+    t = time.perf_counter()
+    _, model, losses = train_lm.train_lm(
+        JSD_LM_STEPS, batch=JSD_LM_BATCH, seq=JSD_LM_SEQ, data="markov",
+        cfg=cfg, device=dev)
+    train_s = time.perf_counter() - t
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"the JSD leg's LM did not train: {losses}")
+    t = time.perf_counter()
+    toks = syn.lm_markov_batch(1, 0, JSD_N + JSD_Q, JSD_CTX, cfg.vocab_size,
+                               device=dev)["tokens"]
+    torch.cuda.synchronize()
+    ctx_s = time.perf_counter() - t
+    t = time.perf_counter()
+    P = torch.cat([train_lm.next_token_distributions(
+        cfg, model, toks[lo:lo + 512], temperature=JSD_TEMPERATURE)
+        for lo in range(0, toks.shape[0], 512)])
+    torch.cuda.synchronize()
+    rows_s = time.perf_counter() - t
+    del model
+    torch.cuda.empty_cache()
+    row_err = float((P.double().sum(1) - 1.0).abs().max())
+    if not (P[:, cfg.vocab_size:] == 0).all():
+        fail("a padded column of a next-token row is not exactly 0")
+    corpus, queries = P[:JSD_N], P[JSD_N:]
+    log(f"    train_lm: {JSD_LM_STEPS} steps of B = {JSD_LM_BATCH}, S = "
+        f"{JSD_LM_SEQ} Markov tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, {train_s:.1f} s; {JSD_N + JSD_Q:,} contexts of "
+        f"{JSD_CTX} tokens {ctx_s:.1f} s; rows at temperature "
+        f"{JSD_TEMPERATURE} {rows_s:.1f} s: {tuple(P.shape)} f32 "
+        f"({P.numel() * 4 / 1e9:.2f} GB), largest |row sum - 1| "
+        f"{row_err:.3g}, the {m - cfg.vocab_size} padded columns exact "
+        f"zeros")
+
+    # the kernel against its plain version at this width
+    Xs, Ys = queries[:64].contiguous(), corpus[:1_024].contiguous()
+    got, want = jk.jsd_pdist(Xs, Ys), jk.jsd_pdist_plain(Xs, Ys)
+    k_err = float((got.double() ** 2 - want.double() ** 2).abs().max())
+    k_tol = JSD_WIDE_KTOL_PER_SQRT_M * m**0.5
+    if not (torch.isfinite(got).all() and k_err <= k_tol):
+        fail(f"jsd_pdist differs from jsd_pdist_plain on 64 x 1,024 rows "
+             f"{m:,} wide: max |K - K_plain| {k_err:.3g} (tolerance "
+             f"{k_tol:.3g})")
+    # the exact top-10 of every query, by the kernel
+    truth = []
+    jk.jsd_pdist.launches = 0
+    for lo in range(0, JSD_Q, 64):
+        d = ops.jsd_pdist(queries[lo:lo + 64], corpus)
+        truth.append(torch.sort(d, dim=1, stable=True)[1][:, :JSD_NN])
+    truth = torch.cat(truth)
+    truth_launches = jk.jsd_pdist.launches
+    if truth_launches == 0:
+        fail("the JSD leg's exact top-10 never launched jsd_pdist")
+    batches = [queries[lo:lo + 64] for lo in range(0, JSD_Q, 64)]
+    # how concentrated the rows are: the entropy of each, and how many
+    # corpus rows lie within JSD 0.02 of each of the first 24
+    ent = -(corpus * torch.log2(torch.clamp_min(corpus, 1e-30))).sum(1)
+    near = (ops.jsd_pdist(corpus[:24].contiguous(), corpus) < 0.02).sum(1)
+    log(f"    jsd_pdist vs jsd_pdist_plain on 64 x 1,024 rows: max |K - "
+        f"K_plain| {k_err:.3g} (tolerance {k_tol:.3g}); the exact top-"
+        f"{JSD_NN} of {JSD_Q} queries over {JSD_N:,} rows by the kernel; "
+        f"row entropy {float(ent.min()):.2f}-{float(ent.max()):.2f} bits "
+        f"(median {float(ent.median()):.2f}), {int(torch.unique(corpus.argmax(1)).numel())}"
+        f" distinct argmax tokens; corpus rows within JSD 0.02 of each of "
+        f"the first 24: median {int(near.median()):,} of {JSD_N:,}")
+    del ent
+
+    ids = [int(i) for i in torch.randperm(
+        JSD_N, generator=torch.Generator().manual_seed(3))[:JSD_K]]
+    records, served = {}, {}
+    counted = {"zen_topk": zt.zen_topk, "ivf_probe": ip.ivf_probe,
+               "jsd_pdist": jk.jsd_pdist}
+    for kind in ("flat", "ivf"):
+        t = time.perf_counter()
+        index = serve.build_index(corpus, JSD_K, metric="jsd", index=kind,
+                                  pivot_ids=ids, device=dev,
+                                  generator=torch.Generator().manual_seed(3))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        kw = ({"nprobe": max(8, index.ivf.n_clusters // 2)}
+              if kind == "ivf" else {})
+        server = serve.ZenServer(index, rerank_factor=JSD_RERANK, **kw)
+        server.query(batches[0], JSD_NN)  # warm-up
+        lat, recalls, peaks, answers = [], [], [], []
+        for fn in counted.values():
+            fn.launches = 0
+        for q in batches:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            d, got_ids = server.query(q, JSD_NN)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+            if d.shape != (64, JSD_NN) or not torch.isfinite(d).all():
+                fail(f"JSD {kind}: distances not finite of shape (64, "
+                     f"{JSD_NN}): {tuple(d.shape)}")
+            answers.append((d, got_ids))
+        served[kind] = {name: fn.launches for name, fn in counted.items()}
+        search = "zen_topk" if kind == "flat" else "ivf_probe"
+        if served[kind][search] == 0:
+            fail(f"JSD {kind}: the served batches never launched {search}")
+        for i, q in enumerate(batches):
+            recalls.append(serve.recall(answers[i][1],
+                                        truth[64 * i:64 * (i + 1)]))
+        with plain_dispatch():
+            for (d, got_ids), q in zip(answers, batches):
+                pd, pids = server.query(q, JSD_NN)
+                msg = topk_mismatch(d, got_ids, pd, pids, rtol=RTOL,
+                                    atol=RTOL)
+                if msg is not None:
+                    fail(f"JSD {kind}: the served answers differ from the "
+                         f"kernels' plain versions': {msg}")
+        # corpus rows queried back: Zen's first stage has no identity
+        # (zen(x, x) = sqrt(2) x altitude), and among thousands of rows
+        # within JSD 0.02 it misses some rows' own; Lwb's is 0, so its
+        # server must return each row first, at the f32 roundoff of the
+        # exact JSD (the reference's check)
+        found = {}
+        for mode in ("zen", "lwb"):
+            d, self_ids = serve.ZenServer(
+                index, mode=mode, rerank_factor=JSD_RERANK, **kw).query(
+                    corpus[:24], JSD_NN)
+            first = self_ids[:, 0].cpu() == torch.arange(24)
+            found[mode] = (int(first.sum()), float(d[:, 0].abs().max()))
+        if kind == "flat" and (found["lwb"][0] != 24
+                               or found["lwb"][1] >= 2e-3):
+            fail(f"JSD flat, Lwb: {24 - found['lwb'][0]} of 24 corpus rows "
+                 f"do not come back first (largest first distance "
+                 f"{found['lwb'][1]:.3g})")
+        lat_ms = np.asarray(lat) * 1e3
+        records[kind] = dict(recall=float(np.mean(recalls)))
+        log(f"    {kind}: build_index {build_s:.2f} s"
+            + (f" ({index.ivf.n_clusters} clusters, nprobe {kw['nprobe']})"
+               if kind == "ivf" else "")
+            + f"; {len(batches)} batches x 64: recall@{JSD_NN} "
+            f"{np.mean(recalls):.4f} "
+            f"(min batch {np.min(recalls):.4f}), p50 "
+            f"{np.percentile(lat_ms, 50):.2f} ms, p99 "
+            f"{np.percentile(lat_ms, 99):.2f} ms, peak device memory of a "
+            f"batch {max(peaks) / 1e9:.3f} GB above the index; launches in "
+            f"the {len(batches)} batches {served[kind]}; answers equal "
+            f"the plain dispatch's; 24 corpus rows queried back come first "
+            f"{found['lwb'][0]} times with Lwb (largest first distance "
+            f"{found['lwb'][1]:.3g}), {found['zen'][0]} times with Zen "
+            f"({found['zen'][1]:.3g})")
+        del index, server
+    # the served batches' launches: the flat server's zen_topk, the IVF
+    # server's ivf_probe; the re-rank is core/metrics.py's plain jsd_pdist
+    launches = {"zen_topk": served["flat"]["zen_topk"],
+                "ivf_probe": served["ivf"]["ivf_probe"],
+                "jsd_pdist": served["flat"]["jsd_pdist"]
+                + served["ivf"]["jsd_pdist"],
+                "jsd_pdist_truth": truth_launches}
+
+    # the distance-only baseline on the same rows (coordinate baselines
+    # cannot follow into the JSD space)
+    r = make_reducer("lmds", JSD_K, metric="jsd").fit(
+        corpus, generator=torch.Generator().manual_seed(4))
+
+    def reduce(X):
+        return torch.cat([r.transform(X[lo:lo + 16])
+                          for lo in range(0, X.shape[0], 16)])
+
+    red = reduce(corpus)
+    pred = torch.cat([torch.sort(r.pdist(reduce(q), red), dim=1,
+                                 stable=True)[1][:, :JSD_NN]
+                      for q in batches])
+    lmds = serve.recall(pred, truth)
+    try:
+        make_reducer("pca", JSD_K, metric="jsd").fit(corpus[:64])
+        pca = "fits (unexpected)"
+    except ValueError:
+        pca = "refuses the JSD space, as the reference's"
+    log(f"    LMDS (k = {JSD_K}) recall@{JSD_NN} {lmds:.4f} beside Zen's "
+        f"{records['flat']['recall']:.4f} (flat) / "
+        f"{records['ivf']['recall']:.4f} (IVF); PCA {pca}; the served "
+        f"batches' launches zen_topk {launches['zen_topk']} (flat), "
+        f"ivf_probe {launches['ivf_probe']} (IVF), jsd_pdist "
+        f"{launches['jsd_pdist']}; the exact top-10's jsd_pdist "
+        f"{truth_launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> None:
@@ -3291,16 +4106,24 @@ def main() -> None:
     # -- 22. learned embeddings into Zen serving ---------------------------------
     check_learned_serving(torch.device("cuda"), smi)
 
+    # -- 23. the LM trainer at full width -----------------------------------------
+    check_lm_trainer(torch.device("cuda"), smi)
+
+    # -- 24. LM next-token rows into Zen's JSD index ------------------------------
+    lm_launches = check_lm_serving(torch.device("cuda"), smi)
+
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",
                     replaces="src/repro/kernels/zen_topk.py:92",
                     launches=serve_launches, max_abs_err=max_err,
                     sharded_launches=sharded_launches["zen_topk"],
-                    **main_rec)]
+                    lm_jsd_launches=lm_launches["zen_topk"], **main_rec)]
     for kname, line, launches in (("ivf_probe", 94, ivf_launches),
                                   ("ivf_probe_pq", 296, pq_launches)):
         extra = ({"sharded_launches": sharded_launches[kname]}
                  if kname in sharded_launches else {})
+        if kname in lm_launches:
+            extra["lm_jsd_launches"] = lm_launches[kname]
         kernels.append(dict(
             name=kname, route="cuda",
             source="src/repro_torch/kernels/csrc/ivf_probe.cu",
@@ -3322,6 +4145,9 @@ def main() -> None:
             source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=f"src/repro/kernels/{line}",
             launches=dense_launches[kname], max_abs_err=dense_err[kname],
+            **({"lm_jsd_launches": lm_launches[kname],
+                "lm_jsd_truth_launches": lm_launches["jsd_pdist_truth"]}
+               if kname == "jsd_pdist" else {}),
             **dense_records[kname]))
     log(f"whole run {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,9 @@ index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
 ``host_ids``, ``host_scales``, ``hot_clusters``, ...); the baselines are
 ``core.baselines``' ``PCATransform``, ``RandomProjection``,
 ``MDSTransform`` and ``LMDSTransform`` (their fields by name); the
-recsys models are ``models.recsys``' parameter pytrees and the optimiser
-state ``optim.AdamWState``. Feeding
+recsys models are ``models.recsys``' parameter pytrees, the LMs
+``models.transformer``'s (bf16 leaves as their 16-bit patterns), and the
+optimiser state ``optim.AdamWState``. Feeding
 both packages one fitted state lets a test hold the search path, or a
 baseline's transform, to the reference without the fit's float noise (or
 the k-means and RP draws, or the SVD/eigh sign choices) in between; and
@@ -37,7 +38,7 @@ from repro_torch.core.simplex import BaseSimplex
 from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.kernels import quantize as quant
 from repro_torch.launch.serve import ZenIndex
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 from repro_torch.optim import AdamWState
 
 
@@ -200,6 +201,33 @@ def recsys_params_from_arrays(cfg: recsys.RecsysConfig, tree: dict, *,
                                            .shape[0]), device=dev)
              if "items" in tree else recsys.RecsysModel(cfg, device=dev))
     model.load_state_dict(_flat_tensors(tree, dev), strict=True)
+    return model
+
+
+def _leaf_tensor(a, dtype: torch.dtype, dev) -> torch.Tensor:
+    """One leaf as a ``dtype`` tensor: a bf16 array (numpy's ``u2`` bits or
+    an ``ml_dtypes`` bfloat16 array, read through its bits) keeps its
+    bits; any other array is converted."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or (a.dtype == np.uint16
+                                      and dtype == torch.bfloat16):
+        return index_io.to_tensor(a.view(np.uint16), dev,
+                                  bfloat16=True).to(dtype)
+    return torch.as_tensor(np.array(a), device=dev).to(dtype)
+
+
+def transformer_from_arrays(cfg: transformer.TransformerConfig,
+                            params: dict, *, device=None
+                            ) -> transformer.Transformer:
+    """The port's LM holding exactly this parameter pytree (the
+    reference's ``init_params`` layout: ``embed``, ``layers`` of stacked
+    (G, PL, ...) leaves, ``final_norm``, ``lm_head``), each leaf in
+    ``cfg.dtype``."""
+    dev = resolve_device(device)
+    model = transformer.Transformer(cfg, device=dev)
+    model.load_state_dict({k: _leaf_tensor(v, cfg.dtype, dev)
+                           for k, v in flat_state(params).items()},
+                          strict=True)
     return model
 
 

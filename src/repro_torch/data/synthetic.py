@@ -1,5 +1,5 @@
 """Synthetic data generators (PyTorch counterpart of ``repro.data.synthetic``):
-the paper's spaces and the recsys click batches.
+the paper's spaces, the LM token streams and the recsys click batches.
 
 Draws come from a ``torch.Generator``: the distributions are the JAX
 package's, the bits are not (``jax.random`` streams cannot be replayed).
@@ -7,7 +7,7 @@ package's, the bits are not (``jax.random`` streams cannot be replayed).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,6 +75,81 @@ def batch_generator(seed: int, step: int, device=None) -> torch.Generator:
         raise ValueError(f"seed {seed} / step {step} out of range")
     gen = torch.Generator(device=device if device is not None else "cpu")
     return gen.manual_seed((seed << 32) | step)
+
+
+def lm_batch(batch: int, seq: int, vocab: int, *,
+             generator: torch.Generator) -> dict:
+    """I.i.d. uniform tokens (batch, seq) int32 in [0, vocab), drawn on the
+    generator's device."""
+    return {"tokens": torch.randint(0, vocab, (batch, seq),
+                                    generator=generator,
+                                    device=generator.device,
+                                    dtype=torch.int32)}
+
+
+#: transition-logit entries of one block of rows that ``lm_markov_batch``
+#: evaluates at once (1 GiB of f32): a fixed number, so the draws of a
+#: batch do not depend on the device's memory
+MARKOV_BLOCK_ELEMS = 1 << 28
+
+
+def markov_factors(seed: int, vocab: int, *, device=None
+                   ) -> Tuple[Tensor, Tensor]:
+    """The low-rank factors (A (vocab, rank), B (rank, vocab)) of stream
+    ``seed``'s transition logits ``A @ B / (sqrt(rank) * concentration)``,
+    rank = max(4, min(16, vocab // 32)); drawn on ``device`` from a
+    generator of ``seed`` alone (outside ``batch_generator``'s seeds), so
+    every step of the stream shares them."""
+    if not 0 <= seed < 2**31:
+        raise ValueError(f"seed {seed} out of range")
+    rank = max(4, min(16, vocab // 32))
+    gen = torch.Generator(device=device if device is not None else "cpu")
+    gen.manual_seed((1 << 63) | seed)
+    A = torch.randn((vocab, rank), generator=gen, device=gen.device)
+    B = torch.randn((rank, vocab), generator=gen, device=gen.device)
+    return A, B
+
+
+def markov_logits(A: Tensor, B: Tensor, tokens: Tensor,
+                  concentration: float = 1.0) -> Tensor:
+    """The transition-logit rows of ``tokens``: rows of the dense
+    ``A @ B / (sqrt(rank) * concentration)``, evaluated for those rows
+    alone (the dense matrix is 92 GB at a 151,936-token vocabulary)."""
+    return (A[tokens.long()] @ B) / (math.sqrt(A.shape[1]) * concentration)
+
+
+def lm_markov_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+                    concentration: float = 1.0, *, device=None) -> dict:
+    """First-order Markov token streams (structured LM data).
+
+    ``lm_batch`` draws i.i.d. uniform tokens: a trained LM collapses every
+    next-token distribution toward the same unigram. Here tokens follow a
+    fixed (per ``seed``) peaked, low-rank transition matrix
+    (``markov_factors``), so the learned next-token distributions depend
+    on the context: a probability-simplex corpus with real neighbourhood
+    geometry for the paper's §5.6 JSD experiments. The first token is
+    uniform; each next one is a categorical draw from its row
+    (Gumbel-max, the first index on a tie), the rows evaluated lazily in
+    blocks of ``MARKOV_BLOCK_ELEMS`` entries. Deterministic in (seed,
+    step) on one device type.
+    """
+    A, B = markov_factors(seed, vocab, device=device)
+    gen = batch_generator(seed, step, device)
+    dev = gen.device
+    tok = torch.randint(0, vocab, (batch,), generator=gen, device=dev)
+    rows = max(1, MARKOV_BLOCK_ELEMS // vocab)
+    out = [tok]
+    for _ in range(seq - 1):
+        nxt = torch.empty_like(tok)
+        for lo in range(0, batch, rows):
+            logits = markov_logits(A, B, tok[lo:lo + rows], concentration)
+            u = torch.rand(logits.shape, generator=gen, device=dev)
+            gumbel = -torch.log(-torch.log(
+                torch.clamp_min(u, torch.finfo(u.dtype).tiny)))
+            nxt[lo:lo + rows] = torch.argmax(logits + gumbel, dim=-1)
+        tok = nxt
+        out.append(tok)
+    return {"tokens": torch.stack(out, dim=1).to(torch.int32)}
 
 
 def recsys_batch(batch: int, vocab_sizes, n_dense: int = 0, *,

@@ -1,7 +1,7 @@
 """The serving tier's distribution (PyTorch counterpart of
 ``repro.distributed``): fault-tolerance hooks (``fault``), the device mesh
 (``mesh``) and sharded retrieval over it (``retrieval``). The training
-partition rules (``sharding``, ROADMAP A8) are not ported."""
+partition rules (``sharding``, ROADMAP A, item 3) are not ported."""
 from .fault import (
     HeartbeatRegistry,
     PreemptionGuard,

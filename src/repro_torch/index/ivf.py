@@ -1533,36 +1533,32 @@ def _ivf_search(index: IVFZenIndex, queries: Tensor, *, n_neighbors: int,
 #: this many rows whatever the batch, so its kernel (and each row's bits)
 #: cannot change with the batch size
 RERANK_BLOCK = 64
+#: the metrics whose re-rank is the batched norm expansion
+_NORM_EXPANSION = ("euclidean", "sqeuclidean", "cosine")
 
 
 def _batched_pdist(name: str, q: Tensor, c: Tensor) -> Tensor:
     """(Q, C) distances between each query (Q, m) and its own candidates
-    (Q, C, m) under the metric's pairwise function (inputs normalised).
-
-    The Euclidean family uses the norm expansion of ``sqeuclidean_pdist``
-    batched over queries, in blocks of ``RERANK_BLOCK`` queries (the last
-    block padded with copies of its first row), so a row's distances do
-    not depend on how many rows share the batch; any other metric calls
-    its pairwise function once per query.
+    (Q, C, m) under a metric of ``_NORM_EXPANSION`` (inputs normalised):
+    the norm expansion of ``sqeuclidean_pdist`` batched over queries, in
+    blocks of ``RERANK_BLOCK`` queries (the last block padded with copies
+    of its first row), so a row's distances do not depend on how many rows
+    share the batch.
     """
-    if name in ("euclidean", "sqeuclidean", "cosine"):
-        n_q = q.shape[0]
-        pad = -n_q % RERANK_BLOCK
-        if pad:
-            q = torch.cat([q, q[-1:].expand(pad, -1)])
-            c = torch.cat([c, c[-1:].expand(pad, -1, -1)])
-        out = []
-        for lo in range(0, q.shape[0], RERANK_BLOCK):
-            qb, cb = q[lo:lo + RERANK_BLOCK], c[lo:lo + RERANK_BLOCK]
-            x2 = torch.sum(qb * qb, dim=-1)[:, None]        # (B, 1)
-            y2 = torch.sum(cb * cb, dim=-1)                 # (B, C)
-            xy = torch.bmm(cb, qb[:, :, None])[..., 0]      # (B, C)
-            out.append(torch.clamp_min(x2 + y2 - 2.0 * xy, 0.0))
-        d2 = torch.cat(out)[:n_q]
-        return d2 if name == "sqeuclidean" else torch.sqrt(d2)
-    m = metrics_lib.get_metric(name)
-    return torch.stack([m.pdist(q[i:i + 1], c[i])[0]
-                        for i in range(q.shape[0])])
+    n_q = q.shape[0]
+    pad = -n_q % RERANK_BLOCK
+    if pad:
+        q = torch.cat([q, q[-1:].expand(pad, -1)])
+        c = torch.cat([c, c[-1:].expand(pad, -1, -1)])
+    out = []
+    for lo in range(0, q.shape[0], RERANK_BLOCK):
+        qb, cb = q[lo:lo + RERANK_BLOCK], c[lo:lo + RERANK_BLOCK]
+        x2 = torch.sum(qb * qb, dim=-1)[:, None]        # (B, 1)
+        y2 = torch.sum(cb * cb, dim=-1)                 # (B, C)
+        xy = torch.bmm(cb, qb[:, :, None])[..., 0]      # (B, C)
+        out.append(torch.clamp_min(x2 + y2 - 2.0 * xy, 0.0))
+    d2 = torch.cat(out)[:n_q]
+    return d2 if name == "sqeuclidean" else torch.sqrt(d2)
 
 
 def exact_rerank(
@@ -1583,10 +1579,22 @@ def exact_rerank(
     """
     m = metrics_lib.get_metric(metric)
     safe_ids = torch.clamp_min(cand_ids, 0).long()
-    cands = corpus[safe_ids]                              # (Q, C, m)
     qn = m.normalize(queries) if m.normalize is not None else queries
-    cn = m.normalize(cands) if m.normalize is not None else cands
-    d = _batched_pdist(metric, qn.to(torch.float32), cn.to(torch.float32))
+    qn = qn.to(torch.float32)
+
+    def candidates(ids):
+        c = corpus[ids]
+        return (m.normalize(c) if m.normalize is not None else c).to(
+            torch.float32)
+
+    if metric in _NORM_EXPANSION:
+        d = _batched_pdist(metric, qn, candidates(safe_ids))  # (Q, C, m)
+    else:
+        # one query's (C, m) candidates at a time: at 152,064-wide rows a
+        # batch's would be 6 GB; the same per-row operations as on the
+        # whole gather, so the same bits
+        d = torch.stack([m.pdist(qn[i:i + 1], candidates(safe_ids[i]))[0]
+                         for i in range(qn.shape[0])])
     d = torch.where(cand_ids >= 0, d, torch.full_like(d, float("inf")))
     n_neighbors = min(n_neighbors, cand_ids.shape[1])
     d, pos = torch.sort(d, dim=1, stable=True)

@@ -1,8 +1,12 @@
-"""Training entry point of the port: the recsys family (``dlrm-rm2``,
-``autoint``, ``wide-deep``, ``xdeepfm``) with checkpoint/restart, straggler
-monitoring, preemption-aware saves and optional gradient compression
-(PyTorch counterpart of ``repro.launch.train``).
+"""Training entry point of the port: the LM family (``qwen1.5-0.5b``,
+``gemma2-2b``, ``granite-8b``, ``granite-moe-3b-a800m``,
+``qwen2-moe-a2.7b``) and the recsys family (``dlrm-rm2``, ``autoint``,
+``wide-deep``, ``xdeepfm``) with checkpoint/restart, straggler monitoring,
+preemption-aware saves and optional gradient compression (PyTorch
+counterpart of ``repro.launch.train``).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+        --reduced --device cpu --steps 12 --seq 64 --ckpt-dir /tmp/ck
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
         --reduced --device cpu --steps 12 --ckpt-dir /tmp/ck
     # the same command with --resume continues from the newest checkpoint
@@ -12,11 +16,12 @@ Batches are a pure function of (seed, step), drawn on the training device
 and prefetched by a background thread, so a resumed run on the same
 device takes the same steps, bit for bit: every operation of the step is
 deterministic on one CUDA stream (the embedding gather's backward sorts
-its ids, the reductions and GEMMs have fixed orders).
+its ids, the reductions and GEMMs have fixed orders). An LM batch is
+``--batch`` x ``--seq`` tokens of ``lm_batch``.
 
-The LM and GNN families, ``--data-shards`` / ``--model-shards`` > 1 and
-``--multihost`` (the reference's GSPMD sharding) wait for ROADMAP A8 and
-raise.
+The GNN family (ROADMAP A, item 2), ``--data-shards`` / ``--model-shards``
+> 1 and ``--multihost`` (the reference's GSPMD sharding: ROADMAP A, item
+3) raise.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.checkpoint.checkpoint import (
 from repro_torch.data import synthetic as syn
 from repro_torch.data.pipeline import PrefetchPipeline
 from repro_torch.distributed.fault import PreemptionGuard, StepMonitor
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 from repro_torch.optim import AdamW, AdamWState, apply_updates
 from repro_torch.optim import compression as comp_lib
 
@@ -119,6 +124,16 @@ def recsys_trainer(cfg: recsys.RecsysConfig, *, seed: int, device,
                    compress_grads=compress_grads)
 
 
+def lm_trainer(cfg: transformer.TransformerConfig, *, seed: int, device,
+               compress_grads: bool = False) -> Trainer:
+    """An LM drawn from ``seed`` on ``device``, with AdamW at the
+    reference trainer's learning rate."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = transformer.init_params(cfg, generator=gen)
+    return Trainer(model, functools.partial(transformer.loss_fn, cfg),
+                   compress_grads=compress_grads)
+
+
 def batch_fn(cfg: recsys.RecsysConfig, *, seed: int, batch: int,
              device) -> Callable[[int], dict]:
     """step -> the click batch of that step, drawn on ``device``."""
@@ -129,6 +144,32 @@ def batch_fn(cfg: recsys.RecsysConfig, *, seed: int, batch: int,
     return make
 
 
+def lm_batch_fn(cfg: transformer.TransformerConfig, *, seed: int,
+                batch: int, seq: int, device) -> Callable[[int], dict]:
+    """step -> the (batch, seq) token batch of that step (``lm_batch``),
+    drawn on ``device``."""
+    def make(step: int) -> dict:
+        return syn.lm_batch(batch, seq, cfg.vocab_size,
+                            generator=syn.batch_generator(seed, step, device))
+    return make
+
+
+def family_trainer(family: str, cfg, *, seed: int, device,
+                   compress_grads: bool = False) -> Trainer:
+    """``lm_trainer`` or ``recsys_trainer`` by the architecture's family."""
+    make = lm_trainer if family == "lm" else recsys_trainer
+    return make(cfg, seed=seed, device=device, compress_grads=compress_grads)
+
+
+def family_batch_fn(family: str, cfg, *, seed: int, batch: int, seq: int,
+                    device) -> Callable[[int], dict]:
+    """``lm_batch_fn`` or ``batch_fn`` by the architecture's family."""
+    if family == "lm":
+        return lm_batch_fn(cfg, seed=seed, batch=batch, seq=seq,
+                           device=device)
+    return batch_fn(cfg, seed=seed, batch=batch, device=device)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True)
@@ -136,8 +177,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--seq", type=int, default=64,
-                   help="the LM family's sequence length (ROADMAP A8); "
-                        "the recsys family has none")
+                   help="the LM family's sequence length (the recsys "
+                        "family has none)")
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=10)
     p.add_argument("--resume", action="store_true")
@@ -161,14 +202,15 @@ def train(args: argparse.Namespace, log=print) -> dict:
         raise NotImplementedError(
             "--multihost and --data-shards / --model-shards > 1 need the "
             "reference's GSPMD partitioning (distributed/sharding.py), "
-            "which the port does not have yet (ROADMAP A8)")
+            "which the port does not have yet (ROADMAP A, item 3)")
     spec = C.get_arch(args.arch)
     cfg = spec.make_reduced() if args.reduced else spec.make_config()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    trainer = recsys_trainer(cfg, seed=args.seed, device=dev,
+    trainer = family_trainer(spec.family, cfg, seed=args.seed, device=dev,
                              compress_grads=args.compress_grads)
-    make_batch = batch_fn(cfg, seed=args.seed, batch=args.batch, device=dev)
+    make_batch = family_batch_fn(spec.family, cfg, seed=args.seed,
+                                 batch=args.batch, seq=args.seq, device=dev)
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0

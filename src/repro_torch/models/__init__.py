@@ -1,2 +1,3 @@
-"""Models of the port: the recsys family (``recsys``) and ``layers.dense_init``;
-the LM and GNN families wait for ROADMAP A8."""
+"""Models of the port: the LM family (``transformer``, ``moe``, ``layers``)
+and the recsys family (``recsys``); the GNN family waits for ROADMAP A,
+item 2."""

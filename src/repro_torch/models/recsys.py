@@ -4,13 +4,12 @@ two-tower retrieval model (PyTorch counterpart of ``repro.models.recsys``).
 Shared substrate:
 * **one concatenated embedding table** of every field's vocabulary, with
   static per-field row offsets; a lookup is one gather (``gather_rows``),
-  multi-hot bags sum over L. The gather's backward is a dense (rows, d)
-  gradient, as the reference differentiates ``jnp.take``, and it sums
-  each row's duplicates in the order the ids occur: a stable sort, then
-  one sequential sum a (row, column) (``torch.segment_reduce``). No float
-  atomics, so a step gives the same bits every time; ``F.embedding``'s
-  CUDA backward does not (it differs run to run in the last bits of rows
-  a batch hits many times);
+  multi-hot bags sum over L. The gather is ``layers.gather_rows``
+  (re-exported here), whose backward is a dense (rows, d) gradient, as the
+  reference differentiates ``jnp.take``, summing each row's duplicates in
+  the order the ids occur: the same bits every time, where
+  ``F.embedding``'s CUDA backward differs run to run in the last bits of
+  rows a batch hits many times;
 * a feature-interaction op per model (self-attention / concat / dot / CIN),
   every contraction in f32 (TF32 is off package-wide);
 * a small dense MLP head with the sigmoid-BCE loss;
@@ -28,10 +27,9 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense_init
+from .layers import dense_init, gather_rows
 
 Tensor = torch.Tensor
 
@@ -234,36 +232,6 @@ def init_two_tower_params(cfg: RecsysConfig, n_items: int, *,
 
 
 # -- embedding bag -----------------------------------------------------------------
-
-
-class _GatherRows(torch.autograd.Function):
-    """``table[ids]`` whose backward sums each row's gradients in the
-    order the ids occur, deterministically on any device."""
-
-    @staticmethod
-    def forward(ctx, table: Tensor, ids: Tensor) -> Tensor:
-        ctx.save_for_backward(ids)
-        ctx.n_rows = table.shape[0]
-        return F.embedding(ids, table)
-
-    @staticmethod
-    def backward(ctx, grad: Tensor):
-        (ids,) = ctx.saved_tensors
-        flat = ids.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        rows, counts = torch.unique_consecutive(flat[order],
-                                                return_counts=True)
-        sums = torch.segment_reduce(
-            grad.reshape(flat.numel(), -1)[order], "sum", lengths=counts)
-        out = grad.new_zeros((ctx.n_rows, grad.shape[-1]))
-        out[rows] = sums  # each row written once
-        return out, None
-
-
-def gather_rows(table: Tensor, ids: Tensor) -> Tensor:
-    """(*ids.shape, d) rows of ``table``; see ``_GatherRows``."""
-    return _GatherRows.apply(table, ids.long())
-
 
 
 def embedding_bag(

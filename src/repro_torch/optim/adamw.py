@@ -68,7 +68,9 @@ class AdamW:
         """One step: returns (updates, new state). In place: ``grads`` are
         clipped and then overwritten by the updates (the returned dict
         holds the same buffers), and ``state``'s moments become the new
-        state's. ``params`` are read, not written (``apply_updates``)."""
+        state's. ``params`` are read, not written (``apply_updates``). A
+        non-contiguous gradient is first replaced in ``grads`` by a
+        contiguous copy."""
         step = state.step + 1
         if self.clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, self.clip_norm)
@@ -78,6 +80,8 @@ class AdamW:
         bc2 = 1 - torch.pow(b2, stepf)
         neg_lr = -self._lr(step)
         for name, g in grads.items():
+            if not g.is_contiguous():  # e.g. a tied embedding's transpose
+                g = grads[name] = g.contiguous()
             m, v, p = state.mu[name], state.nu[name], params[name]
             gv, mv, vv, pv = (t.view(-1) for t in (g, m, v, p))
             for s in _slices(gv.numel()):
@@ -112,11 +116,17 @@ def clip_by_global_norm(grads: Dict[str, Tensor], max_norm: float
                         ) -> Tuple[Dict[str, Tensor], Tensor]:
     """Scale every gradient, in place, by min(1, max_norm / global norm);
     returns (grads, the global norm). Each leaf's norm is one reduction
-    (no squared copy), the global norm the norm of those."""
+    (no squared copy), the global norm the norm of those. A leaf of
+    another dtype than f32 (bf16) is scaled in f32 and rounded once, as
+    the reference's ``(g.astype(f32) * scale).astype(g.dtype)``, never by
+    a scale rounded to its dtype first."""
     norms = [torch.linalg.vector_norm(g.float()) for g in grads.values()]
     gn = torch.linalg.vector_norm(torch.stack(norms))
     scale = torch.clamp_max(
         torch.full_like(gn, max_norm) / torch.clamp_min(gn, 1e-9), 1.0)
     for g in grads.values():
-        g.mul_(scale)
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float().mul_(scale))
     return grads, gn

@@ -6,7 +6,7 @@ residual is carried in an error-feedback buffer (Seide et al. / EF-SGD),
 so the compressed exchange is unbiased over time. The trainer's
 ``--compress-grads`` runs it on one process; the cross-replica mean of
 the reference's data-parallel path comes with the multi-card trainer
-(ROADMAP A8).
+(ROADMAP A, item 3).
 """
 from __future__ import annotations
 

@@ -162,3 +162,143 @@ def dense_errors(kind: str, X, Y, got, want):
                f"{float(sq_want[r, c])!r} (tolerance {float(tol[r, c]):.3g})")
     return float(err.max()) if err.numel() else 0.0, \
         float(d_err) if err.numel() else 0.0, why
+
+
+# -- the LM's bf16 products --------------------------------------------------
+
+#: ``models.layers.matmul_f32`` on bf16 operands against f32 products of the
+#: same (bf16) values. The result is f32: within ACCUM_RTOL x (|a| @ |b|)
+#: of the f32 product (the two sum the same exact products in another
+#: order). Each gradient is that product with the cotangent (rounded to
+#: bf16 on the card, where the gradient products are the same mixed call),
+#: rounded once to bf16: within 2^-8 of its value (half a bf16 ulp, 8
+#: significant bits) plus the accumulation term.
+ACCUM_RTOL = 2**-16
+BF16_ROUND = 2**-8
+
+
+def matmul_f32_errors(a, b, g) -> dict:
+    """For bf16 ``a`` (..., m, k) and ``b`` (k, n) or batched (z, k, n), and
+    an f32 cotangent ``g`` of the result's shape: each of ``matmul_f32``'s
+    result and two gradients as the largest ratio of its error to its
+    bound (above). A ratio above 1 is a mismatch; a wrong dtype, shape or
+    non-finite value gives ``inf``."""
+    import torch
+
+    from repro_torch.models.layers import matmul_f32
+
+    a = a.detach().requires_grad_(True)
+    b = b.detach().requires_grad_(True)
+    out = matmul_f32(a, b)
+    ga, gb = torch.autograd.grad(out, (a, b), g)
+    af, bf = a.detach().double(), b.detach().double()
+    gr = (g.to(a.dtype) if a.is_cuda else g).double()
+
+    def ratio(got, dtype, want, bound):
+        if (got.dtype != dtype or got.shape != want.shape
+                or not torch.isfinite(got).all()):
+            return float("inf")
+        err = (got.detach().double() - want).abs()
+        return float((err / bound.clamp_min(1e-30)).max())
+
+    def t(x):
+        return x.transpose(-1, -2)
+
+    if b.dim() == 2:  # the leading dimensions of a flatten into rows
+        af2, gr2 = af.reshape(-1, a.shape[-1]), gr.reshape(-1, b.shape[-1])
+        want_ga = (gr2 @ t(bf)).reshape(a.shape)
+        acc_ga = (gr2.abs() @ t(bf).abs()).reshape(a.shape)
+        want_gb, acc_gb = t(af2) @ gr2, t(af2).abs() @ gr2.abs()
+    else:
+        want_ga, acc_ga = gr @ t(bf), gr.abs() @ t(bf).abs()
+        want_gb, acc_gb = t(af) @ gr, t(af).abs() @ gr.abs()
+    return {
+        "out": ratio(out, torch.float32, af @ bf,
+                     ACCUM_RTOL * (af.abs() @ bf.abs())),
+        "grad_a": ratio(ga, a.dtype, want_ga,
+                        BF16_ROUND * want_ga.abs() + ACCUM_RTOL * acc_ga),
+        "grad_b": ratio(gb, b.dtype, want_gb,
+                        BF16_ROUND * want_gb.abs() + ACCUM_RTOL * acc_gb),
+    }
+
+
+#: a bf16 LM against the same bf16 model and tokens on another backend:
+#: where two f32 products, summed in another order, land either side of a
+#: bf16 rounding boundary the bf16 results differ by one ulp (2^-8
+#: relative), which the residual stream carries on. Logits within
+#: BF16_LOGITS_TOL of the largest |logit| (mean |diff| within
+#: BF16_LOGITS_MEAN_TOL of it), the loss within rtol BF16_LOSS_RTOL, every
+#: gradient leaf within BF16_GRAD_TOL of its largest |g|
+BF16_LOGITS_TOL, BF16_LOGITS_MEAN_TOL = 2**-7, 2**-9
+BF16_LOSS_RTOL, BF16_GRAD_TOL = 2**-10, 2**-5
+
+
+def bf16_lm_mismatch(logits, loss, grads, want_logits, want_loss,
+                     want_grads) -> Optional[str]:
+    """Why a bf16 LM's (logits, loss, {leaf: gradient}) is not the
+    reference's within the tolerances above, or ``None`` when it is."""
+    logits, want_logits = _np(logits).astype(np.float64), \
+        _np(want_logits).astype(np.float64)
+    if logits.shape != want_logits.shape or not np.isfinite(logits).all():
+        return f"logits {logits.shape} are not finite of {want_logits.shape}"
+    scale = np.abs(want_logits).max()
+    diff = np.abs(logits - want_logits)
+    if diff.max() > BF16_LOGITS_TOL * scale:
+        return f"logits max |diff| {diff.max():.4g} (scale {scale:.4g})"
+    if diff.mean() > BF16_LOGITS_MEAN_TOL * scale:
+        return f"logits mean |diff| {diff.mean():.4g} (scale {scale:.4g})"
+    loss, want_loss = float(_np(loss)), float(_np(want_loss))
+    if not abs(loss - want_loss) <= BF16_LOSS_RTOL * abs(want_loss):
+        return f"loss {loss!r} against {want_loss!r}"
+    if set(grads) != set(want_grads):
+        return f"gradient leaves {sorted(grads)} vs {sorted(want_grads)}"
+    for name, w in want_grads.items():
+        g = grads[name]
+        if str(g.dtype) != str(w.dtype):
+            return f"gradient {name} is {g.dtype}, not {w.dtype}"
+        g, w = (_np(x.float()).astype(np.float64) for x in (g, w))
+        err = np.abs(g - w).max()
+        if not err <= BF16_GRAD_TOL * np.abs(w).max():
+            return (f"gradient {name}: max |diff| {err:.4g} (largest |g| "
+                    f"{np.abs(w).max():.4g})")
+    return None
+
+
+#: (a's shape, b's shape, b a transposed view) of the ``matmul_f32`` checks:
+#: a 2-D product, leading dimensions, a batched product, and the tied LM
+#: head's transposed embedding
+MATMUL_CASES = [((37, 64), (64, 48), False), ((2, 37, 64), (64, 48), False),
+                ((3, 37, 64), (3, 64, 48), False),
+                ((2, 19, 64), (64, 200), True)]
+
+
+def matmul_inputs(a_shape, b_shape, transposed: bool, seed: int, device):
+    """bf16 operands and an f32 cotangent for ``matmul_f32_errors``, drawn
+    on ``device`` from ``seed``; ``b`` a transposed view when asked."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    b = draw(b_shape[::-1]).t() if transposed else draw(b_shape)
+    out = (a_shape[:-1] + b_shape[-1:] if len(b_shape) == 2
+           else (b_shape[0], a_shape[-2], b_shape[-1]))
+    return draw(a_shape), b, draw(out, torch.float32)
+
+
+def lm_outputs(cfg, model, tokens):
+    """An LM's forward logits (no gradient), then its loss and the gradient
+    of every leaf by name: the three things ``bf16_lm_mismatch``
+    compares."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        logits = transformer.forward(cfg, model, tokens)
+    loss, _ = transformer.loss_fn(cfg, model, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return logits, loss.detach(), dict(zip(
+        [n for n, _ in model.named_parameters()], grads))

@@ -41,6 +41,7 @@ from repro_torch.kernels import zen as zk  # noqa: E402
 from repro_torch.kernels.scoring import MODE_IDS  # noqa: E402
 from repro_torch.kernels import zen_topk as zt  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch import testing  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     JSD_CASES, JSD_KTOL, PDIST_CASES, PDIST_PLAN_CASES, SQ_RTOL, ZEN_CASES,
     dense_errors, dense_inputs, topk_mismatch)
@@ -1246,37 +1247,149 @@ def test_sharded_server_on_card_matches_single_device(sharded_corpus, kind,
 # -- the recsys trainer on the card ----------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["dlrm-rm2", "autoint", "wide-deep",
-                                  "xdeepfm"])
-def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
-    """Two steps of the reduced model on the card and on the CPU from equal
-    weights and batches: losses and parameters within the CPU parity
-    tests' step tolerance (rtol 1e-4, atol 1e-6)."""
+LM_ARCHS = ["qwen1.5-0.5b", "gemma2-2b", "granite-8b",
+            "granite-moe-3b-a800m", "qwen2-moe-a2.7b"]
+
+
+def _reduced_trainer(arch, device):
+    """The reduced ``arch`` from weights drawn on the CPU (seed 0), moved
+    to ``device``, and its batch maker (recsys B = 256; LM B = 8, S = 64)
+    drawing on the CPU."""
     import functools
 
     from repro_torch import configs as C
     from repro_torch.launch import train
-    from repro_torch.models import recsys
+    from repro_torch.models import recsys, transformer
 
-    cfg = C.get_arch(arch).make_reduced()
+    spec = C.get_arch(arch)
+    cfg = spec.make_reduced()
+    lib = transformer if spec.family == "lm" else recsys
+    model = lib.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    trainer = train.Trainer(model.to(device),
+                            functools.partial(lib.loss_fn, cfg))
+    make = train.family_batch_fn(spec.family, cfg, seed=0,
+                                 batch=8 if spec.family == "lm" else 256,
+                                 seq=64, device="cpu")
+    return trainer, make
 
-    def trainer(device):
-        model = recsys.init_params(cfg,
-                                   generator=torch.Generator().manual_seed(0))
-        return train.Trainer(model.to(device),
-                             functools.partial(recsys.loss_fn, cfg))
 
-    cpu, card = trainer("cpu"), trainer(cuda)
-    make = train.batch_fn(cfg, seed=0, batch=256, device="cpu")
+def _loss_and_grads(trainer, batch):
+    loss, _ = trainer.loss_fn(trainer.model, batch)
+    return loss.detach(), dict(zip(trainer.params, torch.autograd.grad(
+        loss, list(trainer.params.values()))))
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "autoint", "wide-deep",
+                                  "xdeepfm"] + LM_ARCHS)
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """Two steps of the reduced model on the card and on the CPU from equal
+    weights and batches: losses and parameters within the CPU parity
+    tests' step tolerance (rtol 1e-4, atol 1e-6).
+
+    An LM step is held in its two parts: the losses and each step's
+    gradients (rtol 1e-4, atol 1e-6), then both sides' AdamW updates of
+    the card's gradients (parameters rtol 1e-4, atol 1e-6). AdamW divides
+    each gradient by its own root mean square, so an element whose f32 sum
+    cancels to ~1e-5 of its leaf's scale (its last digits set by the
+    summation order, ~1% apart on the two backends) moves by ~1% of the
+    learning rate apart: a few of the LMs' 16,384-element leaves do."""
+    from repro_torch import configs as C
+    from repro_torch.optim import apply_updates
+
+    lm = C.get_arch(arch).family == "lm"
+    cpu, make = _reduced_trainer(arch, "cpu")
+    card, _ = _reduced_trainer(arch, cuda)
     for s in range(2):
         batch = make(s)
-        want = cpu.step(batch)[0].item()
-        got = card.step({k: v.to(cuda) for k, v in batch.items()})[0].item()
-        np.testing.assert_allclose(got, want, rtol=1e-4)
+        if not lm:
+            want = cpu.step(batch)[0].item()
+            got = card.step({k: v.to(cuda) for k, v in batch.items()}
+                            )[0].item()
+            np.testing.assert_allclose(got, want, rtol=1e-4)
+            continue
+        want, want_g = _loss_and_grads(cpu, batch)
+        got, got_g = _loss_and_grads(card, {k: v.to(cuda)
+                                            for k, v in batch.items()})
+        np.testing.assert_allclose(got.item(), want.item(), rtol=1e-4)
+        for name, g in want_g.items():
+            np.testing.assert_allclose(got_g[name].cpu().numpy(), g.numpy(),
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"step {s} grad {name}")
+        for tr, grads in ((cpu, {n: g.cpu().clone() for n, g in got_g.items()}),
+                          (card, got_g)):
+            upd, tr.opt_state = tr.opt.update(grads, tr.opt_state,
+                                              tr.params)
+            apply_updates(tr.params, upd)
     for name, p in cpu.params.items():
         np.testing.assert_allclose(card.params[name].detach().cpu().numpy(),
                                    p.detach().numpy(), rtol=1e-4, atol=1e-6,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("case", testing.MATMUL_CASES)
+def test_matmul_f32_bf16_result_and_gradients(cuda, case):
+    """``matmul_f32``'s card branch on bf16 operands (``torch.mm``/``bmm``
+    with an f32 result; its gradients the same call on the cotangent
+    rounded to bf16): an f32 result and bf16 gradients within
+    ``testing.matmul_f32_errors``' bounds of f64 products of the same
+    values (a wrong transpose, dimension or rounding is off by O(1))."""
+    errs = testing.matmul_f32_errors(*testing.matmul_inputs(*case, 0, cuda))
+    assert max(errs.values()) <= 1, errs
+
+
+def test_bf16_lm_on_card_matches_cpu(cuda):
+    """qwen1.5-0.5b's reduced config in bf16, one set of weights drawn on
+    the CPU: the card (every product through ``matmul_f32``'s mixed-
+    precision branch) against the CPU (f32 products of the same values):
+    forward logits, loss and every gradient leaf within the bf16
+    tolerances of the CPU parity test (``testing.bf16_lm_mismatch``)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(C.get_arch("qwen1.5-0.5b").make_reduced(),
+                              dtype=torch.bfloat16)
+    cpu = transformer.init_params(cfg,
+                                  generator=torch.Generator().manual_seed(1))
+    card = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    msg = testing.bf16_lm_mismatch(
+        *testing.lm_outputs(cfg, card, toks.to(cuda)),
+        *testing.lm_outputs(cfg, cpu, toks))
+    assert msg is None, msg
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_moe_gradients_are_deterministic_on_card(cuda, arch):
+    """An MoE step's gradients on the card, 3 times from the same weights
+    and batch (B = 8, S = 256: 32 groups of 64 tokens, capacity drops and
+    tokens routed to the same experts): the same bits every time (the
+    dispatch's backward is an expand's fixed-order sum, the combine's the
+    deterministic row gather's), in f32 and in bf16 (the products'
+    mixed-precision branch)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import transformer
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(C.get_arch(arch).make_reduced(),
+                                  dtype=dtype)
+        model = transformer.init_params(
+            cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
+        batch = syn.lm_batch(8, 256, cfg.vocab_size,
+                             generator=syn.batch_generator(0, 0, cuda))
+        grads = []
+        for _ in range(3):
+            loss, _ = transformer.loss_fn(cfg, model, batch)
+            grads.append(torch.autograd.grad(loss, list(model.parameters())))
+        for g in grads[1:]:
+            for (name, _), a, b in zip(model.named_parameters(), grads[0], g):
+                assert a.dtype == dtype and torch.equal(a, b), (dtype, name)
 
 
 def test_gather_backward_is_deterministic_on_card(cuda):
@@ -1300,18 +1413,22 @@ def test_gather_backward_is_deterministic_on_card(cuda):
     assert not grads[0][512:].any()
 
 
-@pytest.mark.parametrize("arch", ["dlrm-rm2", "wide-deep"])
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "wide-deep"] + LM_ARCHS)
 def test_resumed_training_on_card_is_bit_exact(cuda, arch, tmp_path):
     """The trainer's CLI on the card: 6 steps with a checkpoint at 3, then a
     run resumed from it; the resumed steps' losses and the final parameters
-    are the uninterrupted run's bits (the gather's backward, the
+    are the uninterrupted run's bits (the gathers' backwards, the
     reductions and the GEMMs are deterministic on one stream). The batch
-    is large enough that ids repeat (duplicated rows in the backward)."""
+    is large enough that ids repeat (duplicated rows in the backward):
+    recsys B = 4,096; LM B = 16 x S = 256 tokens of a 512-token
+    vocabulary."""
+    from repro_torch import configs as C
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import train
 
+    lm = C.get_arch(arch).family == "lm"
     args = ["--arch", arch, "--reduced", "--device", "cuda", "--batch",
-            "4096", "--ckpt-every", "3"]
+            "16" if lm else "4096", "--seq", "256", "--ckpt-every", "3"]
     full = train.main(args + ["--steps", "6", "--ckpt-dir",
                               str(tmp_path / "a")])
     mgr = CheckpointManager(str(tmp_path / "a"))

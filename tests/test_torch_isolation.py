@@ -29,7 +29,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.launch.replicate, repro_torch.data.pipeline, "
         "repro_torch.models.recsys, repro_torch.configs, "
         "repro_torch.optim, repro_torch.checkpoint.checkpoint, "
-        "repro_torch.launch.train\n"
+        "repro_torch.launch.train, repro_torch.launch.train_lm, "
+        "repro_torch.models.layers, repro_torch.models.moe, "
+        "repro_torch.models.transformer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")
