@@ -199,9 +199,28 @@ Phases:
      recall beside Zen's; the flat server (Lwb) returns 24 corpus rows
      first at JSD < 2e-3, the answers equal the plain dispatch's, and
      jsd_pdist equals its plain version at this width.
+ 25. the GNN family in the trainer at published width: MACE (2 layers, C
+     = 128, l_max 2, correlation 3, bf16, remat) through for_shape on the
+     GNN cells one card holds, molecule (3,840 nodes, 8,192 edges, 128
+     graphs), full_graph_sm (2,708 nodes, 10,556 edges, 1,433 features)
+     and minibatch_lg (176,128 nodes, 172,032 edges, 602 features, per
+     node), GNN_STEPS steps each on the cell's batch: ms a step (median of
+     the last 8), nodes/s, the share of the bf16 peak (model_flops), peak
+     device memory, a profiled step's busy share and top kernels; the
+     loss falls on the repeated molecule batch; the same minibatch_lg
+     step twice is the same bits; a full-width molecule run resumed from
+     a checkpoint is the straight run's bits; 2 reduced f32 steps on the
+     card against the CPU; full-width bf16 energies against an f64
+     evaluation of the same parameters (GNN_BF16_TOL), and two planted
+     faults past it; then the trained minibatch_lg model's node
+     descriptors (176,128 x 128) into a flat build_index(k = 16), 8
+     batches of 64 descriptor rows through ZenServer (re-rank 4, n = 10):
+     recall@10 against an exact top-10, p50/p99, zen_topk launching once
+     a batch, the answers equal the plain dispatch's, and Lwb serving
+     each query row first.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21-24 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-25 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -326,6 +345,25 @@ JSD_K, JSD_RERANK, JSD_NN = 16, 16, 10
 #: so the tolerance scales by sqrt(m / 1,000): 1.23e-4 (a numpy model of
 #: that summation on softmax rows of 10.5 bits of entropy: 1.9e-5)
 JSD_WIDE_KTOL_PER_SQRT_M = 1e-5 / 1_000**0.5
+#: phase 25: the GNN cells one card holds (ogb_products, 2,449,029 nodes
+#: and 61,859,140 edges, keeps over 55 GB a layer on the node side alone:
+#: the multi-card trainer's, ROADMAP A, item 3) and the steps of each, all
+#: on the cell's one batch (the median of the last 8 is the step time)
+GNN_CELLS_ON_CARD, GNN_STEPS = ("molecule", "full_graph_sm",
+                                "minibatch_lg"), 12
+#: phase 25: full-width bf16 energies against an f64 evaluation of the
+#: same parameters and graphs: the mean over energies of |diff| / (|f64| +
+#: the median |f64|) (testing.energy_errors; at C = 128 the energies of
+#: random weights are heavy-tailed, the B-basis cubing A: 4,295 the
+#: largest of molecule's graphs, 1.87 the median). Readings on the card
+#: (molecule, minibatch_lg): bf16 0.0045 and 0.0034; messages sent from
+#: receiver to sender 1.56 and 0.57; the nu = 3 correlation dropped 0.22
+#: and 0.020. The limit sits between (the CPU tests' reduced config,
+#: compiled reference included, holds testing.BF16_ENERGY_TOL, 2^-6).
+GNN_BF16_TOL = 0.01
+#: phase 25: the descriptor leg: queries (8 batches of 64 descriptor rows),
+#: k, the re-rank factor and n
+GNN_Q, GNN_K, GNN_RERANK, GNN_NN = 512, 16, 4, 10
 
 
 def log(*a):
@@ -392,10 +430,11 @@ def profile_serving(server, batches) -> None:
                    f"{len(batches)} batches")
 
 
-def profile_device(fn, label: str, top: int = 8):
+def profile_device(fn, label: str, top: int = 8, ops: int = 0):
     """Device time by kernel of ``fn()`` (torch.profiler), and the
-    device's busy share of the wall time; returns ((device us, count,
-    kernel name) rows, busy us)."""
+    device's busy share of the wall time; with ``ops``, also the device
+    time of the ``ops`` operators (``aten::mul``, ...) that launch the
+    most; returns ((device us, count, kernel name) rows, busy us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -418,6 +457,14 @@ def profile_device(fn, label: str, top: int = 8):
     for us, count, key in rows[:top]:
         log(f"      {us:9.1f} us  {us / max(busy, 1e-9):6.1%}  x{count:<4d} "
             f"{key[:90]}")
+    if ops:
+        by_op = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and e.self_device_time_total > 0), reverse=True)
+        log("      by operator: " + "; ".join(
+            f"{key} {us / max(busy, 1e-9):.1%} (x{count})"
+            for us, count, key in by_op[:ops]))
     return rows, busy
 
 
@@ -3711,6 +3758,370 @@ def check_lm_serving(dev, smi: str) -> dict:
     return launches
 
 
+def gnn_cell_batch(cell, seed: int, dev) -> dict:
+    """A GNN cell's batch: ``geometric_graph_batch`` at the cell's nodes,
+    edges (as the cell gives them; ``pad_edges`` only shards), features
+    and graphs, per node on the node-level cells, with ``n_graphs`` and
+    ``node_level``, on ``dev``."""
+    from repro_torch.configs.base import NODE_LEVEL_CELLS
+    from repro_torch.data import synthetic as syn
+
+    d = cell.dims
+    node_level = cell.shape in NODE_LEVEL_CELLS
+    return dict(syn.geometric_graph_batch(
+        seed, d["n_nodes"], d["n_edges"], d["d_feat"], n_graphs=d["n_graphs"],
+        node_level=node_level, device=dev), n_graphs=d["n_graphs"],
+        node_level=node_level)
+
+
+def check_gnn_trainer(dev, smi: str) -> dict:
+    """Phase 25: the GNN family in ``repro_torch.launch.train`` at
+    published width, and its node descriptors served through Zen.
+
+    MACE's published config (``configs.mace.make_config``: 2 layers, C =
+    128, l_max 2, correlation 3, n_rbf 8, r_cut 5, radial 64, readout 16,
+    bf16, remat), bound to each cell's feature width (``for_shape``),
+    takes GNN_STEPS steps of ``train.mace_trainer`` on each cell of
+    GNN_CELLS_ON_CARD, on the cell's one batch (``gnn_cell_batch``; its
+    node-side shapes and static entries the cell's input specs): ms a step
+    (median of the last 8), nodes/s, the share of the bf16 peak
+    (``launch.model_flops.estimate`` over 989 TFLOP/s), peak device
+    memory, and one more step profiled (at minibatch_lg also a
+    no-gradient forward, and its layers' edge passes and node sides,
+    timed apart with CUDA events). Gates: losses finite, and falling
+    on the repeated molecule batch; minibatch_lg's loss and gradients
+    twice from the same parameters, the same bits; a molecule run at
+    published width (a fresh batch a step) resumed from a checkpoint of
+    step 3, steps 3-5 the straight run's losses and parameter bytes; 2
+    reduced f32 steps on the card against the CPU (STEP_TOL); the bf16
+    energies of fresh full-width weights on the molecule and minibatch_lg
+    batches within GNN_BF16_TOL of an f64 evaluation of the same
+    parameters (``testing.energy_errors``' mean), and two planted faults
+    past it (messages sent from receiver to sender; the nu = 3
+    correlation dropped, w_corr3 = 0).
+    Last, ``node_descriptors`` of the trained minibatch_lg model (176,128 x
+    128 f32) into a flat ``build_index`` (k = GNN_K), GNN_Q descriptor rows
+    in batches of 64 through ``ZenServer`` (re-rank GNN_RERANK, n =
+    GNN_NN): recall@10 against an exact top-10, p50/p99, zen_topk's
+    launches in those batches (one a batch), the answers equal the plain
+    dispatch's, and Lwb serving each query row first. Returns the served
+    batches' zen_topk launches."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch import testing
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import mace as mace_cfg
+    from repro_torch.kernels import zen_topk as zt
+    from repro_torch.launch import model_flops, serve, train
+    from repro_torch.models import mace
+    from repro_torch.optim import apply_updates
+    from repro_torch.testing import topk_mismatch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = C.get_arch("mace")
+    base = spec.make_config()
+    held = torch.cuda.memory_allocated(dev)
+    log(f"[25] the GNN family in the trainer at published width (MACE: "
+        f"{base.n_layers} layers, C = {base.channels}, l_max {base.l_max}, "
+        f"correlation {base.correlation}, n_rbf {base.n_rbf}, r_cut "
+        f"{base.r_cut}, radial {base.radial_hidden}, readout "
+        f"{base.readout_hidden}, {str(base.dtype)[6:]}, remat "
+        f"{base.remat}); {smi}; earlier phases hold {held / 1e9:.2f} GB")
+    batches = {}
+    for shape in GNN_CELLS_ON_CARD:
+        cell = spec.cell(shape)
+        cfg = mace_cfg.for_shape(base, cell.dims["d_feat"])
+        t = time.perf_counter()
+        batch = gnn_cell_batch(cell, 0, dev)
+        make_s = time.perf_counter() - t
+        specs = C.input_specs(spec, cfg, cell)
+        for k, v in specs["batch"].items():
+            want = ((cell.dims["n_edges"],) if k in (
+                "senders", "receivers", "edge_mask") else v.shape)
+            if tuple(batch[k].shape) != want or batch[k].dtype != v.dtype:
+                fail(f"mace {shape}: batch {k} {tuple(batch[k].shape)} "
+                     f"{batch[k].dtype}, not {want} {v.dtype}")
+        if {k: batch[k] for k in specs["static"]} != specs["static"]:
+            fail(f"mace {shape}: static entries are not {specs['static']}")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = train.mace_trainer(cfg, seed=0, device=dev)
+        losses, step_s = [], []
+        for _ in range(GNN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(tr.step(batch)[0].item())
+            step_s.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not np.isfinite(losses).all():
+            fail(f"mace {shape}: losses {losses}")
+        if shape == "molecule" and not losses[-1] < losses[0]:
+            fail(f"mace molecule: the loss did not fall over {GNN_STEPS} "
+                 f"steps on one batch: {losses}")
+        ms = float(np.median(step_s[-8:])) * 1e3
+        n_nodes = cell.dims["n_nodes"]
+        flops = model_flops.estimate("mace", shape, cfg)["model_flops_global"]
+        log(f"    {shape} ({n_nodes:,} nodes, {cell.dims['n_edges']:,} edges"
+            f", d_feat {cfg.d_feat:,}, {cell.dims['n_graphs']} graphs, "
+            f"{'per node' if batch['node_level'] else 'per graph'}; "
+            f"{sum(p.numel() for p in tr.params.values()):,} parameters; the "
+            f"batch made in {make_s:.2f} s): {ms:.2f} ms a step (median of "
+            f"the last 8; every step "
+            f"{np.round(np.asarray(step_s) * 1e3, 1).tolist()} ms), "
+            f"{n_nodes / ms * 1e3:,.0f} nodes/s; model FLOPs "
+            f"{flops / 1e12:.3f} T a step = "
+            f"{flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2%} of the bf16 peak; "
+            f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; peak device memory "
+            f"{peak / 1e9:.2f} GB ({(peak - before) / 1e9:.2f} GB above the "
+            f"batch and earlier phases)")
+        if shape == "minibatch_lg":
+            # the same step twice from the same parameters: the same bits
+            def loss_and_grads():
+                loss, _ = tr.loss_fn(tr.model, batch)
+                return [loss.detach()] + list(torch.autograd.grad(
+                    loss, list(tr.params.values()), materialize_grads=True))
+
+            first, again = loss_and_grads(), loss_and_grads()
+            bad = [n for n, a, b in zip(["loss", *tr.params], first, again)
+                   if not torch.equal(a, b)]
+            if bad:
+                fail(f"mace minibatch_lg: the same step twice differs in "
+                     f"{bad}")
+            log(f"    minibatch_lg: the loss and all {len(tr.params)} "
+                f"gradient leaves of the same step twice, the same bits")
+            del first, again
+        profile_device(lambda: tr.step(batch), f"one mace {shape} step",
+                       top=6, ops=12)
+        if shape == "minibatch_lg":
+            # where a forward's device time goes: each layer's edge pass
+            # (radial weights, gathers, the 12 paths, the segment sums)
+            # and node side (B-basis, channel mixes, update, readout)
+            edges = mace._edges(cfg, batch, 1)
+            h = mace._embed(cfg, tr.model, batch)
+            edge_ms = layer_ms = 0.0
+            with torch.no_grad():
+                for layer in tr.model.layers:
+                    args = (cfg, layer, *h[:3], edges)
+                    edge_ms += timed(lambda: mace._edge_pass(
+                        *args, n_nodes), 3, 1)
+                    layer_ms += timed(lambda: mace._one_layer(
+                        *args, h[3]), 3, 1)
+                    h = (*mace._one_layer(*args, h[3])[:3], h[3])
+                fwd_ms = timed(lambda: mace.forward(cfg, tr.model, batch),
+                               3, 1)
+            del edges, h
+            node_ms = layer_ms - edge_ms
+            log(f"    minibatch_lg forward (no gradient, CUDA events): "
+                f"{fwd_ms:.1f} ms = {fwd_ms / ms:.1%} of a step; the 2 "
+                f"layers' edge passes {edge_ms:.1f} ms, their node sides "
+                f"{node_ms:.1f} ms")
+        batches[shape] = batch
+        if shape == "minibatch_lg":
+            trained = cfg, tr
+        del tr
+        torch.cuda.empty_cache()
+
+    # a resumed run at published width is the straight run's bits
+    cell = spec.cell("molecule")
+    cfg = mace_cfg.for_shape(base, cell.dims["d_feat"])
+    tr = train.mace_trainer(cfg, seed=0, device=dev)
+
+    def steps(start):
+        return [tr.step(gnn_cell_batch(cell, s, dev))[0].item()
+                for s in range(start, start + 3)]
+
+    steps(0)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save_async(3, tr.state_tree())
+        mgr.wait()
+        after = steps(3)
+        want = {n: p.detach().clone() for n, p in tr.params.items()}
+        step, tree = mgr.restore(like=tr.state_tree())
+        tr.load_state_tree(tree)
+    if step != 3:
+        fail(f"restored step {step}, not 3")
+    again = steps(3)
+    bad = [n for n, p in tr.params.items() if not torch.equal(p, want[n])]
+    if again != after or bad:
+        fail(f"the resumed molecule run differs from the straight one: "
+             f"losses {again} against {after}, parameters {bad}")
+    log(f"    restart at published width (molecule, a fresh batch a "
+        f"step): steps 3-5 after a restore of step 3 equal the straight "
+        f"run's, losses {after} and every parameter byte")
+    del tr, want
+
+    # two reduced f32 steps on the card against the CPU
+    rcfg = spec.make_reduced()
+
+    def reduced(device):
+        model = mace.init_params(rcfg, generator=torch.Generator()
+                                 .manual_seed(0))
+        return train.Trainer(model.to(device),
+                             functools.partial(mace.loss_fn, rcfg))
+
+    def loss_and_grads(tr, batch):
+        loss, _ = tr.loss_fn(tr.model, batch)
+        return loss.item(), dict(zip(tr.params, torch.autograd.grad(
+            loss, list(tr.params.values()), materialize_grads=True)))
+
+    cpu, card = reduced("cpu"), reduced(dev)
+    make = train.gnn_batch_fn(rcfg, seed=0, batch=16, device="cpu")
+    worst = worst_g = 0.0
+    for s in range(2):
+        batch = make(s)
+        want, want_g = loss_and_grads(cpu, batch)
+        got, got_g = loss_and_grads(card, {
+            k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()})
+        if not np.isclose(got, want, **STEP_TOL):
+            fail(f"mace reduced: the card's loss {got} at step {s} against "
+                 f"the CPU's {want}")
+        for name, g in want_g.items():
+            if not torch.allclose(got_g[name].cpu(), g, **STEP_TOL):
+                fail(f"mace reduced: the card's gradient of {name} at step "
+                     f"{s} differs from the CPU's")
+            worst_g = max(worst_g, float((got_g[name].cpu() - g).abs()
+                                         .max()))
+        for tr, grads in ((cpu, {n: g.cpu().clone()
+                                 for n, g in got_g.items()}),
+                          (card, got_g)):
+            upd, tr.opt_state = tr.opt.update(grads, tr.opt_state,
+                                              tr.params)
+            apply_updates(tr.params, upd)
+    for name, p in cpu.params.items():
+        q = card.params[name].detach().cpu()
+        if not torch.allclose(q, p.detach(), **STEP_TOL):
+            fail(f"mace reduced: {name} after 2 steps on the card differs "
+                 f"from the CPU's")
+        worst = max(worst, float((q - p.detach()).abs().max()))
+    log(f"    2 reduced f32 steps on the card equal the CPU's (rtol "
+        f"{STEP_TOL['rtol']}, atol {STEP_TOL['atol']}: losses, gradients "
+        f"max |diff| {worst_g:.3g}, parameters after both sides' AdamW "
+        f"updates max |diff| {worst:.3g})")
+    del cpu, card
+
+    # bf16 at published width against f64 of the same parameters, and two
+    # planted faults the check must see
+    for shape in ("molecule", "minibatch_lg"):
+        cfg16 = mace_cfg.for_shape(base, spec.cell(shape).dims["d_feat"])
+        model = mace.init_params(cfg16, generator=torch.Generator(
+            device=dev).manual_seed(25))
+        cfg64 = dataclasses.replace(cfg16, dtype=torch.float64, remat=False)
+        m64 = mace.MACE(cfg64, device=dev)
+        m64.load_state_dict({k: v.double()
+                             for k, v in model.state_dict().items()})
+        batch = batches[shape]
+        with torch.no_grad():
+            want = mace.forward(cfg64, m64, batch)
+            del m64
+            readings = {"sound": testing.energy_errors(
+                mace.forward(cfg16, model, batch), want)}
+            readings["messages reversed"] = testing.energy_errors(
+                mace.forward(cfg16, model, dict(
+                    batch, senders=batch["receivers"],
+                    receivers=batch["senders"])), want)
+            for layer in model.layers:
+                layer.w_corr3.zero_()
+            readings["nu = 3 dropped"] = testing.energy_errors(
+                mace.forward(cfg16, model, batch), want)
+        log(f"    {shape}: bf16 energies ({tuple(want.shape)}, |energy| "
+            f"largest {float(want.abs().max()):.4g}, median "
+            f"{float(want.abs().median()):.4g}) against f64 of the same "
+            f"parameters, |diff| / (|f64| + median) max / mean: "
+            + "; ".join(f"{f} {w:.4g} / {m:.4g}"
+                        for f, (w, m) in readings.items())
+            + f" (the mean's tolerance {GNN_BF16_TOL})")
+        if not readings["sound"][1] <= GNN_BF16_TOL:
+            fail(f"mace {shape}: bf16 energies against f64: mean relative "
+                 f"|diff| {readings['sound'][1]:.4g} (tolerance "
+                 f"{GNN_BF16_TOL})")
+        for fault, (_, fm) in readings.items():
+            if fault != "sound" and not fm > GNN_BF16_TOL:
+                fail(f"mace {shape}: the bf16 check cannot see a planted "
+                     f"fault ({fault}): mean relative |diff| {fm:.4g}")
+        del model, want
+        torch.cuda.empty_cache()
+
+    # the trained minibatch_lg model's node descriptors through Zen
+    cfg, tr = trained
+    batch = batches["minibatch_lg"]
+    t = time.perf_counter()
+    with torch.no_grad():
+        desc = mace.node_descriptors(cfg, tr.model, batch)
+    torch.cuda.synchronize()
+    desc_s = time.perf_counter() - t
+    N = desc.shape[0]
+    if (desc.shape != (batch["positions"].shape[0], cfg.channels)
+            or desc.dtype != torch.float32 or not torch.isfinite(desc).all()):
+        fail(f"node descriptors: {tuple(desc.shape)} {desc.dtype}, finite "
+             f"{bool(torch.isfinite(desc).all())}")
+    del trained, batches, tr, batch
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    index = serve.build_index(desc, GNN_K, device=dev,
+                              generator=torch.Generator().manual_seed(25))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    rows = torch.randperm(N, generator=torch.Generator().manual_seed(25)
+                          )[:GNN_Q].to(dev)
+    queries = [desc[rows[lo:lo + 64]] for lo in range(0, GNN_Q, 64)]
+    server = serve.ZenServer(index, rerank_factor=GNN_RERANK)
+    server.query(queries[0], GNN_NN)  # warm-up
+    zt.zen_topk.launches = 0
+    lat, answers = [], []
+    for q in queries:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, ids = server.query(q, GNN_NN)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        if d.shape != (64, GNN_NN) or not torch.isfinite(d).all():
+            fail(f"descriptor leg: distances not finite of shape (64, "
+                 f"{GNN_NN}): {tuple(d.shape)}")
+        answers.append((d, ids))
+    launches = zt.zen_topk.launches
+    if launches != len(queries):
+        fail(f"descriptor leg: {len(queries)} batches launched zen_topk "
+             f"{launches} times, not once a batch")
+    recalls = [serve.recall(ids, serve.exact_topk(q, desc, GNN_NN))
+               for (_, ids), q in zip(answers, queries)]
+    with plain_dispatch():
+        for (d, ids), q in zip(answers, queries):
+            pd, pids = server.query(q, GNN_NN)
+            msg = topk_mismatch(d, ids, pd, pids, rtol=RTOL, atol=RTOL)
+            if msg is not None:
+                fail(f"descriptor leg: the served answers differ from the "
+                     f"kernels' plain versions': {msg}")
+    first = {}
+    for mode in ("lwb", "zen"):
+        srv = serve.ZenServer(index, mode=mode, rerank_factor=GNN_RERANK)
+        hits = [srv.query(q, GNN_NN)[1][:, 0] == rows[64 * i:64 * (i + 1)]
+                for i, q in enumerate(queries)]
+        first[mode] = int(torch.cat(hits).sum())
+    if first["lwb"] != GNN_Q:
+        fail(f"descriptor leg: Lwb serves {GNN_Q - first['lwb']} of "
+             f"{GNN_Q} query rows not first")
+    lat_ms = np.asarray(lat) * 1e3
+    log(f"    descriptors: node_descriptors of the trained minibatch_lg "
+        f"model {tuple(desc.shape)} f32 in {desc_s:.2f} s; flat "
+        f"build_index(k = {GNN_K}) {build_s:.2f} s; {len(queries)} batches "
+        f"x 64 descriptor rows (re-rank {GNN_RERANK}, n = {GNN_NN}): "
+        f"recall@{GNN_NN} {np.mean(recalls):.4f} (min batch "
+        f"{np.min(recalls):.4f}), p50 {np.percentile(lat_ms, 50):.3f} ms, "
+        f"p99 {np.percentile(lat_ms, 99):.3f} ms; zen_topk launches "
+        f"{launches}; answers equal the plain dispatch's; each query row "
+        f"served first: Lwb {first['lwb']} of {GNN_Q}, Zen {first['zen']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"zen_topk": launches}
+
+
 def main() -> None:
     import torch
 
@@ -4112,12 +4523,16 @@ def main() -> None:
     # -- 24. LM next-token rows into Zen's JSD index ------------------------------
     lm_launches = check_lm_serving(torch.device("cuda"), smi)
 
+    # -- 25. the GNN trainer at full width, its descriptors into Zen --------------
+    gnn_launches = check_gnn_trainer(torch.device("cuda"), smi)
+
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",
                     replaces="src/repro/kernels/zen_topk.py:92",
                     launches=serve_launches, max_abs_err=max_err,
                     sharded_launches=sharded_launches["zen_topk"],
-                    lm_jsd_launches=lm_launches["zen_topk"], **main_rec)]
+                    lm_jsd_launches=lm_launches["zen_topk"],
+                    gnn_launches=gnn_launches["zen_topk"], **main_rec)]
     for kname, line, launches in (("ivf_probe", 94, ivf_launches),
                                   ("ivf_probe_pq", 296, pq_launches)):
         extra = ({"sharded_launches": sharded_launches[kname]}

@@ -1,5 +1,5 @@
 """Config substrate (PyTorch counterpart of ``repro.configs.base``):
-architecture specs, shape cells and the LM and recsys input specs.
+architecture specs, shape cells and the LM, GNN and recsys input specs.
 
 Every architecture module exposes ``spec() -> ArchSpec`` with
   * the exact published configuration (``make_config``),
@@ -25,7 +25,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                     # lm | recsys (gnn: ROADMAP A, item 2)
+    family: str                     # lm | gnn | recsys
     source: str                     # citation tag from the assignment table
     make_config: Callable[[], Any]
     make_reduced: Callable[[], Any]
@@ -59,6 +59,20 @@ def lm_cells(*, full_attention_only: bool) -> Tuple[ShapeCell, ...]:
         )
     return tuple(cells)
 
+
+GNN_CELLS = (
+    ShapeCell("full_graph_sm", "train",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433, "n_graphs": 1}),
+    ShapeCell("minibatch_lg", "train",
+              {"n_nodes": 176128, "n_edges": 172032, "d_feat": 602,
+               "batch_nodes": 1024, "n_graphs": 1,
+               "pool_nodes": 232965, "pool_edges": 114615892}),
+    ShapeCell("ogb_products", "train",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100,
+               "n_graphs": 1}),
+    ShapeCell("molecule", "train",
+              {"n_nodes": 3840, "n_edges": 8192, "d_feat": 16, "n_graphs": 128}),
+)
 
 RECSYS_CELLS = (
     ShapeCell("train_batch", "train", {"batch": 65536}),
@@ -97,6 +111,42 @@ def lm_input_specs(cfg, cell: ShapeCell) -> dict:
     raise ValueError(cell.kind)
 
 
+def pad_edges(e: int, mult: int = 512) -> int:
+    """Edge arrays shard over the data axes; pad to a shardable multiple
+    (padding edges carry edge_mask = 0)."""
+    return (e + mult - 1) // mult * mult
+
+
+#: the GNN cells trained per node (the rest per graph)
+NODE_LEVEL_CELLS = ("minibatch_lg", "ogb_products")
+
+
+def gnn_input_specs(cfg, cell: ShapeCell) -> dict:
+    """The inputs of ``cfg`` at ``cell``: the graph batch (edges padded by
+    ``pad_edges``) and its static entries ``n_graphs`` and
+    ``node_level``."""
+    d = cell.dims
+    N, E, G = d["n_nodes"], pad_edges(d["n_edges"]), d["n_graphs"]
+    f32, i32 = torch.float32, torch.int32
+    node_level = cell.shape in NODE_LEVEL_CELLS
+    batch = {
+        "positions": TensorSpec((N, 3), f32),
+        "node_feat": TensorSpec((N, d["d_feat"]), f32),
+        "senders": TensorSpec((E,), i32),
+        "receivers": TensorSpec((E,), i32),
+        "edge_mask": TensorSpec((E,), f32),
+        "node_mask": TensorSpec((N,), f32),
+        "node_graph": TensorSpec((N,), i32),
+    }
+    if node_level:
+        batch["target_nodes"] = TensorSpec((N,), f32)
+        batch["loss_node_mask"] = TensorSpec((N,), f32)
+    else:
+        batch["target_energy"] = TensorSpec((G,), f32)
+    return {"batch": batch, "static": {"n_graphs": G,
+                                       "node_level": node_level}}
+
+
 def recsys_input_specs(cfg, cell: ShapeCell) -> dict:
     """The inputs of ``cfg`` at ``cell``: the batch (sparse ids, dense
     features, labels for training) and, for retrieval, the candidates (raw
@@ -126,9 +176,8 @@ def recsys_input_specs(cfg, cell: ShapeCell) -> dict:
 
 
 def input_specs(spec: ArchSpec, cfg, cell: ShapeCell) -> dict:
-    if spec.family == "lm":
-        return lm_input_specs(cfg, cell)
-    if spec.family == "recsys":
-        return recsys_input_specs(cfg, cell)
-    raise ValueError(f"the port has no {spec.family} family yet "
-                     "(ROADMAP A, item 2)")
+    return {
+        "lm": lm_input_specs,
+        "gnn": gnn_input_specs,
+        "recsys": recsys_input_specs,
+    }[spec.family](cfg, cell)

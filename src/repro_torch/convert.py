@@ -13,8 +13,8 @@ index is ``launch.serve.ZenIndex`` (``coords``, ``coord_scales``,
 ``core.baselines``' ``PCATransform``, ``RandomProjection``,
 ``MDSTransform`` and ``LMDSTransform`` (their fields by name); the
 recsys models are ``models.recsys``' parameter pytrees, the LMs
-``models.transformer``'s (bf16 leaves as their 16-bit patterns), and the
-optimiser state ``optim.AdamWState``. Feeding
+``models.transformer``'s (bf16 leaves as their 16-bit patterns), the MACE
+models ``models.mace``'s, and the optimiser state ``optim.AdamWState``. Feeding
 both packages one fitted state lets a test hold the search path, or a
 baseline's transform, to the reference without the fit's float noise (or
 the k-means and RP draws, or the SVD/eigh sign choices) in between; and
@@ -38,7 +38,7 @@ from repro_torch.core.simplex import BaseSimplex
 from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.kernels import quantize as quant
 from repro_torch.launch.serve import ZenIndex
-from repro_torch.models import recsys, transformer
+from repro_torch.models import mace, recsys, transformer
 from repro_torch.optim import AdamWState
 
 
@@ -225,6 +225,19 @@ def transformer_from_arrays(cfg: transformer.TransformerConfig,
     ``cfg.dtype``."""
     dev = resolve_device(device)
     model = transformer.Transformer(cfg, device=dev)
+    model.load_state_dict({k: _leaf_tensor(v, cfg.dtype, dev)
+                           for k, v in flat_state(params).items()},
+                          strict=True)
+    return model
+
+
+def mace_from_arrays(cfg: mace.MACEConfig, params: dict, *, device=None
+                     ) -> mace.MACE:
+    """The port's MACE model holding exactly this parameter pytree (the
+    reference's ``init_params`` layout: ``embed`` and a list ``layers`` of
+    dicts of leaves), each leaf in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    model = mace.MACE(cfg, device=dev)
     model.load_state_dict({k: _leaf_tensor(v, cfg.dtype, dev)
                            for k, v in flat_state(params).items()},
                           strict=True)

@@ -20,7 +20,7 @@ import torch
 class PrefetchPipeline:
     def __init__(
         self,
-        make_batch: Callable[[int], dict],   # step -> dict of tensors
+        make_batch: Callable[[int], dict],   # step -> batch dict
         *,
         start_step: int = 0,
         prefetch: int = 2,
@@ -78,11 +78,15 @@ def shard_for_host(
     num_hosts: int = 1,
     batch_axis: int = 0,
 ) -> dict:
-    """Slice the global batch (a dict of tensors) to this host's rows."""
+    """Slice the global batch (a dict of tensors) to this host's rows; an
+    entry that is not a tensor (a graph batch's ``n_graphs``) stays as it
+    is."""
     if num_hosts == 1:
         return batch
 
-    def slice_leaf(x: torch.Tensor) -> torch.Tensor:
+    def slice_leaf(x):
+        if not isinstance(x, torch.Tensor):
+            return x
         per = x.shape[batch_axis] // num_hosts
         return x.narrow(batch_axis, host_index * per, per)
 

@@ -1,14 +1,19 @@
 """Synthetic data generators (PyTorch counterpart of ``repro.data.synthetic``):
-the paper's spaces, the LM token streams and the recsys click batches.
+the paper's spaces, the LM token streams, the recsys click batches and the
+geometric graphs of the GNN family.
 
 Draws come from a ``torch.Generator``: the distributions are the JAX
 package's, the bits are not (``jax.random`` streams cannot be replayed).
+The graphs are the exception: the reference draws them with numpy's
+``default_rng(seed)``, and so does ``geometric_graph_batch``, so its arrays
+are the reference's, bit for bit.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -194,3 +199,45 @@ def two_tower_batch(batch: int, vocab_sizes, n_items: int, *,
     -> item mapping to learn, under ``recsys_batch``'s skew."""
     sparse = recsys_batch(batch, vocab_sizes, generator=generator)["sparse"]
     return {"sparse": sparse, "items": item_hash(sparse, n_items)}
+
+
+def geometric_graph_batch(seed: int, n_nodes: int, n_edges: int, d_feat: int,
+                          n_graphs: int = 1, node_level: bool = False,
+                          box: float = 8.0, *, device) -> dict:
+    """Random geometric graph(s) with synthetic 3D positions, as tensors on
+    ``device``: the reference's numpy draws from ``default_rng(seed)``, in
+    its order (positions uniform in a ``box`` cube, senders uniform,
+    receivers a sender plus an offset in [1, max(n_nodes // 64, 2)) modulo
+    ``n_nodes``, sorted graph ids, normal features, then the targets:
+    per-node with ``loss_node_mask`` when ``node_level``, else per graph).
+    Like the reference's, the batch holds neither ``n_graphs`` nor
+    ``node_level``; the caller adds them."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, box, size=(n_nodes, 3)).astype(np.float32)
+    send = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    # bias edges toward spatial neighbours: jitter around sender positions
+    recv = (send + rng.integers(1, max(n_nodes // 64, 2), n_edges)) % n_nodes
+    recv = recv.astype(np.int32)
+    node_graph = np.sort(rng.integers(0, n_graphs, n_nodes)).astype(np.int32)
+    feat = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    batch = {
+        "positions": t(pos),
+        "node_feat": t(feat),
+        "senders": t(send),
+        "receivers": t(recv),
+        "edge_mask": torch.ones((n_edges,), device=device),
+        "node_mask": torch.ones((n_nodes,), device=device),
+        "node_graph": t(node_graph),
+    }
+    if node_level:
+        batch["target_nodes"] = t(rng.normal(size=(n_nodes,))
+                                  .astype(np.float32))
+        batch["loss_node_mask"] = torch.ones((n_nodes,), device=device)
+    else:
+        batch["target_energy"] = t(rng.normal(size=(n_graphs,))
+                                   .astype(np.float32))
+    return batch

@@ -1,13 +1,16 @@
 """Training entry point of the port: the LM family (``qwen1.5-0.5b``,
 ``gemma2-2b``, ``granite-8b``, ``granite-moe-3b-a800m``,
-``qwen2-moe-a2.7b``) and the recsys family (``dlrm-rm2``, ``autoint``,
-``wide-deep``, ``xdeepfm``) with checkpoint/restart, straggler monitoring,
-preemption-aware saves and optional gradient compression (PyTorch
-counterpart of ``repro.launch.train``).
+``qwen2-moe-a2.7b``), the GNN family (``mace``) and the recsys family
+(``dlrm-rm2``, ``autoint``, ``wide-deep``, ``xdeepfm``) with
+checkpoint/restart, straggler monitoring, preemption-aware saves and
+optional gradient compression (PyTorch counterpart of
+``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --reduced --device cpu --steps 12 --seq 64 --ckpt-dir /tmp/ck
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
+        --reduced --device cpu --steps 12 --ckpt-dir /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mace \\
         --reduced --device cpu --steps 12 --ckpt-dir /tmp/ck
     # the same command with --resume continues from the newest checkpoint
 
@@ -17,11 +20,13 @@ and prefetched by a background thread, so a resumed run on the same
 device takes the same steps, bit for bit: every operation of the step is
 deterministic on one CUDA stream (the embedding gather's backward sorts
 its ids, the reductions and GEMMs have fixed orders). An LM batch is
-``--batch`` x ``--seq`` tokens of ``lm_batch``.
+``--batch`` x ``--seq`` tokens of ``lm_batch``; a GNN batch is the
+reference trainer's: ``geometric_graph_batch(seed + step)`` of ``--batch``
+graphs, 16 nodes and 48 edges each (numpy draws, so the reference's
+batches bit for bit).
 
-The GNN family (ROADMAP A, item 2), ``--data-shards`` / ``--model-shards``
-> 1 and ``--multihost`` (the reference's GSPMD sharding: ROADMAP A, item
-3) raise.
+``--data-shards`` / ``--model-shards`` > 1 and ``--multihost`` (the
+reference's GSPMD sharding: ROADMAP A, item 3) raise.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from repro_torch.checkpoint.checkpoint import (
 from repro_torch.data import synthetic as syn
 from repro_torch.data.pipeline import PrefetchPipeline
 from repro_torch.distributed.fault import PreemptionGuard, StepMonitor
-from repro_torch.models import recsys, transformer
+from repro_torch.models import mace, recsys, transformer
 from repro_torch.optim import AdamW, AdamWState, apply_updates
 from repro_torch.optim import compression as comp_lib
 
@@ -80,8 +85,10 @@ class Trainer:
         """One training step on ``batch``; returns (loss, aux), detached,
         computed before the update."""
         loss, aux = self.loss_fn(self.model, batch)
+        # a leaf the loss does not reach (MACE's last layer's l = 1, 2
+        # linears) gets zeros, as the reference's grad gives it
         grads = dict(zip(self.params, torch.autograd.grad(
-            loss, list(self.params.values()))))
+            loss, list(self.params.values()), materialize_grads=True)))
         if self.comp_state is not None:
             grads, self.comp_state = comp_lib.error_feedback_update(
                 grads, self.comp_state)
@@ -134,6 +141,16 @@ def lm_trainer(cfg: transformer.TransformerConfig, *, seed: int, device,
                    compress_grads=compress_grads)
 
 
+def mace_trainer(cfg: mace.MACEConfig, *, seed: int, device,
+                 compress_grads: bool = False) -> Trainer:
+    """A MACE model drawn from ``seed`` on ``device``, with AdamW at the
+    reference trainer's learning rate."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = mace.init_params(cfg, generator=gen)
+    return Trainer(model, functools.partial(mace.loss_fn, cfg),
+                   compress_grads=compress_grads)
+
+
 def batch_fn(cfg: recsys.RecsysConfig, *, seed: int, batch: int,
              device) -> Callable[[int], dict]:
     """step -> the click batch of that step, drawn on ``device``."""
@@ -154,19 +171,38 @@ def lm_batch_fn(cfg: transformer.TransformerConfig, *, seed: int,
     return make
 
 
+def gnn_batch_fn(cfg: mace.MACEConfig, *, seed: int, batch: int,
+                 device) -> Callable[[int], dict]:
+    """step -> the reference trainer's graph batch of that step:
+    ``geometric_graph_batch(seed + step)`` of ``batch`` graphs (16 nodes
+    and 48 edges each, ``cfg.d_feat`` features), with ``n_graphs``, as
+    tensors on ``device``."""
+    def make(step: int) -> dict:
+        return dict(syn.geometric_graph_batch(
+            seed + step, n_nodes=16 * batch, n_edges=48 * batch,
+            d_feat=cfg.d_feat, n_graphs=batch, device=device),
+            n_graphs=batch)
+    return make
+
+
 def family_trainer(family: str, cfg, *, seed: int, device,
                    compress_grads: bool = False) -> Trainer:
-    """``lm_trainer`` or ``recsys_trainer`` by the architecture's family."""
-    make = lm_trainer if family == "lm" else recsys_trainer
+    """``lm_trainer``, ``mace_trainer`` or ``recsys_trainer`` by the
+    architecture's family."""
+    make = {"lm": lm_trainer, "gnn": mace_trainer,
+            "recsys": recsys_trainer}[family]
     return make(cfg, seed=seed, device=device, compress_grads=compress_grads)
 
 
 def family_batch_fn(family: str, cfg, *, seed: int, batch: int, seq: int,
                     device) -> Callable[[int], dict]:
-    """``lm_batch_fn`` or ``batch_fn`` by the architecture's family."""
+    """``lm_batch_fn``, ``gnn_batch_fn`` or ``batch_fn`` by the
+    architecture's family."""
     if family == "lm":
         return lm_batch_fn(cfg, seed=seed, batch=batch, seq=seq,
                            device=device)
+    if family == "gnn":
+        return gnn_batch_fn(cfg, seed=seed, batch=batch, device=device)
     return batch_fn(cfg, seed=seed, batch=batch, device=device)
 
 
@@ -177,8 +213,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--seq", type=int, default=64,
-                   help="the LM family's sequence length (the recsys "
-                        "family has none)")
+                   help="the LM family's sequence length (the GNN and "
+                        "recsys families have none)")
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=10)
     p.add_argument("--resume", action="store_true")
@@ -195,8 +231,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def train(args: argparse.Namespace, log=print) -> dict:
     """The CLI's loop. Returns ``losses`` and ``step_s`` of the steps run,
     ``start_step``, ``peak_bytes`` (the card's peak allocation during the
-    run, None on the CPU), ``batch_shapes`` of the first batch and the
-    ``trainer``."""
+    run, None on the CPU), ``batch_shapes`` of the first batch (a tensor's
+    shape and dtype; any other entry, such as a graph batch's
+    ``n_graphs``, as it is) and the ``trainer``."""
     dev = resolve_device(args.device)
     if args.multihost or args.data_shards * args.model_shards > 1:
         raise NotImplementedError(
@@ -230,8 +267,10 @@ def train(args: argparse.Namespace, log=print) -> dict:
         for _ in range(args.steps - start_step):
             step, batch = next(pipeline)
             if batch_shapes is None:
-                batch_shapes = {k: (tuple(v.shape), v.dtype)
-                                for k, v in batch.items()}
+                batch_shapes = {
+                    k: (tuple(v.shape), v.dtype)
+                    if isinstance(v, torch.Tensor) else v
+                    for k, v in batch.items()}
             t0 = time.perf_counter()
             loss, _ = trainer.step(batch)
             loss = float(loss)  # waits for the step

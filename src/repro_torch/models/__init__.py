@@ -1,3 +1,2 @@
-"""Models of the port: the LM family (``transformer``, ``moe``, ``layers``)
-and the recsys family (``recsys``); the GNN family waits for ROADMAP A,
-item 2."""
+"""Models of the port: the LM family (``transformer``, ``moe``, ``layers``),
+the GNN family (``mace``) and the recsys family (``recsys``)."""

@@ -1,6 +1,6 @@
 """Shared neural-net layers: norms, RoPE, attention (query-chunked), MLPs,
-and the deterministic row gather (PyTorch counterpart of
-``repro.models.layers``).
+the deterministic row gather and segment sum (PyTorch counterpart of
+``repro.models.layers``; the segment sum replaces ``jax.ops.segment_sum``).
 
 The reference's rounding points are kept:
 
@@ -25,6 +25,7 @@ elsewhere.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -256,3 +257,39 @@ def gather_rows(table: Tensor, ids: Tensor) -> Tensor:
     ``torch.segment_reduce``). No float atomics, so a step gives the same
     bits every time; ``F.embedding``'s CUDA backward does not."""
     return _GatherRows.apply(table, ids.long())
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Rows of ``data`` summed per segment id, in the order the rows occur;
+    its backward is a gather of the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, data: Tensor, ids: Tensor, num_segments: int,
+                order: Optional[Tensor]) -> Tensor:
+        ctx.save_for_backward(ids)
+        rows = data if order is None else data.index_select(0, order)
+        lengths = torch.bincount(ids, minlength=num_segments)
+        out = torch.segment_reduce(
+            rows.reshape(rows.shape[0], math.prod(rows.shape[1:])), "sum",
+            lengths=lengths, axis=0)
+        return out.view((num_segments,) + tuple(data.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        (ids,) = ctx.saved_tensors
+        return grad.index_select(0, ids), None, None, None
+
+
+def segment_sum(data: Tensor, ids: Tensor, num_segments: int, *,
+                ids_sorted: bool = False) -> Tensor:
+    """``jax.ops.segment_sum``: (num_segments, *data.shape[1:]) sums of the
+    rows of ``data`` by ``ids``, in ``data``'s dtype; a segment no row
+    names is exact zeros. Each segment adds its rows one after another in
+    the order they occur, from 0 (the reference's scatter-add on the CPU,
+    bf16 rounding at each add): ``torch.segment_reduce`` over the rows
+    stably sorted by id (``ids_sorted``: already in that order). No float
+    atomics, so the sums (and the backward, a gather) are the same bits
+    every time on the card; ``index_add_`` and ``scatter_add_`` are not."""
+    ids = ids.long()
+    order = None if ids_sorted else torch.argsort(ids, stable=True)
+    return _SegmentSum.apply(data, ids, num_segments, order)

@@ -302,3 +302,74 @@ def lm_outputs(cfg, model, tokens):
     grads = torch.autograd.grad(loss, list(model.parameters()))
     return logits, loss.detach(), dict(zip(
         [n for n, _ in model.named_parameters()], grads))
+
+
+# -- the GNN (MACE) in bf16 ---------------------------------------------------
+
+#: a bf16 MACE against an f64 evaluation of the same parameters and graphs.
+#: Each bf16 value keeps 8 significant bits; the B-basis multiplies three
+#: A's (a rounding of each carries into the product) and the messages sum
+#: tens of paths, so the noise grows past one ulp. Energies are compared
+#: by ``energy_errors``' mean: each |diff| over |f64| plus the median
+#: |f64| (energies of random weights are heavy-tailed, so neither one
+#: scale nor a bare relative error suits them). On the reduced config (C
+#: = 16, 64-node graphs, 4 seeds, both loss levels, 1 and 4 edge chunks)
+#: the port's bf16 reads at most 0.0047 and the reference's (compiled)
+#: 0.0108, the loss within 0.93% and every gradient leaf of the port
+#: within 6.1% of its largest |g| (the backward sums bf16 cotangents over
+#: the edges). Bounds: the energies' mean BF16_ENERGY_TOL, the loss rtol
+#: BF16_GNN_LOSS_RTOL, gradients BF16_GNN_GRAD_TOL of each leaf's largest
+#: |g|.
+BF16_ENERGY_TOL = 2**-6
+BF16_GNN_LOSS_RTOL, BF16_GNN_GRAD_TOL = 2**-5, 2**-3
+
+
+def energy_errors(energies, want) -> tuple:
+    """(max, mean) over energies of |energies - want| / (|want| + the
+    median |want|), in f64; ``inf`` when the shapes differ or a value is
+    not finite."""
+    got, want = (_np(x).astype(np.float64) for x in (energies, want))
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf"), float("inf")
+    rel = np.abs(got - want) / (np.abs(want) + np.median(np.abs(want)))
+    return float(rel.max()), float(rel.mean())
+
+
+def bf16_gnn_mismatch(energies, loss, grads, want_energies, want_loss,
+                      want_grads) -> Optional[str]:
+    """Why a bf16 MACE's (energies, loss, {leaf: gradient}) is not within
+    the bounds above of an f64 evaluation's, or ``None`` when it is."""
+    mean = energy_errors(energies, want_energies)[1]
+    if not mean <= BF16_ENERGY_TOL:
+        return f"energies: mean relative |diff| {mean:.4g}"
+    loss, want_loss = float(_np(loss)), float(_np(want_loss))
+    if not abs(loss - want_loss) <= BF16_GNN_LOSS_RTOL * abs(want_loss):
+        return f"loss {loss!r} against {want_loss!r}"
+    if set(grads) != set(want_grads):
+        return f"gradient leaves {sorted(grads)} vs {sorted(want_grads)}"
+    for name, w in want_grads.items():
+        g, w = (_np(x).astype(np.float64) for x in (grads[name], w))
+        err = np.abs(g - w).max()
+        if not err <= BF16_GNN_GRAD_TOL * np.abs(w).max():
+            return (f"gradient {name}: max |diff| {err:.4g} (largest |g| "
+                    f"{np.abs(w).max():.4g})")
+    return None
+
+
+def gnn_outputs(cfg, model, batch):
+    """A MACE's forward energies (no gradient), then its loss and the
+    gradient of every leaf by name (zeros for a leaf the loss does not
+    reach), all as f64 numpy arrays: what ``bf16_gnn_mismatch``
+    compares."""
+    import torch
+
+    from repro_torch.models import mace
+
+    with torch.no_grad():
+        energies = mace.forward(cfg, model, batch)
+    loss, _ = mace.loss_fn(cfg, model, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                materialize_grads=True)
+    f64 = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
+    return f64(energies), loss.item(), {
+        n: f64(g) for (n, _), g in zip(model.named_parameters(), grads)}

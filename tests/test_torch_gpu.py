@@ -1253,63 +1253,69 @@ LM_ARCHS = ["qwen1.5-0.5b", "gemma2-2b", "granite-8b",
 
 def _reduced_trainer(arch, device):
     """The reduced ``arch`` from weights drawn on the CPU (seed 0), moved
-    to ``device``, and its batch maker (recsys B = 256; LM B = 8, S = 64)
-    drawing on the CPU."""
+    to ``device``, and its batch maker (recsys B = 256; LM B = 8, S = 64;
+    GNN 16 graphs of 16 nodes and 48 edges) drawing on the CPU."""
     import functools
 
     from repro_torch import configs as C
     from repro_torch.launch import train
-    from repro_torch.models import recsys, transformer
+    from repro_torch.models import mace, recsys, transformer
 
     spec = C.get_arch(arch)
     cfg = spec.make_reduced()
-    lib = transformer if spec.family == "lm" else recsys
+    lib = {"lm": transformer, "gnn": mace, "recsys": recsys}[spec.family]
     model = lib.init_params(cfg, generator=torch.Generator().manual_seed(0))
     trainer = train.Trainer(model.to(device),
                             functools.partial(lib.loss_fn, cfg))
-    make = train.family_batch_fn(spec.family, cfg, seed=0,
-                                 batch=8 if spec.family == "lm" else 256,
-                                 seq=64, device="cpu")
+    make = train.family_batch_fn(
+        spec.family, cfg, seed=0,
+        batch={"lm": 8, "gnn": 16}.get(spec.family, 256), seq=64,
+        device="cpu")
     return trainer, make
+
+
+def _to(batch, dev):
+    """A batch's tensors on ``dev``; its other entries as they are."""
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
 
 
 def _loss_and_grads(trainer, batch):
     loss, _ = trainer.loss_fn(trainer.model, batch)
     return loss.detach(), dict(zip(trainer.params, torch.autograd.grad(
-        loss, list(trainer.params.values()))))
+        loss, list(trainer.params.values()), materialize_grads=True)))
 
 
 @pytest.mark.parametrize("arch", ["dlrm-rm2", "autoint", "wide-deep",
-                                  "xdeepfm"] + LM_ARCHS)
+                                  "xdeepfm", "mace"] + LM_ARCHS)
 def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
     """Two steps of the reduced model on the card and on the CPU from equal
     weights and batches: losses and parameters within the CPU parity
     tests' step tolerance (rtol 1e-4, atol 1e-6).
 
-    An LM step is held in its two parts: the losses and each step's
-    gradients (rtol 1e-4, atol 1e-6), then both sides' AdamW updates of
-    the card's gradients (parameters rtol 1e-4, atol 1e-6). AdamW divides
-    each gradient by its own root mean square, so an element whose f32 sum
-    cancels to ~1e-5 of its leaf's scale (its last digits set by the
-    summation order, ~1% apart on the two backends) moves by ~1% of the
-    learning rate apart: a few of the LMs' 16,384-element leaves do."""
+    An LM or MACE step is held in its two parts: the losses and each
+    step's gradients (rtol 1e-4, atol 1e-6), then both sides' AdamW
+    updates of the card's gradients (parameters rtol 1e-4, atol 1e-6).
+    AdamW divides each gradient by its own root mean square, so an element
+    whose f32 sum cancels to ~1e-5 of its leaf's scale (its last digits
+    set by the summation order, ~1% apart on the two backends) moves by
+    ~1% of the learning rate apart: a few of the LMs' 16,384-element
+    leaves do."""
     from repro_torch import configs as C
     from repro_torch.optim import apply_updates
 
-    lm = C.get_arch(arch).family == "lm"
+    split = C.get_arch(arch).family != "recsys"
     cpu, make = _reduced_trainer(arch, "cpu")
     card, _ = _reduced_trainer(arch, cuda)
     for s in range(2):
         batch = make(s)
-        if not lm:
+        if not split:
             want = cpu.step(batch)[0].item()
-            got = card.step({k: v.to(cuda) for k, v in batch.items()}
-                            )[0].item()
+            got = card.step(_to(batch, cuda))[0].item()
             np.testing.assert_allclose(got, want, rtol=1e-4)
             continue
         want, want_g = _loss_and_grads(cpu, batch)
-        got, got_g = _loss_and_grads(card, {k: v.to(cuda)
-                                            for k, v in batch.items()})
+        got, got_g = _loss_and_grads(card, _to(batch, cuda))
         np.testing.assert_allclose(got.item(), want.item(), rtol=1e-4)
         for name, g in want_g.items():
             np.testing.assert_allclose(got_g[name].cpu().numpy(), g.numpy(),
@@ -1392,6 +1398,92 @@ def test_moe_gradients_are_deterministic_on_card(cuda, arch):
                 assert a.dtype == dtype and torch.equal(a, b), (dtype, name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mace_gradients_are_deterministic_on_card(cuda, dtype):
+    """A reduced MACE's gradients on the card, 3 times from the same
+    weights and graphs (64 graphs, 1,024 nodes, 3,072 edges; graph- and
+    node-level; 1 edge chunk, and 4 under remat): the same bits every time
+    (the sender gathers' backward is the deterministic row gather's, the
+    edge -> node sums are ``segment_sum``'s sequential segments, its
+    backward a gather)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import mace
+
+    for node_level, chunks in ((False, 1), (True, 4)):
+        cfg = dataclasses.replace(C.get_arch("mace").make_reduced(),
+                                  dtype=getattr(torch, dtype),
+                                  edge_chunks=chunks, remat=chunks > 1)
+        model = mace.init_params(
+            cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
+        batch = dict(syn.geometric_graph_batch(
+            5, 1_024, 3_072, cfg.d_feat, n_graphs=64, node_level=node_level,
+            device=cuda), n_graphs=64, node_level=node_level)
+        grads = []
+        for _ in range(3):
+            loss, _ = mace.loss_fn(cfg, model, batch)
+            grads.append(torch.autograd.grad(loss, list(model.parameters()),
+                                             materialize_grads=True))
+        for g in grads[1:]:
+            for (name, _), a, b in zip(model.named_parameters(), grads[0], g):
+                assert a.dtype == cfg.dtype and torch.equal(a, b), name
+
+
+def test_bf16_mace_on_card_within_bounds_of_f64(cuda):
+    """The reduced MACE in bf16 on the card (bf16 GEMMs, f32 promotion of
+    the l = 2 paths): energies, loss and every gradient leaf within
+    ``testing.bf16_gnn_mismatch``'s bounds of an f64 evaluation of the same
+    parameters on the CPU."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import mace
+
+    cfg = dataclasses.replace(C.get_arch("mace").make_reduced(),
+                              dtype=torch.bfloat16)
+    model = mace.init_params(cfg, generator=torch.Generator().manual_seed(2))
+    f64 = dataclasses.replace(cfg, dtype=torch.float64)
+    ref = mace.MACE(f64)
+    ref.load_state_dict({k: v.double() for k, v in
+                         model.state_dict().items()})
+    for node_level in (False, True):
+        batch = dict(syn.geometric_graph_batch(
+            6, 256, 768, cfg.d_feat, n_graphs=16, node_level=node_level,
+            device="cpu"), n_graphs=16, node_level=node_level)
+        msg = testing.bf16_gnn_mismatch(
+            *testing.gnn_outputs(cfg, model.to(cuda), _to(batch, cuda)),
+            *testing.gnn_outputs(f64, ref, batch))
+        assert msg is None, (node_level, msg)
+
+
+def test_segment_sum_is_deterministic_on_card(cuda):
+    """``layers.segment_sum`` on the card: ids that repeat ~60 times and
+    segments with no row, f32 and bf16, 1-D and (E, 9) rows: the same bits
+    in three runs, empty segments exact zeros, and the CPU's sequential
+    sums within 1e-6 (f32; bf16 within one bf16 ulp of the largest)."""
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 4_000, 250_000) * 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((250_000,), (250_000, 9)):
+            x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                 ).to(dtype)
+            got = [layers.segment_sum(x.to(cuda), ids.to(cuda), 8_001)
+                   for _ in range(3)]
+            assert torch.equal(got[0], got[1]) and torch.equal(got[0],
+                                                               got[2])
+            assert not got[0][1::2].any()
+            want = layers.segment_sum(x, ids, 8_001).float()
+            tol = 1e-6 if dtype == torch.float32 else \
+                2**-8 * float(want.abs().max())
+            np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                                       want.numpy(), rtol=1e-6, atol=tol)
+
+
 def test_gather_backward_is_deterministic_on_card(cuda):
     """The recsys gather's backward on ids that repeat ~500 times: the same
     bits in three runs, and the CPU's sequential sums within 1e-6."""
@@ -1413,7 +1505,8 @@ def test_gather_backward_is_deterministic_on_card(cuda):
     assert not grads[0][512:].any()
 
 
-@pytest.mark.parametrize("arch", ["dlrm-rm2", "wide-deep"] + LM_ARCHS)
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "wide-deep", "mace"]
+                         + LM_ARCHS)
 def test_resumed_training_on_card_is_bit_exact(cuda, arch, tmp_path):
     """The trainer's CLI on the card: 6 steps with a checkpoint at 3, then a
     run resumed from it; the resumed steps' losses and the final parameters
@@ -1421,14 +1514,14 @@ def test_resumed_training_on_card_is_bit_exact(cuda, arch, tmp_path):
     reductions and the GEMMs are deterministic on one stream). The batch
     is large enough that ids repeat (duplicated rows in the backward):
     recsys B = 4,096; LM B = 16 x S = 256 tokens of a 512-token
-    vocabulary."""
+    vocabulary; MACE 64 graphs (1,024 nodes, 3,072 edges)."""
     from repro_torch import configs as C
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import train
 
-    lm = C.get_arch(arch).family == "lm"
+    batch = {"lm": "16", "gnn": "64"}.get(C.get_arch(arch).family, "4096")
     args = ["--arch", arch, "--reduced", "--device", "cuda", "--batch",
-            "16" if lm else "4096", "--seq", "256", "--ckpt-every", "3"]
+            batch, "--seq", "256", "--ckpt-every", "3"]
     full = train.main(args + ["--steps", "6", "--ckpt-dir",
                               str(tmp_path / "a")])
     mgr = CheckpointManager(str(tmp_path / "a"))

@@ -75,17 +75,13 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_registry_names_the_unported_families():
-    """The recsys and LM families are ported; the GNN family's one
-    architecture raises naming its ROADMAP item."""
-    lm = {a for a in jconfigs.list_archs()
-          if jconfigs.get_arch(a).family == "lm"}
+    """Every family is ported (the GNN family's ``mace`` last): the port's
+    registry lists the reference's architectures, each of the same
+    family; an unknown id raises."""
     assert set(ARCHS) < set(tconfigs.list_archs())
-    assert tconfigs.list_archs() == sorted(set(ARCHS) | lm)
-    assert set(tconfigs.list_archs()) < set(jconfigs.list_archs())
-    for aid in set(jconfigs.list_archs()) - set(tconfigs.list_archs()):
-        assert jconfigs.get_arch(aid).family == "gnn"
-        with pytest.raises(ValueError, match="ROADMAP A, item 2"):
-            tconfigs.get_arch(aid)
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    for aid in tconfigs.list_archs():
+        assert tconfigs.get_arch(aid).family == jconfigs.get_arch(aid).family
     with pytest.raises(ValueError, match="unknown arch"):
         tconfigs.get_arch("no-such-arch")
 
