@@ -10,8 +10,11 @@ kernels.
     python3 chip_smoke.py --quick    # build + kernel checks (phases 1-3, 7,
                                      # 11, 14)
     python3 chip_smoke.py --sharded  # phases 1-3, the f32 build and serve
-                                     # of phase 8, and phase 20 (on four
-                                     # cards where there are four)
+                                     # of phase 8, phase 20 (on four
+                                     # cards where there are four) and
+                                     # phase 26 (on four distinct cards)
+    python3 chip_smoke.py --lm-mesh  # phases 1 and 26 alone (with
+                                     # --sharded: on four cards)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -218,9 +221,16 @@ Phases:
      recall@10 against an exact top-10, p50/p99, zen_topk launching once
      a batch, the answers equal the plain dispatch's, and Lwb serving
      each query row first.
+ 26. the LM trainer on a (data, model) mesh at published width
+     (check_lm_mesh): granite-8b and qwen2-moe-a2.7b on make_host_mesh(1,
+     4) (four logical shards of the card; four cards under --sharded)
+     against the single device at a cut depth, qwen1.5-0.5b on 2 x 2 with
+     --compress-grads and its restarts, granite-8b's plan with gradient
+     accumulation beside the CLI's step; ms a step, tokens/s, bf16-peak
+     share, peak GB a card, busy and cross-shard shares.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21-25 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-26 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -364,6 +374,45 @@ GNN_BF16_TOL = 0.01
 #: phase 25: the descriptor leg: queries (8 batches of 64 descriptor rows),
 #: k, the re-rank factor and n
 GNN_Q, GNN_K, GNN_RERANK, GNN_NN = 512, 16, 4, 10
+#: phase 26: the LM trainer on a (data, model) mesh at published width.
+#: The one-card run puts 4 logical shards on the card and cuts the depth
+#: to what one card holds twice (the sharded run beside the single-device
+#: one): granite-8b 4 of 36 layers at B = 4, qwen2-moe-a2.7b 2 of 24 at B
+#: = 2; --sharded on four cards runs granite-8b at 36 layers, B = 8 and
+#: qwen2-moe-a2.7b at 24, B = 4 (the train_4k cell's global batch is 256:
+#: a pod's). S is the cell's 4,096; each run takes MESH_STEPS steps, the
+#: step time the median of the last 4; a second sharded run takes
+#: MESH_AGAIN steps, which must be the first run's bits.
+MESH_STEPS, MESH_AGAIN, MESH_SEQ = 5, 3, 4_096
+#: phase 26: on four cards every run takes step 0's batch at every step
+#: (``--fixed-batch``), and its loss must fall on data the model has
+#: seen. On fresh i.i.d. uniform tokens there is nothing to learn past the
+#: uniform distribution, and five steps at published width read as noise
+#: (granite-8b at 36 layers on four cards, warmed up over 100 steps:
+#: 11.1838, 11.1850, 11.1813, 11.1898, 11.1841). The one-card legs keep
+#: fresh batches: there the single device's trajectory is the check (a
+#: memorised batch's loss falls to ~1 in four steps, where two bf16
+#: trajectories part by more than the loss rtol).
+MESH_LEGS = {False: {"granite-8b": (4, 4), "qwen2-moe-a2.7b": (2, 2)},
+             True: {"granite-8b": (36, 8), "qwen2-moe-a2.7b": (24, 4)}}
+#: phase 26 (c): qwen1.5-0.5b at full width and depth with
+#: --compress-grads: MESH_QWEN_ROWS sequences a data replica (B = 2 on 2 x
+#: 2, 4 on 4 x 1; one card holds the f32 logits over the 152,064-row
+#: vocabulary and both replicas' error buffers beside four shards)
+MESH_QWEN_ROWS = 1
+#: phase 26 (b): the share of step 0's expert assignments of the sharded
+#: run that equal the single-device run's, layer by layer. The routers see
+#: the same function of the weights but not the same bits: the row-
+#: parallel products (wo, the shared experts' down projection) sum four
+#: f32 partials where the single device takes one product, and an input
+#: that rounds to the other bf16 neighbour can flip a near-tie among the
+#: top-k of a random router's close probabilities. On the card
+#: (qwen2-moe-a2.7b, 2 layers, B = 2) layer 0 read 1.000000 and layer 1
+#: 0.996735 (107 of 32,768 assignments); a router that ranked only a
+#: shard's own 16 experts would agree on well under half. Each model
+#: shard's assignments must equal every other shard's exactly (each routes
+#: with the whole router, gathered).
+MOE_ROUTE_AGREE = 0.99
 
 
 def log(*a):
@@ -4122,6 +4171,442 @@ def check_gnn_trainer(dev, smi: str) -> dict:
     return {"zen_topk": launches}
 
 
+def _mesh_profile(fn, label: str, cards) -> dict:
+    """One call of ``fn`` under torch.profiler: the wall time, each card's
+    busy time (its kernels' summed durations) and the device time of the
+    kernels launched inside the ``mesh.*`` ranges (the cross-shard copies
+    and sums of ``distributed.partition``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t = time.perf_counter()
+        fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy, mesh_us, gemm_us = {}, 0.0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + us
+            gemm_us += us if _gemm_kernel(e.name) else 0.0
+        elif e.name.startswith("mesh.") and not any(
+                p.name.startswith("mesh.") for p in _parents(e)):
+            mesh_us += e.device_time_total
+    total = sum(busy.values())
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": total / 1e3,
+           "busy_share": total / (wall_us * max(len(busy), 1)),
+           "busy_by_card": {k: round(v / wall_us, 4) for k, v in
+                            sorted(busy.items())},
+           "mesh_share": mesh_us / total if total else None,
+           "gemm_share": gemm_us / total if total else None}
+    log(f"    profile of {label} (profiler on): wall {wall_us / 1e3:.1f} ms,"
+        f" busy {total / 1e3:.1f} ms over {len(busy)} card(s) (busy share "
+        f"{out['busy_share']:.1%}; by card {out['busy_by_card']}); GEMM "
+        f"kernels {out['gemm_share'] or 0:.1%}; cross-shard copies and sums"
+        f" (mesh.* ranges) " + (f"{out['mesh_share']:.1%}" if mesh_us else
+                                "not measured (no device time in the "
+                                "mesh.* ranges)") + " of the busy time")
+    return out
+
+
+def _parents(e):
+    p = e.cpu_parent
+    while p is not None:
+        yield p
+        p = p.cpu_parent
+
+
+def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
+    """Phase 26: the LM family's trainer on a (data, model) mesh
+    (``launch.mesh.make_host_mesh``, ``launch.train.ShardedTrainer``), at
+    published width, through the CLI's function.
+
+    (a) granite-8b on data 1 x model 4 and (b) qwen2-moe-a2.7b (60 experts
+    padded to 64, 16 a shard) on 1 x 4, at MESH_LEGS' depth and batch,
+    MESH_STEPS steps, losses finite. On one card (logical shards) the
+    single-device trainer at the same depth and seed beside it: step 0's
+    logits, loss and every gradient leaf within
+    ``testing.bf16_lm_mismatch`` (computed twice on the mesh: the same
+    bits), every step's loss within its loss rtol, a second sharded run's
+    first MESH_AGAIN losses the same bits, and (b) step 0's expert
+    assignments against the single device's (MOE_ROUTE_AGREE); on four
+    cards the loss of a repeated batch falling (``--fixed-batch``). After
+    the last step every holder of every shard of the parameters and
+    moments holds the same bits. (c) qwen1.5-0.5b at
+    full width and depth with --compress-grads on 2 x 2 (one card: a
+    restart on 2 x 2 from a step-3 checkpoint is the uninterrupted run's
+    bits, one on 1 x 4 within the loss rtol, and the manifest carries the
+    rules' specs; four cards: 2 x 2 and 4 x 1). (d) one card: granite-8b's
+    ``steps.build_plan(..., "train_4k")`` at 4 layers (n_microbatches 8)
+    at a global batch of 8, its peak memory beside the CLI step's at that
+    batch. For (a)-(c): ms a step, tokens/s, the share of the bf16 peak
+    (``launch/model_flops.py`` over 989 TFLOP/s a card), peak GB a card,
+    and a profiled step's busy share and cross-shard share.
+
+    With ``four_cards`` (``--sharded``) the mesh must be four distinct
+    cards, and the 4-layer granite-8b runs on them and on four logical
+    shards of card 0 from one seed: losses within the rtol, the bits'
+    equality reported.
+    """
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch import testing
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import P, lm_param_specs
+    from repro_torch.launch import model_flops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    S = MESH_SEQ
+    mesh = make_host_mesh(1, 4)
+    n_cards = len(set(mesh.devices.flat))
+    if four_cards and n_cards != 4:
+        fail(f"--sharded needs a mesh of four distinct cards; "
+             f"make_host_mesh(1, 4) sits on {n_cards} "
+             f"({[str(d) for d in mesh.devices.flat]})")
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    log(f"[26] the LM trainer on a (data, model) mesh at published width; "
+        f"{smi}; make_host_mesh(1, 4) sits on "
+        f"{[str(d) for d in mesh.devices.flat]} ("
+        + ("four cards" if n_cards == 4 else
+           f"four logical shards of {n_cards} card") + f"); S = {S:,}")
+    del mesh
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def free():
+        gc.collect()
+        for d in cards:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+    def cli(arch, shape, batch, layers=None, steps=MESH_STEPS, *extra):
+        args = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+                "--seq", str(S), "--data-shards", str(shape[0]),
+                "--model-shards", str(shape[1]), *extra]
+        if four_cards:
+            args.append("--fixed-batch")
+        if layers is not None:
+            args += ["--layers", str(layers)]
+        out = train.main(args)
+        losses = out["losses"]
+        if len(losses) != steps - out["start_step"] or \
+                not np.isfinite(losses).all():
+            fail(f"{arch} on {shape}: losses {losses}")
+        return out
+
+    def report(arch, shape, cfg, out, batch, label=""):
+        ms = float(np.median(out["step_s"][-4:])) * 1e3
+        est = model_flops.estimate(arch, "train_4k", cfg)
+        cell = C.get_arch(arch).cell("train_4k")
+        flops = est["model_flops_global"] * batch / cell.dims["global_batch"]
+        n = 1 if out["mesh"] is None else len(set(out["mesh"].devices.flat))
+        peaks = {k: round(v / 1e9, 2)
+                 for k, v in out["peak_bytes_by_device"].items()}
+        log(f"    {arch}{label} ({cfg.n_layers} layers, "
+            f"{cfg.param_count():,} parameters) on {shape[0]} x {shape[1]}"
+            f", B = {batch}: {ms:.1f} ms a step (median of the last 4; "
+            f"every step {np.round(np.asarray(out['step_s']) * 1e3, 1).tolist()}"
+            f" ms), {batch * S / ms * 1e3:,.0f} tokens/s, model FLOPs "
+            f"{flops / 1e12:.1f} T a step = "
+            f"{flops / (ms / 1e3) / (PEAK_BF16_FLOPS * n):.2%} of the bf16 "
+            f"peak of {n} card(s); losses {np.round(out['losses'], 5).tolist()}"
+            f"; peak GB a card {peaks}")
+        return ms
+
+    def held_equal(tr) -> bool:
+        st = tr.opt_state
+        return all(partition.replicas_equal(t) for t in (
+            *tr.params.values(), *st.mu.values(), *st.nu.values(), st.step))
+
+    def falling(arch, losses):
+        if four_cards and not losses[-1] < losses[0]:
+            fail(f"{arch}: the loss did not fall: {losses}")
+
+    # -- (a), (b): granite-8b and qwen2-moe-a2.7b on data 1 x model 4 ------
+    for arch, (layers, B) in MESH_LEGS[four_cards].items():
+        spec = C.get_arch(arch)
+        cfg = dataclasses.replace(spec.make_config(), n_layers=layers)
+        free()
+        out = cli(arch, (1, 4), B, layers)
+        falling(arch, out["losses"])
+        report(arch, (1, 4), cfg, out, B)
+        tr = out["trainer"]
+        batch = train.lm_batch_fn(cfg, seed=0, batch=B, seq=S,
+                                  device=dev)(MESH_STEPS)
+        _mesh_profile(lambda: tr.step(batch), f"one {arch} step", cards)
+        if not held_equal(tr):
+            fail(f"{arch}: a replicated shard differs between holders")
+        log(f"    {arch}: every holder of every shard of the parameters, "
+            f"moments and step holds the same bits after {MESH_STEPS + 1} "
+            f"steps ({time.perf_counter() - t0:.0f} s into the phase)")
+        sharded_losses = out["losses"]
+        del out, tr, batch
+        if four_cards:
+            continue
+        free()
+        again = cli(arch, (1, 4), B, layers, MESH_AGAIN)
+        if again["losses"] != sharded_losses[:MESH_AGAIN]:
+            fail(f"{arch}: a second sharded run's losses "
+                 f"{again['losses']} differ from {sharded_losses}")
+        del again
+        free()
+        single = cli(arch, (1, 1), B, layers)
+        rtol = testing.BF16_LOSS_RTOL
+        if any(abs(a - b) > rtol * abs(b)
+               for a, b in zip(sharded_losses, single["losses"])):
+            fail(f"{arch}: sharded losses {sharded_losses} against the "
+                 f"single device's {single['losses']} (rtol {rtol})")
+        report(arch, (1, 1), cfg, single, B, " single device")
+        del single
+        free()
+        # step 0 from fresh weights: the mesh's logits, loss and gradients
+        # (twice: the same bits), its routing recorded layer by layer
+        tokens = train.lm_batch_fn(cfg, seed=0, batch=B, seq=S,
+                                   device=dev)(0)["tokens"]
+        mesh = make_host_mesh(1, 4)
+        model = transformer.init_sharded(cfg, mesh, generator=(
+            torch.Generator(device=mesh.first_device).manual_seed(0)))
+        with testing.recorded_routes([]) as routes:
+            got_logits = transformer.sharded_logits(cfg, model, tokens)
+        got_loss, _, grads = train.sharded_grads(model, {"tokens": tokens})
+        _, _, grads2 = train.sharded_grads(model, {"tokens": tokens})
+        if not all(torch.equal(a, b) for n in grads for a, b in
+                   zip(grads[n].shards, grads2[n].shards)):
+            fail(f"{arch}: step 0's gradients on the mesh differ between "
+                 "two runs")
+        got_grads = {n: g.gather() for n, g in grads.items()}
+        del grads, grads2, model, mesh
+        free()
+        model = transformer.init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        forced, routing = "", contextlib.nullcontext()
+        if cfg.is_moe:
+            M, L_ = 4, cfg.n_layers
+            mine = [routes[l * M:(l + 1) * M] for l in range(L_)]
+            if len(routes) != M * L_ or not all(
+                    torch.equal(r, m[0]) for m in mine for r in m):
+                fail(f"{arch}: the model shards route differently")
+            with testing.recorded_routes([]) as single, torch.no_grad():
+                transformer.forward(cfg, model, tokens)
+            agree = [float((m[0] == r).float().mean())
+                     for m, r in zip(mine, single)]
+            log(f"    {arch}: step 0's expert assignments (tokens x top-"
+                f"{cfg.top_k}) equal across the 4 model shards (each routes"
+                f" with the whole router); against the single device, layer"
+                f" by layer: {[f'{a:.6f}' for a in agree]} equal (limit "
+                f"{MOE_ROUTE_AGREE})")
+            if min(agree) < MOE_ROUTE_AGREE:
+                fail(f"{arch}: step 0's expert assignments agree with the "
+                     f"single device's only {min(agree):.6f}")
+            routing = testing.routed_as(model, [m[0] for m in mine])
+            forced = (" (the single device routed as the mesh: its gates "
+                      "from its own router probabilities)")
+        with routing:
+            with torch.no_grad():
+                want_logits = transformer.forward(cfg, model, tokens)
+            loss, _ = transformer.loss_fn(cfg, model, {"tokens": tokens})
+            want_grads = dict(zip([n for n, _ in model.named_parameters()],
+                                  torch.autograd.grad(
+                                      loss, list(model.parameters()))))
+        want_loss = loss.detach()
+        del model, loss
+        msg = testing.bf16_lm_mismatch(got_logits, got_loss.detach(),
+                                       got_grads, want_logits, want_loss,
+                                       want_grads)
+        if msg is not None:
+            fail(f"{arch}: step 0 on the mesh against the single device"
+                 f"{forced}: {msg}")
+        err = float((got_logits - want_logits).abs().max())
+        worst = max(float((got_grads[n].float() - w.float()).abs().max()
+                          / w.float().abs().max())
+                    for n, w in want_grads.items())
+        del got_logits, want_logits, got_grads, want_grads
+        free()
+        log(f"    {arch}: step 0 on 1 x 4 against the single device{forced}"
+            f" within testing.bf16_lm_mismatch (logits max |diff| {err:.4g},"
+            f" loss {got_loss.item():.6f} vs {want_loss.item():.6f}, the "
+            f"worst gradient leaf's max |diff| {worst:.4g} of its largest "
+            f"|g|); its gradients twice the same bits; every step's loss "
+            f"within rtol {rtol:.3g}; a second sharded run's {MESH_AGAIN} "
+            f"losses the same bits ({time.perf_counter() - t0:.0f} s into "
+            "the phase)")
+
+    # -- (c): qwen1.5-0.5b at full width and depth, compressed ---------------
+    arch = "qwen1.5-0.5b"
+    cfg = C.get_arch(arch).make_config()
+    comp = ("--compress-grads",)
+    shapes = [(2, 2), (4, 1)] if four_cards else [(2, 2)]
+    with tempfile.TemporaryDirectory() as d:
+        for shape in shapes:
+            free()
+            Bq = MESH_QWEN_ROWS * shape[0]
+            out = cli(arch, shape, Bq, None, MESH_STEPS, *comp,
+                      "--ckpt-dir", os.path.join(d, f"w{shape}"),
+                      "--ckpt-every", "3")
+            falling(arch, out["losses"])
+            report(arch, shape, cfg, out, Bq, " --compress-grads")
+            tr = out["trainer"]
+            final = None if four_cards else {
+                n: [s.detach().to("cpu", copy=True) for s in p.shards]
+                for n, p in tr.params.items()}
+            batch = train.lm_batch_fn(cfg, seed=0, batch=Bq, seq=S,
+                                      device=dev)(MESH_STEPS)
+            _mesh_profile(lambda: tr.step(batch), f"one {arch} step on "
+                          f"{shape[0]} x {shape[1]}", cards)
+            if not held_equal(tr):
+                fail(f"{arch} on {shape}: a replicated shard differs "
+                     "between holders")
+            whole = out["losses"]
+            del batch, out, tr
+            if four_cards:
+                continue
+            mgr = CheckpointManager(os.path.join(d, f"w{shape}"))
+            specs = mgr.specs(3)
+            rules = lm_param_specs(transformer.Transformer(cfg,
+                                                           device="meta"))
+            want = {f"0__{n.replace('.', '__')}": sp
+                    for n, sp in rules.items()}
+            want.update({f"1__.{m}__{n.replace('.', '__')}": sp
+                         for n, sp in rules.items() for m in ("mu", "nu")})
+            want.update({f"2__error__{n.replace('.', '__')}":
+                         P("data", *sp) for n, sp in rules.items()})
+            want["1__.step"] = P()
+            if specs != want:
+                fail(f"{arch}: the manifest's specs are not the rules': "
+                     f"{sorted(set(specs.items()) ^ set(want.items()))[:6]}")
+            for label, mesh_shape in (("2 x 2", (2, 2)), ("1 x 4", (1, 4))):
+                r = os.path.join(d, f"r{mesh_shape}")
+                os.makedirs(r)
+                shutil.copytree(os.path.join(d, f"w{shape}",
+                                             "step_0000000003"),
+                                os.path.join(r, "step_0000000003"))
+                free()
+                res = cli(arch, mesh_shape, Bq, None, MESH_STEPS,
+                          *comp,
+                          "--ckpt-dir", r, "--ckpt-every", "100",
+                          "--resume")
+                if res["start_step"] != 3:
+                    fail(f"{arch}: resumed from {res['start_step']}, not 3")
+                if mesh_shape == (2, 2):
+                    if res["losses"] != whole[3:]:
+                        fail(f"{arch}: resumed on 2 x 2, losses "
+                             f"{res['losses']} vs {whole[3:]}")
+                    bad = [n for n, p in res["trainer"].params.items()
+                           if not all(torch.equal(s.detach().to("cpu", copy=True), f)
+                                      for s, f in zip(p.shards, final[n]))]
+                    if bad:
+                        fail(f"{arch}: resumed on 2 x 2, parameters differ"
+                             f": {bad}")
+                else:
+                    rtol = testing.BF16_LOSS_RTOL
+                    if any(abs(a - b) > rtol * abs(b)
+                           for a, b in zip(res["losses"], whole[3:])):
+                        fail(f"{arch}: resumed on 1 x 4, losses "
+                             f"{res['losses']} vs {whole[3:]}")
+                log(f"    {arch}: resumed on {label} from the 2 x 2 run's "
+                    f"step-3 checkpoint: losses {res['losses']} against "
+                    f"{whole[3:]} (" + ("bit for bit, parameters too)"
+                                        if mesh_shape == (2, 2) else
+                                        "within the loss rtol; the error "
+                                        "buffers restart from zero on one "
+                                        "data replica)"))
+                del res
+            log(f"    {arch}: the manifest's {len(specs)} specs are the "
+                "reference rules' (lm_param_specs; the error buffers "
+                "P('data', ...))")
+            del final
+
+    # -- (d): the plan's gradient accumulation against the CLI's step -------
+    if not four_cards:
+        free()
+        plan = steps_lib.build_plan("granite-8b", "train_4k",
+                                    overrides={"n_layers": 4})
+        nm, Bd = plan.cfg.n_microbatches, 8
+        mesh = make_host_mesh(1, 4)
+        model = transformer.init_sharded(
+            plan.cfg, mesh, generator=torch.Generator(
+                device=mesh.first_device).manual_seed(0))
+        tr = train.ShardedTrainer(model, opt=steps_lib.make_optimizer())
+        batch = train.lm_batch_fn(plan.cfg, seed=0, batch=Bd, seq=S,
+                                  device=dev)(0)
+        peaks = {}
+        for label in ("plan", "cli"):
+            free()
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            t = time.perf_counter()
+            try:
+                if label == "plan":
+                    _, _, aux = plan.fn(tr.params, tr.opt_state, batch)
+                    loss = float(aux["loss"])
+                else:
+                    loss = float(tr.step(batch)[0])
+            except torch.cuda.OutOfMemoryError:
+                peaks[label] = (None, None, None)
+                continue
+            sync()
+            peaks[label] = (max(torch.cuda.max_memory_allocated(c)
+                                for c in cards) / 1e9,
+                            time.perf_counter() - t, loss)
+        if peaks["plan"][0] is None:
+            fail("granite-8b's plan (n_microbatches 8) ran out of memory")
+        cli_peak = peaks["cli"]
+        log(f"    granite-8b's steps.build_plan(..., 'train_4k') at 4 "
+            f"layers, n_microbatches {nm}, global batch {Bd} on 1 x 4: peak "
+            f"{peaks['plan'][0]:.2f} GB a card, {peaks['plan'][1]:.2f} s, "
+            f"loss {peaks['plan'][2]:.5f}; the CLI's step at the same batch"
+            + (f": peak {cli_peak[0]:.2f} GB a card, {cli_peak[1]:.2f} s, "
+               f"loss {cli_peak[2]:.5f}" if cli_peak[0] is not None else
+               ": out of memory"))
+        del plan, model, tr, batch, mesh
+        free()
+
+    # -- four cards against one ---------------------------------------------
+    if four_cards:
+        arch, (layers, B) = "granite-8b", MESH_LEGS[False]["granite-8b"]
+        cfg = dataclasses.replace(C.get_arch(arch).make_config(),
+                                  n_layers=layers)
+        runs = {}
+        for label, device in (("four cards", None),
+                              ("four logical shards of cuda:0", "cuda:0")):
+            free()
+            mesh = make_host_mesh(1, 4, device=device)
+            tr = train.sharded_lm_trainer(cfg, mesh=mesh, seed=0)
+            make = train.lm_batch_fn(cfg, seed=0, batch=B, seq=S, device=dev)
+            losses = [float(tr.step(make(i))[0]) for i in range(3)]
+            runs[label] = (losses, {n: [s.detach().to("cpu", copy=True) for s in p.shards]
+                                    for n, p in tr.params.items()})
+            del tr, mesh
+        (la, pa), (lb, pb) = runs.values()
+        rtol = testing.BF16_LOSS_RTOL
+        if any(abs(a - b) > rtol * abs(b) for a, b in zip(la, lb)):
+            fail(f"granite-8b on four cards {la} against four logical "
+                 f"shards of one {lb}")
+        same = la == lb and all(torch.equal(x, y) for n in pa
+                                for x, y in zip(pa[n], pb[n]))
+        log(f"    granite-8b at {layers} layers, 3 steps, on four cards "
+            f"{la} and on four logical shards of cuda:0 {lb}: within rtol "
+            f"{rtol:.3g}; " + ("the same bits (losses and every parameter "
+                               "shard)" if same else "not the same bits"))
+    log(f"    phase 26: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -4149,6 +4634,10 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
         fail("TF32 must be off: the reference accumulates in full f32")
+    if "--lm-mesh" in sys.argv[1:]:
+        check_lm_mesh(dev, smi, four_cards=sharded_only)
+        log("lm-mesh run: stopping after phase 26")
+        sys.exit(2)
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -4292,7 +4781,12 @@ def main() -> None:
         ivf_server, _ = serve_ivf(corpus, batches, k, "float32")
         check_sharded(full_corpus, ivf_server.index, corpus, batches, k,
                       smi)
-        log("sharded run: stopping after phases 8 (f32) and 20")
+        del ivf_server, corpus, full_corpus, batches, coords, queries, small
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_lm_mesh(dev, smi, four_cards=True)
+        log("sharded run: stopping after phases 8 (f32), 20 and 26")
         sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
     ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
@@ -4525,6 +5019,10 @@ def main() -> None:
 
     # -- 25. the GNN trainer at full width, its descriptors into Zen --------------
     gnn_launches = check_gnn_trainer(torch.device("cuda"), smi)
+
+    # -- 26. the LM trainer on a (data, model) mesh -------------------------------
+    torch.cuda.empty_cache()
+    check_lm_mesh(torch.device("cuda"), smi, four_cards=False)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",

@@ -9,6 +9,10 @@ checkpoint either package writes the other restores.
 * **async** — ``save_async`` copies every leaf to the host before it
   returns (the step that follows may change the tensors in place) and
   writes in a background thread; ``wait()`` joins it;
+* **elastic resharding** — a leaf is stored whole (gathered from its
+  shards when it lives on a mesh) with its partition spec in the manifest;
+  ``restore(mesh=)`` lays each leaf out on the given mesh by its stored
+  spec, so a run restarted on another mesh resumes the same state;
 * retention — keeps the newest ``keep`` checkpoints.
 
 Format: one ``.npy`` per leaf and a ``manifest.json`` (``step``,
@@ -17,8 +21,10 @@ dicts (flattened in sorted key order), lists and tuples (by index) and
 NamedTuples (a field is named ``.field``), as ``jax.tree_util`` flattens
 them; a leaf's name is its path joined by ``__`` (``1__.mu__table``).
 bf16 leaves are stored as their raw ``u2`` bits with dtype
-``"bfloat16"``. The port writes ``"spec": []`` (no sharding) and
-``"treedef": null`` (a restore takes ``like=``).
+``"bfloat16"``. A spec is the reference's JSON form
+(``distributed.sharding.spec_to_json``: ``[null, "model"]``, ``[]`` for
+replicated). The port writes ``"treedef": null`` (a restore takes
+``like=``).
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.partition import ShardedTensor, place
+from repro_torch.distributed.sharding import spec_from_json, spec_to_json
 
 _NATIVE_DTYPES = {
     "bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
@@ -127,6 +136,8 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     tensor: training changes the tensors in place while a save is being
     written). bf16 comes back as its u2 bits (numpy has no bf16 without
     ml_dtypes)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -156,17 +167,33 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------
 
-    def save(self, step: int, tree: Any) -> str:
-        """Synchronous atomic save of a tree of tensors and arrays."""
-        return self._write(step, [(n, *_host(x)) for n, x in leaf_paths(tree)])
+    def save(self, step: int, tree: Any, specs: Any = None) -> str:
+        """Synchronous atomic save of a tree of tensors, arrays and
+        ``ShardedTensor`` (gathered). ``specs``: a matching tree of
+        ``sharding.P`` (None: every leaf replicated, ``[]``)."""
+        return self._write(step, self._host_leaves(tree, specs))
 
-    def save_async(self, step: int, tree: Any) -> None:
+    def save_async(self, step: int, tree: Any, specs: Any = None) -> None:
         """Host copies now; the disk write in a background thread."""
         self.wait()
-        host = [(n, *_host(x)) for n, x in leaf_paths(tree)]
+        host = self._host_leaves(tree, specs)
         self._thread = threading.Thread(
             target=self._write_in_thread, args=(step, host), daemon=True)
         self._thread.start()
+
+    @staticmethod
+    def _host_leaves(tree, specs) -> list:
+        leaves = leaf_paths(tree)
+        if specs is None:
+            spec_leaves = [None] * len(leaves)
+        else:
+            named = leaf_paths(specs)
+            if [n for n, _ in named] != [n for n, _ in leaves]:
+                raise ValueError("specs do not match the tree's leaves: "
+                                 f"{[n for n, _ in named]}")
+            spec_leaves = [sp for _, sp in named]
+        return [(n, *_host(x), spec_to_json(sp))
+                for (n, x), sp in zip(leaves, spec_leaves)]
 
     def _write_in_thread(self, step: int, host: list) -> None:
         try:
@@ -190,7 +217,7 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         manifest = {"step": step, "leaves": []}
-        for name, arr, stored_dtype in host_leaves:
+        for name, arr, stored_dtype, spec in host_leaves:
             fname = f"{name}.npy"
             with open(os.path.join(tmp, fname), "wb") as f:
                 np.save(f, arr)
@@ -201,7 +228,7 @@ class CheckpointManager:
                 "file": fname,
                 "dtype": stored_dtype,
                 "shape": list(arr.shape),
-                "spec": [],
+                "spec": spec,
             })
         manifest["treedef"] = None
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -233,15 +260,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, *, like: Any = None
-                ) -> Tuple[int, Any]:
+    def restore(self, step: Optional[int] = None, *, like: Any = None,
+                mesh=None, strict: bool = True) -> Tuple[int, Any]:
         """Restore the given (or latest) step.
 
         With ``like`` (a tree of the same structure, as the reference's
         ``restore(like=)``): the leaves come back in like's structure, each
         a tensor of like's dtype on like's device (a CPU tensor for a
         non-tensor leaf of like); the leaf names must match the
-        manifest's. Without it: a dict of name -> CPU tensor.
+        manifest's. Without it: a dict of name -> CPU tensor. With
+        ``mesh`` (a ``distributed.Mesh``): every leaf is laid out on it
+        by the spec stored with it (``ShardedTensor``, like's dtype).
+        ``strict=False`` skips stored leaves ``like`` does not name.
         """
         if step is None:
             step = self.latest_step()
@@ -252,22 +282,43 @@ class CheckpointManager:
             manifest = json.load(f)
         entries = manifest["leaves"]
 
-        def load(entry) -> torch.Tensor:
-            arr = np.load(os.path.join(d, entry["file"]))
-            return _to_tensor(arr, entry["dtype"])
+        def load(entry, ref=None):
+            t = _to_tensor(np.load(os.path.join(d, entry["file"])),
+                           entry["dtype"])
+            dtype = getattr(ref, "dtype", None)
+            if isinstance(dtype, torch.dtype):
+                t = t.to(dtype)
+            if mesh is not None:
+                return place(t, spec_from_json(entry["spec"]), mesh)
+            if isinstance(ref, torch.Tensor):
+                t = t.to(device=ref.device)
+            return t
 
         if like is None:
             return step, {e["name"]: load(e) for e in entries}
         names = leaf_paths(like)
+        if not strict:
+            wanted = {n for n, _ in names}
+            entries = [e for e in entries if e["name"] in wanted]
         if [n for n, _ in names] != [e["name"] for e in entries]:
             raise ValueError(
                 f"checkpoint step {step} holds leaves "
                 f"{[e['name'] for e in entries]}, not like's "
                 f"{[n for n, _ in names]}")
-        leaves = []
-        for (_, ref), entry in zip(names, entries):
-            t = load(entry)
-            if isinstance(ref, torch.Tensor):
-                t = t.to(device=ref.device, dtype=ref.dtype)
-            leaves.append(t)
+        leaves = [load(entry, ref) for (_, ref), entry in zip(names, entries)]
         return step, _unflatten(like, leaves)
+
+    def _entries(self, step: Optional[int]) -> list:
+        step = self.latest_step() if step is None else step
+        with open(os.path.join(self.directory, f"step_{step:010d}",
+                               "manifest.json")) as f:
+            return json.load(f)["leaves"]
+
+    def specs(self, step: Optional[int] = None) -> dict:
+        """Leaf name -> the spec stored with it (``sharding.P``)."""
+        return {e["name"]: spec_from_json(e["spec"])
+                for e in self._entries(step)}
+
+    def shapes(self, step: Optional[int] = None) -> dict:
+        """Leaf name -> its stored shape."""
+        return {e["name"]: tuple(e["shape"]) for e in self._entries(step)}

@@ -35,6 +35,7 @@ from repro_torch.checkpoint.checkpoint import flat_state
 from repro_torch.core import baselines
 from repro_torch.core.projection import NSimplexTransform
 from repro_torch.core.simplex import BaseSimplex
+from repro_torch.distributed.partition import place
 from repro_torch.index.ivf import IVFZenIndex, TieredIVFZenIndex
 from repro_torch.kernels import quantize as quant
 from repro_torch.launch.serve import ZenIndex
@@ -217,12 +218,24 @@ def _leaf_tensor(a, dtype: torch.dtype, dev) -> torch.Tensor:
 
 
 def transformer_from_arrays(cfg: transformer.TransformerConfig,
-                            params: dict, *, device=None
-                            ) -> transformer.Transformer:
+                            params: dict, *, device=None, mesh=None,
+                            specs: Optional[dict] = None):
     """The port's LM holding exactly this parameter pytree (the
     reference's ``init_params`` layout: ``embed``, ``layers`` of stacked
     (G, PL, ...) leaves, ``final_norm``, ``lm_head``), each leaf in
-    ``cfg.dtype``."""
+    ``cfg.dtype``. With ``mesh`` (a (data, model) ``distributed.Mesh``):
+    a ``transformer.ShardedTransformer`` whose leaves are laid out by
+    ``specs`` (name -> ``sharding.P``; the reference's rules by
+    default)."""
+    if mesh is not None:
+        specs = transformer.param_specs(cfg) if specs is None else specs
+        leaves = {}
+        for k, v in flat_state(params).items():
+            leaves[k] = place(_leaf_tensor(v, cfg.dtype, mesh.first_device),
+                              specs[k], mesh)
+            for s in leaves[k].shards:
+                s.requires_grad_(True)
+        return transformer.ShardedTransformer(cfg, mesh, leaves)
     dev = resolve_device(device)
     model = transformer.Transformer(cfg, device=dev)
     model.load_state_dict({k: _leaf_tensor(v, cfg.dtype, dev)

@@ -1,7 +1,8 @@
-"""The serving tier's distribution (PyTorch counterpart of
-``repro.distributed``): fault-tolerance hooks (``fault``), the device mesh
-(``mesh``) and sharded retrieval over it (``retrieval``). The training
-partition rules (``sharding``, ROADMAP A, item 3) are not ported."""
+"""Distribution (PyTorch counterpart of ``repro.distributed``):
+fault-tolerance hooks (``fault``), the device mesh (``mesh``), sharded
+retrieval over it (``retrieval``), the training partition rules
+(``sharding``) and tensors laid out by them with their collectives
+(``partition``)."""
 from .fault import (
     HeartbeatRegistry,
     PreemptionGuard,

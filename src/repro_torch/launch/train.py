@@ -25,12 +25,29 @@ reference trainer's: ``geometric_graph_batch(seed + step)`` of ``--batch``
 graphs, 16 nodes and 48 edges each (numpy draws, so the reference's
 batches bit for bit).
 
-``--data-shards`` / ``--model-shards`` > 1 and ``--multihost`` (the
-reference's GSPMD sharding: ROADMAP A, item 3) raise.
+An LM trains on a (data, model) mesh with ``--data-shards D
+--model-shards M`` (D x M > 1): ``make_host_mesh(D, M)`` spans D x M cards
+where there are that many, else puts D x M logical shards on the card (or
+the CPU with ``--device cpu``). The weights are ``init_params``' from the
+same seed, bit for bit, laid out by the reference's partition rules
+(``distributed.sharding``); the global batch is the single device's, its
+rows split over ``data``; the step is the unsharded ``Trainer.step``'s
+function (``ShardedTrainer``). Checkpoints carry every leaf's spec in the
+reference's manifest format, and ``--resume`` restores onto the current
+mesh whatever mesh saved. Shards > 1 for the GNN and recsys families and
+``--multihost`` raise (ROADMAP A, item 3b).
+
+Beyond the reference's options: ``--device``, ``--fixed-batch`` (every
+step takes step 0's batch) and, for the LM family, ``--layers`` (the
+published widths at a cut depth).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+        --reduced --device cpu --data-shards 2 --model-shards 2 --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import signal
 import threading
@@ -45,14 +62,20 @@ from repro_torch import configs as C
 from repro_torch.checkpoint.checkpoint import (
     CheckpointManager,
     flat_state,
+    leaf_paths,
     nest_state,
 )
 from repro_torch.data import synthetic as syn
 from repro_torch.data.pipeline import PrefetchPipeline
+from repro_torch.distributed import partition
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.distributed.fault import PreemptionGuard, StepMonitor
+from repro_torch.distributed.partition import ShardedTensor
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import mace, recsys, transformer
 from repro_torch.optim import AdamW, AdamWState, apply_updates
 from repro_torch.optim import compression as comp_lib
+from repro_torch.optim.adamw import clip_by_global_norm_sharded
 
 Tensor = torch.Tensor
 
@@ -119,6 +142,219 @@ class Trainer:
                 dst[name].copy_(t)
         self.opt_state = self.opt_state._replace(
             step=st.step.to(self.opt_state.step))
+
+
+def state_specs(pspecs: dict):
+    """The spec tree of a ``state_tree``: ``(params' specs,
+    AdamWState(P(), specs, specs))``, as the reference trainer saves."""
+    ost = shard_lib.opt_state_specs(pspecs)
+    return (nest_state(pspecs),
+            AdamWState(step=ost.step, mu=nest_state(ost.mu),
+                       nu=nest_state(ost.nu)))
+
+
+@torch.no_grad()
+def _assign(dst: ShardedTensor, src) -> None:
+    """Copy ``src`` (a tensor, or a ``ShardedTensor`` on any mesh and
+    spec) into ``dst``'s shards."""
+    if isinstance(src, ShardedTensor) and src.spec == dst.spec and \
+            src.mesh.devices.shape == dst.mesh.devices.shape:
+        for d, s in zip(dst.shards, src.shards):
+            d.copy_(s)
+        return
+    full = src.gather() if isinstance(src, ShardedTensor) else src
+    for pos, d in enumerate(dst.shards):
+        d.copy_(full[partition.block(dst.shape, dst.spec, dst.mesh, pos)])
+
+
+def sharded_grads(model: transformer.ShardedTransformer, batch: dict, *,
+                  reduce: bool = True):
+    """(loss, aux, gradients) of ``transformer.sharded_loss_fn``: name ->
+    ``ShardedTensor`` of every holder's own gradient, each shard summed
+    over its holders (``reduce``) or not."""
+    loss, aux = transformer.sharded_loss_fn(model.cfg, model, batch)
+    names = list(model.params)
+    leaves = [s for n in names for s in model.params[n].shards]
+    flat = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
+    grads = {}
+    for n in names:
+        p = model.params[n]
+        grads[n] = ShardedTensor(p.mesh, p.spec, p.shape, p.dtype,
+                                 [next(flat) for _ in p.shards])
+        if reduce:
+            partition.reduce_holders_(grads[n])
+    return loss, aux, grads
+
+
+class ShardedTrainer:
+    """``Trainer`` for an LM laid out on a (data, model) mesh
+    (``transformer.ShardedTransformer``): the same function as the
+    unsharded ``Trainer.step``.
+
+    A step differentiates ``transformer.sharded_loss_fn`` with respect to
+    every shard of every holder; each shard's gradient is then the
+    fixed-order sum over its holders (``partition.reduce_holders_``), the
+    same bits on each. With ``compress_grads`` each data replica instead
+    quantises its own gradient (D times its share of the global loss's
+    gradient: its local mean's when the replicas hold equal token counts)
+    with its own error buffers, and the reconstructions are averaged over
+    ``data`` in replica order. The global-norm clip counts every distinct
+    shard once (``clip_by_global_norm_sharded``); AdamW then updates each
+    position's shards, its moments and its copy of the step with the
+    unsharded arithmetic. Parameters, moments, error buffers and the step
+    are name -> ``ShardedTensor`` (the step one replicated scalar).
+    """
+
+    def __init__(self, model: transformer.ShardedTransformer, *,
+                 opt: Optional[AdamW] = None, compress_grads: bool = False,
+                 opt_state: Optional[AdamWState] = None):
+        self.model, self.cfg, self.mesh = model, model.cfg, model.mesh
+        self.params = model.params
+        self.opt = opt if opt is not None else AdamW(
+            learning_rate=LEARNING_RATE)
+        self._local_opt = dataclasses.replace(self.opt, clip_norm=None)
+        f32 = torch.float32
+
+        def zeros(st):
+            return st.map(lambda s: torch.zeros(s.shape, dtype=f32,
+                                                device=s.device), f32)
+
+        first = self.mesh.first_device
+        self.opt_state = opt_state if opt_state is not None else AdamWState(
+            step=partition.place(torch.zeros((), dtype=torch.int32,
+                                             device=first),
+                                 shard_lib.P(), self.mesh),
+            mu={n: zeros(p) for n, p in self.params.items()},
+            nu={n: zeros(p) for n, p in self.params.items()})
+        # replica d's error buffers are block d of a (D, *shape) leaf laid
+        # out P("data", *spec): saved and restored like any other leaf
+        D = self.mesh.shape["data"]
+        self.comp_state = ({n: partition.zeros(
+            (D,) + p.shape, shard_lib.P("data", *p.spec), self.mesh, f32)
+            for n, p in self.params.items()} if compress_grads else None)
+
+    def grads(self, batch: dict):
+        """(loss, aux, gradients): each holder's own gradient of the
+        global loss, not yet summed over holders."""
+        return sharded_grads(self.model, batch, reduce=False)
+
+    def reduced_grads(self, batch: dict):
+        """(loss, aux, gradients summed over their holders)."""
+        return sharded_grads(self.model, batch)
+
+    def step(self, batch: dict) -> Tuple[Tensor, dict]:
+        """One training step on ``batch`` (tokens (B, S), whole or laid out
+        P("data", None)); returns (loss, aux), detached, computed before
+        the update."""
+        if self.comp_state is None:
+            loss, aux, grads = self.reduced_grads(batch)
+        else:
+            loss, aux, grads = self.grads(batch)
+            self._compress(grads)
+        self.apply(grads)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    @torch.no_grad()
+    def _compress(self, grads: dict) -> None:
+        """In place: the data replicas' error-feedback mean
+        (``compression.error_feedback_mean`` with shards)."""
+        mesh = self.mesh
+        D = mesh.shape["data"]
+        rows = partition.axis_groups(mesh, "model")
+        for n, g in grads.items():
+            err = self.comp_state[n]
+            recs = {}
+            for row in rows:
+                groups = {}
+                for pos in row:
+                    groups.setdefault(partition.shard_key(g.spec, mesh, pos),
+                                      []).append(pos)
+                keys = list(groups)
+                mine = [partition.sum_to([g.shards[p] for p in groups[k]],
+                                         g.device(groups[k][0]))
+                        for k in keys]
+                corrected = [m.float() * D + err.shards[groups[k][0]][0]
+                             for m, k in zip(mine, keys)]
+                rec, resid = comp_lib.compress_decompress_shards(corrected)
+                for k, r, e in zip(keys, rec, resid):
+                    recs.setdefault(k, []).append(r)
+                    for p in groups[k]:
+                        err.shards[p][0].copy_(e)
+            means = {k: comp_lib.replica_mean(r).to(g.dtype)
+                     for k, r in recs.items()}
+            for pos in range(mesh.size):
+                g.shards[pos].copy_(means[partition.shard_key(g.spec, mesh,
+                                                              pos)])
+
+    @torch.no_grad()
+    def apply(self, grads: dict) -> None:
+        """Clip (over the distinct shards) and AdamW-update every
+        position's shards with ``grads`` (summed over holders); the
+        gradient buffers become the updates."""
+        if self.opt.clip_norm is not None:
+            clip_by_global_norm_sharded(grads, self.opt.clip_norm)
+        st = self.opt_state
+        for pos in range(self.mesh.size):
+            local = AdamWState(
+                step=st.step.shards[pos],
+                mu={n: m.shards[pos] for n, m in st.mu.items()},
+                nu={n: v.shards[pos] for n, v in st.nu.items()})
+            params = {n: p.shards[pos] for n, p in self.params.items()}
+            upd, new = self._local_opt.update(
+                {n: g.shards[pos] for n, g in grads.items()}, local, params)
+            apply_updates(params, upd)
+            st.step.shards[pos] = new.step
+
+    def specs(self) -> dict:
+        return {n: p.spec for n, p in self.params.items()}
+
+    def state_tree(self):
+        """``(params, AdamWState(step, mu, nu))`` as nested pytrees of
+        ``ShardedTensor``, and with ``compress_grads`` a third element
+        ``{"error": ...}``: the data replicas' error buffers."""
+        st = self.opt_state
+        tree = (nest_state(self.params),
+                AdamWState(step=st.step, mu=nest_state(st.mu),
+                           nu=nest_state(st.nu)))
+        if self.comp_state is not None:
+            tree += ({"error": nest_state(self.comp_state)},)
+        return tree
+
+    def state_specs(self):
+        """The spec tree of ``state_tree``."""
+        tree = state_specs(self.specs())
+        if self.comp_state is not None:
+            tree += ({"error": nest_state(
+                {n: e.spec for n, e in self.comp_state.items()})},)
+        return tree
+
+    def load_state_tree(self, tree) -> None:
+        """Copy a ``state_tree``-shaped tree (tensors, or
+        ``ShardedTensor`` on any mesh and spec) into the live shards; a
+        tree without the error buffers leaves them as they are."""
+        params, st = tree[:2]
+        if len(tree) > 2:
+            for name, t in flat_state(tree[2]["error"]).items():
+                _assign(self.comp_state[name], t)
+        for dst, src in ((self.params, params), (self.opt_state.mu, st.mu),
+                         (self.opt_state.nu, st.nu)):
+            flat = flat_state(src)
+            if set(flat) != set(dst):
+                raise ValueError(f"state holds {sorted(flat)}, the model "
+                                 f"{sorted(dst)}")
+            for name, t in flat.items():
+                _assign(dst[name], t)
+        _assign(self.opt_state.step, st.step)
+
+
+def sharded_lm_trainer(cfg: transformer.TransformerConfig, *, mesh,
+                       seed: int, compress_grads: bool = False
+                       ) -> ShardedTrainer:
+    """``lm_trainer``'s weights (drawn from ``seed`` on the mesh's first
+    device, leaf by leaf) laid out on ``mesh``."""
+    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    return ShardedTrainer(transformer.init_sharded(cfg, mesh, generator=gen),
+                          compress_grads=compress_grads)
 
 
 def recsys_trainer(cfg: recsys.RecsysConfig, *, seed: int, device,
@@ -223,36 +459,83 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--model-shards", type=int, default=1)
     p.add_argument("--compress-grads", action="store_true")
     p.add_argument("--multihost", action="store_true")
+    p.add_argument("--fixed-batch", action="store_true",
+                   help="every step takes step 0's batch (a smoke run's "
+                        "check that the model fits data it has seen)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="the LM family's depth, cut from the published "
+                        "config's (every width kept)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     return p.parse_args(argv)
 
 
 def train(args: argparse.Namespace, log=print) -> dict:
-    """The CLI's loop. Returns ``losses`` and ``step_s`` of the steps run,
-    ``start_step``, ``peak_bytes`` (the card's peak allocation during the
-    run, None on the CPU), ``batch_shapes`` of the first batch (a tensor's
-    shape and dtype; any other entry, such as a graph batch's
-    ``n_graphs``, as it is) and the ``trainer``."""
+    """The CLI's loop. Returns ``losses`` and ``step_s`` of the steps run
+    (on a mesh, each step's time waits for every card), ``start_step``,
+    ``peak_bytes`` (the largest peak allocation of a card during the run,
+    None on the CPU) and ``peak_bytes_by_device``, ``batch_shapes`` of the
+    first batch (a tensor's shape and dtype; any other entry, such as a
+    graph batch's ``n_graphs``, as it is), the ``trainer`` and the
+    ``mesh`` (None on one device)."""
     dev = resolve_device(args.device)
-    if args.multihost or args.data_shards * args.model_shards > 1:
+    if args.multihost:
         raise NotImplementedError(
-            "--multihost and --data-shards / --model-shards > 1 need the "
-            "reference's GSPMD partitioning (distributed/sharding.py), "
-            "which the port does not have yet (ROADMAP A, item 3)")
+            "--multihost (one process a host) is ROADMAP A, item 3b; the "
+            "port's mesh is one process owning every card")
     spec = C.get_arch(args.arch)
     cfg = spec.make_reduced() if args.reduced else spec.make_config()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    trainer = family_trainer(spec.family, cfg, seed=args.seed, device=dev,
-                             compress_grads=args.compress_grads)
+    if args.layers is not None:
+        if spec.family != "lm":
+            raise ValueError("--layers cuts an LM's depth")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    mesh = None
+    if args.data_shards * args.model_shards > 1:
+        if spec.family != "lm":
+            raise NotImplementedError(
+                f"--data-shards / --model-shards > 1 for the {spec.family} "
+                f"family ({args.arch}) is ROADMAP A, item 3b; the LM "
+                "family trains on a mesh")
+        mesh = make_host_mesh(args.data_shards, args.model_shards,
+                              device=args.device)
+    cards = ([] if mesh is None and dev.type != "cuda" else
+             [dev] if mesh is None else
+             [d for d in dict.fromkeys(mesh.devices.flat)
+              if d.type == "cuda"])
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    if mesh is None:
+        trainer = family_trainer(spec.family, cfg, seed=args.seed,
+                                 device=dev,
+                                 compress_grads=args.compress_grads)
+        specs = state_specs(shard_lib.param_specs(spec.family,
+                                                  trainer.params))
+    else:
+        trainer = sharded_lm_trainer(cfg, mesh=mesh, seed=args.seed,
+                                     compress_grads=args.compress_grads)
+        specs = trainer.state_specs()
+        log(f"mesh {dict(mesh.shape)} on "
+            f"{[str(d) for d in mesh.devices.flat]}")
     make_batch = family_batch_fn(spec.family, cfg, seed=args.seed,
                                  batch=args.batch, seq=args.seq, device=dev)
+    if args.fixed_batch:
+        make_batch = functools.partial(lambda step, make: make(0),
+                                       make=make_batch)
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
-        start_step, tree = ckpt.restore(like=trainer.state_tree())
+        like = trainer.state_tree()
+        stored = ckpt.shapes()
+        if any(stored.get(n) != tuple(x.shape) for n, x in leaf_paths(like)
+               if n.startswith("2__")):
+            # saved without compression, or by another number of data
+            # replicas: the error buffers start from zero
+            like = like[:2]
+            log("error-feedback buffers start from zero (the checkpoint "
+                "holds none for this mesh's data replicas)")
+        start_step, tree = ckpt.restore(
+            like=like, mesh=mesh, strict=mesh is None or len(like) > 2)
         trainer.load_state_tree(tree)
         del tree
         log(f"resumed from step {start_step}")
@@ -274,6 +557,8 @@ def train(args: argparse.Namespace, log=print) -> dict:
             t0 = time.perf_counter()
             loss, _ = trainer.step(batch)
             loss = float(loss)  # waits for the step
+            if mesh is not None:  # and for every card's update
+                partition.synchronize(mesh)
             dt = time.perf_counter() - t0
             losses.append(loss)
             step_s.append(dt)
@@ -284,7 +569,7 @@ def train(args: argparse.Namespace, log=print) -> dict:
             if monitor.should_escalate and ckpt:
                 log("straggler patience exhausted -> checkpoint + escalate")
                 ckpt.wait()
-                ckpt.save(step + 1, trainer.state_tree())
+                ckpt.save(step + 1, trainer.state_tree(), specs)
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss diverged at step {step}")
             if step % 5 == 0 or step == args.steps - 1:
@@ -292,7 +577,7 @@ def train(args: argparse.Namespace, log=print) -> dict:
             if ckpt and (
                 (step + 1) % args.ckpt_every == 0 or guard.should_save()
             ):
-                ckpt.save_async(step + 1, trainer.state_tree())
+                ckpt.save_async(step + 1, trainer.state_tree(), specs)
                 if guard.should_save():
                     ckpt.wait()
                     log(f"preemption save at step {step + 1}")
@@ -303,14 +588,16 @@ def train(args: argparse.Namespace, log=print) -> dict:
             ckpt.wait()
         if main_thread:
             signal.signal(signal.SIGTERM, prev_handler)
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else None)
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
+    peak = max(peaks.values()) if peaks else None
     if peak is not None:
-        log(f"peak device memory {peak / 1e9:.2f} GB")
+        log(f"peak device memory {peak / 1e9:.2f} GB" + (
+            f" (by card: { {k: round(v / 1e9, 2) for k, v in peaks.items()} })"
+            if len(peaks) > 1 else ""))
     log("done")
     return {"losses": losses, "step_s": step_s, "start_step": start_step,
-            "peak_bytes": peak, "batch_shapes": batch_shapes,
-            "trainer": trainer}
+            "peak_bytes": peak, "peak_bytes_by_device": peaks,
+            "batch_shapes": batch_shapes, "trainer": trainer, "mesh": mesh}
 
 
 def main(argv=None) -> dict:

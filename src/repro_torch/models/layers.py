@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partition import all_sum
+
 Tensor = torch.Tensor
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -221,6 +223,47 @@ def mlp_glu(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
     g = act(matmul_f32(x, wg))
     u = matmul_f32(x, wu)
     return matmul_f32((g * u).to(x.dtype), wd).to(x.dtype)
+
+
+# -- products over the model axis -------------------------------------------
+#
+# Lists run over the model shards of one data replica, shard m's tensors on
+# its device. A column-parallel product (``wq``, ``w_gate``, ...: the
+# weight's output columns split over the shards) is each shard's own
+# ``matmul_f32``: its contraction is whole, so each column is the unsharded
+# one. A row-parallel product (``wo``, ``w_down``, ``ws_down``: the
+# contraction split) sums the shards' f32 partials in f32, in shard order,
+# and rounds once to the dtype after the sum, where the reference rounds.
+
+
+def row_parallel(xs, ws, dtype: torch.dtype) -> list:
+    """sum_m xs[m] @ ws[m] in f32, cast once to ``dtype``, on every
+    shard."""
+    return [t.to(dtype) for t in
+            all_sum([matmul_f32(x, w) for x, w in zip(xs, ws)])]
+
+
+def mlp_glu_sharded(xs, wgs, wus, wds, act: ActFn) -> list:
+    """``mlp_glu`` with ``wg``/``wu`` column- and ``wd`` row-parallel."""
+    hs = [(act(matmul_f32(x, wg)) * matmul_f32(x, wu)).to(x.dtype)
+          for x, wg, wu in zip(xs, wgs, wus)]
+    return row_parallel(hs, wds, xs[0].dtype)
+
+
+def gather_rows_sharded(tables, ids: list) -> list:
+    """``gather_rows`` of a table whose rows are split over the shards in
+    order (``tables[m]`` holds rows ``m * n .. (m + 1) * n - 1``): each
+    shard gathers the ids it holds, zeros for the others, and the shards
+    are summed (one nonzero term a row, so exactly the row). ``ids[m]``
+    lives on shard m's device."""
+    parts = []
+    for m, (table, i) in enumerate(zip(tables, ids)):
+        n = table.shape[0]
+        local = i.long() - m * n
+        inside = (local >= 0) & (local < n)
+        got = gather_rows(table, torch.where(inside, local, 0))
+        parts.append(torch.where(inside[..., None], got, got.new_zeros(())))
+    return all_sum(parts)
 
 
 # -- the deterministic row gather --------------------------------------------

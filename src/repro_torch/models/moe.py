@@ -28,6 +28,8 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from repro_torch.distributed.partition import all_gather, all_sum
+
 from . import layers as L
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -119,6 +121,76 @@ def moe_ffn(cfg: "TransformerConfig", p: dict, x: Tensor) -> Tensor:
     w = picked * flat_gate[..., None].to(picked.dtype)
     out = torch.sum(w.reshape(G, gs, K, D), dim=2)
     return out.reshape(B, S, D)
+
+
+def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
+                    total_tokens: int) -> list:
+    """``moe_ffn`` with the experts split over the model shards (``ps[m]``
+    holds experts ``m * E/M .. (m + 1) * E/M - 1`` of the padded E, and
+    the router's columns for them); ``xs[m]`` is the same (B, S, D) on
+    shard m's device: one data replica's rows of a batch of
+    ``total_tokens`` tokens. The groups are the whole batch's (``min(
+    moe_group_size, total_tokens)`` tokens, so the same capacity), and
+    must not straddle two replicas.
+
+    The router's columns (D x E, small) are gathered whole on every shard
+    and each shard takes ``moe_ffn``'s own product, so every shard routes
+    and claims slots exactly as ``moe_ffn`` does on the same input
+    (gathering the (tokens, E) logits of column-split products instead
+    would hold only where a column block of a product is the same bits as
+    the whole, which a card's GEMMs do not promise); the router's gradient
+    is summed back onto its owners in shard order. A shard
+    fills and runs only its experts' slots and picks its experts' outputs
+    for the assignments that name them (zeros for the rest); the picks are
+    summed over the shards (one nonzero term an assignment: exactly the
+    unsharded pick), and the combine runs on them as in ``moe_ffn``. No
+    contraction is split, so the result is the unsharded one; the price is
+    an all-sum of (tokens x top_k, D) picks a layer.
+    """
+    M = len(ps)
+    B, S, D = xs[0].shape
+    El = ps[0]["we_gate"].shape[0]
+    E = El * M
+    T = B * S
+    gs = min(cfg.moe_group_size, total_tokens)
+    if T % gs:
+        raise ValueError(f"a data replica's {T} tokens do not hold whole "
+                         f"MoE groups of {gs}")
+    G = T // gs
+    K = cfg.top_k
+    C = capacity(gs, K, E, cfg.capacity_factor)
+    act = L.ActFn(cfg.act)
+    xts = [x.reshape(G, gs, D) for x in xs]
+    routers = all_gather([p["router"] for p in ps], -1)
+    picks, gates = [], []
+    for m, (p, xt, router) in enumerate(zip(ps, xts, routers)):
+        gate, expert_idx = route(cfg, router, xt)
+        slot, keep = slots(expert_idx, E, C)
+        gates.append(gate.reshape(G, gs * K) * keep.to(gate.dtype))
+        lo = m * El * C
+        inside = (slot >= lo) & (slot < lo + El * C)
+        local = torch.where(inside, slot - lo, El * C)
+        rows = local + (El * C + 1) * torch.arange(G, device=xt.device)[:,
+                                                                        None]
+        xk = xt[:, :, None, :].expand(G, gs, K, D).reshape(G * gs * K, D)
+        buf = xt.new_zeros((G * (El * C + 1), D)).index_copy(
+            0, rows.reshape(-1), xk)
+        buffers = buf.view(G, El * C + 1, D)[:, :El * C].reshape(G, El, C, D)
+        be = buffers.permute(1, 0, 2, 3).reshape(El, G * C, D)
+        g = act(L.matmul_f32(be, p["we_gate"]))
+        u = L.matmul_f32(be, p["we_up"])
+        out_e = L.matmul_f32((g * u).to(xt.dtype), p["we_down"]).to(xt.dtype)
+        out_buf = out_e.reshape(El, G, C, D).permute(1, 0, 2, 3)
+        flat = torch.cat([out_buf.reshape(G, El * C, D),
+                          out_buf.new_zeros((G, 1, D))], dim=1)
+        picked = L.gather_rows(flat.reshape(G * (El * C + 1), D), rows)
+        picks.append(torch.where(inside[..., None], picked,
+                                 picked.new_zeros(())))
+    out = []
+    for picked, flat_gate in zip(all_sum(picks), gates):
+        w = picked * flat_gate[..., None].to(picked.dtype)
+        out.append(torch.sum(w.reshape(G, gs, K, D), dim=2).reshape(B, S, D))
+    return out
 
 
 def pad_expert_weights(params_layer: dict, n_experts: int,

@@ -24,9 +24,10 @@ qwen1.5-0.5b, gemma2-2b, granite-8b (dense).
   for global layers. ``decode_step`` writes the new token's keys and
   values into the cache in place and returns it.
 
-The reference's ``ActShard`` constraints are GSPMD hints with no meaning
-on one device; the port has no such argument (the multi-card trainer is
-ROADMAP A, item 3).
+The reference's ``ActShard`` constraints are GSPMD hints; the port has no
+such argument. Its sharded path (``init_sharded``, ``sharded_loss_fn``,
+the end of this module) lays the leaves out on a (data, model) mesh by the
+reference's partition rules and computes the same function.
 
 Embedding lookups go through ``layers.gather_rows``, whose backward is
 deterministic. Every product is taken with an f32 result
@@ -42,6 +43,17 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt_lib
+
+from repro_torch.distributed.partition import (
+    ShardedTensor,
+    all_gather,
+    all_max,
+    all_sum,
+    axis_groups,
+    place,
+    sum_to,
+)
+from repro_torch.distributed.sharding import P, lm_param_specs
 
 from . import layers as L
 from . import moe as moe_lib
@@ -229,6 +241,32 @@ class Transformer(nn.Module):
         return forward(self.cfg, self, tokens)
 
 
+def _draws(cfg: TransformerConfig, generator: torch.Generator):
+    """(name, whole leaf) of every parameter in ``init_params``' order of
+    draws, each made on the generator's device when it is reached."""
+    lead = (cfg.n_groups, cfg.pattern_len)
+    dev = generator.device
+    for name, (shape, init) in _layer_shapes(cfg).items():
+        if init == "zeros":
+            yield f"layers.{name}", torch.zeros(lead + shape, dtype=cfg.dtype,
+                                                device=dev)
+        elif init == "ones":
+            yield f"layers.{name}", torch.ones(lead + shape, dtype=cfg.dtype,
+                                               device=dev)
+        else:
+            yield f"layers.{name}", L.dense_init(lead + shape, init[1],
+                                                 cfg.dtype,
+                                                 generator=generator)
+    D = cfg.d_model
+    yield "embed", L.dense_init((cfg.padded_vocab, D), 1.0, cfg.dtype,
+                                generator=generator)
+    yield "final_norm", torch.full((D,), 0.0 if cfg.norm_plus_one else 1.0,
+                                   dtype=cfg.dtype, device=dev)
+    if not cfg.tie_embeddings:
+        yield "lm_head", L.dense_init((D, cfg.padded_vocab), None, cfg.dtype,
+                                      generator=generator)
+
+
 @torch.no_grad()
 def init_params(cfg: TransformerConfig, *,
                 generator: torch.Generator) -> Transformer:
@@ -237,22 +275,9 @@ def init_params(cfg: TransformerConfig, *,
     scale 1, norms ones (zeros for the (1 + w) form and the post-norms),
     biases zero."""
     model = Transformer(cfg, device=generator.device)
-    lead = (cfg.n_groups, cfg.pattern_len)
-    for name, (shape, init) in _layer_shapes(cfg).items():
-        p = getattr(model.layers, name)
-        if init == "zeros":
-            p.zero_()
-        elif init == "ones":
-            p.fill_(1.0)
-        else:
-            p.copy_(L.dense_init(lead + shape, init[1], cfg.dtype,
-                                 generator=generator))
-    model.embed.copy_(L.dense_init(model.embed.shape, 1.0, cfg.dtype,
-                                   generator=generator))
-    model.final_norm.fill_(0.0 if cfg.norm_plus_one else 1.0)
-    if not cfg.tie_embeddings:
-        model.lm_head.copy_(L.dense_init(model.lm_head.shape, None,
-                                         cfg.dtype, generator=generator))
+    for name, value in _draws(cfg, generator):
+        model.get_parameter(name).copy_(value)
+        del value
     return model
 
 
@@ -554,3 +579,338 @@ def embeddings(cfg: TransformerConfig, model: Transformer,
     x = _final_hidden(cfg, model, x, _positions(B, S, tokens.device),
                       remat=False)
     return torch.mean(x.to(torch.float32), dim=1)
+
+
+# -- sharded: a (data, model) mesh ----------------------------------------------
+#
+# The reference's GSPMD lowering of the same function, written out for one
+# process that owns every device of the mesh (``distributed.partition``).
+# The leaves are laid out by ``distributed.sharding.lm_param_specs``; each
+# data replica runs its rows of the batch through its model shards:
+#
+# * heads over ``model``: wq/wk/wv (and their biases) column-parallel, wo
+#   row-parallel; a shard's q heads and their KV heads sit on the shard
+#   (GQA groups aligned) when n_kv_heads % M == 0. Otherwise (M a multiple
+#   of n_kv_heads: each shard's q heads share one KV head) every shard
+#   gathers wk/wv whole and takes its KV head's columns; their gradients
+#   are summed back onto the owners in shard order;
+# * the FFN: w_gate/w_up (ws_gate/ws_up) column-, w_down (ws_down)
+#   row-parallel; MoE experts over ``model`` (``moe.moe_ffn_sharded``);
+# * the embedding's vocabulary rows over ``model`` (``gather_rows_sharded``)
+#   and the logits' vocabulary columns (``lm_head`` P(None, "model"), or
+#   the row-sharded ``embed`` when tied); the cross entropy combines the
+#   shards' max and exp-sums, takes the target logit from its owner, and
+#   sums nll and token counts over ``data`` before the one division.
+#
+# Everything else (norms, RoPE, residuals, routing) is computed by every
+# shard on the same bits.
+
+
+def check_mesh(cfg: TransformerConfig, mesh) -> None:
+    """Raise unless ``cfg`` splits over the mesh's model axis."""
+    M = mesh.shape["model"]
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    bad = []
+    if H % M:
+        bad.append(f"n_heads % M: {H} heads on {M} model shards")
+    elif KV % M and M % KV:
+        bad.append(f"n_kv_heads % M and M % n_kv_heads: {KV} KV heads on "
+                   f"{M} model shards")
+    if cfg.padded_vocab % M:
+        bad.append(f"padded_vocab % M: {cfg.padded_vocab} rows on {M} "
+                   "model shards")
+    if cfg.is_moe:
+        E = moe_lib.padded_experts(cfg.n_experts)
+        if E % M:
+            bad.append(f"padded experts % M: {E} experts on {M} model "
+                       "shards")
+        if cfg.n_shared_experts and (cfg.moe_d_ff * cfg.n_shared_experts) % M:
+            bad.append(f"shared-expert width % M on {M} model shards")
+    elif cfg.d_ff % M:
+        bad.append(f"d_ff % M: {cfg.d_ff} on {M} model shards")
+    if bad:
+        raise ValueError(f"{cfg.name} does not split over the mesh "
+                         f"{dict(mesh.shape)}: " + "; ".join(bad))
+
+
+class ShardedTransformer:
+    """An LM's leaves (``params``: name -> ``ShardedTensor``) on a (data,
+    model) mesh."""
+
+    def __init__(self, cfg: TransformerConfig, mesh, params: dict):
+        check_mesh(cfg, mesh)
+        self.cfg, self.mesh, self.params = cfg, mesh, dict(params)
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The reference's rules' spec of every leaf, by name."""
+    return lm_param_specs(Transformer(cfg, device="meta"))
+
+
+@torch.no_grad()
+def init_sharded(cfg: TransformerConfig, mesh, *,
+                 generator: torch.Generator) -> ShardedTransformer:
+    """``init_params``' weights, bit for bit (the same draws on the
+    generator's device, leaf by leaf), each placed on ``mesh`` by its spec
+    and dropped before the next is drawn."""
+    check_mesh(cfg, mesh)
+    specs = param_specs(cfg)
+    params = {}
+    for name, value in _draws(cfg, generator):
+        params[name] = place(value, specs[name], mesh)
+        del value
+    for st in params.values():
+        for s in st.shards:
+            s.requires_grad_(True)
+    return ShardedTransformer(cfg, mesh, params)
+
+
+def _local_layers(cfg: TransformerConfig, model: ShardedTransformer,
+                  pos: int) -> list:
+    """``layer_params`` of mesh position ``pos``'s shards."""
+    G, PL = cfg.n_groups, cfg.pattern_len
+    unbound = {name[len("layers."):]: st.shards[pos].flatten(0, 1).unbind(0)
+               for name, st in model.params.items()
+               if name.startswith("layers.")}
+    return [[{name: t[g * PL + pos_] for name, t in unbound.items()}
+             for pos_ in range(PL)] for g in range(G)]
+
+
+def _kv_columns(cfg: TransformerConfig, ps: list, name: str) -> list:
+    """Each shard's ``wk``/``wv`` (``bk``/``bv``) columns: its own block
+    when n_kv_heads % M == 0, else its KV head's columns of the gathered
+    leaf."""
+    M, KV, dh = len(ps), cfg.n_kv_heads, cfg.head_dim
+    if KV % M == 0:
+        return [p[name] for p in ps]
+    full = all_gather([p[name] for p in ps], -1)
+    group = cfg.n_heads // KV
+    out = []
+    for m, w in enumerate(full):
+        kv = (m * cfg.n_heads // M) // group
+        out.append(w[..., kv * dh:(kv + 1) * dh])
+    return out
+
+
+def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
+                   positions: list, window: int, total_tokens: int) -> list:
+    """``_one_layer`` over the model shards of one data replica (of a
+    batch of ``total_tokens`` tokens)."""
+    dh, H = cfg.head_dim, cfg.n_heads
+    M = len(ps)
+    Hl = H // M
+    act = L.ActFn(cfg.act)
+    npo = cfg.norm_plus_one
+    hs = [L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=npo)
+          for x, p in zip(xs, ps)]
+    wk, wv = _kv_columns(cfg, ps, "wk"), _kv_columns(cfg, ps, "wv")
+    if cfg.qkv_bias:
+        bk, bv = _kv_columns(cfg, ps, "bk"), _kv_columns(cfg, ps, "bv")
+    heads = []
+    for m, (p, h, pos) in enumerate(zip(ps, hs, positions)):
+        B, S, _ = h.shape
+        q = L.matmul_f32(h, p["wq"])
+        k = L.matmul_f32(h, wk[m])
+        v = L.matmul_f32(h, wv[m])
+        if cfg.qkv_bias:  # in f32, then one cast
+            q, k, v = q + p["bq"], k + bk[m], v + bv[m]
+        q = q.reshape(B, S, Hl, dh).to(cfg.dtype)
+        k = k.reshape(B, S, -1, dh).to(cfg.dtype)
+        v = v.reshape(B, S, -1, dh).to(cfg.dtype)
+        q = L.rope(q, pos, theta=cfg.rope_theta)
+        k = L.rope(k, pos, theta=cfg.rope_theta)
+        attn = L.attention(
+            q, k, v, q_positions=pos, kv_positions=pos, causal=True,
+            window=window, attn_softcap=cfg.attn_softcap,
+            query_chunk=cfg.query_chunk)
+        heads.append(attn.reshape(B, S, Hl * dh))
+    attn = L.row_parallel(heads, [p["wo"] for p in ps], cfg.dtype)
+    if cfg.post_norms:
+        attn = [L.rms_norm(a, p["ln1_post"], cfg.norm_eps, plus_one=npo)
+                for a, p in zip(attn, ps)]
+    xs = [x + a for x, a in zip(xs, attn)]
+
+    hs = [L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=npo)
+          for x, p in zip(xs, ps)]
+    if cfg.is_moe:
+        ffn = moe_lib.moe_ffn_sharded(cfg, ps, hs,
+                                      total_tokens=total_tokens)
+        if cfg.n_shared_experts:
+            shared = L.mlp_glu_sharded(
+                hs, [p["ws_gate"] for p in ps], [p["ws_up"] for p in ps],
+                [p["ws_down"] for p in ps], act)
+            ffn = [f + torch.sigmoid(L.matmul_f32(h, p["ws_gate_logit"])
+                                     ).to(cfg.dtype) * s
+                   for f, s, h, p in zip(ffn, shared, hs, ps)]
+    else:
+        ffn = L.mlp_glu_sharded(hs, [p["w_gate"] for p in ps],
+                                [p["w_up"] for p in ps],
+                                [p["w_down"] for p in ps], act)
+    if cfg.post_norms:
+        ffn = [L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=npo)
+               for f, p in zip(ffn, ps)]
+    return [x + f for x, f in zip(xs, ffn)]
+
+
+class _RematGroup(torch.autograd.Function):
+    """One layer group over the model shards, rematerialised: forward runs
+    ``fn(*inputs)`` without recording, backward runs it again with
+    recording and differentiates that graph in the same call
+    (``torch.autograd.grad``), so each group is recomputed once, by one
+    thread. (``torch.utils.checkpoint``'s non-reentrant recompute starts
+    in whichever thread unpacks a saved tensor first; with the autograd
+    engine's one thread a card, two cards' threads can start it at once
+    and it fails its saved-tensor count.) ``inputs`` are the shards'
+    hidden states and every layer leaf the group reads."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        ctx.save_for_backward(*inputs)
+        with torch.no_grad():
+            return tuple(fn(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.fn(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads,
+                                       materialize_grads=True))
+        return (None, *[next(got) if t.requires_grad else None
+                        for t in inputs])
+
+
+def _sharded_group(cfg: TransformerConfig, body, xs: list, ps: list) -> list:
+    """``body(xs, ps) -> xs`` for one layer group (``ps[m][pos]`` the
+    leaves of shard m's layer at pattern position pos), under the config's
+    remat policy: "none" runs it, "minimal" through ``_RematGroup``."""
+    if cfg.remat_policy == "none":
+        return body(xs, ps)
+    if cfg.remat_policy != "minimal":
+        raise ValueError(f"remat policy {cfg.remat_policy!r} has no sharded "
+                         "form (the sharded path takes none or minimal)")
+    M = len(xs)
+    keys = [[sorted(d) for d in shard] for shard in ps]
+    flat = [d[k] for shard, ks in zip(ps, keys) for d, kk in zip(shard, ks)
+            for k in kk]
+
+    def fn(*t):
+        rest = iter(t[M:])
+        return tuple(body(list(t[:M]),
+                          [[{k: next(rest) for k in kk} for kk in ks]
+                           for ks in keys]))
+
+    return list(_RematGroup.apply(fn, *xs, *flat))
+
+
+def _replica_logits(cfg: TransformerConfig, model: ShardedTransformer,
+                    row: list, tokens: list) -> list:
+    """One data replica's vocabulary-sharded logits (B, S, Vp / M) f32,
+    one a model shard, the padded columns at -1e30. ``tokens[m]`` are the
+    replica's rows on shard m's device."""
+    M = len(row)
+    p = model.params
+    xs = L.gather_rows_sharded([p["embed"].shards[i] for i in row], tokens)
+    xs = [x.to(cfg.dtype) for x in xs]
+    if cfg.embed_scale:  # sqrt(d_model) rounded to the dtype first
+        xs = [x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype,
+                               device=x.device) for x in xs]
+    B, S = tokens[0].shape
+    total = B * S * model.mesh.shape["data"]
+    positions = [_positions(B, S, t.device) for t in tokens]
+    local = [_local_layers(cfg, model, i) for i in row]
+
+    def body(xs, ps):
+        for pos in range(cfg.pattern_len):
+            xs = _sharded_layer(cfg, [shard[pos] for shard in ps], xs,
+                                positions, cfg.layer_pattern[pos], total)
+        return xs
+
+    for g in range(cfg.n_groups):
+        xs = _sharded_group(cfg, body, xs, [lay[g] for lay in local])
+    Vl = cfg.padded_vocab // M
+    out = []
+    for m, (i, x) in enumerate(zip(row, xs)):
+        x = L.rms_norm(x, p["final_norm"].shards[i], cfg.norm_eps,
+                       plus_one=cfg.norm_plus_one)
+        head = (p["embed"].shards[i].t() if cfg.tie_embeddings
+                else p["lm_head"].shards[i])
+        logits = L.softcap(L.matmul_f32(x, head), cfg.logit_softcap)
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.arange(m * Vl, (m + 1) * Vl,
+                               device=x.device) >= cfg.vocab_size
+            logits = torch.where(pad, torch.full((), -1e30, device=x.device),
+                                 logits)
+        out.append(logits)
+    return out
+
+
+def _replica_nll(cfg: TransformerConfig, logits: list, tokens: list
+                 ) -> Tensor:
+    """(B, S - 1) next-token nll of one data replica from its vocabulary
+    shards, on the first shard's device."""
+    lg = [x[:, :-1] for x in logits]
+    targets = [t[:, 1:].long() for t in tokens]
+    if len(lg) == 1:  # the unsharded loss_fn's operations
+        logz = torch.logsumexp(lg[0], dim=-1)
+        return logz - torch.gather(lg[0], -1, targets[0][..., None])[..., 0]
+    mx = all_max([x.amax(-1) for x in lg])
+    sums = all_sum([torch.sum(torch.exp(x - m[..., None]), -1)
+                    for x, m in zip(lg, mx)])
+    Vl = lg[0].shape[-1]
+    tgt = []
+    for m, (x, t) in enumerate(zip(lg, targets)):
+        local = t - m * Vl
+        inside = (local >= 0) & (local < Vl)
+        picked = torch.gather(x, -1, torch.where(inside, local, 0)[..., None])
+        tgt.append(torch.where(inside, picked[..., 0], picked.new_zeros(())))
+    tgt = all_sum(tgt)
+    return torch.log(sums[0]) + mx[0] - tgt[0]
+
+
+def _replica_tokens(model: ShardedTransformer, tokens) -> list:
+    """Per data replica, its rows of the batch on each of its model
+    shards' devices (``tokens``: a whole (B, S) tensor, split over data
+    here, or a ``ShardedTensor`` laid out P("data", None))."""
+    if not isinstance(tokens, ShardedTensor):
+        tokens = place(tokens, P("data", None), model.mesh)
+    return [[tokens.shards[i] for i in row]
+            for row in axis_groups(model.mesh, "model")]
+
+
+def sharded_logits(cfg: TransformerConfig, model: ShardedTransformer,
+                   tokens) -> Tensor:
+    """``forward``'s (B, S, Vp) f32 logits, assembled on the mesh's first
+    device (a check's view of the sharded forward; no gradient)."""
+    rows = axis_groups(model.mesh, "model")
+    with torch.no_grad():
+        parts = [torch.cat([x.to(model.mesh.first_device) for x in
+                            _replica_logits(cfg, model, row, toks)], -1)
+                 for row, toks in zip(rows, _replica_tokens(model, tokens))]
+    return torch.cat(parts, 0)
+
+
+def sharded_loss_fn(cfg: TransformerConfig, model: ShardedTransformer,
+                    batch: dict) -> Tuple[Tensor, dict]:
+    """``loss_fn`` on the mesh: the sums of nll x mask and of the mask
+    over every data replica, then one division, on the mesh's first
+    device. batch: {tokens (B, S), loss_mask (B, S) optional}, whole
+    tensors or laid out P("data", None)."""
+    rows = axis_groups(model.mesh, "model")
+    toks = _replica_tokens(model, batch["tokens"])
+    masks = (None if batch.get("loss_mask") is None
+             else _replica_tokens(model, batch["loss_mask"]))
+    nll_sums, counts = [], []
+    for d, (row, t) in enumerate(zip(rows, toks)):
+        nll = _replica_nll(cfg, _replica_logits(cfg, model, row, t), t)
+        mask = (torch.ones_like(nll) if masks is None
+                else masks[d][0][:, 1:].to(nll.dtype))
+        nll_sums.append(torch.sum(nll * mask))
+        counts.append(torch.sum(mask))
+    dev = model.mesh.first_device
+    total, ntokens = sum_to(nll_sums, dev), sum_to(counts, dev)
+    loss = total / torch.clamp_min(ntokens, 1.0)
+    return loss, {"loss": loss, "ntokens": ntokens}

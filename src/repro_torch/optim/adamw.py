@@ -111,6 +111,18 @@ def apply_updates(params: Dict[str, Tensor], updates: Dict[str, Tensor]
     return params
 
 
+def _clip_scale(gn: Tensor, max_norm: float) -> Tensor:
+    return torch.clamp_max(
+        torch.full_like(gn, max_norm) / torch.clamp_min(gn, 1e-9), 1.0)
+
+
+def _scale_(g: Tensor, scale: Tensor) -> None:
+    if g.dtype == torch.float32:
+        g.mul_(scale)
+    else:
+        g.copy_(g.float().mul_(scale))
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: Dict[str, Tensor], max_norm: float
                         ) -> Tuple[Dict[str, Tensor], Tensor]:
@@ -122,11 +134,31 @@ def clip_by_global_norm(grads: Dict[str, Tensor], max_norm: float
     a scale rounded to its dtype first."""
     norms = [torch.linalg.vector_norm(g.float()) for g in grads.values()]
     gn = torch.linalg.vector_norm(torch.stack(norms))
-    scale = torch.clamp_max(
-        torch.full_like(gn, max_norm) / torch.clamp_min(gn, 1e-9), 1.0)
+    scale = _clip_scale(gn, max_norm)
     for g in grads.values():
-        if g.dtype == torch.float32:
-            g.mul_(scale)
-        else:
-            g.copy_(g.float().mul_(scale))
+        _scale_(g, scale)
     return grads, gn
+
+
+@torch.no_grad()
+def clip_by_global_norm_sharded(grads: dict, max_norm: float) -> Tensor:
+    """``clip_by_global_norm`` over leaves laid out on a mesh
+    (``distributed.partition.ShardedTensor``, every holder of a shard
+    holding the same bits): the global norm is the norm of each distinct
+    shard's norm, so a leaf sharded over the model axis counts each of its
+    shards once and a replicated leaf counts once, not once a holder. It
+    is taken once, on the mesh's first device, and every shard of every
+    holder is scaled by the same scale. Returns the global norm."""
+    first = next(iter(grads.values()))
+    dev = first.device(0)
+    norms = [torch.linalg.vector_norm(s.float()).to(dev)
+             for g in grads.values() for s in g.distinct()]
+    gn = torch.linalg.vector_norm(torch.stack(norms))
+    scale = _clip_scale(gn, max_norm)
+    per_device = {}
+    for g in grads.values():
+        for s in g.shards:
+            if s.device not in per_device:
+                per_device[s.device] = scale.to(s.device)
+            _scale_(s, per_device[s.device])
+    return gn

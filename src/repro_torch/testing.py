@@ -7,6 +7,8 @@ swaps and nothing else.
 """
 from __future__ import annotations
 
+import contextlib
+
 from typing import Optional
 
 import numpy as np
@@ -233,20 +235,56 @@ BF16_LOGITS_TOL, BF16_LOGITS_MEAN_TOL = 2**-7, 2**-9
 BF16_LOSS_RTOL, BF16_GRAD_TOL = 2**-10, 2**-5
 
 
+def _f64_chunks(a, b, chunk: int = 1 << 26):
+    """(a, b) as float64 chunks of at most ``chunk`` elements, on a's
+    device (b moved there): the comparisons below run where the tensors
+    live, a chunk at a time, so a full-width step's logits need no host
+    copy and no float64 copy of the whole."""
+    import torch
+
+    def flat(x):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        return t.detach().reshape(-1)
+
+    a, b = flat(a), flat(b)
+    for lo in range(0, a.numel(), chunk):
+        yield (a[lo:lo + chunk].to(torch.float64),
+               b[lo:lo + chunk].to(a.device, torch.float64))
+
+
+def _max_and_mean_diff(a, b):
+    """(max |a - b|, mean |a - b|, max |b|, all of a finite) in float64."""
+    import torch
+
+    mx = tot = scale = 0.0
+    finite, n = True, 0
+    for x, y in _f64_chunks(a, b):
+        d = (x - y).abs()
+        mx, tot = max(mx, float(d.max())), tot + float(d.sum())
+        scale = max(scale, float(y.abs().max()))
+        finite &= bool(torch.isfinite(x).all())
+        n += x.numel()
+    return mx, tot / max(n, 1), scale, finite
+
+
 def bf16_lm_mismatch(logits, loss, grads, want_logits, want_loss,
                      want_grads) -> Optional[str]:
     """Why a bf16 LM's (logits, loss, {leaf: gradient}) is not the
-    reference's within the tolerances above, or ``None`` when it is."""
-    logits, want_logits = _np(logits).astype(np.float64), \
-        _np(want_logits).astype(np.float64)
-    if logits.shape != want_logits.shape or not np.isfinite(logits).all():
-        return f"logits {logits.shape} are not finite of {want_logits.shape}"
-    scale = np.abs(want_logits).max()
-    diff = np.abs(logits - want_logits)
-    if diff.max() > BF16_LOGITS_TOL * scale:
-        return f"logits max |diff| {diff.max():.4g} (scale {scale:.4g})"
-    if diff.mean() > BF16_LOGITS_MEAN_TOL * scale:
-        return f"logits mean |diff| {diff.mean():.4g} (scale {scale:.4g})"
+    reference's within the tolerances above, or ``None`` when it is. The
+    differences are taken in float64 where ``logits`` and the gradients
+    live, a chunk at a time."""
+    if tuple(logits.shape) != tuple(want_logits.shape):
+        return f"logits {tuple(logits.shape)} are not finite of " \
+            f"{tuple(want_logits.shape)}"
+    mx, mean, scale, finite = _max_and_mean_diff(logits, want_logits)
+    if not finite:
+        return f"logits {tuple(logits.shape)} are not finite of " \
+            f"{tuple(want_logits.shape)}"
+    if mx > BF16_LOGITS_TOL * scale:
+        return f"logits max |diff| {mx:.4g} (scale {scale:.4g})"
+    if mean > BF16_LOGITS_MEAN_TOL * scale:
+        return f"logits mean |diff| {mean:.4g} (scale {scale:.4g})"
     loss, want_loss = float(_np(loss)), float(_np(want_loss))
     if not abs(loss - want_loss) <= BF16_LOSS_RTOL * abs(want_loss):
         return f"loss {loss!r} against {want_loss!r}"
@@ -256,12 +294,66 @@ def bf16_lm_mismatch(logits, loss, grads, want_logits, want_loss,
         g = grads[name]
         if str(g.dtype) != str(w.dtype):
             return f"gradient {name} is {g.dtype}, not {w.dtype}"
-        g, w = (_np(x.float()).astype(np.float64) for x in (g, w))
-        err = np.abs(g - w).max()
-        if not err <= BF16_GRAD_TOL * np.abs(w).max():
+        err, _, top, _ = _max_and_mean_diff(g, w)
+        if not err <= BF16_GRAD_TOL * top:
             return (f"gradient {name}: max |diff| {err:.4g} (largest |g| "
-                    f"{np.abs(w).max():.4g})")
+                    f"{top:.4g})")
     return None
+
+
+@contextlib.contextmanager
+def recorded_routes(out: list):
+    """While open, every ``models.moe.route`` call appends its expert ids
+    (G, gs, top_k) to ``out``."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+
+    def recording(cfg, router, xt):
+        gate, idx = orig(cfg, router, xt)
+        out.append(idx)
+        return gate, idx
+
+    moe.route = recording
+    try:
+        yield out
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def routed_as(model, routes: list):
+    """While open, ``model``'s (an unsharded MoE ``Transformer``) layer l
+    routes its tokens to the experts ``routes[l]`` names, its gates from
+    its own router's probabilities (``moe.route``'s arithmetic at those
+    experts): the single device computing what a mesh computed
+    where a near-tie among the top-k went the other way."""
+    import torch
+
+    from repro_torch.models import layers, moe
+
+    orig = moe.route
+    stack = model.layers.router.flatten(0, 1)
+    layer_of = {stack[i].data_ptr(): i for i in range(stack.shape[0])}
+
+    def forced(cfg, router, xt):
+        idx = routes[layer_of[router.data_ptr()]]
+        logits = layers.matmul_f32(xt, router)
+        E = logits.shape[-1]
+        if E > cfg.n_experts:  # mask padded experts
+            pad = torch.arange(E, device=logits.device) >= cfg.n_experts
+            logits = torch.where(pad, torch.full((), -1e30,
+                                                 device=logits.device),
+                                 logits)
+        gate = torch.gather(torch.softmax(logits, dim=-1), -1, idx)
+        return gate / torch.clamp_min(torch.sum(gate, -1, keepdim=True),
+                                      1e-9), idx
+
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = orig
 
 
 #: (a's shape, b's shape, b a transposed view) of the ``matmul_f32`` checks:

@@ -1535,3 +1535,69 @@ def test_resumed_training_on_card_is_bit_exact(cuda, arch, tmp_path):
     assert resumed["losses"] == full["losses"][3:]
     for name, p in full["trainer"].params.items():
         assert torch.equal(resumed["trainer"].params[name], p), name
+
+
+# -- the LM trainer on a (data, model) mesh on the card -------------------------
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_sharded_lm_on_card_matches_unsharded(cuda, arch):
+    """A reduced bf16 LM laid out on ``make_host_mesh(2, 2)`` (four cards
+    where there are four, else four logical shards of the card) against
+    the same weights unsharded on the card: forward logits, loss and every
+    gradient leaf within ``testing.bf16_lm_mismatch`` (an MoE's single
+    device routed as the mesh routed: a near-tie of the top-k may go the
+    other way where the row-parallel sums round differently); the sharded
+    gradients twice the same bits; after a step every holder of every
+    shard holds the same bits."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.distributed import partition
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(C.get_arch(arch).make_reduced(),
+                              dtype=torch.bfloat16)
+    model = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
+    mesh = make_host_mesh(2, 2)
+    specs = transformer.param_specs(cfg)
+    placed = {}
+    for name, p in model.named_parameters():
+        placed[name] = partition.place(p.detach(), specs[name], mesh)
+        for s in placed[name].shards:
+            s.requires_grad_(True)
+    sharded = transformer.ShardedTransformer(cfg, mesh, placed)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (4, 96)).astype(np.int32)).to(cuda)
+    tr = train.ShardedTrainer(sharded)
+    runs = [tr.reduced_grads({"tokens": toks}) for _ in range(2)]
+    for name in placed:
+        for a, b in zip(runs[0][2][name].shards, runs[1][2][name].shards):
+            assert torch.equal(a, b), name
+    loss, _, grads = runs[0]
+    with testing.recorded_routes([]) as routes:
+        logits = transformer.sharded_logits(cfg, sharded, toks)
+    # one data replica's routing a layer, then the other's: the rows of
+    # the whole batch, in the unsharded model's groups
+    routing = contextlib.nullcontext()
+    if cfg.is_moe:
+        M, L_ = mesh.shape["model"], cfg.n_layers
+        per_replica = [routes[d * M * L_:(d + 1) * M * L_:M]
+                       for d in range(mesh.shape["data"])]
+        routing = testing.routed_as(model, [torch.cat(
+            [rep[l].to(cuda) for rep in per_replica]) for l in range(L_)])
+    with routing:
+        want = testing.lm_outputs(cfg, model, toks)
+    msg = testing.bf16_lm_mismatch(
+        logits, loss.detach(), {n: g.gather() for n, g in grads.items()},
+        *want)
+    assert msg is None, msg
+    del runs, grads
+    tr.step({"tokens": toks})
+    for t in (*tr.params.values(), *tr.opt_state.mu.values(),
+              *tr.opt_state.nu.values()):
+        assert partition.replicas_equal(t)

@@ -33,7 +33,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.models.layers, repro_torch.models.moe, "
         "repro_torch.models.transformer, repro_torch.models.mace, "
         "repro_torch.data.graph, repro_torch.configs.mace, "
-        "repro_torch.launch.model_flops\n"
+        "repro_torch.launch.model_flops, "
+        "repro_torch.distributed.sharding, "
+        "repro_torch.distributed.partition, repro_torch.launch.mesh, "
+        "repro_torch.launch.steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")
