@@ -12,8 +12,11 @@ kernels.
     python3 chip_smoke.py --sharded  # phases 1-3, the f32 build and serve
                                      # of phase 8, phase 20 (on four
                                      # cards where there are four) and
-                                     # phase 26 (on four distinct cards)
+                                     # phases 26 and 27 (on four
+                                     # distinct cards)
     python3 chip_smoke.py --lm-mesh  # phases 1 and 26 alone (with
+                                     # --sharded: on four cards)
+    python3 chip_smoke.py --gnn-mesh # phases 1 and 27 alone (with
                                      # --sharded: on four cards)
 
 Phases:
@@ -227,10 +230,22 @@ Phases:
      against the single device at a cut depth, qwen1.5-0.5b on 2 x 2 with
      --compress-grads and its restarts, granite-8b's plan with gradient
      accumulation beside the CLI's step; ms a step, tokens/s, bf16-peak
-     share, peak GB a card, busy and cross-shard shares.
+     share, peak GB a card, busy and cross-shard shares; qwen2-moe's
+     tokens routed otherwise than on the single device held to their
+     logit margins (C7).
+ 27. MACE on a (data, model) mesh at published width (check_gnn_mesh):
+     minibatch_lg on make_host_mesh 1 x 4, 2 x 1 and 2 x 2 (four logical
+     shards of the card) against the single device (energies against
+     f64, losses, replicas, a rerun and a 1 x 4 restart the same bits),
+     build_plan("mace", "minibatch_lg")'s step beside the CLI's; with
+     --sharded on four cards, minibatch_lg the same bits as on four
+     logical shards of card 0, and ogb_products (61.9M edges) through
+     build_plan("mace", "ogb_products") on 1 x 4: ms a step, nodes/s,
+     bf16-peak share, peak GB, busy and cross-shard shares, the edge and
+     node sides apart, a rerun and a restart the same bits.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21-26 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-27 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -247,6 +262,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -413,6 +429,29 @@ MESH_QWEN_ROWS = 1
 #: shard's assignments must equal every other shard's exactly (each routes
 #: with the whole router, gathered).
 MOE_ROUTE_AGREE = 0.99
+#: phase 27: MACE on a (data, model) mesh. One card: minibatch_lg on four
+#: logical shards as GNN_MESH_SHAPES against the single device,
+#: GNN_MESH_STEPS steps each on the cell's one batch (the step time the
+#: median of the last 2). At each step's parameters the mesh's energies
+#: are held to an f64 evaluation (GNN_BF16_TOL, the mean of
+#: testing.energy_errors) and its loss to the single device's bf16 loss
+#: (GNN_MESH_LOSS_RTOL), the f64 loss logged beside both. At C = 128
+#: random weights give losses of ~3e7 that the largest energies (~1e6)
+#: carry, and those are off f64 by several percent in bf16 on the mesh
+#: and on one device alike, while the energies' mean error stays ~0.003:
+#: on an H100 the two bf16 losses read up to 3.56% apart at the same
+#: parameters (step 1 on 1 x 4). The loss bound, 2^-3, was set after that
+#: reading.
+#: Free-running trajectories part further (AdamW moves every element by
+#: ~lr whatever its gradient's size), so the steps are compared at the
+#: same parameters
+GNN_MESH_STEPS, GNN_MESH_SHAPES = 4, ((1, 4), (2, 1), (2, 2))
+GNN_MESH_LOSS_RTOL = 2**-3
+#: phase 27 on four cards: ogb_products' steps on its one batch (the step
+#: time the median of the last 2; a checkpoint after step 3) and the edge
+#: chunk counts tried in order: the reference plan's 16, then 32 and 64
+#: when a card runs out of memory
+OGB_STEPS, OGB_CHUNKS = 5, (16, 32, 64)
 
 
 def log(*a):
@@ -4221,6 +4260,66 @@ def _parents(e):
         p = p.cpu_parent
 
 
+def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes
+                      ) -> None:
+    """Phase 26 (b), layer by layer: the mesh's step-0 routing is the
+    unsharded router's (``moe.route``) on the mesh's own router inputs,
+    exactly; and every token the mesh routes otherwise than the single
+    device is a near-tie that the inputs' difference explains. For such a
+    token, at the first top-k position where the two differ, the single
+    device's logit margin between its expert and the mesh's must be at
+    most 2 max_e |((x_mesh - x_single) @ W)_e| (the f64 change of the
+    token's logits that the inputs' difference makes) plus the two f32
+    products' rounding, 2 x 4 sqrt(D) 2^-24 max_e (|x| @ |W|)_e. Also
+    logged: each flipped token's margin between the single device's k-th
+    and (k+1)-th logit."""
+    import torch
+    from repro_torch.models import layers, moe
+
+    K = cfg.top_k
+    for l, ((xm, w), idx_m, (xs, ws), idx_s) in enumerate(zip(
+            mesh_in, mesh_routes, single_in, single_routes)):
+        if not torch.equal(w, ws):
+            fail(f"C7 layer {l}: the mesh's gathered router is not the "
+                 "single device's")
+        again = moe.route(cfg, w, xm)[1]
+        if not torch.equal(again, idx_m):
+            fail(f"C7 layer {l}: the mesh's expert assignments are not the "
+                 "unsharded router's on the mesh's own inputs")
+        E, D = cfg.n_experts, xs.shape[-1]
+        logits = layers.matmul_f32(xs, w)[..., :E].double()
+        differ = idx_m != idx_s
+        flipped = differ.any(-1)
+        n = int(flipped.sum())
+        if n == 0:
+            log(f"    C7 layer {l}: no token routed otherwise")
+            continue
+        j = differ.int().argmax(-1, keepdim=True)
+        pick = lambda t, i: torch.gather(t, -1, i)[..., 0]  # noqa: E731
+        margin = (pick(logits, pick(idx_s, j)[..., None])
+                  - pick(logits, pick(idx_m, j)[..., None]))[flipped]
+        top = logits.sort(-1, descending=True).values
+        margin_k = (top[..., K - 1] - top[..., K])[flipped]
+        delta = ((xm.double() - xs.double()) @ w[:, :E].double()).abs()
+        rounding = 4 * D**0.5 * 2**-24 * (xs.double().abs()
+                                          @ w[:, :E].double().abs())
+        bound = (2 * delta.amax(-1) + 2 * rounding.amax(-1))[flipped]
+        ratio = margin / bound
+        log(f"    C7 layer {l}: {n} of {flipped.numel()} tokens routed "
+            f"otherwise; their single-device margins (its expert's logit "
+            f"minus the mesh's at the first differing rank) max "
+            f"{float(margin.max()):.4g}, median {float(margin.median()):.4g}"
+            f"; k-th minus (k+1)-th logit max {float(margin_k.max()):.4g}; "
+            f"the inputs' difference allows 2 max |dx @ W| + rounding: "
+            f"median {float(bound.median()):.4g}; margin over allowance max "
+            f"{float(ratio.max()):.3f}; layer inputs max |dx| "
+            f"{float((xm.float() - xs.float()).abs().max()):.4g}")
+        if float(ratio.max()) > 1.0:
+            fail(f"C7 layer {l}: {int((ratio > 1).sum())} of {n} tokens "
+                 f"route otherwise past what the inputs' difference "
+                 f"explains (margin over allowance {float(ratio.max()):.3f})")
+
+
 def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
     """Phase 26: the LM family's trainer on a (data, model) mesh
     (``launch.mesh.make_host_mesh``, ``launch.train.ShardedTrainer``), at
@@ -4382,7 +4481,8 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
         mesh = make_host_mesh(1, 4)
         model = transformer.init_sharded(cfg, mesh, generator=(
             torch.Generator(device=mesh.first_device).manual_seed(0)))
-        with testing.recorded_routes([]) as routes:
+        mesh_in, single_in = [], []
+        with testing.recorded_routes([], mesh_in) as routes:
             got_logits = transformer.sharded_logits(cfg, model, tokens)
         got_loss, _, grads = train.sharded_grads(model, {"tokens": tokens})
         _, _, grads2 = train.sharded_grads(model, {"tokens": tokens})
@@ -4402,7 +4502,8 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
             if len(routes) != M * L_ or not all(
                     torch.equal(r, m[0]) for m in mine for r in m):
                 fail(f"{arch}: the model shards route differently")
-            with testing.recorded_routes([]) as single, torch.no_grad():
+            with testing.recorded_routes([], single_in) as single, \
+                    torch.no_grad():
                 transformer.forward(cfg, model, tokens)
             agree = [float((m[0] == r).float().mean())
                      for m, r in zip(mine, single)]
@@ -4414,6 +4515,9 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
             if min(agree) < MOE_ROUTE_AGREE:
                 fail(f"{arch}: step 0's expert assignments agree with the "
                      f"single device's only {min(agree):.6f}")
+            check_route_flips(cfg, [mesh_in[l * M] for l in range(L_)],
+                              [m[0] for m in mine], single_in, single)
+            del mesh_in, single_in
             routing = testing.routed_as(model, [m[0] for m in mine])
             forced = (" (the single device routed as the mesh: its gates "
                       "from its own router probabilities)")
@@ -4539,31 +4643,34 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
                                     overrides={"n_layers": 4})
         nm, Bd = plan.cfg.n_microbatches, 8
         mesh = make_host_mesh(1, 4)
-        model = transformer.init_sharded(
-            plan.cfg, mesh, generator=torch.Generator(
-                device=mesh.first_device).manual_seed(0))
-        tr = train.ShardedTrainer(model, opt=steps_lib.make_optimizer())
         batch = train.lm_batch_fn(plan.cfg, seed=0, batch=Bd, seq=S,
                                   device=dev)(0)
         peaks = {}
         for label in ("plan", "cli"):
             free()
+            # each step from its own copy of the same starting state
+            tr = train.ShardedTrainer(
+                transformer.init_sharded(plan.cfg, mesh, generator=(
+                    torch.Generator(device=mesh.first_device)
+                    .manual_seed(0))), opt=steps_lib.make_optimizer())
             for c in cards:
                 torch.cuda.reset_peak_memory_stats(c)
             t = time.perf_counter()
             try:
                 if label == "plan":
-                    _, _, aux = plan.fn(tr.params, tr.opt_state, batch)
-                    loss = float(aux["loss"])
+                    loss = float(plan.fn(tr.params, tr.opt_state,
+                                         batch)[2]["loss"])
                 else:
                     loss = float(tr.step(batch)[0])
             except torch.cuda.OutOfMemoryError:
                 peaks[label] = (None, None, None)
+                del tr
                 continue
             sync()
             peaks[label] = (max(torch.cuda.max_memory_allocated(c)
                                 for c in cards) / 1e9,
                             time.perf_counter() - t, loss)
+            del tr
         if peaks["plan"][0] is None:
             fail("granite-8b's plan (n_microbatches 8) ran out of memory")
         cli_peak = peaks["cli"]
@@ -4573,8 +4680,10 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
             f"loss {peaks['plan'][2]:.5f}; the CLI's step at the same batch"
             + (f": peak {cli_peak[0]:.2f} GB a card, {cli_peak[1]:.2f} s, "
                f"loss {cli_peak[2]:.5f}" if cli_peak[0] is not None else
-               ": out of memory"))
-        del plan, model, tr, batch, mesh
+               ": out of memory") + f" (each from its own copy of the "
+            f"same initial shards and zero moments: the mean of {nm} "
+            f"microbatches' losses against the whole batch's)")
+        del plan, batch, mesh
         free()
 
     # -- four cards against one ---------------------------------------------
@@ -4607,6 +4716,486 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
     log(f"    phase 26: {time.perf_counter() - t0:.1f} s")
 
 
+def sync_cards(cards) -> None:
+    import torch
+
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def free_cards(cards) -> None:
+    import torch
+
+    gc.collect()
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+
+
+def timed_steps(step, n: int, cards) -> tuple:
+    """``n`` calls of ``step`` (returning the loss): the losses and each
+    call's seconds, every card synchronised around it."""
+    losses, step_s = [], []
+    for _ in range(n):
+        sync_cards(cards)
+        t = time.perf_counter()
+        losses.append(float(step()))
+        sync_cards(cards)
+        step_s.append(time.perf_counter() - t)
+    return losses, step_s
+
+
+def ogb_batch(cell, dev) -> dict:
+    """The ogb_products cell's graph: ``geometric_graph_batch`` at its
+    2,449,029 nodes, 61,859,140 edges and 100 features, per node, its
+    edges padded by ``configs.base.pad_edges`` to the input specs'
+    61,859,328 (padding edges 0 -> 0 with edge_mask 0)."""
+    import torch
+    from repro_torch.configs.base import pad_edges
+
+    batch = gnn_cell_batch(cell, 0, dev)
+    E = batch["senders"].shape[0]
+    pad = pad_edges(E) - E
+    for k in ("senders", "receivers", "edge_mask"):
+        batch[k] = torch.cat([batch[k], batch[k].new_zeros(pad)])
+    return batch
+
+
+class SideClock:
+    """While open, the wall time (every card synchronised before and
+    after each call) of ``models.mace``'s sharded edge side and node side,
+    summed over calls."""
+
+    def __init__(self, cards):
+        from repro_torch.models import mace
+
+        self.mace, self.cards, self.ms = mace, cards, {"edge": 0.0,
+                                                       "node": 0.0}
+        self.orig = {"edge": mace._sharded_edge_side,
+                     "node": mace._sharded_node_side}
+
+    def _timed(self, side):
+        import torch
+
+        def fn(*a, **k):
+            for c in self.cards:
+                torch.cuda.synchronize(c)
+            t = time.perf_counter()
+            out = self.orig[side](*a, **k)
+            for c in self.cards:
+                torch.cuda.synchronize(c)
+            self.ms[side] += (time.perf_counter() - t) * 1e3
+            return out
+        return fn
+
+    def __enter__(self):
+        self.mace._sharded_edge_side = self._timed("edge")
+        self.mace._sharded_node_side = self._timed("node")
+        return self
+
+    def __exit__(self, *exc):
+        self.mace._sharded_edge_side = self.orig["edge"]
+        self.mace._sharded_node_side = self.orig["node"]
+
+
+def check_gnn_mesh(dev, smi: str, four_cards: bool) -> None:
+    """Phase 27: MACE on a (data, model) mesh at published width (2
+    layers, C = 128, l_max 2, correlation 3, bf16, remat), through the
+    sharded trainer and the reference's GNN train plan
+    (``launch.steps.build_plan("mace", cell)``).
+
+    One card (four logical shards): minibatch_lg (176,128 nodes, 172,032
+    edges, 602 features, per node) on 1 x 4, 2 x 1 and 2 x 2 against the
+    single device from one seed, GNN_MESH_STEPS steps on the cell's one
+    batch: step 0's per-node energies within GNN_BF16_TOL of an f64
+    evaluation of the same weights (``testing.energy_errors``' mean),
+    every step's loss within GNN_MESH_LOSS_RTOL of the single device's,
+    every holder of every shard the same bits after the steps; on 1 x 4 a
+    rerun's first 2 steps and a restart from a step-2 checkpoint the same
+    bits; the plan's step and the CLI's step (``ShardedTrainer.step``),
+    each from its own copy of the initial state: the same loss. ms a
+    step, nodes/s, peak GB, and a profiled step's busy and cross-shard
+    shares.
+
+    Four cards (``four_cards``; the mesh must be four distinct cards):
+    minibatch_lg 2 steps on 1 x 4 of the four cards and of four logical
+    shards of card 0 from one seed: the same bits. Then ogb_products
+    (2,449,029 nodes, 61,859,140 edges padded to 61,859,328, 100
+    features, per node) through ``build_plan("mace", "ogb_products")`` on
+    1 x 4 (16 edge chunks; on running out of memory, 32, then 64, through
+    ``overrides``): OGB_STEPS steps on its one batch, losses finite and
+    falling; ms a step (median of the last 2), nodes/s, the share of
+    four cards' bf16 peak (``launch/model_flops.py``), peak GB a card, a
+    profiled step's busy share a card and its ``mesh.*`` share, a
+    no-gradient forward's edge and node sides apart; a rerun's first 2
+    steps and a restart from a step-3 checkpoint the same bits.
+    """
+    import tempfile
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch import testing
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import mace as mace_cfg
+    from repro_torch.distributed import partition
+    from repro_torch.launch import model_flops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mace
+
+    t0 = time.perf_counter()
+    spec = C.get_arch("mace")
+    base = spec.make_config()
+    mesh = make_host_mesh(1, 4)
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    if four_cards and len(cards) != 4:
+        fail(f"--sharded needs a mesh of four distinct cards; "
+             f"make_host_mesh(1, 4) sits on {[str(d) for d in cards]}")
+    log(f"[27] MACE on a (data, model) mesh at published width ("
+        f"{base.n_layers} layers, C = {base.channels}, "
+        f"{str(base.dtype)[6:]}, remat {base.remat}); {smi}; "
+        f"make_host_mesh(1, 4) sits on "
+        f"{[str(d) for d in mesh.devices.flat]}")
+    del mesh
+
+    def sync():
+        sync_cards(cards)
+
+    def free():
+        free_cards(cards)
+
+    def reset():
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+
+    def peaks():
+        return {str(c): round(torch.cuda.max_memory_allocated(c) / 1e9, 2)
+                for c in cards}
+
+    def host(params):
+        return {n: [s.detach().to("cpu", copy=True) for s in p.shards]
+                for n, p in params.items()}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for n in a for x, y in zip(a[n], b[n]))
+
+    def held_equal(tr):
+        st = tr.opt_state
+        return all(partition.replicas_equal(t) for t in (
+            *tr.params.values(), *st.mu.values(), *st.nu.values(), st.step))
+
+    cell = spec.cell("minibatch_lg")
+    cfg = mace_cfg.for_shape(base, cell.dims["d_feat"])
+    batch = gnn_cell_batch(cell, 0, dev)
+    N = cell.dims["n_nodes"]
+    flops = model_flops.estimate("mace", "minibatch_lg", cfg)[
+        "model_flops_global"]
+
+    if four_cards:
+        runs = {}
+        for label, device in (("four cards", None),
+                              ("four logical shards of cuda:0", "cuda:0")):
+            free()
+            tr = train.sharded_mace_trainer(
+                cfg, mesh=make_host_mesh(1, 4, device=device), seed=0)
+            runs[label] = ([float(tr.step(batch)[0]) for _ in range(2)],
+                           host(tr.params))
+            del tr
+        (la, pa), (lb, pb) = runs.values()
+        # the four-card legs report every failed gate, then fail once
+        problems = [] if la == lb and same(pa, pb) else [
+            f"mace minibatch_lg on four cards {la} is not the bits of four "
+            f"logical shards of cuda:0 {lb}"]
+        log(f"    minibatch_lg on 1 x 4, 2 steps: four cards {la} and four "
+            f"logical shards of cuda:0 {lb}: " + (
+                "the same bits (losses and every parameter shard)"
+                if not problems else "NOT the same bits"))
+        del runs, pa, pb, batch
+        problems += check_ogb_products(spec, cards, smi)
+        log(f"    phase 27: {time.perf_counter() - t0:.1f} s")
+        if problems:
+            fail("; ".join(problems))
+        return
+
+    # -- the single device, then each mesh against it and against f64 -------
+    free()
+    reset()
+    single = train.mace_trainer(cfg, seed=0, device=dev)
+    want_losses, single_s = timed_steps(
+        lambda: single.step(batch)[0], GNN_MESH_STEPS, cards)
+    single_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del single
+    free()
+    ms = float(np.median(single_s[-2:])) * 1e3
+    log(f"    minibatch_lg single device: {ms:.1f} ms a step (median of the "
+        f"last 2 of {GNN_MESH_STEPS}), losses "
+        f"{np.round(want_losses, 5).tolist()}, peak {single_peak:.2f} GB")
+    rtol = GNN_MESH_LOSS_RTOL
+    ref = mace.MACE(cfg, device=dev)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64, remat=False)
+    m64 = mace.MACE(cfg64, device=dev)
+
+    def at_params(tr):
+        """At the mesh's parameters: the single device's bf16 loss, the
+        f64 loss, and the mesh's and the single device's energies against
+        f64 (``testing.energy_errors``' (max, mean))."""
+        with torch.no_grad():
+            for (n, p), q in zip(ref.named_parameters(), m64.parameters()):
+                p.copy_(tr.params[n].gather(dev))
+                q.copy_(p.double())
+            want = mace.forward(cfg64, m64, batch)
+            one = mace.forward(cfg, ref, batch)
+            loss = float(mace._mse(one, batch)[0])
+            loss64 = float(mace._mse(want, batch)[0])
+            mesh_err = testing.energy_errors(
+                mace.sharded_forward(cfg, tr.model, batch), want)
+            return loss, loss64, mesh_err, testing.energy_errors(one, want)
+
+    for shape in GNN_MESH_SHAPES:
+        free()
+        reset()
+        mesh = make_host_mesh(*shape)
+        tr = train.sharded_mace_trainer(cfg, mesh=mesh, seed=0)
+        d = tempfile.mkdtemp()
+        restart = shape == (1, 4)
+        losses, step_s, at, at64, errs = [], [], [], [], []
+        for s in range(GNN_MESH_STEPS):
+            if restart and s == 2:
+                mgr = CheckpointManager(d)
+                mgr.save(2, tr.state_tree(), tr.state_specs())
+            loss, loss64, mesh_err, single_err = at_params(tr)
+            at64.append(loss64)
+            if not mesh_err[1] <= GNN_BF16_TOL:
+                fail(f"mace minibatch_lg on {shape}: step {s}'s energies "
+                     f"against f64, mean relative |diff| {mesh_err[1]:.4g} "
+                     f"(tolerance {GNN_BF16_TOL}; the single device's "
+                     f"{single_err[1]:.4g})")
+            at.append(loss)
+            errs.append((mesh_err[1], single_err[1]))
+            one, one_s = timed_steps(lambda: tr.step(batch)[0], 1, cards)
+            losses += one
+            step_s += one_s
+        peak = peaks()
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, at))
+        if not np.isfinite(losses).all() or not worst <= rtol:
+            fail(f"mace minibatch_lg on {shape}: losses {losses} against the "
+                 f"single device's at the mesh's parameters {at} (rtol "
+                 f"{rtol})")
+        if not held_equal(tr):
+            fail(f"mace minibatch_lg on {shape}: a replicated shard differs "
+                 "between holders")
+        ms = float(np.median(step_s[-2:])) * 1e3
+        final = host(tr.params) if restart else None
+        log(f"    minibatch_lg on {shape[0]} x {shape[1]}: {ms:.1f} ms a step "
+            f"(median of the last 2; every step "
+            f"{np.round(np.asarray(step_s) * 1e3, 1).tolist()} ms), "
+            f"{N / ms * 1e3:,.0f} nodes/s, {flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2%}"
+            f" of the bf16 peak; losses {np.round(losses, 5).tolist()} "
+            f"(the single device's at the same parameters "
+            f"{np.round(at, 5).tolist()}: max relative |diff| {worst:.3g}, "
+            f"rtol {rtol}; f64's {np.round(at64, 5).tolist()}); each step's energies against f64, mean "
+            f"relative |diff| {[round(e[0], 5) for e in errs]} (the single "
+            f"device's at the same parameters "
+            f"{[round(e[1], 5) for e in errs]}; tolerance {GNN_BF16_TOL}); "
+            f"peak GB {peak}; every holder of every shard the same bits")
+        _mesh_profile(lambda: tr.step(batch), f"one minibatch_lg step on "
+                      f"{shape[0]} x {shape[1]}", cards)
+        if restart:
+            step, tree = mgr.restore(like=tr.state_tree(), mesh=mesh)
+            tr.load_state_tree(tree)
+            del tree
+            again = [float(tr.step(batch)[0])
+                     for _ in range(GNN_MESH_STEPS - 2)]
+            if step != 2 or again != losses[2:] or not same(
+                    host(tr.params), final):
+                fail(f"mace minibatch_lg on 1 x 4: restarted from step "
+                     f"{step}, losses {again} against {losses[2:]}, the "
+                     f"parameters the same bits: "
+                     f"{same(host(tr.params), final)}")
+            tr2 = train.sharded_mace_trainer(cfg, mesh=mesh, seed=0)
+            rerun = [float(tr2.step(batch)[0]) for _ in range(2)]
+            del tr2
+            if rerun != losses[:2]:
+                fail(f"mace minibatch_lg on 1 x 4: a rerun's losses {rerun} "
+                     f"against {losses[:2]}")
+            log(f"    minibatch_lg on 1 x 4: a restart from the step-2 "
+                f"checkpoint gives steps 2-{GNN_MESH_STEPS - 1}'s losses "
+                f"{again} and parameters, the same bits; a rerun's 2 steps "
+                f"{rerun}, the same bits")
+            del final
+        del tr
+        shutil.rmtree(d, ignore_errors=True)
+    del ref, m64
+
+    # the plan's step and the CLI's step, each from its own copy
+    plan = steps_lib.build_plan("mace", "minibatch_lg")
+    if plan.cfg != cfg:
+        fail(f"build_plan('mace', 'minibatch_lg').cfg {plan.cfg} is not "
+             f"{cfg}")
+    mesh = make_host_mesh(1, 4)
+    out = {}
+    for label in ("plan", "cli"):
+        free()
+        tr = train.sharded_mace_trainer(cfg, mesh=mesh, seed=0)
+        reset()
+        sync()
+        t = time.perf_counter()
+        if label == "plan":
+            loss = float(plan.fn(tr.params, tr.opt_state, batch)[2]["loss"])
+        else:
+            loss = float(tr.step(batch)[0])
+        sync()
+        out[label] = (loss, time.perf_counter() - t,
+                      max(peaks().values()))
+        del tr
+    if out["plan"][0] != out["cli"][0]:
+        fail(f"mace minibatch_lg: the plan's loss {out['plan'][0]} is not "
+             f"the CLI step's {out['cli'][0]}")
+    log(f"    build_plan('mace', 'minibatch_lg') on 1 x 4, each step from "
+        f"its own copy of the initial state: the plan's step loss "
+        f"{out['plan'][0]:.5f}, {out['plan'][1]:.2f} s, peak "
+        f"{out['plan'][2]:.2f} GB; the CLI's step {out['cli'][0]:.5f}, "
+        f"{out['cli'][1]:.2f} s, peak {out['cli'][2]:.2f} GB (the same "
+        f"loss bits)")
+    del batch
+    free()
+    log(f"    phase 27: {time.perf_counter() - t0:.1f} s")
+
+
+def check_ogb_products(spec, cards, smi: str) -> list:
+    """Phase 27 on four cards: ogb_products through ``build_plan`` on 1 x
+    4 (see ``check_gnn_mesh``). Returns the gates it failed."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import model_flops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mace
+
+    cell = spec.cell("ogb_products")
+    N = cell.dims["n_nodes"]
+    t = time.perf_counter()
+    batch = ogb_batch(cell, cards[0])
+    make_s = time.perf_counter() - t
+    mesh = make_host_mesh(1, 4)
+    E = batch["senders"].shape[0]
+    log(f"    ogb_products: {N:,} nodes, {cell.dims['n_edges']:,} edges "
+        f"padded to {E:,} (edge_mask 0 on the padding), d_feat "
+        f"{cell.dims['d_feat']}, per node; the batch made in {make_s:.1f} s")
+
+    def start(plan):
+        """The plan's arguments from seed 0 on the mesh (``place_args``),
+        and a trainer over the same tensors (its checkpoints)."""
+        model = mace.init_params(plan.cfg, generator=torch.Generator(
+            device=mesh.first_device).manual_seed(0))
+        placed, ost = steps_lib.place_args(plan, mesh,
+                                           dict(model.named_parameters()))
+        tr = train.ShardedTrainer(mace.ShardedMACE(plan.cfg, mesh, placed),
+                                  opt=steps_lib.make_optimizer(),
+                                  opt_state=ost)
+        return tr, lambda: plan.fn(tr.params, tr.opt_state, batch)[2]["loss"]
+
+    def run(step, n):
+        return timed_steps(step, n, cards)
+
+    plan = None
+    for chunks in OGB_CHUNKS:
+        free_cards(cards)
+        plan = steps_lib.build_plan(
+            "mace", "ogb_products",
+            overrides=None if chunks == OGB_CHUNKS[0] else
+            {"edge_chunks": chunks})
+        if plan.cfg.edge_chunks != chunks:
+            fail(f"build_plan('mace', 'ogb_products') chunks its edges in "
+                 f"{plan.cfg.edge_chunks}, not {chunks}")
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        tr, step = start(plan)
+        try:
+            losses, step_s = run(step, 1)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"    ogb_products at {chunks} edge chunks: out of memory "
+                f"({str(e).splitlines()[0][:160]})")
+            del tr, step
+            plan = None
+    if plan is None:
+        fail(f"ogb_products does not fit four cards at {OGB_CHUNKS} edge "
+             "chunks")
+    cfg = plan.cfg
+    d = tempfile.mkdtemp()
+    mgr = CheckpointManager(d)
+    more, more_s = run(step, 2)
+    mgr.save(3, tr.state_tree(), tr.state_specs())
+    last, last_s = run(step, OGB_STEPS - 3)
+    losses, step_s = losses + more + last, step_s + more_s + last_s
+    peak = {str(c): round(torch.cuda.max_memory_allocated(c) / 1e9, 2)
+            for c in cards}
+    problems = []
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        problems.append(f"ogb_products: losses {losses} (finite and falling "
+                        "on its one batch)")
+    final = {n: [s.detach().to("cpu", copy=True) for s in p.shards]
+             for n, p in tr.params.items()}
+    ms = float(np.median(step_s[-2:])) * 1e3
+    flops = model_flops.estimate("mace", "ogb_products", cfg)[
+        "model_flops_global"]
+    log(f"    ogb_products through build_plan('mace', 'ogb_products') on 1 "
+        f"x 4 four cards, {cfg.edge_chunks} edge chunks "
+        + ("(the reference plan's)" if cfg.edge_chunks == OGB_CHUNKS[0]
+           else f"(raised from the reference plan's {OGB_CHUNKS[0]}: a cut)")
+        + f": {ms:.1f} ms a step (median of the last 2; every step "
+        f"{np.round(np.asarray(step_s) * 1e3, 1).tolist()} ms), "
+        f"{N / ms * 1e3:,.0f} nodes/s; model FLOPs {flops / 1e12:.2f} T a "
+        f"step = {flops / (ms / 1e3) / (4 * PEAK_BF16_FLOPS):.3%} of four "
+        f"cards' bf16 peak; losses {np.round(losses, 5).tolist()}; peak GB "
+        f"a card {peak}; {smi}")
+    _mesh_profile(step, "one ogb_products step", cards)
+    with torch.no_grad(), SideClock(cards) as clock:
+        sync_cards(cards)
+        t = time.perf_counter()
+        mace.sharded_forward(cfg, tr.model, batch)
+        sync_cards(cards)
+        fwd_ms = (time.perf_counter() - t) * 1e3
+    log(f"    ogb_products forward (no gradient, every card synchronised "
+        f"around each side): {fwd_ms:.0f} ms; the 2 layers' edge sides "
+        f"{clock.ms['edge']:.0f} ms, their node sides {clock.ms['node']:.0f}"
+        f" ms, the rest (inputs, geometry, sorts, the sums over data) "
+        f"{fwd_ms - clock.ms['edge'] - clock.ms['node']:.0f} ms")
+    # a restart from the step-3 checkpoint, then a rerun from seed 0
+    step_no, tree = mgr.restore(like=tr.state_tree(), mesh=mesh)
+    tr.load_state_tree(tree)
+    del tree
+    again, _ = run(step, OGB_STEPS - 3)
+    restored = {n: [s.detach().to("cpu", copy=True) for s in p.shards]
+                for n, p in tr.params.items()}
+    bits = all(torch.equal(x, y) for n in final
+               for x, y in zip(final[n], restored[n]))
+    if step_no != 3 or again != losses[3:] or not bits:
+        problems.append(f"ogb_products: restarted from step {step_no}, "
+                        f"losses {again} against {losses[3:]}, the "
+                        f"parameters the same bits: {bits}")
+    del tr, step
+    free_cards(cards)
+    tr, step = start(plan)
+    rerun, _ = run(step, 2)
+    if rerun != losses[:2]:
+        problems.append(f"ogb_products: a rerun's losses {rerun} against "
+                        f"{losses[:2]}")
+    log(f"    ogb_products: a restart from the step-3 checkpoint gives steps "
+        f"3-{OGB_STEPS - 1}'s losses {again} and parameters (the same bits:"
+        f" {again == losses[3:] and bits}); a rerun from seed 0 gives steps "
+        f"0-1's {rerun} (the same bits: {rerun == losses[:2]})")
+    del tr, step, batch, final, restored
+    shutil.rmtree(d, ignore_errors=True)
+    free_cards(cards)
+    return problems
+
+
 def main() -> None:
     import torch
 
@@ -4637,6 +5226,10 @@ def main() -> None:
     if "--lm-mesh" in sys.argv[1:]:
         check_lm_mesh(dev, smi, four_cards=sharded_only)
         log("lm-mesh run: stopping after phase 26")
+        sys.exit(2)
+    if "--gnn-mesh" in sys.argv[1:]:
+        check_gnn_mesh(dev, smi, four_cards=sharded_only)
+        log("gnn-mesh run: stopping after phase 27")
         sys.exit(2)
 
     # -- 2. build --------------------------------------------------------
@@ -4786,7 +5379,10 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         check_lm_mesh(dev, smi, four_cards=True)
-        log("sharded run: stopping after phases 8 (f32), 20 and 26")
+        gc.collect()
+        check_gnn_mesh(dev, smi, four_cards=True)
+        log(f"sharded run: stopping after phases 8 (f32), 20, 26 and 27; "
+            f"{time.perf_counter() - t_start:.0f} s")
         sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
     ivf_err = check_ivf_kernels(coords[:1_000_000], queries, atol)
@@ -5023,6 +5619,11 @@ def main() -> None:
     # -- 26. the LM trainer on a (data, model) mesh -------------------------------
     torch.cuda.empty_cache()
     check_lm_mesh(torch.device("cuda"), smi, four_cards=False)
+
+    # -- 27. MACE on a (data, model) mesh -----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_gnn_mesh(torch.device("cuda"), smi, four_cards=False)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",

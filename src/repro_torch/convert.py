@@ -217,6 +217,18 @@ def _leaf_tensor(a, dtype: torch.dtype, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=dev).to(dtype)
 
 
+def _placed(params: dict, dtype: torch.dtype, mesh, specs: dict) -> dict:
+    """Every leaf of a parameter pytree laid out on ``mesh`` by its spec,
+    each shard a leaf that requires a gradient."""
+    leaves = {}
+    for k, v in flat_state(params).items():
+        leaves[k] = place(_leaf_tensor(v, dtype, mesh.first_device),
+                          specs[k], mesh)
+        for s in leaves[k].shards:
+            s.requires_grad_(True)
+    return leaves
+
+
 def transformer_from_arrays(cfg: transformer.TransformerConfig,
                             params: dict, *, device=None, mesh=None,
                             specs: Optional[dict] = None):
@@ -229,13 +241,8 @@ def transformer_from_arrays(cfg: transformer.TransformerConfig,
     default)."""
     if mesh is not None:
         specs = transformer.param_specs(cfg) if specs is None else specs
-        leaves = {}
-        for k, v in flat_state(params).items():
-            leaves[k] = place(_leaf_tensor(v, cfg.dtype, mesh.first_device),
-                              specs[k], mesh)
-            for s in leaves[k].shards:
-                s.requires_grad_(True)
-        return transformer.ShardedTransformer(cfg, mesh, leaves)
+        return transformer.ShardedTransformer(
+            cfg, mesh, _placed(params, cfg.dtype, mesh, specs))
     dev = resolve_device(device)
     model = transformer.Transformer(cfg, device=dev)
     model.load_state_dict({k: _leaf_tensor(v, cfg.dtype, dev)
@@ -244,11 +251,18 @@ def transformer_from_arrays(cfg: transformer.TransformerConfig,
     return model
 
 
-def mace_from_arrays(cfg: mace.MACEConfig, params: dict, *, device=None
-                     ) -> mace.MACE:
+def mace_from_arrays(cfg: mace.MACEConfig, params: dict, *, device=None,
+                     mesh=None, specs: Optional[dict] = None):
     """The port's MACE model holding exactly this parameter pytree (the
     reference's ``init_params`` layout: ``embed`` and a list ``layers`` of
-    dicts of leaves), each leaf in ``cfg.dtype``."""
+    dicts of leaves), each leaf in ``cfg.dtype``. With ``mesh`` (a (data,
+    model) ``distributed.Mesh``): a ``mace.ShardedMACE`` whose leaves are
+    laid out by ``specs`` (name -> ``sharding.P``; the reference's rules
+    by default)."""
+    if mesh is not None:
+        specs = mace.param_specs(cfg) if specs is None else specs
+        return mace.ShardedMACE(cfg, mesh, _placed(params, cfg.dtype, mesh,
+                                                   specs))
     dev = resolve_device(device)
     model = mace.MACE(cfg, device=dev)
     model.load_state_dict({k: _leaf_tensor(v, cfg.dtype, dev)

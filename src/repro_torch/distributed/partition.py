@@ -9,12 +9,14 @@ process that owns every device of the mesh.
   :func:`place`, :meth:`ShardedTensor.gather`);
 * **collectives** are fixed-order sums and concatenations of
   ``Tensor.to`` copies (:func:`all_sum`, :func:`all_gather`,
-  :func:`all_max`, :func:`sum_to`). A sum is taken once, on the first
-  part's device, in part order, and copied to every holder; its backward
-  sums the cotangents the same way. So the result never depends on a
-  communication schedule, a step gives the same bits every time, and
-  every device holding a replicated value holds the same bits: replicas
-  cannot drift apart;
+  :func:`all_max`, :func:`sum_to`, :func:`sum_scatter`). A sum is taken
+  once, on the first part's device, in part order, and copied to every
+  holder; its backward sums the cotangents the same way. So the result
+  never depends on a communication schedule, a step gives the same bits
+  every time, and every device holding a replicated value holds the same
+  bits: replicas cannot drift apart. :func:`sum_scatter` sums block j of
+  every part on block j's owner alone (in part order, in f32), so no
+  device takes the whole sum; its backward is the matching gather;
 * **holders**: after a backward, each shard's gradient is the fixed-order
   sum of what its holders computed (:func:`reduce_holders_`), copied back
   to all of them.
@@ -214,6 +216,47 @@ def all_sum(parts: Sequence[Tensor]) -> List[Tensor]:
     if len(parts) == 1:
         return [parts[0]]
     return list(_AllSum.apply(*parts))
+
+
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, dtype, *parts):
+        ctx.dim = dim
+        ctx.devices = [p.device for p in parts]
+        ctx.dtypes = [p.dtype for p in parts]
+        w = parts[0].shape[dim] // len(parts)
+        out = []
+        with record_function("mesh.sum_scatter"):
+            for j, d in enumerate(ctx.devices):
+                blocks = [p.narrow(dim, j * w, w) for p in parts]
+                acc = blocks[0].to(d, torch.float32, copy=True)
+                for b in blocks[1:]:
+                    acc += b.to(d, torch.float32)
+                out.append(acc.to(dtype))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with record_function("mesh.sum_scatter"):
+            return (None, None, *[
+                torch.cat([g.to(d, t) for g in grads], ctx.dim)
+                for d, t in zip(ctx.devices, ctx.dtypes)])
+
+
+def sum_scatter(parts: Sequence[Tensor], dim: int,
+                dtype: Optional[torch.dtype] = None) -> List[Tensor]:
+    """Block j (of ``len(parts)`` equal blocks along ``dim``) of the sum of
+    ``parts`` (one a device of a group, each whole along ``dim``), on part
+    j's device: block j of every part summed there in part order, in f32,
+    and cast once to ``dtype`` (the parts' own by default). So no device
+    receives more than its own block of each part. Its backward is the
+    matching gather: part i's cotangent is the blocks' cotangents
+    concatenated on part i's device."""
+    dtype = parts[0].dtype if dtype is None else dtype
+    if parts[0].shape[dim] % len(parts):
+        raise ValueError(f"dimension {dim} of {tuple(parts[0].shape)} does "
+                         f"not split into {len(parts)} blocks")
+    return list(_SumScatter.apply(dim, dtype, *parts))
 
 
 def all_max(parts: Sequence[Tensor]) -> List[Tensor]:

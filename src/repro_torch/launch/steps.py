@@ -13,8 +13,13 @@ a mesh through GSPMD, the port runs it single-controller
 The LM train plan is ported: ``n_microbatches`` gradient accumulation, the
 reference's arithmetic (f32 sums of the microbatches' gradients, then
 ``(gsum / nm).astype(p.dtype)`` and ``loss = lsum / nm``), then AdamW from
-``make_optimizer``. The prefill, decode, serve and retrieval kinds, the
-GNN and recsys plans and the multi-pod mesh are ROADMAP A, item 3b.
+``make_optimizer``. So is the GNN train plan: MACE bound to the cell's
+feature width (``configs.mace.for_shape``), ``edge_chunks = 16`` for a
+graph of more than 8,000,000 edges (unless the config already chunks),
+then the loss, its gradients and AdamW, with edges over ``data`` and
+channels over ``model`` (``mace.sharded_loss_fn``). The prefill, decode,
+serve and retrieval kinds, the recsys plans and the multi-pod mesh are
+ROADMAP A, item 3b.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from repro_torch.distributed import partition
 from repro_torch.distributed import sharding as shard_lib
 from repro_torch.distributed.partition import ShardedTensor
 from repro_torch.launch import train as train_lib
-from repro_torch.models import transformer
+from repro_torch.models import mace, transformer
 from repro_torch.optim import AdamW, AdamWState
 
 
@@ -57,13 +62,7 @@ def _lm_train_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
     params_shape = dict(transformer.Transformer(cfg, device="meta")
                         .named_parameters())
     pspecs = shard_lib.lm_param_specs(params_shape)
-    f32 = torch.float32
-    opt_shape = AdamWState(
-        step=torch.empty((), dtype=torch.int32, device="meta"),
-        mu={n: torch.empty(p.shape, dtype=f32, device="meta")
-            for n, p in params_shape.items()},
-        nu={n: torch.empty(p.shape, dtype=f32, device="meta")
-            for n, p in params_shape.items()})
+    opt_shape = _opt_shape(params_shape)
     ospecs = shard_lib.opt_state_specs(pspecs)
     ins = C.input_specs(spec, cfg, cell)
     batch_shape = {k: _meta(v) for k, v in ins["batch"].items()}
@@ -121,6 +120,59 @@ def _lm_train_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
         cfg=cfg, skip=cell.skip)
 
 
+def _opt_shape(params_shape: dict) -> AdamWState:
+    f32 = torch.float32
+    return AdamWState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        mu={n: torch.empty(p.shape, dtype=f32, device="meta")
+            for n, p in params_shape.items()},
+        nu={n: torch.empty(p.shape, dtype=f32, device="meta")
+            for n, p in params_shape.items()})
+
+
+#: the reference plan's threshold for chunking a full-batch graph's edges,
+#: and the chunk count it sets
+GIANT_EDGES, GIANT_EDGE_CHUNKS = 8_000_000, 16
+
+
+def _gnn_train_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
+    from repro_torch.configs import mace as mace_cfg
+
+    cfg = mace_cfg.for_shape(cfg, cell.dims["d_feat"])
+    if (cell.dims["n_edges"] > GIANT_EDGES and cfg.edge_chunks == 1
+            and not multi_pod):
+        # full-batch giant graphs: edge-chunked A-basis accumulation
+        cfg = dataclasses.replace(cfg, edge_chunks=GIANT_EDGE_CHUNKS)
+    params_shape = dict(mace.MACE(cfg, device="meta").named_parameters())
+    pspecs = shard_lib.gnn_param_specs(params_shape)
+    ins = C.input_specs(spec, cfg, cell)
+    static = ins["static"]
+    batch_shape = {k: _meta(v) for k, v in ins["batch"].items()}
+    in_shard_all = shard_lib.gnn_input_shardings(multi_pod)["batch"]
+    opt = make_optimizer()
+
+    def train_step(params: dict, opt_state: AdamWState, batch: dict):
+        """One step on the mesh the leaves of ``params`` live on (as the
+        LM plan's): updates the shards in place and returns (params,
+        opt_state, aux)."""
+        trainer = train_lib.ShardedTrainer(
+            mace.ShardedMACE(cfg, _mesh_of(params), params),
+            opt=opt, opt_state=opt_state)
+        loss, aux, grads = trainer.reduced_grads(dict(batch, **static))
+        trainer.apply(grads)
+        return params, trainer.opt_state, {k: v.detach()
+                                           for k, v in aux.items()}
+
+    return StepPlan(
+        spec.arch_id, cell.shape, cell.kind, train_step,
+        args=(params_shape, _opt_shape(params_shape), batch_shape),
+        in_specs=(pspecs, shard_lib.opt_state_specs(pspecs),
+                  {k: in_shard_all[k] for k in batch_shape}),
+        out_specs=(pspecs, shard_lib.opt_state_specs(pspecs),
+                   shard_lib.P()),
+        cfg=cfg, skip=cell.skip)
+
+
 def _mesh_of(params: dict):
     return next(iter(params.values())).mesh
 
@@ -162,18 +214,21 @@ def build_plan(
     overrides: Optional[dict] = None,
 ) -> StepPlan:
     """overrides: config-field replacements, e.g. ``{"n_microbatches":
-    4}``. The LM family's train cells only (ROADMAP A, item 3b for the
-    rest)."""
+    4}`` or ``{"edge_chunks": 32}``. The LM and GNN families' train cells
+    only (ROADMAP A, item 3b for the rest)."""
     spec = C.get_arch(arch_id)
     cell = spec.cell(shape)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if spec.family != "lm" or cell.kind != "train":
+    if spec.family not in ("lm", "gnn") or cell.kind != "train":
         raise NotImplementedError(
             f"the {spec.family} family's {cell.kind} plan ({arch_id}, "
-            f"{shape}) is ROADMAP A, item 3b; the LM train plan is ported")
+            f"{shape}) is ROADMAP A, item 3b; the LM and GNN train plans "
+            "are ported")
     if multi_pod:
         raise NotImplementedError(
             "the multi-pod mesh comes with the dry-run (ROADMAP A, item 3b)")
+    if spec.family == "gnn":
+        return _gnn_train_plan(spec, cfg, cell, multi_pod)
     return _lm_train_plan(spec, cfg, cell, multi_pod)

@@ -25,23 +25,26 @@ reference trainer's: ``geometric_graph_batch(seed + step)`` of ``--batch``
 graphs, 16 nodes and 48 edges each (numpy draws, so the reference's
 batches bit for bit).
 
-An LM trains on a (data, model) mesh with ``--data-shards D
+An LM or MACE trains on a (data, model) mesh with ``--data-shards D
 --model-shards M`` (D x M > 1): ``make_host_mesh(D, M)`` spans D x M cards
 where there are that many, else puts D x M logical shards on the card (or
 the CPU with ``--device cpu``). The weights are ``init_params``' from the
 same seed, bit for bit, laid out by the reference's partition rules
 (``distributed.sharding``); the global batch is the single device's, its
-rows split over ``data``; the step is the unsharded ``Trainer.step``'s
-function (``ShardedTrainer``). Checkpoints carry every leaf's spec in the
-reference's manifest format, and ``--resume`` restores onto the current
-mesh whatever mesh saved. Shards > 1 for the GNN and recsys families and
-``--multihost`` raise (ROADMAP A, item 3b).
+token rows (an LM's) or edges (MACE's) split over ``data``; the step is
+the unsharded ``Trainer.step``'s function (``ShardedTrainer``).
+Checkpoints carry every leaf's spec in the reference's manifest format,
+and ``--resume`` restores onto the current mesh whatever mesh saved.
+Shards > 1 for the recsys family and ``--multihost`` raise (ROADMAP A,
+item 3b).
 
 Beyond the reference's options: ``--device``, ``--fixed-batch`` (every
 step takes step 0's batch) and, for the LM family, ``--layers`` (the
 published widths at a cut depth).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+        --reduced --device cpu --data-shards 2 --model-shards 2 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mace \\
         --reduced --device cpu --data-shards 2 --model-shards 2 --steps 4
 """
 from __future__ import annotations
@@ -56,6 +59,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch import configs as C
@@ -167,12 +171,23 @@ def _assign(dst: ShardedTensor, src) -> None:
         d.copy_(full[partition.block(dst.shape, dst.spec, dst.mesh, pos)])
 
 
-def sharded_grads(model: transformer.ShardedTransformer, batch: dict, *,
-                  reduce: bool = True):
-    """(loss, aux, gradients) of ``transformer.sharded_loss_fn``: name ->
-    ``ShardedTensor`` of every holder's own gradient, each shard summed
-    over its holders (``reduce``) or not."""
-    loss, aux = transformer.sharded_loss_fn(model.cfg, model, batch)
+def sharded_loss(model) -> Callable:
+    """The sharded loss of a model on a mesh, ``loss_fn(model, batch) ->
+    (loss, aux)``: ``transformer.sharded_loss_fn`` or
+    ``mace.sharded_loss_fn`` by its kind."""
+    if isinstance(model, mace.ShardedMACE):
+        return functools.partial(mace.sharded_loss_fn, model.cfg)
+    return functools.partial(transformer.sharded_loss_fn, model.cfg)
+
+
+def sharded_grads(model, batch: dict, loss_fn: Optional[Callable] = None,
+                  *, reduce: bool = True):
+    """(loss, aux, gradients) of ``loss_fn(model, batch)`` (the model's
+    ``sharded_loss`` by default): name -> ``ShardedTensor`` of every
+    holder's own gradient, each shard summed over its holders
+    (``reduce``) or not."""
+    loss_fn = sharded_loss(model) if loss_fn is None else loss_fn
+    loss, aux = loss_fn(model, batch)
     names = list(model.params)
     leaves = [s for n in names for s in model.params[n].shards]
     flat = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
@@ -187,12 +202,13 @@ def sharded_grads(model: transformer.ShardedTransformer, batch: dict, *,
 
 
 class ShardedTrainer:
-    """``Trainer`` for an LM laid out on a (data, model) mesh
-    (``transformer.ShardedTransformer``): the same function as the
-    unsharded ``Trainer.step``.
+    """``Trainer`` for a model laid out on a (data, model) mesh (a
+    ``transformer.ShardedTransformer`` or a ``mace.ShardedMACE``): the
+    same function as the unsharded ``Trainer.step``.
 
-    A step differentiates ``transformer.sharded_loss_fn`` with respect to
-    every shard of every holder; each shard's gradient is then the
+    ``loss_fn(model, batch) -> (loss, aux)`` is the model's sharded loss
+    (``sharded_loss`` by default). A step differentiates it with respect
+    to every shard of every holder; each shard's gradient is then the
     fixed-order sum over its holders (``partition.reduce_holders_``), the
     same bits on each. With ``compress_grads`` each data replica instead
     quantises its own gradient (D times its share of the global loss's
@@ -205,10 +221,11 @@ class ShardedTrainer:
     are name -> ``ShardedTensor`` (the step one replicated scalar).
     """
 
-    def __init__(self, model: transformer.ShardedTransformer, *,
+    def __init__(self, model, loss_fn: Optional[Callable] = None, *,
                  opt: Optional[AdamW] = None, compress_grads: bool = False,
                  opt_state: Optional[AdamWState] = None):
         self.model, self.cfg, self.mesh = model, model.cfg, model.mesh
+        self.loss_fn = sharded_loss(model) if loss_fn is None else loss_fn
         self.params = model.params
         self.opt = opt if opt is not None else AdamW(
             learning_rate=LEARNING_RATE)
@@ -236,16 +253,16 @@ class ShardedTrainer:
     def grads(self, batch: dict):
         """(loss, aux, gradients): each holder's own gradient of the
         global loss, not yet summed over holders."""
-        return sharded_grads(self.model, batch, reduce=False)
+        return sharded_grads(self.model, batch, self.loss_fn, reduce=False)
 
     def reduced_grads(self, batch: dict):
         """(loss, aux, gradients summed over their holders)."""
-        return sharded_grads(self.model, batch)
+        return sharded_grads(self.model, batch, self.loss_fn)
 
     def step(self, batch: dict) -> Tuple[Tensor, dict]:
-        """One training step on ``batch`` (tokens (B, S), whole or laid out
-        P("data", None)); returns (loss, aux), detached, computed before
-        the update."""
+        """One training step on ``batch`` (the loss's: whole tensors, or
+        laid out by the input specs); returns (loss, aux), detached,
+        computed before the update."""
         if self.comp_state is None:
             loss, aux, grads = self.reduced_grads(batch)
         else:
@@ -282,9 +299,10 @@ class ShardedTrainer:
                         err.shards[p][0].copy_(e)
             means = {k: comp_lib.replica_mean(r).to(g.dtype)
                      for k, r in recs.items()}
-            for pos in range(mesh.size):
-                g.shards[pos].copy_(means[partition.shard_key(g.spec, mesh,
-                                                              pos)])
+            with record_function("mesh.replica_mean"):
+                for pos in range(mesh.size):
+                    g.shards[pos].copy_(means[partition.shard_key(
+                        g.spec, mesh, pos)])
 
     @torch.no_grad()
     def apply(self, grads: dict) -> None:
@@ -354,6 +372,15 @@ def sharded_lm_trainer(cfg: transformer.TransformerConfig, *, mesh,
     device, leaf by leaf) laid out on ``mesh``."""
     gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
     return ShardedTrainer(transformer.init_sharded(cfg, mesh, generator=gen),
+                          compress_grads=compress_grads)
+
+
+def sharded_mace_trainer(cfg: mace.MACEConfig, *, mesh, seed: int,
+                         compress_grads: bool = False) -> ShardedTrainer:
+    """``mace_trainer``'s weights (drawn from ``seed`` on the mesh's first
+    device, leaf by leaf) laid out on ``mesh``."""
+    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    return ShardedTrainer(mace.init_sharded(cfg, mesh, generator=gen),
                           compress_grads=compress_grads)
 
 
@@ -491,11 +518,11 @@ def train(args: argparse.Namespace, log=print) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mesh = None
     if args.data_shards * args.model_shards > 1:
-        if spec.family != "lm":
+        if spec.family == "recsys":
             raise NotImplementedError(
-                f"--data-shards / --model-shards > 1 for the {spec.family} "
-                f"family ({args.arch}) is ROADMAP A, item 3b; the LM "
-                "family trains on a mesh")
+                f"--data-shards / --model-shards > 1 for the recsys family "
+                f"({args.arch}) is ROADMAP A, item 3b; the LM and GNN "
+                "families train on a mesh")
         mesh = make_host_mesh(args.data_shards, args.model_shards,
                               device=args.device)
     cards = ([] if mesh is None and dev.type != "cuda" else
@@ -511,8 +538,10 @@ def train(args: argparse.Namespace, log=print) -> dict:
         specs = state_specs(shard_lib.param_specs(spec.family,
                                                   trainer.params))
     else:
-        trainer = sharded_lm_trainer(cfg, mesh=mesh, seed=args.seed,
-                                     compress_grads=args.compress_grads)
+        make = (sharded_mace_trainer if spec.family == "gnn" else
+                sharded_lm_trainer)
+        trainer = make(cfg, mesh=mesh, seed=args.seed,
+                       compress_grads=args.compress_grads)
         specs = trainer.state_specs()
         log(f"mesh {dict(mesh.shape)} on "
             f"{[str(d) for d in mesh.devices.flat]}")

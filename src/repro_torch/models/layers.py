@@ -266,6 +266,67 @@ def gather_rows_sharded(tables, ids: list) -> list:
     return all_sum(parts)
 
 
+# -- recompute across devices -----------------------------------------------
+
+
+class RematGroup(torch.autograd.Function):
+    """A group of work over a mesh's shards, rematerialised: forward runs
+    ``fn(*inputs)`` without recording, backward runs it again with
+    recording and differentiates that graph in the same call
+    (``torch.autograd.grad``), so each group is recomputed once, by one
+    thread. (``torch.utils.checkpoint``'s non-reentrant recompute starts
+    in whichever thread unpacks a saved tensor first; with the autograd
+    engine's one thread a card, two cards' threads can start it at once
+    and it fails its saved-tensor count.) ``inputs`` are every tensor the
+    group reads that needs a gradient (the shards' hidden states and
+    leaves); ``fn`` returns a tuple of tensors."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        ctx.save_for_backward(*inputs)
+        with torch.no_grad():
+            return tuple(fn(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.fn(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads,
+                                       materialize_grads=True))
+        return (None, *[next(got) if t.requires_grad else None
+                        for t in inputs])
+
+
+class _Tee(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x), x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, a, b):
+        return a + b
+
+
+def fan_out(x: Tensor, n: int) -> list:
+    """``n`` aliases of ``x`` whose gradients are summed in a fixed
+    grouping, g_0 + (g_1 + (... + g_{n-1})): a chain of two-way tees,
+    each adding two gradients (exact in either order). A tensor that
+    several groups read (``RematGroup``s, each run by the autograd thread
+    of its first output's card) then gets its gradient the same bits
+    whatever order the groups finish in. The engine runs the tees after
+    the groups (they are older), so it holds all n gradients at once:
+    for small tensors (leaves)."""
+    out = []
+    for _ in range(n - 1):
+        a, x = _Tee.apply(x)
+        out.append(a)
+    return out + [x]
+
+
 # -- the deterministic row gather --------------------------------------------
 
 

@@ -752,41 +752,11 @@ def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
     return [x + f for x, f in zip(xs, ffn)]
 
 
-class _RematGroup(torch.autograd.Function):
-    """One layer group over the model shards, rematerialised: forward runs
-    ``fn(*inputs)`` without recording, backward runs it again with
-    recording and differentiates that graph in the same call
-    (``torch.autograd.grad``), so each group is recomputed once, by one
-    thread. (``torch.utils.checkpoint``'s non-reentrant recompute starts
-    in whichever thread unpacks a saved tensor first; with the autograd
-    engine's one thread a card, two cards' threads can start it at once
-    and it fails its saved-tensor count.) ``inputs`` are the shards'
-    hidden states and every layer leaf the group reads."""
-
-    @staticmethod
-    def forward(ctx, fn, *inputs):
-        ctx.fn = fn
-        ctx.save_for_backward(*inputs)
-        with torch.no_grad():
-            return tuple(fn(*inputs))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        inputs = [t.detach().requires_grad_(t.requires_grad)
-                  for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = ctx.fn(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        got = iter(torch.autograd.grad(outs, wanted, grads,
-                                       materialize_grads=True))
-        return (None, *[next(got) if t.requires_grad else None
-                        for t in inputs])
-
-
 def _sharded_group(cfg: TransformerConfig, body, xs: list, ps: list) -> list:
     """``body(xs, ps) -> xs`` for one layer group (``ps[m][pos]`` the
     leaves of shard m's layer at pattern position pos), under the config's
-    remat policy: "none" runs it, "minimal" through ``_RematGroup``."""
+    remat policy: "none" runs it, "minimal" through
+    ``layers.RematGroup``."""
     if cfg.remat_policy == "none":
         return body(xs, ps)
     if cfg.remat_policy != "minimal":
@@ -803,7 +773,7 @@ def _sharded_group(cfg: TransformerConfig, body, xs: list, ps: list) -> list:
                           [[{k: next(rest) for k in kk} for kk in ks]
                            for ks in keys]))
 
-    return list(_RematGroup.apply(fn, *xs, *flat))
+    return list(L.RematGroup.apply(fn, *xs, *flat))
 
 
 def _replica_logits(cfg: TransformerConfig, model: ShardedTransformer,

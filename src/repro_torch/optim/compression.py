@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 Tensor = torch.Tensor
 
@@ -71,11 +72,14 @@ def compress_decompress_shards(shards: Sequence[Tensor]
 
 def replica_mean(parts: Sequence[Tensor]) -> Tensor:
     """sum(parts) / len(parts) on the first part's device, summed in part
-    order (the reference's ``pmean``: a psum, then the division)."""
-    acc = parts[0].to(parts[0].device)
-    for p in parts[1:]:
-        acc = acc + p.to(acc.device)
-    return acc / len(parts)
+    order (the reference's ``pmean``: a psum, then the division), inside
+    a ``mesh.replica_mean`` profiler range: the parts may lie on other
+    cards."""
+    with record_function("mesh.replica_mean"):
+        acc = parts[0].to(parts[0].device)
+        for p in parts[1:]:
+            acc = acc + p.to(acc.device)
+        return acc / len(parts)
 
 
 @torch.no_grad()

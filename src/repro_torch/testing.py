@@ -302,9 +302,10 @@ def bf16_lm_mismatch(logits, loss, grads, want_logits, want_loss,
 
 
 @contextlib.contextmanager
-def recorded_routes(out: list):
+def recorded_routes(out: list, inputs: Optional[list] = None):
     """While open, every ``models.moe.route`` call appends its expert ids
-    (G, gs, top_k) to ``out``."""
+    (G, gs, top_k) to ``out`` and, given ``inputs``, its (tokens (G, gs,
+    D), router (D, E)) to ``inputs``."""
     from repro_torch.models import moe
 
     orig = moe.route
@@ -312,6 +313,8 @@ def recorded_routes(out: list):
     def recording(cfg, router, xt):
         gate, idx = orig(cfg, router, xt)
         out.append(idx)
+        if inputs is not None:
+            inputs.append((xt.detach(), router.detach()))
         return gate, idx
 
     moe.route = recording

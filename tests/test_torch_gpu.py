@@ -1601,3 +1601,88 @@ def test_sharded_lm_on_card_matches_unsharded(cuda, arch):
     for t in (*tr.params.values(), *tr.opt_state.mu.values(),
               *tr.opt_state.nu.values()):
         assert partition.replicas_equal(t)
+
+
+# -- MACE on a (data, model) mesh on the card ------------------------------------
+
+
+def test_sharded_sum_scatter_on_card_is_an_f32_sum_in_part_order(cuda):
+    """``partition.sum_scatter`` over ``make_host_mesh(1, 4)``'s devices
+    (four cards where there are four, else four logical shards of the
+    card): block j of the bf16 and f32 parts summed on part j's device in
+    part order, in f32, then cast once; the same bits as the CPU's
+    elementwise sums, and the backward the blocks' cotangents gathered,
+    bit for bit."""
+    from repro_torch.distributed import partition
+    from repro_torch.launch.mesh import make_host_mesh
+
+    devs = list(make_host_mesh(1, 4).devices.flat)
+    gen = torch.Generator().manual_seed(4)
+    host = [torch.randn((1_000, 64, 13), generator=gen,
+                        dtype=torch.float32 if i % 2 else torch.bfloat16)
+            for i in range(4)]
+    parts = [h.to(d).requires_grad_(True) for h, d in zip(host, devs)]
+    cpu = [h.clone().requires_grad_(True) for h in host]
+    for out in (torch.float32, torch.bfloat16):
+        got = partition.sum_scatter(parts, 1, out)
+        want = partition.sum_scatter(cpu, 1, out)
+        for g, w, d in zip(got, want, devs):
+            assert g.device == d and torch.equal(g.cpu(), w)
+        cot = [torch.randn(w.shape, generator=gen).to(out) for w in want]
+        grads = torch.autograd.grad(got, parts, [c.to(d) for c, d in
+                                                 zip(cot, devs)])
+        for g, p in zip(grads, parts):
+            assert g.device == p.device
+            assert torch.equal(g.cpu(), torch.cat(cot, 1).to(p.dtype))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_sharded_mace_on_card_matches_unsharded(cuda, shape):
+    """A reduced bf16 MACE (2 edge chunks, remat) on ``make_host_mesh``
+    (four cards where there are four, else four logical shards of the
+    card) against an f64 evaluation of the same weights and graph on the
+    card, within ``testing.bf16_gnn_mismatch``'s bounds; its gradients
+    twice the same bits; after a step every holder of every shard holds
+    the same bits."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.distributed import partition
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mace
+
+    cfg = dataclasses.replace(C.get_arch("mace").make_reduced(),
+                              dtype=torch.bfloat16, edge_chunks=2,
+                              remat=True)
+    batch = dict(train.gnn_batch_fn(cfg, seed=3, batch=64, device=cuda)(0),
+                 node_level=True)
+    batch["target_nodes"] = torch.randn(
+        batch["positions"].shape[0], generator=torch.Generator().manual_seed(
+            3)).to(cuda)
+    mesh = make_host_mesh(*shape)
+    # the sharded trainer's draws: seed 1 on the mesh's first card
+    model = mace.init_params(cfg, generator=torch.Generator(
+        device=mesh.first_device).manual_seed(1))
+    tr = train.sharded_mace_trainer(cfg, mesh=mesh, seed=1)
+    runs = [tr.reduced_grads(batch) for _ in range(2)]
+    for name in runs[0][2]:
+        for a, b in zip(runs[0][2][name].shards, runs[1][2][name].shards):
+            assert torch.equal(a, b), name
+    loss, _, grads = runs[0]
+    with torch.no_grad():
+        energies = mace.sharded_forward(cfg, tr.model, batch)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64, remat=False)
+    m64 = mace.MACE(cfg64, device=cuda)
+    m64.load_state_dict({k: v.double().to(cuda)
+                         for k, v in model.state_dict().items()})
+    want = testing.gnn_outputs(cfg64, m64, batch)
+    msg = testing.bf16_gnn_mismatch(
+        energies, loss.detach(), {n: g.gather().float()
+                                  for n, g in grads.items()}, *want)
+    assert msg is None, msg
+    del runs, grads
+    tr.step(batch)
+    for t in (*tr.params.values(), *tr.opt_state.mu.values(),
+              *tr.opt_state.nu.values()):
+        assert partition.replicas_equal(t)

@@ -227,10 +227,11 @@ def test_lm_cli_refuses_what_is_not_ported():
                        "--steps", "1", "--batch", "2"])
     assert out["batch_shapes"]["n_graphs"] == 2
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
-    # the LM family trains on a mesh (tests/test_torch_sharded_train.py);
-    # the GNN family's mesh is not ported
+    # the LM and GNN families train on a mesh
+    # (tests/test_torch_sharded_train.py, tests/test_torch_sharded_gnn.py);
+    # the recsys family's mesh is not ported
     with pytest.raises(NotImplementedError, match="ROADMAP A, item 3"):
-        ttrain.main(["--arch", "mace", "--reduced", "--device", "cpu",
+        ttrain.main(["--arch", "dlrm-rm2", "--reduced", "--device", "cpu",
                      "--model-shards", "2"])
 
 

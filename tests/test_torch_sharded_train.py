@@ -237,7 +237,7 @@ def test_two_steps_match_the_unsharded_trainer(arch, shape):
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_sharded_remat_recomputes_the_same_bits(arch):
     """Remat "minimal" on a 2 x 2 mesh (each layer group through
-    ``transformer._RematGroup``: recomputed and differentiated in one
+    ``layers.RematGroup``: recomputed and differentiated in one
     call) gives the loss and gradients of no remat, bit for bit."""
     base = _cfg(arch)
     out = []
@@ -382,13 +382,19 @@ def test_plan_matches_the_reference_plan(arch, shape):
 
 
 def test_plans_not_ported_raise():
+    """The LM prefill and the recsys plans and the multi-pod mesh raise,
+    naming item 3b; MACE's train plan is built (its step is held to the
+    reference's in tests/test_torch_sharded_gnn.py)."""
     for arch, shape in (("qwen1.5-0.5b", "prefill_32k"),
-                        ("mace", "molecule"), ("dlrm-rm2", "train_batch")):
+                        ("dlrm-rm2", "train_batch")):
         with pytest.raises(NotImplementedError, match="item 3b"):
             tsteps.build_plan(arch, shape, reduced=True)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        tsteps.build_plan("qwen1.5-0.5b", "train_4k", reduced=True,
-                          multi_pod=True)
+    for arch, shape in (("qwen1.5-0.5b", "train_4k"), ("mace", "molecule")):
+        with pytest.raises(NotImplementedError, match="item 3b"):
+            tsteps.build_plan(arch, shape, reduced=True, multi_pod=True)
+    plan = tsteps.build_plan("mace", "molecule", reduced=True)
+    assert (plan.kind, plan.cfg.d_feat, plan.cfg.edge_chunks) == (
+        "train", 16, 1)
     opt = tsteps.make_optimizer()
     assert (opt.learning_rate, opt.weight_decay, opt.clip_norm) == (
         3e-4, 0.01, 1.0)
@@ -514,13 +520,20 @@ def test_cli_with_compression_on_a_mesh(tmp_path):
 
 
 def test_shards_for_other_families_and_multihost_raise():
-    for arch in ("mace", "dlrm-rm2"):
+    """Shards for the recsys family and --multihost raise, naming item 3b;
+    MACE trains on a mesh (its runs are held in
+    tests/test_torch_sharded_gnn.py)."""
+    with pytest.raises(NotImplementedError, match="item 3b"):
+        ttrain.main(["--arch", "dlrm-rm2", "--reduced", "--device", "cpu",
+                     "--model-shards", "2"])
+    for arch in ("qwen1.5-0.5b", "mace"):
         with pytest.raises(NotImplementedError, match="item 3b"):
             ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
-                         "--model-shards", "2"])
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        ttrain.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
-                     "cpu", "--multihost"])
+                         "--multihost"])
+    out = ttrain.main(["--arch", "mace", "--reduced", "--device", "cpu",
+                       "--model-shards", "2", "--steps", "1"])
+    assert out["mesh"].shape == {"data": 1, "model": 2}
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
 
 
 def test_port_restores_a_reference_checkpoint_onto_its_mesh(tmp_path):
