@@ -452,6 +452,18 @@ GNN_MESH_LOSS_RTOL = 2**-3
 #: chunk counts tried in order: the reference plan's 16, then 32 and 64
 #: when a card runs out of memory
 OGB_STEPS, OGB_CHUNKS = 5, (16, 32, 64)
+#: phase 28: the recsys family on a (data, model) mesh at published width.
+#: One card (four logical shards): each mesh's step 0 against the single
+#: device's at the same parameters, then RECSYS_TIMED steps timed (the
+#: median is the step time). Four cards: RECSYS_STEPS steps a leg (the
+#: median of the last RECSYS_STEPS - 2). Step 0's loss within
+#: RECSYS_LOSS_RTOL of the single device's (f32 sums in another order);
+#: gradients within RECSYS_GRAD_TOL of their leaf's largest |g|, and an
+#: updated element whose single-device gradient is within
+#: RECSYS_GRAD_FLOOR of zero within 2 lr (tests/test_torch_sharded_recsys.py's
+#: tolerances)
+RECSYS_TIMED, RECSYS_STEPS = 3, 6
+RECSYS_LOSS_RTOL, RECSYS_GRAD_TOL, RECSYS_GRAD_FLOOR = 1e-5, 1e-4, 1e-6
 
 
 def log(*a):
@@ -5196,6 +5208,446 @@ def check_ogb_products(spec, cards, smi: str) -> list:
     return problems
 
 
+def compare_to_host(st, host, *, exact: bool = False, grad=None) -> tuple:
+    """Each distinct shard of ``st`` (a ``ShardedTensor`` on the cards)
+    against its block of ``host`` (the whole leaf in host memory), moved
+    over in row slices of 2^20 rows. Returns (max |diff|, max |host|, the
+    elements out of bounds): with ``exact`` every element that differs;
+    else those past STEP_TOL, where an element whose single-device
+    gradient (``grad``, host) is within RECSYS_GRAD_FLOOR of zero is held
+    to 2 lr + atol instead (AdamW's first update is g / (|g| + eps))."""
+    from repro_torch.distributed import partition
+    from repro_torch.launch import train
+
+    worst = top = 0.0
+    bad = 0
+    lr = train.LEARNING_RATE
+    for g in st.holders():
+        pos = g[0]
+        shard = st.shards[pos].detach()
+        blk = partition.block(st.shape, st.spec, st.mesh, pos)
+        for lo in range(0, shard.shape[0], 1 << 20):
+            sl = slice(lo, min(lo + (1 << 20), shard.shape[0]))
+            got = shard[sl]
+            want = host[blk][sl].to(got.device)
+            d = (got.float() - want.float()).abs()
+            worst = max(worst, float(d.max()))
+            top = max(top, float(want.abs().max()))
+            if exact:
+                bad += int((got != want).sum())
+                continue
+            ok = d <= STEP_TOL["atol"] + STEP_TOL["rtol"] * want.abs()
+            if grad is not None:
+                small = grad[blk][sl].to(got.device).abs() < RECSYS_GRAD_FLOOR
+                ok |= small & (d <= 2 * lr + STEP_TOL["atol"])
+            bad += int((~ok).sum())
+    return worst, top, bad
+
+
+def check_recsys_mesh(dev, smi: str, four_cards: bool) -> None:
+    """Phase 28: the recsys family on a (data, model) mesh at published
+    width (``launch.train.sharded_recsys_trainer``, the reference's recsys
+    plans through ``launch.steps.build_plan``).
+
+    One card (four logical shards): dlrm-rm2 at the train_batch cell's B
+    = 65,536 on 1 x 4 and 2 x 2, and xDeepFM on 1 x 4 at XDEEPFM_BATCH,
+    each from the single device's seed, against the single device at step
+    0's parameters (its gradients and updated leaves kept in host memory:
+    one card does not hold both trainers): the loss within
+    RECSYS_LOSS_RTOL, every gradient leaf within RECSYS_GRAD_TOL of its
+    largest |g| (dlrm-rm2's table on 1 x 4 bit for bit), every updated
+    leaf within STEP_TOL (the floor rule of ``compare_to_host``); then
+    RECSYS_TIMED steps timed and dlrm-rm2's 1 x 4 step profiled. Also
+    ``build_plan("dlrm-rm2", "train_batch")``'s fn beside the CLI's step,
+    each from its own copy: the same loss bits; xDeepFM's reruns and a
+    restart from a step-1 checkpoint: the same bits.
+
+    Four cards (``four_cards``; the mesh must be four distinct cards):
+    dlrm-rm2 at B = 65,536 on the single device (card 0) and on 1 x 4,
+    RECSYS_STEPS steps of the same batches, step 0's loss within
+    RECSYS_LOSS_RTOL; xDeepFM at the cell's B = 65,536 on 2 x 2 (one card
+    does not hold it), RECSYS_STEPS steps, losses finite; for each ms a
+    step (median of the last RECSYS_STEPS - 2), samples/s, peak GB a
+    card and a profiled step's busy share a card and ``mesh.*`` share.
+    Then dlrm-rm2's serve_p99 and serve_bulk plans on 2 x 2 against the
+    single device's logits (rtol 1e-5, atol 1e-6), and its retrieval_cand
+    plan (1,000,000 candidates), dense and zen, against the single
+    device's top 100 (ids equal outside near-ties, scores within RTOL),
+    each call timed beside the single device's.
+    """
+    import tempfile
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 4)
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    if four_cards and len(cards) != 4:
+        fail(f"--sharded needs a mesh of four distinct cards; "
+             f"make_host_mesh(1, 4) sits on {[str(d) for d in cards]}")
+    spec = C.get_arch("dlrm-rm2")
+    cfg = spec.make_config()
+    B = spec.cell("train_batch").dims["batch"]
+    log(f"[28] the recsys family on a (data, model) mesh at published "
+        f"width; {smi}; make_host_mesh(1, 4) sits on "
+        f"{[str(d) for d in mesh.devices.flat]}; dlrm-rm2's table "
+        f"{cfg.padded_rows:,} x {cfg.embed_dim} f32")
+    del mesh
+
+    def free():
+        free_cards(cards)
+
+    def reset():
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+
+    def peaks():
+        return [round(torch.cuda.max_memory_allocated(c) / 1e9, 2)
+                for c in cards]
+
+    def host(params):
+        return {n: [s.detach().to("cpu", copy=True) for s in p.shards]
+                for n, p in params.items()}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for n in a for x, y in zip(a[n], b[n]))
+
+    def later_batches(cfg, batch):
+        """The batches of the timed steps after step 0."""
+        make = train.batch_fn(cfg, seed=1, batch=batch["sparse"].shape[0],
+                              device=dev)
+        return iter([make(s) for s in range(1, RECSYS_TIMED + 1)])
+
+    def single_reference(cfg, batch, label):
+        """The single device from the trainer's seed: step 0's loss, its
+        gradients and its leaves after one step, in host memory; then
+        RECSYS_TIMED more steps timed."""
+        reset()
+        tr = train.recsys_trainer(cfg, seed=0, device=dev)
+        loss, _ = recsys.loss_fn(cfg, tr.model, batch)
+        g = torch.autograd.grad(loss, list(tr.params.values()))
+        grads = {n: x.to("cpu", copy=True) for n, x in zip(tr.params, g)}
+        del g
+        loss = float(loss.detach())
+        tr.step(batch)
+        params = {n: p.detach().to("cpu", copy=True)
+                  for n, p in tr.params.items()}
+        more = later_batches(cfg, batch)
+        _, step_s = timed_steps(lambda: tr.step(next(more))[0],
+                                RECSYS_TIMED, cards)
+        ms = float(np.median(step_s)) * 1e3
+        log(f"    {label} on the single device: {ms:.1f} ms a step (median "
+            f"of {RECSYS_TIMED}), peak GB {peaks()[0]}")
+        del tr
+        free()
+        return loss, grads, params
+
+    def against_single(cfg, shape, batch, ref, label, table_exact):
+        """The mesh's step 0 against the single device's; then
+        RECSYS_TIMED steps timed. Returns the trainer."""
+        want_loss, want_g, want_p = ref
+        reset()
+        tr = train.sharded_recsys_trainer(cfg, mesh=make_host_mesh(*shape),
+                                          seed=0)
+        loss, _, grads = tr.reduced_grads(batch)
+        loss = float(loss.detach())
+        if not abs(loss - want_loss) <= RECSYS_LOSS_RTOL * abs(want_loss):
+            fail(f"{label}: step 0's loss {loss} against the single "
+                 f"device's {want_loss} (rtol {RECSYS_LOSS_RTOL})")
+        worst = {}
+        for n, g in grads.items():
+            exact = table_exact and n == "table"
+            err, top, bad = compare_to_host(g, want_g[n], exact=exact)
+            if (exact and bad) or (not exact and
+                                   err > RECSYS_GRAD_TOL * top):
+                fail(f"{label}: the gradient of {n}: max |diff| {err:.3g} "
+                     f"of max |g| {top:.3g}" + (f", {bad} elements not "
+                                                "the single device's bits"
+                                                if exact else ""))
+            worst[n] = err / top if top else 0.0
+        tr.apply(grads)
+        del grads
+        out = 0
+        for n, p in tr.params.items():
+            out += compare_to_host(p, want_p[n], grad=want_g[n])[2]
+        if out:
+            fail(f"{label}: {out} updated elements past the single "
+                 f"device's (rtol {STEP_TOL['rtol']}, atol "
+                 f"{STEP_TOL['atol']}; 2 lr where |g| < "
+                 f"{RECSYS_GRAD_FLOOR})")
+        more = later_batches(cfg, batch)
+        losses, step_s = timed_steps(lambda: tr.step(next(more))[0],
+                                     RECSYS_TIMED, cards)
+        ms = float(np.median(step_s)) * 1e3
+        rows = batch["sparse"].shape[0]
+        g = max(worst, key=worst.get)
+        log(f"    {label}: step 0's loss {loss:.7f} (the single device's "
+            f"{want_loss:.7f}); gradients within {worst[g]:.3g} of their "
+            f"leaf's largest |g| (the worst, {g})"
+            + ("; the table's gradient the single device's bits"
+               if table_exact else f"; the table's {worst['table']:.3g}")
+            + f"; every updated leaf within the step tolerance; "
+            f"{ms:.1f} ms a step (median of {RECSYS_TIMED}), "
+            f"{rows / ms * 1e3:,.0f} samples/s, peak GB {peaks()[0]}")
+        return tr
+
+    if four_cards:
+        check_recsys_cards(cfg, spec, cards, smi)
+        log(f"    phase 28: {time.perf_counter() - t0:.1f} s")
+        return
+
+    # -- dlrm-rm2 at B = 65,536: 1 x 4 and 2 x 2 against the single device -----
+    batch = train.batch_fn(cfg, seed=0, batch=B, device=dev)(0)
+    free()
+    ref = single_reference(cfg, batch, f"dlrm-rm2 at B = {B:,}")
+    for shape in ((1, 4), (2, 2)):
+        tr = against_single(cfg, shape, batch, ref,
+                            f"dlrm-rm2 on {shape[0]} x {shape[1]}",
+                            table_exact=shape[0] == 1)
+        if shape == (1, 4):
+            _mesh_profile(lambda: tr.step(batch), "one dlrm-rm2 step on 1 x 4",
+                          cards)
+        del tr
+        free()
+    del ref
+
+    # the plan's step and the CLI's step, each from its own copy
+    plan = steps_lib.build_plan("dlrm-rm2", "train_batch")
+    out = {}
+    for label in ("plan", "cli"):
+        tr = train.sharded_recsys_trainer(cfg, mesh=make_host_mesh(1, 4),
+                                          seed=0)
+        if label == "plan":
+            out[label] = float(plan.fn(tr.params, tr.opt_state,
+                                       batch)[2]["loss"])
+        else:
+            out[label] = float(tr.step(batch)[0])
+        del tr
+        free()
+    if out["plan"] != out["cli"]:
+        fail(f"dlrm-rm2: the plan's loss {out['plan']} is not the CLI "
+             f"step's {out['cli']}")
+    log(f"    build_plan('dlrm-rm2', 'train_batch') on 1 x 4, each step from "
+        f"its own copy: the plan's loss {out['plan']:.7f}, the CLI step's "
+        f"the same bits")
+    del batch
+
+    # -- xDeepFM at XDEEPFM_BATCH on 1 x 4; reruns and a restart -------------
+    xcfg = C.get_arch("xdeepfm").make_config()
+    make = train.batch_fn(xcfg, seed=0, batch=XDEEPFM_BATCH, device=dev)
+    batch = make(0)
+    ref = single_reference(xcfg, batch, f"xdeepfm at B = {XDEEPFM_BATCH:,}")
+    tr = against_single(xcfg, (1, 4), batch, ref,
+                        f"xdeepfm on 1 x 4 at B = {XDEEPFM_BATCH:,}",
+                        table_exact=False)
+    del tr, ref
+    free()
+    d = tempfile.mkdtemp()
+    runs = []
+    for label in ("run", "rerun", "restart"):
+        tr = train.sharded_recsys_trainer(xcfg, mesh=make_host_mesh(1, 4),
+                                          seed=0)
+        if label == "restart":
+            step, tree = CheckpointManager(d).restore(
+                like=tr.state_tree(), mesh=tr.mesh)
+            tr.load_state_tree(tree)
+            del tree
+            losses = [None, float(tr.step(make(1))[0])]
+        else:
+            losses = [float(tr.step(make(0))[0])]
+            if label == "run":
+                CheckpointManager(d).save(1, tr.state_tree(),
+                                          tr.state_specs())
+            losses.append(float(tr.step(make(1))[0]))
+        runs.append((losses, host(tr.params)))
+        del tr
+        free()
+    shutil.rmtree(d, ignore_errors=True)
+    (la, pa), (lb, pb), (lc, pc) = runs
+    if la != lb or not same(pa, pb) or lc[1] != la[1] or not same(pa, pc):
+        fail(f"xdeepfm on 1 x 4: a run {la}, a rerun {lb}, a restart from "
+             f"step 1 {lc[1:]}: not the same bits")
+    log(f"    xdeepfm on 1 x 4: a rerun's 2 steps {lb} and a restart from the "
+        f"step-1 checkpoint's step {lc[1]:.7f}: the same bits (losses and "
+        f"every parameter shard)")
+    del runs, pa, pb, pc, batch
+    free()
+    log(f"    phase 28: {time.perf_counter() - t0:.1f} s")
+
+
+def check_recsys_cards(cfg, spec, cards, smi: str) -> None:
+    """Phase 28 on four cards (``check_recsys_mesh``): dlrm-rm2 on 1 x 4
+    beside the single device, xDeepFM at B = 65,536 on 2 x 2, then
+    dlrm-rm2's serve and retrieval plans on 2 x 2 against the single
+    device. Every failed gate is reported, then the phase fails once."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core.metrics import euclidean_pdist
+    from repro_torch.core.simplex import apex_project, build_base_simplex
+    from repro_torch.core.zen import estimate_pdist
+    from repro_torch.distributed import partition
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys
+    from repro_torch.testing import topk_mismatch
+
+    dev = cards[0]
+    problems = []
+
+    def peaks():
+        return [round(torch.cuda.max_memory_allocated(c) / 1e9, 2)
+                for c in cards]
+
+    def reset():
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+
+    def train_leg(arch_cfg, label, B, make_tr):
+        free_cards(cards)
+        reset()
+        make = train.batch_fn(arch_cfg, seed=0, batch=B, device=dev)
+        batches = [make(s) for s in range(RECSYS_STEPS)]
+        tr = make_tr()
+        it = iter(batches)
+        losses, step_s = timed_steps(lambda: tr.step(next(it))[0],
+                                     RECSYS_STEPS, cards)
+        ms = float(np.median(step_s[2:])) * 1e3
+        peak = peaks()
+        prof = (_mesh_profile(lambda: tr.step(batches[0]), f"one {label} "
+                              "step", cards)
+                if hasattr(tr, "mesh") else None)
+        if not np.isfinite(losses).all():
+            problems.append(f"{label}: losses {losses}")
+        log(f"    {label}: {ms:.2f} ms a step (median of the last "
+            f"{RECSYS_STEPS - 2}; every step "
+            f"{np.round(np.asarray(step_s) * 1e3, 2).tolist()} ms), "
+            f"{B / ms * 1e3:,.0f} samples/s, peak GB a card {peak}; losses "
+            f"{np.round(losses, 6).tolist()}")
+        del tr, batches
+        free_cards(cards)
+        return losses, ms, prof
+
+    B = spec.cell("train_batch").dims["batch"]
+    one, one_ms, _ = train_leg(
+        cfg, f"dlrm-rm2 at B = {B:,} on the single device ({dev})", B,
+        lambda: train.recsys_trainer(cfg, seed=0, device=dev))
+    mesh_l, mesh_ms, _ = train_leg(
+        cfg, f"dlrm-rm2 at B = {B:,} on 1 x 4 (four cards)", B,
+        lambda: train.sharded_recsys_trainer(cfg, mesh=make_host_mesh(1, 4),
+                                             seed=0))
+    if not abs(mesh_l[0] - one[0]) <= RECSYS_LOSS_RTOL * abs(one[0]):
+        problems.append(f"dlrm-rm2 on 1 x 4: step 0's loss {mesh_l[0]} "
+                        f"against the single device's {one[0]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_l, one))
+    log(f"    dlrm-rm2 on 1 x 4 against the single device: {mesh_ms:.2f} "
+        f"against {one_ms:.2f} ms a step ({one_ms / mesh_ms:.2f}x); losses "
+        f"within {rel:.3g} relative over {RECSYS_STEPS} steps")
+    xcfg = C.get_arch("xdeepfm").make_config()
+    train_leg(xcfg, f"xdeepfm at B = {B:,} on 2 x 2 (four cards)", B,
+              lambda: train.sharded_recsys_trainer(
+                  xcfg, mesh=make_host_mesh(2, 2), seed=0))
+
+    # -- serve and retrieval on 2 x 2 against the single device ---------------
+    model = recsys.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    whole = {n: p.detach() for n, p in model.named_parameters()}
+    mesh = make_host_mesh(2, 2)
+
+    def timed_call(fn, n=5):
+        out, ts = None, []
+        for _ in range(n):
+            sync_cards(cards)
+            t = time.perf_counter()
+            out = fn()
+            sync_cards(cards)
+            ts.append(time.perf_counter() - t)
+        return out, float(np.median(ts)) * 1e3
+
+    with torch.no_grad():
+        for cell in ("serve_p99", "serve_bulk"):
+            n = spec.cell(cell).dims["batch"]
+            batch = {k: v for k, v in train.batch_fn(
+                cfg, seed=7, batch=n, device=dev)(0).items()
+                if k != "labels"}
+            plan = steps_lib.build_plan("dlrm-rm2", cell)
+            placed = steps_lib.place_args(plan, mesh, whole)
+            want, one_ms = timed_call(lambda: recsys.forward(cfg, model,
+                                                             batch))
+            got, ms = timed_call(lambda: plan.fn(placed, batch))
+            got = got.gather(dev)
+            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+            if not ok:
+                problems.append(f"{cell} on 2 x 2: logits off the single "
+                                f"device's by {float((got - want).abs().max()):.3g}")
+            log(f"    {cell} (B = {n:,}) on 2 x 2: logits "
+                f"{'within' if ok else 'NOT within'} rtol 1e-5 / atol 1e-6 "
+                f"of the single device's (max |diff| "
+                f"{float((got - want).abs().max()):.3g}); {ms:.3f} ms a "
+                f"call against the single device's {one_ms:.3f} "
+                f"(median of 5)")
+            del placed, batch, got, want
+        n_cand = spec.cell("retrieval_cand").dims["n_candidates"]
+        gen = torch.Generator(device=dev).manual_seed(11)
+        cands = torch.randn((n_cand, cfg.embed_dim), generator=gen,
+                            device=dev)
+        batch = {k: v for k, v in train.batch_fn(
+            cfg, seed=8, batch=spec.cell("retrieval_cand").dims["batch"],
+            device=dev)(0).items() if k != "labels"}
+        q = recsys.user_repr(cfg, model, batch)
+        for mode in ("dense", "zen"):
+            plan = steps_lib.build_plan("dlrm-rm2", "retrieval_cand",
+                                        overrides={"retrieval_mode": mode})
+            placed = steps_lib.place_args(plan, mesh, whole)
+            if mode == "dense":
+                index = partition.place(cands, plan.in_specs[2], mesh)
+
+                def single():
+                    return recsys.retrieval_topk(
+                        recsys.user_repr(cfg, model, batch), cands, 100)
+            else:
+                k = cfg.zen_k
+                refs = cands[torch.randperm(n_cand, generator=gen,
+                                            device=dev)[:k]]
+                base = build_base_simplex(euclidean_pdist(refs, refs))
+                coords = apex_project(base, euclidean_pdist(cands, refs))
+                index = {"coords": partition.place(
+                    coords, plan.in_specs[2]["coords"], mesh), "refs": refs,
+                    "chol": base.chol, "diag_g": base.diag_g, "d0": base.d0}
+
+                def single():
+                    qp = apex_project(base, euclidean_pdist(
+                        recsys.user_repr(cfg, model, batch), refs))
+                    dd = estimate_pdist(qp, coords, "zen")
+                    v, i = torch.sort(dd, dim=1, stable=True)
+                    return v[:, :100], i[:, :100].to(torch.int32)
+            (wd, wi), one_ms = timed_call(single)
+            got, ms = timed_call(lambda: plan.fn(placed, batch, index))
+            sign = -1.0 if mode == "dense" else 1.0
+            scale = float(wd.abs().max())
+            msg = topk_mismatch(sign * got["scores"], got["ids"], sign * wd,
+                                wi, rtol=RTOL, atol=RTOL * scale)
+            if msg is not None:
+                problems.append(f"retrieval_cand {mode} on 2 x 2: {msg}")
+            log(f"    retrieval_cand {mode} ({n_cand:,} candidates, B = "
+                f"{q.shape[0]}) on 2 x 2: the top 100 "
+                f"{'equal' if msg is None else 'NOT equal'} to the single "
+                f"device's outside near-ties (ids bit-equal: "
+                f"{torch.equal(got['ids'], wi)}); {ms:.3f} ms a call "
+                f"against the single device's {one_ms:.3f} (median of 5)")
+            del placed, index
+    del model, whole, cands
+    free_cards(cards)
+    if problems:
+        fail("; ".join(problems))
+
+
 def main() -> None:
     import torch
 
@@ -5230,6 +5682,10 @@ def main() -> None:
     if "--gnn-mesh" in sys.argv[1:]:
         check_gnn_mesh(dev, smi, four_cards=sharded_only)
         log("gnn-mesh run: stopping after phase 27")
+        sys.exit(2)
+    if "--recsys-mesh" in sys.argv[1:]:
+        check_recsys_mesh(dev, smi, four_cards=sharded_only)
+        log("recsys-mesh run: stopping after phase 28")
         sys.exit(2)
 
     # -- 2. build --------------------------------------------------------
@@ -5381,7 +5837,9 @@ def main() -> None:
         check_lm_mesh(dev, smi, four_cards=True)
         gc.collect()
         check_gnn_mesh(dev, smi, four_cards=True)
-        log(f"sharded run: stopping after phases 8 (f32), 20, 26 and 27; "
+        gc.collect()
+        check_recsys_mesh(dev, smi, four_cards=True)
+        log(f"sharded run: stopping after phases 8 (f32), 20, 26, 27 and 28; "
             f"{time.perf_counter() - t_start:.0f} s")
         sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
@@ -5624,6 +6082,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     check_gnn_mesh(torch.device("cuda"), smi, four_cards=False)
+
+    # -- 28. the recsys family on a (data, model) mesh ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_recsys_mesh(torch.device("cuda"), smi, four_cards=False)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",

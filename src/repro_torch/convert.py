@@ -193,10 +193,26 @@ def _flat_tensors(tree, dev) -> dict:
 
 
 def recsys_params_from_arrays(cfg: recsys.RecsysConfig, tree: dict, *,
-                              device=None):
+                              device=None, mesh=None,
+                              specs: Optional[dict] = None):
     """The port's model holding exactly this parameter pytree: a
     ``RecsysModel`` from ``init_params``' tree, a ``TwoTowerModel`` from
-    ``init_two_tower_params``' (it has ``items``)."""
+    ``init_two_tower_params``' (it has ``items``). With ``mesh`` (a (data,
+    model) ``distributed.Mesh``): a ``recsys.ShardedRecsys`` of
+    ``init_params``' tree, each leaf in its ``RecsysModel`` dtype, laid out
+    by ``specs`` (name -> ``sharding.P``; the reference's rules by
+    default)."""
+    if mesh is not None:
+        if "items" in tree:
+            raise ValueError("the two-tower model is not laid out on a mesh")
+        specs = recsys.param_specs(cfg) if specs is None else specs
+        dtypes = {n: p.dtype for n, p in recsys.RecsysModel(
+            cfg, device="meta").named_parameters()}
+        if set(flat_state(tree)) != set(dtypes):
+            raise ValueError(f"the tree holds {sorted(flat_state(tree))}, "
+                             f"{cfg.name} {sorted(dtypes)}")
+        return recsys.ShardedRecsys(cfg, mesh, _placed(tree, dtypes, mesh,
+                                                       specs))
     dev = resolve_device(device)
     model = (recsys.TwoTowerModel(cfg, int(np.asarray(tree["items"])
                                            .shape[0]), device=dev)
@@ -217,12 +233,14 @@ def _leaf_tensor(a, dtype: torch.dtype, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=dev).to(dtype)
 
 
-def _placed(params: dict, dtype: torch.dtype, mesh, specs: dict) -> dict:
+def _placed(params: dict, dtype, mesh, specs: dict) -> dict:
     """Every leaf of a parameter pytree laid out on ``mesh`` by its spec,
-    each shard a leaf that requires a gradient."""
+    in ``dtype`` (one, or name -> dtype), each shard a leaf that requires
+    a gradient."""
     leaves = {}
     for k, v in flat_state(params).items():
-        leaves[k] = place(_leaf_tensor(v, dtype, mesh.first_device),
+        dt = dtype[k] if isinstance(dtype, dict) else dtype
+        leaves[k] = place(_leaf_tensor(v, dt, mesh.first_device),
                           specs[k], mesh)
         for s in leaves[k].shards:
             s.requires_grad_(True)

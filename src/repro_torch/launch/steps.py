@@ -17,9 +17,22 @@ reference's arithmetic (f32 sums of the microbatches' gradients, then
 feature width (``configs.mace.for_shape``), ``edge_chunks = 16`` for a
 graph of more than 8,000,000 edges (unless the config already chunks),
 then the loss, its gradients and AdamW, with edges over ``data`` and
-channels over ``model`` (``mace.sharded_loss_fn``). The prefill, decode,
-serve and retrieval kinds, the recsys plans and the multi-pod mesh are
-ROADMAP A, item 3b.
+channels over ``model`` (``mace.sharded_loss_fn``). So are the recsys
+plans (``recsys.sharded_loss_fn``, ``sharded_forward``,
+``sharded_user_repr``): train (the loss, its gradients and AdamW, the batch
+over ``data``), serve (the logits, laid out over ``data``) and retrieval,
+the batch replicated: a top-100 by dot product over the candidates, or
+with ``retrieval_mode="zen"`` the paper's estimator, the query's reference
+distances projected (``core.simplex.apex_project``) and scored against
+the reduced index (``core.zen.estimate_pdist``), smallest first. Each
+block of candidates takes its own top 100 on its device and the blocks
+merge in row order (``recsys.sharded_topk``): a tie goes to the lower
+row, as in ``lax.top_k``. The dense candidates lie over ("data",
+"model") (``recsys_input_shardings``: every position scores its own
+block), where the reference's plan lays them over ``data`` alone (10^6
+rows do not split over its 256-way mesh); the reduced index's coords lie
+over ``data`` as the reference's do, its transform replicated. The LM's
+prefill and decode plans and the multi-pod mesh are ROADMAP A, item 3b.
 """
 from __future__ import annotations
 
@@ -29,11 +42,14 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch import configs as C
+from repro_torch.core.metrics import euclidean_pdist
+from repro_torch.core.simplex import BaseSimplex, apex_project
+from repro_torch.core.zen import estimate_pdist
 from repro_torch.distributed import partition
 from repro_torch.distributed import sharding as shard_lib
 from repro_torch.distributed.partition import ShardedTensor
 from repro_torch.launch import train as train_lib
-from repro_torch.models import mace, transformer
+from repro_torch.models import mace, recsys, transformer
 from repro_torch.optim import AdamW, AdamWState
 
 
@@ -173,21 +189,145 @@ def _gnn_train_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
         cfg=cfg, skip=cell.skip)
 
 
+def _recsys_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
+    dp = shard_lib.data_axes(multi_pod)
+    params_shape = dict(recsys.RecsysModel(cfg, device="meta")
+                        .named_parameters())
+    pspecs = shard_lib.recsys_param_specs(params_shape)
+    ins = C.input_specs(spec, cfg, cell)
+    batch_shape = {k: _meta(v) for k, v in ins["batch"].items()}
+    in_shard_all = shard_lib.recsys_input_shardings(cell.kind, multi_pod)
+    in_shard = {k: in_shard_all["batch"][k] for k in batch_shape}
+
+    def model_of(params):
+        return recsys.ShardedRecsys(cfg, _mesh_of(params), params)
+
+    if cell.kind == "train":
+        opt = make_optimizer()
+
+        def train_step(params: dict, opt_state: AdamWState, batch: dict):
+            """One step on the mesh the leaves of ``params`` live on (as
+            the LM plan's): updates the shards in place and returns
+            (params, opt_state, aux)."""
+            trainer = train_lib.ShardedTrainer(model_of(params), opt=opt,
+                                               opt_state=opt_state)
+            loss, aux, grads = trainer.reduced_grads(batch)
+            trainer.apply(grads)
+            return params, trainer.opt_state, {k: v.detach()
+                                               for k, v in aux.items()}
+
+        return StepPlan(
+            spec.arch_id, cell.shape, cell.kind, train_step,
+            args=(params_shape, _opt_shape(params_shape), batch_shape),
+            in_specs=(pspecs, shard_lib.opt_state_specs(pspecs), in_shard),
+            out_specs=(pspecs, shard_lib.opt_state_specs(pspecs),
+                       shard_lib.P()),
+            cfg=cfg, skip=cell.skip)
+
+    if cell.kind == "serve":
+        @torch.no_grad()
+        def serve_step(params: dict, batch: dict) -> ShardedTensor:
+            """The logits (B,), laid out over ``data``."""
+            model = model_of(params)
+            return partition.place(
+                recsys.sharded_forward(cfg, model, batch), shard_lib.P(dp),
+                model.mesh)
+
+        return StepPlan(
+            spec.arch_id, cell.shape, cell.kind, serve_step,
+            args=(params_shape, batch_shape), in_specs=(pspecs, in_shard),
+            out_specs=shard_lib.P(dp), cfg=cfg, skip=cell.skip)
+
+    if cell.kind != "retrieval":
+        raise ValueError(cell.kind)
+    out_specs = {"scores": shard_lib.P(), "ids": shard_lib.P()}
+    if cfg.retrieval_mode == "zen":
+        cand_specs = {"coords": shard_lib.P(dp, None), "refs": shard_lib.P(),
+                      "chol": shard_lib.P(), "diag_g": shard_lib.P(),
+                      "d0": shard_lib.P()}
+
+        @torch.no_grad()
+        def zen_step(params: dict, batch: dict, index: dict) -> dict:
+            """The 100 candidates of smallest Zen estimate a query, from
+            the reduced index (``index``: coords laid out over ``data``,
+            the transform whole or replicated)."""
+            model = model_of(params)
+            mesh = model.mesh
+            whole = {k: _whole(index[k], mesh) for k in
+                     ("refs", "chol", "diag_g", "d0")}
+            q = recsys.sharded_user_repr(cfg, model, batch)
+            base = BaseSimplex(chol=whole["chol"], diag_g=whole["diag_g"],
+                               d0=whole["d0"])
+            qp = apex_project(base, euclidean_pdist(q, whole["refs"]))
+            coords = _rows_of(index["coords"], cand_specs["coords"], mesh)
+            d, ids = recsys.sharded_topk(
+                qp, coords, 100,
+                lambda x, block: estimate_pdist(x, block, "zen"),
+                largest=False)
+            return {"scores": d, "ids": ids}
+
+        return StepPlan(
+            spec.arch_id, cell.shape, cell.kind, zen_step,
+            args=(params_shape, batch_shape,
+                  {k: _meta(v) for k, v in ins["candidates"].items()}),
+            in_specs=(pspecs, in_shard, cand_specs), out_specs=out_specs,
+            cfg=cfg, skip=cell.skip)
+
+    cand_spec = in_shard_all["candidates"]
+
+    @torch.no_grad()
+    def retrieval_step(params: dict, batch: dict, candidates) -> dict:
+        """The 100 candidates of largest dot product a query
+        (``candidates``: whole, or laid out by the plan's spec)."""
+        model = model_of(params)
+        q = recsys.sharded_user_repr(cfg, model, batch)
+        scores, ids = recsys.sharded_topk(
+            q, _rows_of(candidates, cand_spec, model.mesh), 100,
+            recsys.retrieval_scores, largest=True)
+        return {"scores": scores, "ids": ids}
+
+    return StepPlan(
+        spec.arch_id, cell.shape, cell.kind, retrieval_step,
+        args=(params_shape, batch_shape, _meta(ins["candidates"])),
+        in_specs=(pspecs, in_shard, cand_spec), out_specs=out_specs,
+        cfg=cfg, skip=cell.skip)
+
+
+def _whole(x, mesh) -> torch.Tensor:
+    """``x`` whole on the mesh's first device (``x``: a tensor there, or a
+    ``ShardedTensor``)."""
+    if isinstance(x, ShardedTensor):
+        return x.gather()
+    return x.to(mesh.first_device)
+
+
+def _rows_of(x, spec, mesh) -> ShardedTensor:
+    """``x`` laid out by ``spec``: a ``ShardedTensor`` as it is, a whole
+    tensor placed."""
+    if isinstance(x, ShardedTensor):
+        return x
+    return partition.place(x, spec, mesh)
+
+
 def _mesh_of(params: dict):
     return next(iter(params.values())).mesh
 
 
 def place_args(plan: StepPlan, mesh, params: dict,
                opt_state: Optional[AdamWState] = None):
-    """``params`` (name -> whole tensor) and an optimizer state (zeros by
-    default) laid out on ``mesh`` by the plan's specs, as ``fn`` takes
-    them."""
-    pspecs, ospecs, _ = plan.in_specs
+    """``params`` (name -> whole tensor) laid out on ``mesh`` by the plan's
+    specs, as ``fn`` takes them; for a train plan also an optimizer state
+    (zeros by default), and the returned pair (params, opt_state)."""
+    pspecs = plan.in_specs[0]
+    train = plan.kind == "train"
     placed = {}
     for n, p in params.items():
         placed[n] = partition.place(p.detach(), pspecs[n], mesh)
         for s in placed[n].shards:
-            s.requires_grad_(True)
+            s.requires_grad_(train)
+    if not train:
+        return placed
+    ospecs = plan.in_specs[1]
     f32 = torch.float32
     if opt_state is None:
         zeros = {n: torch.zeros(p.shape, dtype=f32, device=p.device)
@@ -214,21 +354,24 @@ def build_plan(
     overrides: Optional[dict] = None,
 ) -> StepPlan:
     """overrides: config-field replacements, e.g. ``{"n_microbatches":
-    4}`` or ``{"edge_chunks": 32}``. The LM and GNN families' train cells
-    only (ROADMAP A, item 3b for the rest)."""
+    4}``, ``{"edge_chunks": 32}`` or ``{"retrieval_mode": "zen"}``. The LM
+    family's train cells, the GNN family's and every recsys cell (ROADMAP
+    A, item 3b for the LM's prefill and decode)."""
     spec = C.get_arch(arch_id)
     cell = spec.cell(shape)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if spec.family not in ("lm", "gnn") or cell.kind != "train":
+    if spec.family != "recsys" and cell.kind != "train":
         raise NotImplementedError(
             f"the {spec.family} family's {cell.kind} plan ({arch_id}, "
-            f"{shape}) is ROADMAP A, item 3b; the LM and GNN train plans "
-            "are ported")
+            f"{shape}) is ROADMAP A, item 3b; the train plans and the "
+            "recsys plans are ported")
     if multi_pod:
         raise NotImplementedError(
             "the multi-pod mesh comes with the dry-run (ROADMAP A, item 3b)")
     if spec.family == "gnn":
         return _gnn_train_plan(spec, cfg, cell, multi_pod)
+    if spec.family == "recsys":
+        return _recsys_plan(spec, cfg, cell, multi_pod)
     return _lm_train_plan(spec, cfg, cell, multi_pod)

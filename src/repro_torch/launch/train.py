@@ -25,18 +25,18 @@ reference trainer's: ``geometric_graph_batch(seed + step)`` of ``--batch``
 graphs, 16 nodes and 48 edges each (numpy draws, so the reference's
 batches bit for bit).
 
-An LM or MACE trains on a (data, model) mesh with ``--data-shards D
+Every family trains on a (data, model) mesh with ``--data-shards D
 --model-shards M`` (D x M > 1): ``make_host_mesh(D, M)`` spans D x M cards
 where there are that many, else puts D x M logical shards on the card (or
 the CPU with ``--device cpu``). The weights are ``init_params``' from the
 same seed, bit for bit, laid out by the reference's partition rules
 (``distributed.sharding``); the global batch is the single device's, its
-token rows (an LM's) or edges (MACE's) split over ``data``; the step is
-the unsharded ``Trainer.step``'s function (``ShardedTrainer``).
-Checkpoints carry every leaf's spec in the reference's manifest format,
-and ``--resume`` restores onto the current mesh whatever mesh saved.
-Shards > 1 for the recsys family and ``--multihost`` raise (ROADMAP A,
-item 3b).
+token rows (an LM's), edges (MACE's) or click rows (a ranking model's,
+laid out over ``data`` as drawn) split over ``data``; the step is the
+unsharded ``Trainer.step``'s function (``ShardedTrainer``). Checkpoints
+carry every leaf's spec in the reference's manifest format, and
+``--resume`` restores onto the current mesh whatever mesh saved.
+``--multihost`` raises (ROADMAP A, item 3b).
 
 Beyond the reference's options: ``--device``, ``--fixed-batch`` (every
 step takes step 0's batch) and, for the LM family, ``--layers`` (the
@@ -45,6 +45,8 @@ published widths at a cut depth).
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --reduced --device cpu --data-shards 2 --model-shards 2 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch mace \\
+        --reduced --device cpu --data-shards 2 --model-shards 2 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm \\
         --reduced --device cpu --data-shards 2 --model-shards 2 --steps 4
 """
 from __future__ import annotations
@@ -173,10 +175,12 @@ def _assign(dst: ShardedTensor, src) -> None:
 
 def sharded_loss(model) -> Callable:
     """The sharded loss of a model on a mesh, ``loss_fn(model, batch) ->
-    (loss, aux)``: ``transformer.sharded_loss_fn`` or
-    ``mace.sharded_loss_fn`` by its kind."""
+    (loss, aux)``: ``transformer.sharded_loss_fn``,
+    ``mace.sharded_loss_fn`` or ``recsys.sharded_loss_fn`` by its kind."""
     if isinstance(model, mace.ShardedMACE):
         return functools.partial(mace.sharded_loss_fn, model.cfg)
+    if isinstance(model, recsys.ShardedRecsys):
+        return functools.partial(recsys.sharded_loss_fn, model.cfg)
     return functools.partial(transformer.sharded_loss_fn, model.cfg)
 
 
@@ -203,8 +207,9 @@ def sharded_grads(model, batch: dict, loss_fn: Optional[Callable] = None,
 
 class ShardedTrainer:
     """``Trainer`` for a model laid out on a (data, model) mesh (a
-    ``transformer.ShardedTransformer`` or a ``mace.ShardedMACE``): the
-    same function as the unsharded ``Trainer.step``.
+    ``transformer.ShardedTransformer``, a ``mace.ShardedMACE`` or a
+    ``recsys.ShardedRecsys``): the same function as the unsharded
+    ``Trainer.step``.
 
     ``loss_fn(model, batch) -> (loss, aux)`` is the model's sharded loss
     (``sharded_loss`` by default). A step differentiates it with respect
@@ -384,6 +389,15 @@ def sharded_mace_trainer(cfg: mace.MACEConfig, *, mesh, seed: int,
                           compress_grads=compress_grads)
 
 
+def sharded_recsys_trainer(cfg: recsys.RecsysConfig, *, mesh, seed: int,
+                           compress_grads: bool = False) -> ShardedTrainer:
+    """``recsys_trainer``'s weights (drawn from ``seed`` on the mesh's
+    first device, leaf by leaf) laid out on ``mesh``."""
+    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    return ShardedTrainer(recsys.init_sharded(cfg, mesh, generator=gen),
+                          compress_grads=compress_grads)
+
+
 def recsys_trainer(cfg: recsys.RecsysConfig, *, seed: int, device,
                    compress_grads: bool = False) -> Trainer:
     """A ranking model drawn from ``seed`` on ``device``, with AdamW at the
@@ -469,6 +483,12 @@ def family_batch_fn(family: str, cfg, *, seed: int, batch: int, seq: int,
     return batch_fn(cfg, seed=seed, batch=batch, device=device)
 
 
+def _laid_out_batch(step: int, *, make, mesh, specs: dict) -> dict:
+    """``make(step)``'s arrays laid out on ``mesh`` by ``specs``."""
+    return {k: partition.place(v, specs[k], mesh)
+            for k, v in make(step).items()}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True)
@@ -518,11 +538,6 @@ def train(args: argparse.Namespace, log=print) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mesh = None
     if args.data_shards * args.model_shards > 1:
-        if spec.family == "recsys":
-            raise NotImplementedError(
-                f"--data-shards / --model-shards > 1 for the recsys family "
-                f"({args.arch}) is ROADMAP A, item 3b; the LM and GNN "
-                "families train on a mesh")
         mesh = make_host_mesh(args.data_shards, args.model_shards,
                               device=args.device)
     cards = ([] if mesh is None and dev.type != "cuda" else
@@ -538,8 +553,8 @@ def train(args: argparse.Namespace, log=print) -> dict:
         specs = state_specs(shard_lib.param_specs(spec.family,
                                                   trainer.params))
     else:
-        make = (sharded_mace_trainer if spec.family == "gnn" else
-                sharded_lm_trainer)
+        make = {"lm": sharded_lm_trainer, "gnn": sharded_mace_trainer,
+                "recsys": sharded_recsys_trainer}[spec.family]
         trainer = make(cfg, mesh=mesh, seed=args.seed,
                        compress_grads=args.compress_grads)
         specs = trainer.state_specs()
@@ -550,6 +565,11 @@ def train(args: argparse.Namespace, log=print) -> dict:
     if args.fixed_batch:
         make_batch = functools.partial(lambda step, make: make(0),
                                        make=make_batch)
+    if mesh is not None and spec.family == "recsys":
+        # sparse, dense and labels over data (recsys_input_shardings)
+        make_batch = functools.partial(
+            _laid_out_batch, make=make_batch, mesh=mesh,
+            specs=shard_lib.recsys_input_shardings("train", False)["batch"])
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
@@ -581,7 +601,7 @@ def train(args: argparse.Namespace, log=print) -> dict:
             if batch_shapes is None:
                 batch_shapes = {
                     k: (tuple(v.shape), v.dtype)
-                    if isinstance(v, torch.Tensor) else v
+                    if isinstance(v, (torch.Tensor, ShardedTensor)) else v
                     for k, v in batch.items()}
             t0 = time.perf_counter()
             loss, _ = trainer.step(batch)

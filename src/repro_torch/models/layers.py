@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.partition import all_sum
+from repro_torch.distributed.partition import all_sum, sum_to
 
 Tensor = torch.Tensor
 
@@ -250,20 +250,31 @@ def mlp_glu_sharded(xs, wgs, wus, wds, act: ActFn) -> list:
     return row_parallel(hs, wds, xs[0].dtype)
 
 
-def gather_rows_sharded(tables, ids: list) -> list:
+def gather_rows_sharded(tables, ids: list, *, to=None):
     """``gather_rows`` of a table whose rows are split over the shards in
     order (``tables[m]`` holds rows ``m * n .. (m + 1) * n - 1``): each
-    shard gathers the ids it holds, zeros for the others, and the shards
-    are summed (one nonzero term a row, so exactly the row). ``ids[m]``
-    lives on shard m's device."""
+    shard gathers only the ids it holds into zeros at their places, and
+    the shards are summed (one nonzero term a row, so exactly the row):
+    on every shard (``all_sum``), or once on device ``to`` (``sum_to``).
+    ``ids[m]`` (any shape) lives on shard m's device.
+
+    A shard's backward scatters only its own ids' cotangents, each row's
+    duplicates summed in the order they occur (``gather_rows``), so a
+    row's gradient has the bits ``gather_rows`` of the whole table gives
+    it from the same cotangent."""
+    if len(tables) == 1:
+        got = gather_rows(tables[0], ids[0])
+        return [got] if to is None else got.to(to)
     parts = []
     for m, (table, i) in enumerate(zip(tables, ids)):
         n = table.shape[0]
-        local = i.long() - m * n
-        inside = (local >= 0) & (local < n)
-        got = gather_rows(table, torch.where(inside, local, 0))
-        parts.append(torch.where(inside[..., None], got, got.new_zeros(())))
-    return all_sum(parts)
+        local = i.long().reshape(-1) - m * n
+        mine = torch.nonzero((local >= 0) & (local < n)).squeeze(1)
+        got = gather_rows(table, local.index_select(0, mine))
+        out = got.new_zeros((local.numel(),) + tuple(table.shape[1:]))
+        parts.append(out.index_copy(0, mine, got).view(
+            *i.shape, *table.shape[1:]))
+    return all_sum(parts) if to is None else sum_to(parts, to)
 
 
 # -- recompute across devices -----------------------------------------------
@@ -343,13 +354,15 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: Tensor):
         (ids,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.n_rows, grad.shape[-1]))
         flat = ids.reshape(-1)
+        if flat.numel() == 0:  # a shard none of whose rows were read
+            return out, None
         order = torch.argsort(flat, stable=True)
         rows, counts = torch.unique_consecutive(flat[order],
                                                 return_counts=True)
         sums = torch.segment_reduce(
             grad.reshape(flat.numel(), -1)[order], "sum", lengths=counts)
-        out = grad.new_zeros((ctx.n_rows, grad.shape[-1]))
         out[rows] = sums  # each row written once
         return out, None
 

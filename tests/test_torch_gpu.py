@@ -1686,3 +1686,63 @@ def test_sharded_mace_on_card_matches_unsharded(cuda, shape):
     for t in (*tr.params.values(), *tr.opt_state.mu.values(),
               *tr.opt_state.nu.values()):
         assert partition.replicas_equal(t)
+
+
+# -- the recsys family on a (data, model) mesh on the card ------------------------
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_sharded_recsys_table_gradient_is_bit_equal_on_card(cuda, M):
+    """Reduced DLRM on ``make_host_mesh(1, M)`` (M cards where there are
+    M, else logical shards of the card) against the same weights on the
+    card alone: the loss, and the table's gradient bit for bit (each shard
+    scatters its own ids' rows, each row's duplicates summed in the order
+    they occur, from the single device's cotangent: the dense work runs
+    whole on the first shard)."""
+    from repro_torch import configs as C
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys
+
+    cfg = C.get_arch("dlrm-rm2").make_reduced()
+    mesh = make_host_mesh(1, M)
+    batch = train.batch_fn(cfg, seed=2, batch=4_096,
+                           device=mesh.first_device)(0)
+    model = recsys.init_params(cfg, generator=torch.Generator(
+        device=mesh.first_device).manual_seed(1))
+    loss, _ = recsys.loss_fn(cfg, model, batch)
+    (want,) = torch.autograd.grad(loss, [model.table])
+    tr = train.sharded_recsys_trainer(cfg, mesh=mesh, seed=1)
+    got_loss, _, grads = tr.reduced_grads(batch)
+    np.testing.assert_allclose(got_loss.item(), loss.item(), rtol=1e-6)
+    assert torch.equal(grads["table"].gather(), want)
+
+
+def test_sharded_recsys_step_is_the_same_bits_twice_on_card(cuda):
+    """Reduced xDeepFM (the CIN's rows split over model) on
+    ``make_host_mesh(2, 2)`` (four cards where there are four, else four
+    logical shards of the card): two trainers from one seed take the same
+    two steps, the same bits (losses, every shard of the parameters and
+    moments), and every holder of every shard holds the same bits."""
+    from repro_torch import configs as C
+    from repro_torch.distributed import partition
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = C.get_arch("xdeepfm").make_reduced()
+    mesh = make_host_mesh(2, 2)
+    make = train.batch_fn(cfg, seed=3, batch=4_096, device=mesh.first_device)
+    runs = []
+    for _ in range(2):
+        tr = train.sharded_recsys_trainer(cfg, mesh=mesh, seed=3)
+        runs.append(([float(tr.step(make(s))[0]) for s in range(2)], tr))
+    (la, a), (lb, b) = runs
+    assert la == lb and np.isfinite(la).all()
+    for x, y in ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+                 (a.opt_state.nu, b.opt_state.nu)):
+        for n in x:
+            assert all(torch.equal(s, t) for s, t in zip(x[n].shards,
+                                                         y[n].shards)), n
+    for t in (*a.params.values(), *a.opt_state.mu.values(),
+              *a.opt_state.nu.values()):
+        assert partition.replicas_equal(t)

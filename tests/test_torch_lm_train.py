@@ -227,12 +227,12 @@ def test_lm_cli_refuses_what_is_not_ported():
                        "--steps", "1", "--batch", "2"])
     assert out["batch_shapes"]["n_graphs"] == 2
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
-    # the LM and GNN families train on a mesh
-    # (tests/test_torch_sharded_train.py, tests/test_torch_sharded_gnn.py);
-    # the recsys family's mesh is not ported
+    # every family trains on a mesh (tests/test_torch_sharded_train.py,
+    # tests/test_torch_sharded_gnn.py, tests/test_torch_sharded_recsys.py);
+    # one process a host is not ported
     with pytest.raises(NotImplementedError, match="ROADMAP A, item 3"):
         ttrain.main(["--arch", "dlrm-rm2", "--reduced", "--device", "cpu",
-                     "--model-shards", "2"])
+                     "--model-shards", "2", "--multihost"])
 
 
 def test_lm_checkpoints_are_the_same_bytes_both_ways(tmp_path):

@@ -382,19 +382,29 @@ def test_plan_matches_the_reference_plan(arch, shape):
 
 
 def test_plans_not_ported_raise():
-    """The LM prefill and the recsys plans and the multi-pod mesh raise,
-    naming item 3b; MACE's train plan is built (its step is held to the
-    reference's in tests/test_torch_sharded_gnn.py)."""
+    """The LM prefill and decode plans and the multi-pod mesh raise,
+    naming item 3b; MACE's train plan and every recsys plan are built
+    (their steps are held to the reference's in
+    tests/test_torch_sharded_gnn.py and tests/test_torch_sharded_recsys.py)."""
+    decode = next(c.shape for c in tconfigs.get_arch("qwen1.5-0.5b").cells
+                  if c.kind == "decode")
     for arch, shape in (("qwen1.5-0.5b", "prefill_32k"),
-                        ("dlrm-rm2", "train_batch")):
+                        ("qwen1.5-0.5b", decode)):
         with pytest.raises(NotImplementedError, match="item 3b"):
             tsteps.build_plan(arch, shape, reduced=True)
-    for arch, shape in (("qwen1.5-0.5b", "train_4k"), ("mace", "molecule")):
+    for arch, shape in (("qwen1.5-0.5b", "train_4k"), ("mace", "molecule"),
+                        ("dlrm-rm2", "train_batch")):
         with pytest.raises(NotImplementedError, match="item 3b"):
             tsteps.build_plan(arch, shape, reduced=True, multi_pod=True)
     plan = tsteps.build_plan("mace", "molecule", reduced=True)
     assert (plan.kind, plan.cfg.d_feat, plan.cfg.edge_chunks) == (
         "train", 16, 1)
+    for cell in ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"):
+        plan = tsteps.build_plan("dlrm-rm2", cell, reduced=True)
+        assert plan.kind == tconfigs.get_arch("dlrm-rm2").cell(cell).kind
+    zen = tsteps.build_plan("dlrm-rm2", "retrieval_cand",
+                            overrides={"retrieval_mode": "zen"})
+    assert set(zen.in_specs[2]) == {"coords", "refs", "chol", "diag_g", "d0"}
     opt = tsteps.make_optimizer()
     assert (opt.learning_rate, opt.weight_decay, opt.clip_norm) == (
         3e-4, 0.01, 1.0)
@@ -520,20 +530,18 @@ def test_cli_with_compression_on_a_mesh(tmp_path):
 
 
 def test_shards_for_other_families_and_multihost_raise():
-    """Shards for the recsys family and --multihost raise, naming item 3b;
-    MACE trains on a mesh (its runs are held in
-    tests/test_torch_sharded_gnn.py)."""
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        ttrain.main(["--arch", "dlrm-rm2", "--reduced", "--device", "cpu",
-                     "--model-shards", "2"])
-    for arch in ("qwen1.5-0.5b", "mace"):
+    """--multihost raises for every family, naming item 3b; MACE and the
+    recsys family train on a mesh (their runs are held in
+    tests/test_torch_sharded_gnn.py and tests/test_torch_sharded_recsys.py)."""
+    for arch in ("qwen1.5-0.5b", "mace", "dlrm-rm2"):
         with pytest.raises(NotImplementedError, match="item 3b"):
             ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
                          "--multihost"])
-    out = ttrain.main(["--arch", "mace", "--reduced", "--device", "cpu",
-                       "--model-shards", "2", "--steps", "1"])
-    assert out["mesh"].shape == {"data": 1, "model": 2}
-    assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
+    for arch in ("mace", "dlrm-rm2"):
+        out = ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--model-shards", "2", "--steps", "1"])
+        assert out["mesh"].shape == {"data": 1, "model": 2}
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
 
 
 def test_port_restores_a_reference_checkpoint_onto_its_mesh(tmp_path):

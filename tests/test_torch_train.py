@@ -452,8 +452,9 @@ def test_train_cli_with_resume(tmp_path):
 def test_train_cli_refuses_what_is_not_ported_and_has_no_fallback():
     handler = signal.getsignal(signal.SIGTERM)
     base = ["--arch", "dlrm-rm2", "--reduced", "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 3"):
-        ttrain.main(base + ["--device", "cpu", "--data-shards", "2"])
+    # the recsys family trains on a mesh (tests/test_torch_sharded_recsys.py)
+    out = ttrain.main(base + ["--device", "cpu", "--data-shards", "2"])
+    assert out["mesh"].shape == {"data": 2, "model": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP A, item 3"):
         ttrain.main(base + ["--device", "cpu", "--multihost"])
     # the GNN family is ported: one reduced step on the CPU
