@@ -12,12 +12,15 @@ kernels.
     python3 chip_smoke.py --sharded  # phases 1-3, the f32 build and serve
                                      # of phase 8, phase 20 (on four
                                      # cards where there are four) and
-                                     # phases 26 and 27 (on four
+                                     # phases 26-29 (on four
                                      # distinct cards)
     python3 chip_smoke.py --lm-mesh  # phases 1 and 26 alone (with
                                      # --sharded: on four cards)
     python3 chip_smoke.py --gnn-mesh # phases 1 and 27 alone (with
                                      # --sharded: on four cards)
+    python3 chip_smoke.py --recsys-mesh    # phases 1 and 28 alone
+    python3 chip_smoke.py --lm-serve-mesh  # phases 1 and 29 alone (each
+                                           # with --sharded: four cards)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -243,9 +246,25 @@ Phases:
      build_plan("mace", "ogb_products") on 1 x 4: ms a step, nodes/s,
      bf16-peak share, peak GB, busy and cross-shard shares, the edge and
      node sides apart, a rerun and a restart the same bits.
+ 28. the recsys family on a (data, model) mesh at published width
+     (check_recsys_mesh): dlrm-rm2 and xDeepFM against the single device,
+     the recsys plans (train, serve, retrieval) through build_plan.
+ 29. the LM's prefill and decode plans on a (data, model) mesh
+     (check_lm_serve_mesh): gemma2-2b at published width through
+     build_plan("gemma2-2b", cell) on make_host_mesh(2, 2), one placed set
+     of weights: prefill_32k (S = 32,768, B = 2 on one card, 8 on four),
+     decode_32k (B = 128 where the cache fits, else the largest even
+     batch; the cache drawn shard by shard) and long_500k (B = 1, the
+     sequence over all four positions), 16 steps each: ms beside the
+     bytes bound, peak GB a card, the bf16-peak share of the prefill; the
+     single device's readings at 26 layers in bf16; a 6,000-token prompt
+     padded to 6,016 then 16 steps held to forward (DECODE_TOL), rerun the
+     same bits; the comparisons with the single device (prefill rows 0-1,
+     decode rows 0-7, long_500k against 1 x 1) gated at 2 layers in f32,
+     with a planted fault that must read past the gate.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21-27 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-29 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -464,6 +483,51 @@ OGB_STEPS, OGB_CHUNKS = 5, (16, 32, 64)
 #: tolerances)
 RECSYS_TIMED, RECSYS_STEPS = 3, 6
 RECSYS_LOSS_RTOL, RECSYS_GRAD_TOL, RECSYS_GRAD_FLOOR = 1e-5, 1e-4, 1e-6
+#: phase 29: the LM's prefill and decode plans on a (data, model) mesh,
+#: gemma2-2b at published width on 2 x 2 (four cards, or four logical
+#: shards of one). prefill_32k at S = 32,768 and SERVE_PREFILL_B rows a
+#: call (one card, four cards; the cell's global batch of 32 cut for the
+#: phase's time: each row is independent, no shape of a row changes), and
+#: SERVE_PREFILL_BIG too on four cards when that took under SERVE_BIG_S;
+#: decode_32k at the cell's B = 128, or the largest even batch whose cache
+#: fits with SERVE_MARGIN bytes left free a card, from cache_len
+#: SERVE_DECODE_LEN, rows 0..SERVE_REF_ROWS - 1 against the single device;
+#: long_500k (B = 1) from SERVE_LONG_LEN; SERVE_STEPS steps each; the
+#: chain: a SERVE_CHAIN_PROMPT-token prompt of SERVE_CHAIN_B rows padded to
+#: SERVE_CHAIN_PAD, then SERVE_STEPS steps. The cache is drawn a (leaf,
+#: layer group, row, 1 / SERVE_UNITS of the sequence) at a time, the
+#: finest split of the phase's meshes, so a shard's block and the single
+#: device's rows hold the same values.
+SERVE_MESH = (2, 2)
+SERVE_PREFILL_B = {False: 2, True: 8}
+SERVE_PREFILL_BIG, SERVE_BIG_S = 32, 20.0
+SERVE_STEPS, SERVE_REF_ROWS, SERVE_UNITS = 16, 8, 4
+#: phase 29 on one card (the stand-in for four): the bf16 cells run at
+#: this depth of gemma2-2b's 26 layers (the smoke run's time limit; 26
+#: layers took 97.9 s of a 1,114 s run), without the single device beside
+#: them (its comparisons, the chain's rerun and the planted fault run at
+#: SERVE_CHECK_LAYERS)
+SERVE_ONE_CARD_LAYERS = 8
+SERVE_DECODE_LEN, SERVE_LONG_LEN = 32_752, 524_272
+SERVE_CHAIN_PROMPT, SERVE_CHAIN_PAD, SERVE_CHAIN_B = 6_000, 6_016, 2
+SERVE_MARGIN = 6e9
+#: phase 29: the comparisons with the single device are gated on a cut of
+#: the model to SERVE_CHECK_LAYERS (one local and one global layer: both
+#: caches) in f32, where the mesh and the single device differ by f32
+#: roundings alone: every compared tensor within ``testing.
+#: bf16_lm_mismatch``'s bounds and DECODE_TOL's f32 bounds (max 0.05, mean
+#: 0.005: phase 23's for gemma's decode against forward in f32), and a
+#: planted fault (long_500k's steps at a position one ahead) must read past
+#: them. In bf16 no change of summation order holds ``bf16_lm_mismatch``'s
+#: max (2^-7 of the largest |logit|, 0.234 at 30) at published width: the
+#: single device's own decode against its forward reads max 1.0231 (phase
+#: 23); the mesh against the single device read max 0.886-1.285, mean
+#: 0.0747-0.0880 at 26 layers and, at 2 layers, max 0.1117 (prefill),
+#: 0.1849 (long_500k) and 0.2461 (decode_32k, the max over 32.8 million
+#: logits), mean 0.0085-0.0115 (NVIDIA H100 80GB HBM3, 700 W, one card as
+#: four logical shards). The bf16 readings at 26 layers are logged; the
+#: chain is held to forward at 26 layers in bf16 by DECODE_TOL.
+SERVE_CHECK_LAYERS = 2
 
 
 def log(*a):
@@ -5648,6 +5712,467 @@ def check_recsys_cards(cfg, spec, cards, smi: str) -> None:
         fail("; ".join(problems))
 
 
+def draw_cache(out, p: int, kv: int, g: int, rows, lo: int, slen: int
+               ) -> None:
+    """Fill ``out`` (len(rows), n, KV, dh), rows ``rows`` and positions
+    ``lo .. lo + n - 1`` of layer group ``g`` of the cache leaf pos{p}
+    (``kv`` 0 for k, 1 for v), from one normal draw a (leaf, group, row,
+    unit), a unit a 1 / SERVE_UNITS of the sequence. So a shard's block
+    and the single device's whole rows hold the same values."""
+    import torch
+
+    U = slen // SERVE_UNITS
+    for r, row in enumerate(rows):
+        for u in range(lo // U, (lo + out.shape[1]) // U):
+            seed = (((((29 * 8 + p) * 2 + kv) * 64 + g) * 1024 + row)
+                    * SERVE_UNITS + u)
+            gen = torch.Generator(device=out.device).manual_seed(seed)
+            out[r, u * U - lo:(u + 1) * U - lo].copy_(torch.randn(
+                (U,) + tuple(out.shape[2:]), generator=gen,
+                device=out.device, dtype=out.dtype))
+
+
+def drawn_cache(cfg, mesh, spec, batch: int, seq_len: int) -> dict:
+    """A decode cell's KV cache of ``batch`` rows laid out on ``mesh`` by
+    ``spec``, each block drawn on its device (``draw_cache``)."""
+    import torch
+    from repro_torch.distributed import partition
+
+    G, KV, dh = cfg.n_groups, cfg.n_kv_heads, cfg.head_dim
+    cache = {}
+    for p, w in enumerate(cfg.layer_pattern):
+        slen = min(w, seq_len) if w else seq_len
+        shape = (G, batch, slen, KV, dh)
+        for kv, name in enumerate(("k", "v")):
+            shards = []
+            for pos in range(mesh.size):
+                b = partition.block(shape, spec, mesh, pos)
+                t = torch.empty(tuple(s.stop - s.start for s in b),
+                                dtype=cfg.dtype,
+                                device=mesh.devices.flat[pos])
+                for g in range(G):
+                    draw_cache(t[g], p, kv, g, range(b[1].start, b[1].stop),
+                               b[2].start, slen)
+                shards.append(t)
+            cache.setdefault(f"pos{p}", {})[name] = partition.ShardedTensor(
+                mesh, spec, shape, cfg.dtype, shards)
+    return cache
+
+
+def check_lm_serve_mesh(dev, smi: str, four_cards: bool) -> None:
+    """Phase 29: the LM's prefill and decode plans on a (data, model) mesh
+    (``launch.steps.build_plan("gemma2-2b", cell)``, ``transformer.
+    sharded_prefill`` / ``sharded_decode_step``), gemma2-2b at published
+    width on 2 x 2, one placed set of weights for every cell
+    (``serve_legs``), at the published 26 layers in bf16 (on one card at
+    SERVE_ONE_CARD_LAYERS), then at SERVE_CHECK_LAYERS in f32.
+
+    prefill_32k at S = 32,768 and SERVE_PREFILL_B rows (B = 32 too on four
+    cards when that took under SERVE_BIG_S): ms a call, the bf16-peak
+    share (``launch/model_flops.py``'s prefill term over 989 TFLOP/s a
+    card), peak GB a card; rows 0-1's logits and cache against the single
+    device's ``transformer.prefill``. long_500k: B = 1, SERVE_STEPS steps
+    from SERVE_LONG_LEN, against the same plan on a 1 x 1 mesh on card 0.
+    decode_32k at the cell's B = 128 (or the largest even batch whose
+    cache fits with SERVE_MARGIN left, the cut logged), its cache drawn
+    shard by shard on its card, SERVE_STEPS steps from cache_len
+    SERVE_DECODE_LEN: rows 0..SERVE_REF_ROWS - 1 against the single
+    device's ``decode_step`` on their slice of the same cache. Each decode
+    cell's ms a step beside its bytes bound (a card's cache block and
+    weights over 3.35 TB/s) and peak GB a card. At 26 layers a prompt of
+    SERVE_CHAIN_PROMPT tokens through ``sharded_prefill(pad_to=
+    SERVE_CHAIN_PAD)`` and SERVE_STEPS steps of the decode plan, each
+    step's logits against the single device's forward at that position
+    (DECODE_TOL, phase 23's), run twice: the same bits.
+
+    The comparisons with the single device, the chain's rerun and a
+    planted fault are gated at SERVE_CHECK_LAYERS in f32 (see there); at
+    26 layers in bf16 the readings are logged, on four cards. On one card
+    the bf16 cells run at SERVE_ONE_CARD_LAYERS, without the single device.
+    With ``four_cards`` the mesh must be four distinct cards."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    spec = C.get_arch("gemma2-2b")
+    cfg = spec.make_config()
+    mesh = make_host_mesh(*SERVE_MESH)
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    if four_cards and len(cards) != 4:
+        fail(f"--sharded needs a mesh of four distinct cards; "
+             f"make_host_mesh{SERVE_MESH} sits on {[str(d) for d in cards]}")
+    log(f"[29] the LM's prefill and decode plans on a (data, model) mesh, "
+        f"gemma2-2b at published width (d_model {cfg.d_model}, "
+        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, {cfg.dtype}); "
+        f"{smi}; make_host_mesh{SERVE_MESH} sits on "
+        f"{[str(d) for d in mesh.devices.flat]}")
+    problems = []
+    serve_legs(spec, cfg if four_cards else dataclasses.replace(
+        cfg, n_layers=SERVE_ONE_CARD_LAYERS), mesh, four_cards, problems,
+        gate=False)
+    serve_legs(spec, dataclasses.replace(cfg, n_layers=SERVE_CHECK_LAYERS,
+                                         dtype=torch.float32),
+               mesh, four_cards, problems, gate=True)
+    log(f"    phase 29: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        fail("; ".join(problems))
+
+
+def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
+               gate: bool) -> None:
+    """Phase 29's cells (``check_lm_serve_mesh``) for ``cfg`` on ``mesh``.
+    With ``gate`` a comparison with the single device outside ``testing.
+    bf16_lm_mismatch``'s bounds or DECODE_TOL's for ``cfg.dtype`` is
+    appended to ``problems``, and so is a planted fault that reads within
+    them; without, the readings against ``bf16_lm_mismatch`` are logged.
+    Without ``gate`` on one card the cells run alone (the chain once, no
+    single device beside them)."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.distributed import partition
+    from repro_torch.launch import model_flops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+
+    arch = spec.arch_id
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    card0 = cards[0]
+    depth = f"{cfg.n_layers} layers in {str(cfg.dtype)[6:]}"
+    depth_of = {"n_layers": cfg.n_layers, "dtype": cfg.dtype}
+    single_too = gate or four_cards
+    steps = SERVE_STEPS
+    tol_max, tol_mean = DECODE_TOL[str(cfg.dtype)]
+    free_cards(cards)
+
+    def reset():
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+
+    def peaks():
+        return [round(torch.cuda.max_memory_allocated(c) / 1e9, 2)
+                for c in cards]
+
+    def run_timed(fn):
+        sync_cards(cards)
+        t = time.perf_counter()
+        out = fn()
+        sync_cards(cards)
+        return out, (time.perf_counter() - t) * 1e3
+
+    def compare(label, got, want, record: bool = True):
+        """``testing.bf16_lm_mismatch``'s logits bounds on any two tensors
+        and, with ``gate``, DECODE_TOL's; the readings (max |diff|, mean
+        |diff|, max |want|) and why they are outside, or None."""
+        mx, mean, scale, _ = testing._max_and_mean_diff(got, want)
+        msg = testing.bf16_lm_mismatch(got, 0.0, {}, want, 0.0, {})
+        if msg is None and gate and not (mx <= tol_max and mean <= tol_mean):
+            msg = (f"max |diff| {mx:.4g} (tolerance {tol_max}), mean "
+                   f"{mean:.4g} (tolerance {tol_mean})")
+        if msg and gate and record:
+            problems.append(f"{label} at {depth}: {msg}")
+        return (mx, mean, scale), msg
+
+    def verdict(msg) -> str:
+        return ("within the bounds" if msg is None else
+                "outside the bounds" + (": FAILS" if gate else
+                                        " (logged at this depth)"))
+
+    def card_bytes(tensors, card) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors
+                   if t.device == card)
+
+    def first_rows(st, rows: int, dim: int = 0):
+        """Rows 0..rows - 1 (along ``dim``) of a ShardedTensor, whole on
+        card 0, each block from its first holder."""
+        shape = list(st.shape)
+        shape[dim] = rows
+        out = torch.empty(shape, dtype=st.dtype, device=card0)
+        for g in st.holders():
+            b = list(partition.block(st.shape, st.spec, st.mesh, g[0]))
+            lo, hi = b[dim].start, min(b[dim].stop, rows)
+            if lo < hi:
+                b[dim] = slice(lo, hi)
+                out[tuple(b)] = st.shards[g[0]].narrow(dim, 0, hi - lo).to(
+                    card0)
+        return out
+
+    def single_model():
+        m = transformer.init_params(cfg, generator=torch.Generator(
+            device=card0).manual_seed(29))
+        return m.requires_grad_(False)
+
+    bounds = (f"bounds {testing.BF16_LOGITS_TOL:.4g} and mean "
+              f"{testing.BF16_LOGITS_MEAN_TOL:.4g} of the largest"
+              + (f", max {tol_max} and mean {tol_mean}" if gate else ""))
+    model = transformer.init_sharded(cfg, mesh, generator=torch.Generator(
+        device=card0).manual_seed(29))
+    params = model.params
+    for st in params.values():
+        for s in st.shards:
+            s.requires_grad_(False)
+    w_card = [card_bytes([s for st in params.values() for s in st.shards], c)
+              for c in cards]
+    single = single_model()
+
+    # -- prefill_32k ---------------------------------------------------------
+    S = spec.cell("prefill_32k").dims["seq_len"]
+    cell_b = spec.cell("prefill_32k").dims["global_batch"]
+    plan = steps_lib.build_plan(arch, "prefill_32k", overrides=depth_of)
+    flops = model_flops.estimate(arch, "prefill_32k", cfg)[
+        "model_flops_global"]
+    sizes = [SERVE_PREFILL_B[four_cards]]
+    for B in sizes:
+        toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(B))
+        (tokens,) = steps_lib.place_inputs(plan, mesh, toks)
+        free_cards(cards)
+        reset()
+        try:
+            (logits, cache), ms = run_timed(lambda: plan.fn(params, tokens))
+        except torch.OutOfMemoryError as e:
+            log(f"    prefill_32k at {depth}, B = {B}: does not fit 2 x 2 "
+                f"({str(e).splitlines()[0]})")
+            free_cards(cards)
+            continue
+        share = flops * B / cell_b / (ms / 1e3 * PEAK_BF16_FLOPS * len(cards))
+        log(f"    prefill_32k at {depth}: B = {B} (the cell's {cell_b} cut "
+            f"for the phase's time), S = {S:,}: {ms:.1f} ms a call, "
+            f"{B * S / ms * 1e3:,.0f} tokens/s, {share:.2%} of the bf16 "
+            f"peak, peak GB a card {peaks()}; logits {logits.spec}, cache "
+            f"{cache['pos1']['k'].spec}, a card's global-layer k block "
+            f"{tuple(cache['pos1']['k'].shards[0].shape)}")
+        if B == sizes[0] and single_too:
+            with torch.no_grad():
+                w_lg, w_cache = transformer.prefill(cfg, single,
+                                                    toks[:2].to(card0))
+            r, msg = compare("prefill_32k rows 0-1 logits",
+                             first_rows(logits, 2), w_lg)
+            worst, bad = ("logits", r), [msg]
+            for p in range(cfg.pattern_len):
+                for name in ("k", "v"):
+                    rc, msg = compare(
+                        f"prefill_32k rows 0-1 cache pos{p}.{name}",
+                        first_rows(cache[f"pos{p}"][name], 2, 1),
+                        w_cache[f"pos{p}"][name])
+                    bad.append(msg)
+                    if rc[0] / rc[2] > worst[1][0] / worst[1][2]:
+                        worst = (f"cache pos{p}.{name}", rc)
+            log(f"    prefill_32k at {depth}, rows 0-1 against the single "
+                f"device's prefill: logits max |diff| {r[0]:.4g}, mean "
+                f"{r[1]:.4g} (largest |logit| {r[2]:.4g}); the worst of "
+                f"logits and cache leaves for its largest value: {worst[0]},"
+                f" max {worst[1][0]:.4g} of {worst[1][2]:.4g} ({bounds}): "
+                + verdict(next((m for m in bad if m), None)))
+            del w_lg, w_cache
+        if four_cards and not gate and ms < SERVE_BIG_S * 1e3 and \
+                B < SERVE_PREFILL_BIG:
+            sizes.append(SERVE_PREFILL_BIG)
+        del logits, cache, tokens
+    free_cards(cards)
+
+    # -- long_500k: the 1 x 1 mesh on card 0, then 2 x 2 ---------------------
+    plan = steps_lib.build_plan(arch, "long_500k", overrides=depth_of)
+    L0, Sl = SERVE_LONG_LEN, spec.cell("long_500k").dims["seq_len"]
+    toks = torch.randint(0, cfg.vocab_size, (steps, 1, 1),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(500))
+    mesh11 = make_host_mesh(1, 1)
+    params11 = {n: partition.ShardedTensor(
+        mesh11, plan.in_specs[0][n], tuple(t.shape), t.dtype, [t])
+        for n, t in single.named_parameters()}
+    out = {}
+    legs = (("1 x 1", mesh11, params11), ("2 x 2", mesh, params))
+    for label, m_, prm in legs[0 if single_too else 1:]:
+        m_cards = list(dict.fromkeys(m_.devices.flat))
+        free_cards(cards)
+        cache = drawn_cache(cfg, m_, plan.in_specs[1]["pos0"]["k"], 1, Sl)
+        reset()
+        got, step_ms = [], []
+        for j in range(steps):
+            (lg, cache), ms = run_timed(lambda: plan.fn(prm, cache, toks[j],
+                                                        L0 + j))
+            got.append(first_rows(lg, 1).to("cpu"))
+            step_ms.append(ms)
+        pk = peaks()[:len(m_cards)]
+        c_bytes = [card_bytes([s for c in cache.values() for st in c.values()
+                               for s in st.shards], c) for c in m_cards]
+        w_bytes = [card_bytes([s for st in prm.values() for s in st.shards],
+                              c) for c in m_cards]
+        bound = max(c + w for c, w in zip(c_bytes, w_bytes)) / PEAK_BYTES_S
+        prof = (_mesh_profile(lambda: plan.fn(prm, cache, toks[-1],
+                                              L0 + steps - 1),
+                              f"one long_500k step on {label} at {depth}",
+                              m_cards)
+                if label == "2 x 2" and not gate else None)
+        out[label] = torch.stack(got)
+        log(f"    long_500k at {depth} on {label}: B = 1, the cache's "
+            f"{Sl:,} positions ({sum(c_bytes) / 1e9:.2f} GB, "
+            f"{max(c_bytes) / 1e9:.2f} GB a card) from cache_len {L0:,}, "
+            f"{steps} steps: {np.median(step_ms):.2f} ms a step "
+            f"(median; {min(step_ms):.2f}-{max(step_ms):.2f}) against its "
+            f"bytes bound {bound * 1e3:.3f} ms (a card's cache block and "
+            f"weights over 3.35 TB/s), peak GB a card {pk}"
+            + (f"; busy share {prof['busy_share']:.1%}" if prof else ""))
+        del cache, lg
+    if single_too:
+        r, msg = compare("long_500k 2 x 2 against 1 x 1", out["2 x 2"],
+                         out["1 x 1"])
+        log(f"    long_500k at {depth}: 2 x 2 against 1 x 1 over {steps} "
+            f"steps: max |diff| {r[0]:.4g}, mean {r[1]:.4g} (largest "
+            f"|logit| {r[2]:.4g}; {bounds}): {verdict(msg)}")
+    if gate:
+        # a planted fault: every step at a position one ahead
+        cache = drawn_cache(cfg, mesh, plan.in_specs[1]["pos0"]["k"], 1, Sl)
+        got = []
+        for j in range(steps):
+            lg, cache = plan.fn(params, cache, toks[j], L0 + j + 1)
+            got.append(first_rows(lg, 1).to("cpu"))
+        rf, msg = compare("", torch.stack(got), out["1 x 1"], record=False)
+        log(f"    long_500k at {depth}, a planted fault (each step's "
+            f"position one ahead): max |diff| {rf[0]:.4g}, mean "
+            f"{rf[1]:.4g}: " + ("past the bounds" if msg else
+                                "WITHIN the bounds: FAILS"))
+        if msg is None:
+            problems.append(f"long_500k at {depth}: the comparison cannot "
+                            "see a planted fault (positions one ahead)")
+        del cache, lg
+    del params11, out
+    free_cards(cards)
+
+    # -- prefill -> decode on the mesh ----------------------------------------
+    plan = steps_lib.build_plan(arch, "decode_32k", overrides=depth_of)
+    Pn, Pad, Bc = SERVE_CHAIN_PROMPT, SERVE_CHAIN_PAD, SERVE_CHAIN_B
+    toks = torch.randint(0, cfg.vocab_size, (Bc, Pad), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(6000))
+    with torch.no_grad():
+        x = transformer._embed(cfg, single, toks.to(card0))
+        x = transformer._final_hidden(
+            cfg, single, x, transformer._positions(Bc, Pad, card0),
+            remat=False)
+        want = transformer._lm_logits(cfg, single,
+                                      x[:, Pn - 1:Pn + steps])
+        del x
+    runs = []
+    for _ in range(2 if single_too else 1):
+        (lg, cache), pre_ms = run_timed(
+            lambda: transformer.sharded_prefill(cfg, model, toks[:, :Pn],
+                                                pad_to=Pad))
+        got, step_ms = [lg.gather(card0)], []
+        for j in range(steps):
+            n = Pn + j
+            (lg, cache), ms = run_timed(lambda: plan.fn(
+                params, cache, toks[:, n:n + 1], n))
+            got.append(lg.gather(card0))
+            step_ms.append(ms)
+        runs.append((torch.stack(got, 1), {
+            f"{p}.{k}": [s.to("cpu", copy=True) for s in st.shards]
+            for p, c in cache.items() for k, st in c.items()}))
+        del cache, lg
+    got = runs[0][0]
+    diff = (got - want).abs()
+    same = len(runs) == 2 and torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for k in runs[0][1]
+        for a, b in zip(runs[0][1][k], runs[1][1][k]))
+    log(f"    prefill -> decode at {depth} on 2 x 2: a {Pn:,}-token prompt "
+        f"(B = {Bc}) through sharded_prefill(pad_to={Pad:,}) in "
+        f"{pre_ms:.1f} ms, then {steps} decode steps "
+        f"({np.median(step_ms):.2f} ms a step, median): logits against the "
+        f"single device's forward at each position max |diff| "
+        f"{float(diff.max()):.4g} (tolerance {tol_max}), mean "
+        f"{float(diff.mean()):.4g} (tolerance {tol_mean}), the same argmax "
+        f"at {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+        f"{got.shape[0] * got.shape[1]}"
+        + ("" if len(runs) == 1 else "; a rerun " + (
+            "the same bits (logits and cache)" if same else
+            "NOT the same bits")))
+    if not (torch.isfinite(got).all() and diff.max() <= tol_max
+            and diff.mean() <= tol_mean):
+        problems.append(f"the chain's logits at {depth} differ from "
+                        f"forward's: max {float(diff.max()):.4g}, mean "
+                        f"{float(diff.mean()):.4g}")
+    if len(runs) == 2 and not same:
+        problems.append(f"the chain's rerun at {depth} is not the same bits")
+    del runs, got, want, diff
+
+    # -- decode_32k: the single device's rows first, then the mesh -------------
+    dcell = spec.cell("decode_32k")
+    Sd, Bcell = dcell.dims["seq_len"], dcell.dims["global_batch"]
+    D0 = SERVE_DECODE_LEN
+    lengths = [min(w, Sd) if w else Sd for w in cfg.layer_pattern]
+    toks = torch.randint(0, cfg.vocab_size, (steps, Bcell, 1),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(128))
+    want, ref_ms = [], []
+    if single_too:
+        # the single device on rows 0..SERVE_REF_ROWS - 1 of the same cache
+        ref = {}
+        for p, n in enumerate(lengths):
+            for kv, name in enumerate(("k", "v")):
+                t = torch.empty((cfg.n_groups, SERVE_REF_ROWS, n,
+                                 cfg.n_kv_heads, cfg.head_dim),
+                                dtype=cfg.dtype, device=card0)
+                for g in range(cfg.n_groups):
+                    draw_cache(t[g], p, kv, g, range(SERVE_REF_ROWS), 0, n)
+                ref.setdefault(f"pos{p}", {})[name] = t
+        for j in range(steps):
+            (lg, ref), ms = run_timed(lambda: transformer.decode_step(
+                cfg, single, ref, toks[j, :SERVE_REF_ROWS].to(card0),
+                D0 + j))
+            want.append(lg.to("cpu"))
+            ref_ms.append(ms)
+        del ref, lg
+    del single
+    free_cards(cards)
+    row_bytes = sum(2 * cfg.n_groups * n * cfg.n_kv_heads * cfg.head_dim
+                    * cfg.dtype.itemsize for n in lengths)
+    free_b = min(torch.cuda.mem_get_info(c)[0] for c in cards)
+    per_card = row_bytes * (mesh.size // len(cards)) / mesh.size
+    B = int(min(Bcell, (free_b - SERVE_MARGIN) / per_card)) // 2 * 2
+    if B < SERVE_REF_ROWS:
+        fail(f"decode_32k: 2 x 2 holds {B} rows of its cache at {depth}, "
+             f"fewer than the {SERVE_REF_ROWS} compared")
+    toks = toks[:, :B]
+    cache = drawn_cache(cfg, mesh, plan.in_specs[1]["pos0"]["k"], B, Sd)
+    c_bytes = [card_bytes([s for c in cache.values() for st in c.values()
+                           for s in st.shards], c) for c in cards]
+    bound = max(c + w for c, w in zip(c_bytes, w_card)) / PEAK_BYTES_S
+    reset()
+    got, step_ms = [], []
+    for j in range(steps):
+        (lg, cache), ms = run_timed(lambda: plan.fn(params, cache, toks[j],
+                                                    D0 + j))
+        got.append(first_rows(lg, SERVE_REF_ROWS).to("cpu"))
+        step_ms.append(ms)
+    pk = peaks()
+    prof = (None if gate else _mesh_profile(
+        lambda: plan.fn(params, cache, toks[-1], D0 + steps - 1),
+        f"one decode_32k step on 2 x 2 at {depth}", cards))
+    line = (f"    decode_32k at {depth}: B = {B}"
+            + (f" (the cell's {Bcell} cut: 2 x 2 on {len(cards)} card(s) "
+               f"holds no more with {SERVE_MARGIN / 1e9:.0f} GB left free)"
+               if B < Bcell else " (the cell's)")
+            + f", S = {Sd:,}, the cache {sum(c_bytes) / 1e9:.2f} GB "
+            f"({max(c_bytes) / 1e9:.2f} GB a card) drawn on its cards, "
+            f"{steps} steps from cache_len {D0:,}: "
+            f"{np.median(step_ms):.2f} ms a step (median; "
+            f"{min(step_ms):.2f}-{max(step_ms):.2f}) against its bytes "
+            f"bound {bound * 1e3:.3f} ms (a card's cache block and weights "
+            f"over 3.35 TB/s), peak GB a card {pk}"
+            + (f", busy share {prof['busy_share']:.1%}" if prof else ""))
+    if single_too:
+        r, msg = compare(f"decode_32k rows 0-{SERVE_REF_ROWS - 1}",
+                         torch.stack(got), torch.stack(want))
+        line += (f"; rows 0-{SERVE_REF_ROWS - 1} against the single device's "
+                 f"decode_step ({np.median(ref_ms):.2f} ms a step): max "
+                 f"|diff| {r[0]:.4g}, mean {r[1]:.4g} (largest |logit| "
+                 f"{r[2]:.4g}; {bounds}): {verdict(msg)}")
+    log(line)
+    del cache, lg, model, params
+    free_cards(cards)
+
+
 def main() -> None:
     import torch
 
@@ -5686,6 +6211,10 @@ def main() -> None:
     if "--recsys-mesh" in sys.argv[1:]:
         check_recsys_mesh(dev, smi, four_cards=sharded_only)
         log("recsys-mesh run: stopping after phase 28")
+        sys.exit(2)
+    if "--lm-serve-mesh" in sys.argv[1:]:
+        check_lm_serve_mesh(dev, smi, four_cards=sharded_only)
+        log("lm-serve-mesh run: stopping after phase 29")
         sys.exit(2)
 
     # -- 2. build --------------------------------------------------------
@@ -5839,7 +6368,9 @@ def main() -> None:
         check_gnn_mesh(dev, smi, four_cards=True)
         gc.collect()
         check_recsys_mesh(dev, smi, four_cards=True)
-        log(f"sharded run: stopping after phases 8 (f32), 20, 26, 27 and 28; "
+        gc.collect()
+        check_lm_serve_mesh(dev, smi, four_cards=True)
+        log(f"sharded run: stopping after phases 8 (f32), 20 and 26-29; "
             f"{time.perf_counter() - t_start:.0f} s")
         sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
@@ -6087,6 +6618,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     check_recsys_mesh(torch.device("cuda"), smi, four_cards=False)
+
+    # -- 29. the LM's prefill and decode plans on a (data, model) mesh --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_lm_serve_mesh(torch.device("cuda"), smi, four_cards=False)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",

@@ -9,7 +9,9 @@ process that owns every device of the mesh.
   :func:`place`, :meth:`ShardedTensor.gather`);
 * **collectives** are fixed-order sums and concatenations of
   ``Tensor.to`` copies (:func:`all_sum`, :func:`all_gather`,
-  :func:`all_max`, :func:`sum_to`, :func:`sum_scatter`). A sum is taken
+  :func:`all_max`, :func:`sum_to`, :func:`sum_scatter`), and a
+  re-layout from one sharded dimension to another (:func:`all_to_all`,
+  copies alone). A sum is taken
   once, on the first part's device, in part order, and copied to every
   holder; its backward sums the cotangents the same way. So the result
   never depends on a communication schedule, a step gives the same bits
@@ -300,6 +302,35 @@ def all_gather(parts: Sequence[Tensor], dim: int) -> List[Tensor]:
     if len(parts) == 1:
         return [parts[0]]
     return list(_AllGather.apply(dim, *parts))
+
+
+def all_to_all(parts: Sequence[Tensor], split_dim: Optional[int],
+               cat_dim: int, sources: Optional[Sequence[int]] = None
+               ) -> List[Tensor]:
+    """A re-layout along one mesh axis, from a tensor sharded along
+    ``cat_dim`` to one sharded along ``split_dim``. ``parts`` (one a
+    device of the axis, in axis order) hold the blocks of ``cat_dim``:
+    ``sources`` names, for each block in order, the part that holds it
+    (every part its own block by default; where several parts hold
+    copies of one block, name its first holder). Part m of the result, on
+    part m's device, is block m of ``split_dim`` (``len(parts)`` equal
+    blocks) of each source, concatenated along ``cat_dim`` in order; with
+    ``split_dim`` None every part takes the sources whole (an all-gather
+    of distinct blocks). Copies only, in a fixed order; no gradient."""
+    n = len(parts)
+    src = list(range(n)) if sources is None else list(sources)
+    if split_dim is not None and parts[0].shape[split_dim] % n:
+        raise ValueError(f"dimension {split_dim} of {tuple(parts[0].shape)} "
+                         f"does not split into {n} blocks")
+    w = None if split_dim is None else parts[0].shape[split_dim] // n
+    out = []
+    with record_function("mesh.all_to_all"):
+        for m, p in enumerate(parts):
+            blocks = [parts[j].detach() if w is None else
+                      parts[j].detach().narrow(split_dim, m * w, w)
+                      for j in src]
+            out.append(torch.cat([b.to(p.device) for b in blocks], cat_dim))
+    return out
 
 
 def sum_to(parts: Sequence[Tensor], device) -> Tensor:

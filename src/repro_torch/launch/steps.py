@@ -31,8 +31,17 @@ row, as in ``lax.top_k``. The dense candidates lie over ("data",
 "model") (``recsys_input_shardings``: every position scores its own
 block), where the reference's plan lays them over ``data`` alone (10^6
 rows do not split over its 256-way mesh); the reduced index's coords lie
-over ``data`` as the reference's do, its transform replicated. The LM's
-prefill and decode plans and the multi-pod mesh are ROADMAP A, item 3b.
+over ``data`` as the reference's do, its transform replicated. So are
+the LM's prefill and decode plans (``transformer.sharded_prefill``,
+``sharded_decode_step``): the prompt over ``data``, its logits laid out
+P(dp, "model") and its KV cache P(None, dp, "model", None, None), the
+batch over ``data`` and the sequence over ``model``; a decode step against
+that cache (the 500k decode's one row replicated, its cache's sequence
+over ("data", "model")), whose new keys and values the step writes in
+place, as the train plans update their state in place. ``place_inputs``
+lays a prefill's tokens or a decode's cache and token out by the plan's
+specs. The multi-pod mesh comes with the dry-run (ROADMAP A, item 3b,
+item 4).
 """
 from __future__ import annotations
 
@@ -134,6 +143,67 @@ def _lm_train_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
         in_specs=(pspecs, ospecs, in_shard["batch"]),
         out_specs=(pspecs, ospecs, shard_lib.P()),
         cfg=cfg, skip=cell.skip)
+
+
+def _lm_serve_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
+    dp = shard_lib.data_axes(multi_pod)
+    params_shape = dict(transformer.Transformer(cfg, device="meta")
+                        .named_parameters())
+    pspecs = shard_lib.lm_param_specs(params_shape)
+    ins = C.input_specs(spec, cfg, cell)
+    in_shard = shard_lib.lm_input_shardings(cell.kind, cell.shape,
+                                            multi_pod, cfg)
+
+    def cache_specs(leaf_spec) -> dict:
+        return {f"pos{p}": {"k": leaf_spec, "v": leaf_spec}
+                for p in range(cfg.pattern_len)}
+
+    def model_of(params):
+        return transformer.ShardedTransformer(cfg, _mesh_of(params), params)
+
+    if cell.kind == "prefill":
+        def prefill_step(params: dict, tokens):
+            """(the last position's logits (B, Vp) laid out P(dp,
+            "model"), the KV cache laid out P(None, dp, "model", None,
+            None)) of the prompt ``tokens`` (B, S): whole, or laid out
+            P(dp, None)."""
+            return transformer.sharded_prefill(cfg, model_of(params), tokens)
+
+        return StepPlan(
+            spec.arch_id, cell.shape, cell.kind, prefill_step,
+            args=(params_shape, _meta(ins["tokens"])),
+            in_specs=(pspecs, in_shard["tokens"]),
+            out_specs=(shard_lib.P(dp, "model"), cache_specs(
+                shard_lib.P(None, dp, "model", None, None))),
+            cfg=cfg, skip=cell.skip)
+
+    cache_spec = cache_specs(in_shard["cache"])
+    logits_spec = (shard_lib.P(None, "model") if cell.shape == "long_500k"
+                   else shard_lib.P(dp, "model"))
+
+    def decode_step(params: dict, cache: dict, token, cache_len):
+        """(logits (B, Vp) laid out by the plan's first out spec, the
+        cache) of one token against ``cache`` (laid out by ``in_specs``),
+        whose new keys and values are written in place, as the trainer's
+        plans update their state in place. ``token`` (B, 1): whole or
+        laid out by its in spec; ``cache_len`` an int or a scalar
+        tensor."""
+        return transformer.sharded_decode_step(cfg, model_of(params), cache,
+                                               token, cache_len)
+
+    return StepPlan(
+        spec.arch_id, cell.shape, cell.kind, decode_step,
+        args=(params_shape, _meta_tree(ins["cache"]), _meta(ins["token"]),
+              _meta(ins["cache_len"])),
+        in_specs=(pspecs, cache_spec, in_shard["token"],
+                  in_shard["cache_len"]),
+        out_specs=(logits_spec, cache_spec),
+        cfg=cfg, skip=cell.skip)
+
+
+def _meta_tree(tree: dict) -> dict:
+    return {k: _meta_tree(v) if isinstance(v, dict) else _meta(v)
+            for k, v in tree.items()}
 
 
 def _opt_shape(params_shape: dict) -> AdamWState:
@@ -345,6 +415,21 @@ def place_args(plan: StepPlan, mesh, params: dict,
     return placed, ost
 
 
+def place_inputs(plan: StepPlan, mesh, *inputs) -> tuple:
+    """The plan's arguments after the parameters (a prefill's tokens; a
+    decode's cache, token and cache length), each laid out on ``mesh`` by
+    its ``in_specs`` entry: a tensor placed, a nested dict leaf by leaf,
+    a Python number as it is."""
+    def lay(x, spec):
+        if isinstance(x, dict):
+            return {k: lay(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            return partition.place(x, spec, mesh)
+        return x
+
+    return tuple(lay(x, s) for x, s in zip(inputs, plan.in_specs[1:]))
+
+
 def build_plan(
     arch_id: str,
     shape: str,
@@ -354,24 +439,22 @@ def build_plan(
     overrides: Optional[dict] = None,
 ) -> StepPlan:
     """overrides: config-field replacements, e.g. ``{"n_microbatches":
-    4}``, ``{"edge_chunks": 32}`` or ``{"retrieval_mode": "zen"}``. The LM
-    family's train cells, the GNN family's and every recsys cell (ROADMAP
-    A, item 3b for the LM's prefill and decode)."""
+    4}``, ``{"edge_chunks": 32}`` or ``{"retrieval_mode": "zen"}``. Every
+    cell of every family; the multi-pod mesh raises (ROADMAP A, item 3b:
+    it comes with the dry-run, item 4)."""
     spec = C.get_arch(arch_id)
     cell = spec.cell(shape)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if spec.family != "recsys" and cell.kind != "train":
-        raise NotImplementedError(
-            f"the {spec.family} family's {cell.kind} plan ({arch_id}, "
-            f"{shape}) is ROADMAP A, item 3b; the train plans and the "
-            "recsys plans are ported")
     if multi_pod:
         raise NotImplementedError(
-            "the multi-pod mesh comes with the dry-run (ROADMAP A, item 3b)")
+            "the multi-pod mesh comes with the dry-run (ROADMAP A, item "
+            "3b, item 4)")
     if spec.family == "gnn":
         return _gnn_train_plan(spec, cfg, cell, multi_pod)
     if spec.family == "recsys":
         return _recsys_plan(spec, cfg, cell, multi_pod)
-    return _lm_train_plan(spec, cfg, cell, multi_pod)
+    if cell.kind == "train":
+        return _lm_train_plan(spec, cfg, cell, multi_pod)
+    return _lm_serve_plan(spec, cfg, cell, multi_pod)

@@ -120,6 +120,22 @@ def rope(x: Tensor, positions: Tensor, *, theta: float = 10000.0) -> Tensor:
     return out.to(x.dtype)
 
 
+def _masked(scores: Tensor, kp: Tensor, qp: Tensor, *, causal: bool,
+            window: int) -> Tensor:
+    """``scores`` at -1e30 where key position ``kp`` is after query
+    position ``qp`` (causal) or ``window`` or more before it."""
+    mask = None
+    if causal:
+        mask = kp <= qp
+    if window:
+        inside = kp > qp - window
+        mask = inside if mask is None else mask & inside
+    if mask is None:
+        return scores
+    return torch.where(mask, scores, torch.full((), -1e30, dtype=scores.dtype,
+                                                device=scores.device))
+
+
 def _attn_block(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                 kv_pos: Tensor, *, causal: bool, window: int,
                 attn_softcap: float, scale: float) -> Tensor:
@@ -133,18 +149,9 @@ def _attn_block(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     scores = matmul_f32(qm, km).view(B, KV, G, qc, Skv) * scale
     if attn_softcap:
         scores = softcap(scores, attn_softcap)
-    kp = kv_pos[:, None, None, None, :]
-    qp = q_pos[:, None, None, :, None]
-    mask = None
-    if causal:
-        mask = kp <= qp
-    if window:
-        inside = kp > qp - window
-        mask = inside if mask is None else mask & inside
-    if mask is not None:
-        scores = torch.where(mask, scores,
-                             torch.full((), -1e30, dtype=scores.dtype,
-                                        device=scores.device))
+    scores = _masked(scores, kv_pos[:, None, None, None, :],
+                     q_pos[:, None, None, :, None], causal=causal,
+                     window=window)
     probs = torch.softmax(scores, dim=-1)
     # bhgqk,bkhd->bqhgd
     pm = probs.to(v.dtype).reshape(B * KV, G * qc, Skv)
@@ -185,6 +192,28 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, q_positions: Tensor,
                     **kw).to(q.dtype)
         for lo in range(0, Sq + pad, query_chunk)]
     return torch.cat(out, dim=1)[:, :Sq].reshape(B, Sq, H, dh)
+
+
+def decode_scores(q: Tensor, k: Tensor, q_pos: Tensor, kv_pos: Tensor, *,
+                  window: int, attn_softcap: float, scale: float) -> Tensor:
+    """One query a row against a block of keys, scored as ``_attn_block``
+    scores (f32 products, scale, softcap, causal and window masks at
+    -1e30): q (B, KV, G, dh), k (B, n, KV, dh), q_pos (B,), kv_pos (B, n)
+    -> (B, KV, G, n) f32. One product a KV head over a strided view of
+    ``k``, so a cache block is read where it lies, not copied."""
+    s = torch.stack([matmul_f32(q[:, h], k[:, :, h].transpose(1, 2))
+                     for h in range(k.shape[2])], 1) * scale
+    if attn_softcap:
+        s = softcap(s, attn_softcap)
+    return _masked(s, kv_pos[:, None, None, :], q_pos[:, None, None, None],
+                   causal=True, window=window)
+
+
+def decode_values(probs: Tensor, v: Tensor) -> Tensor:
+    """probs (B, KV, G, n) in v's dtype against v (B, n, KV, dh) -> (B,
+    KV, G, dh) f32, one product a KV head (``v`` not copied)."""
+    return torch.stack([matmul_f32(probs[:, h], v[:, :, h])
+                        for h in range(v.shape[2])], 1)
 
 
 # -- parameter helpers --------------------------------------------------------

@@ -26,8 +26,10 @@ qwen1.5-0.5b, gemma2-2b, granite-8b (dense).
 
 The reference's ``ActShard`` constraints are GSPMD hints; the port has no
 such argument. Its sharded path (``init_sharded``, ``sharded_loss_fn``,
-the end of this module) lays the leaves out on a (data, model) mesh by the
-reference's partition rules and computes the same function.
+``sharded_prefill``, ``sharded_decode_step``, the end of this module) lays
+the leaves out on a (data, model) mesh by the reference's partition rules
+and computes the same functions, the serving plans' KV cache with its
+sequence over ``model``.
 
 Embedding lookups go through ``layers.gather_rows``, whose backward is
 deterministic. Every product is taken with an f32 result
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -49,9 +52,12 @@ from repro_torch.distributed.partition import (
     all_gather,
     all_max,
     all_sum,
+    all_to_all,
     axis_groups,
     place,
+    shard_key,
     sum_to,
+    zeros,
 )
 from repro_torch.distributed.sharding import P, lm_param_specs
 
@@ -472,11 +478,11 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, seq_len: int, *,
     return caches
 
 
-def _ring_positions(cache_len: int, slen: int, batch: int, device
-                    ) -> Tensor:
+def _ring_positions(cache_len: int, slen: int, batch: int, device,
+                    lo: int = 0, n: Optional[int] = None) -> Tensor:
     """Absolute position held by each ring-buffer slot (invalid -> far
-    future)."""
-    slots = torch.arange(slen, device=device)
+    future): slots ``lo .. lo + n - 1`` (all by default) of ``slen``."""
+    slots = torch.arange(lo, slen if n is None else lo + n, device=device)
     # latest absolute position congruent to slot (mod slen) strictly
     # before cache_len
     rem = torch.remainder(cache_len - 1 - slots, slen)
@@ -484,7 +490,41 @@ def _ring_positions(cache_len: int, slen: int, batch: int, device
     pos = torch.where(pos >= 0, pos, torch.full_like(pos, _FAR))
     if cache_len <= 0:
         pos = torch.full_like(pos, _FAR)
-    return pos.expand(batch, slen)
+    return pos.expand(batch, slots.numel())
+
+
+def _global_positions(cache_len: int, batch: int, device, lo: int, n: int
+                      ) -> Tensor:
+    """Absolute position of global-cache slots ``lo .. lo + n - 1``
+    (slot p holds position p; a slot at or past ``cache_len`` -> far
+    future)."""
+    pos = torch.arange(lo, lo + n, device=device)
+    pos = torch.where(pos < cache_len, pos, torch.full_like(pos, _FAR))
+    return pos.expand(batch, n)
+
+
+def _cache_lengths(cfg: TransformerConfig, seq_len: int,
+                   pad_to: Optional[int] = None) -> list:
+    """Each pattern position's cache length after a prompt of ``seq_len``
+    tokens: a ring buffer of min(window, seq_len), or the global length
+    padded to ``pad_to``."""
+    glob = pad_to if pad_to is not None and pad_to > seq_len else seq_len
+    return [min(w, seq_len) if w else glob for w in cfg.layer_pattern]
+
+
+def _to_cache(k: Tensor, window: int, pad_to: Optional[int]) -> Tensor:
+    """A layer's prompt keys or values (B, S, ...) in the cache's layout:
+    a sliding-window layer's last ``window`` positions rolled into the ring
+    (position p at slot p % window), a global layer's padded to
+    ``pad_to`` positions."""
+    S = k.shape[1]
+    if window:
+        if window < S:
+            return torch.roll(k[:, -window:], (S - window) % window, dims=1)
+        return k
+    if pad_to is not None and pad_to > S:
+        return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_to - S))
+    return k
 
 
 @torch.no_grad()
@@ -511,9 +551,8 @@ def decode_step(cfg: TransformerConfig, model: Transformer, cache: dict,
                 # at slot p % window; every occupied slot is in the window
                 kv_pos = _ring_positions(cache_len, slen, B, token.device)
             else:
-                kv_pos = _positions(B, slen, token.device)
-                kv_pos = torch.where(kv_pos < cache_len, kv_pos,
-                                     torch.full_like(kv_pos, _FAR))
+                kv_pos = _global_positions(cache_len, B, token.device, 0,
+                                           slen)
             x, (k_new, v_new) = _one_layer(cfg, p, x, positions, window,
                                            kv=(ck, cv), kv_positions=kv_pos)
             slot = (cache_len % max(slen, 1) if window
@@ -545,17 +584,8 @@ def prefill(cfg: TransformerConfig, model: Transformer, tokens: Tensor, *,
             for pos, p in enumerate(group):
                 window = cfg.layer_pattern[pos]
                 x, (k, v) = _one_layer(cfg, p, x, positions, window)
-                if window:
-                    if window < S:
-                        # ring layout: position p lives at slot p % window
-                        shift = (S - window) % window
-                        k = torch.roll(k[:, -window:], shift, dims=1)
-                        v = torch.roll(v[:, -window:], shift, dims=1)
-                elif pad_to is not None and pad_to > S:
-                    widths = (0, 0, 0, 0, 0, pad_to - S)
-                    k = torch.nn.functional.pad(k, widths)
-                    v = torch.nn.functional.pad(v, widths)
-                caches.append((k, v))
+                caches.append((_to_cache(k, window, pad_to),
+                               _to_cache(v, window, pad_to)))
             return x, caches
         x, caches = _remat(cfg, body)(x)
         for pos, (k, v) in enumerate(caches):
@@ -606,8 +636,16 @@ def embeddings(cfg: TransformerConfig, model: Transformer,
 # shard on the same bits.
 
 
-def check_mesh(cfg: TransformerConfig, mesh) -> None:
-    """Raise unless ``cfg`` splits over the mesh's model axis."""
+#: the dimensions of a KV cache leaf, by name
+_CACHE_DIMS = ("group", "batch", "sequence", "KV head", "head")
+
+
+def check_mesh(cfg: TransformerConfig, mesh, *,
+               cache: Optional[dict] = None) -> None:
+    """Raise unless ``cfg`` splits over the mesh's model axis and, given
+    ``cache`` (leaf name -> (shape, spec) of a KV cache), every cache leaf
+    splits over its spec's axes. The reference pads a cache length that
+    does not split; the port refuses it, naming the dimension."""
     M = mesh.shape["model"]
     H, KV = cfg.n_heads, cfg.n_kv_heads
     bad = []
@@ -628,6 +666,13 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
             bad.append(f"shared-expert width % M on {M} model shards")
     elif cfg.d_ff % M:
         bad.append(f"d_ff % M: {cfg.d_ff} on {M} model shards")
+    for name, (shape, spec) in (cache or {}).items():
+        for d, size in enumerate(shape):
+            n = math.prod(mesh.shape[a] for a in spec.axes(d))
+            if size % n:
+                bad.append(f"dimension {d} ({_CACHE_DIMS[d]}) of the {name} "
+                           f"cache {tuple(shape)} ({size}) does not split "
+                           f"into {n} shards ({spec})")
     if bad:
         raise ValueError(f"{cfg.name} does not split over the mesh "
                          f"{dict(mesh.shape)}: " + "; ".join(bad))
@@ -692,21 +737,26 @@ def _kv_columns(cfg: TransformerConfig, ps: list, name: str) -> list:
     return out
 
 
-def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
-                   positions: list, window: int, total_tokens: int) -> list:
-    """``_one_layer`` over the model shards of one data replica (of a
-    batch of ``total_tokens`` tokens)."""
-    dh, H = cfg.head_dim, cfg.n_heads
-    M = len(ps)
-    Hl = H // M
-    act = L.ActFn(cfg.act)
-    npo = cfg.norm_plus_one
-    hs = [L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=npo)
-          for x, p in zip(xs, ps)]
+def _kv_sources(cfg: TransformerConfig, M: int) -> list:
+    """For each KV head in order, the first of M model shards holding it:
+    every shard its own block of KV heads when n_kv_heads % M == 0, else
+    (M a multiple of n_kv_heads) the first of the M / n_kv_heads shards
+    whose q heads share it."""
+    KV = cfg.n_kv_heads
+    if KV % M == 0:
+        return list(range(M))
+    return [kv * (M // KV) for kv in range(KV)]
+
+
+def _sharded_qkv(cfg: TransformerConfig, ps: list, hs: list,
+                 positions: list) -> tuple:
+    """Each model shard's q (B, S, H / M, dh) and k, v (B, S, its KV heads,
+    dh) in the dtype, RoPE applied, from its normed input ``hs[m]``."""
+    dh, Hl = cfg.head_dim, cfg.n_heads // len(ps)
     wk, wv = _kv_columns(cfg, ps, "wk"), _kv_columns(cfg, ps, "wv")
     if cfg.qkv_bias:
         bk, bv = _kv_columns(cfg, ps, "bk"), _kv_columns(cfg, ps, "bv")
-    heads = []
+    qs, ks, vs = [], [], []
     for m, (p, h, pos) in enumerate(zip(ps, hs, positions)):
         B, S, _ = h.shape
         q = L.matmul_f32(h, p["wq"])
@@ -717,13 +767,19 @@ def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
         q = q.reshape(B, S, Hl, dh).to(cfg.dtype)
         k = k.reshape(B, S, -1, dh).to(cfg.dtype)
         v = v.reshape(B, S, -1, dh).to(cfg.dtype)
-        q = L.rope(q, pos, theta=cfg.rope_theta)
-        k = L.rope(k, pos, theta=cfg.rope_theta)
-        attn = L.attention(
-            q, k, v, q_positions=pos, kv_positions=pos, causal=True,
-            window=window, attn_softcap=cfg.attn_softcap,
-            query_chunk=cfg.query_chunk)
-        heads.append(attn.reshape(B, S, Hl * dh))
+        qs.append(L.rope(q, pos, theta=cfg.rope_theta))
+        ks.append(L.rope(k, pos, theta=cfg.rope_theta))
+        vs.append(v)
+    return qs, ks, vs
+
+
+def _sharded_tail(cfg: TransformerConfig, ps: list, xs: list, heads: list,
+                  total_tokens: int) -> list:
+    """The rest of ``_one_layer`` after attention over the model shards:
+    ``wo`` row-parallel over each shard's heads (B, S, H / M * dh), the
+    post-norm and residual, then the FFN block."""
+    act = L.ActFn(cfg.act)
+    npo = cfg.norm_plus_one
     attn = L.row_parallel(heads, [p["wo"] for p in ps], cfg.dtype)
     if cfg.post_norms:
         attn = [L.rms_norm(a, p["ln1_post"], cfg.norm_eps, plus_one=npo)
@@ -752,6 +808,28 @@ def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
     return [x + f for x, f in zip(xs, ffn)]
 
 
+def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
+                   positions: list, window: int, total_tokens: int,
+                   kv_out: Optional[list] = None) -> list:
+    """``_one_layer`` over the model shards of one data replica (of a
+    batch of ``total_tokens`` tokens). With ``kv_out``, each shard's keys
+    and values (lists over the shards) are appended to it."""
+    hs = [L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+          for x, p in zip(xs, ps)]
+    qs, ks, vs = _sharded_qkv(cfg, ps, hs, positions)
+    if kv_out is not None:
+        kv_out.append((ks, vs))
+    heads = []
+    for q, k, v, pos in zip(qs, ks, vs, positions):
+        B, S = q.shape[:2]
+        attn = L.attention(
+            q, k, v, q_positions=pos, kv_positions=pos, causal=True,
+            window=window, attn_softcap=cfg.attn_softcap,
+            query_chunk=cfg.query_chunk)
+        heads.append(attn.reshape(B, S, -1))
+    return _sharded_tail(cfg, ps, xs, heads, total_tokens)
+
+
 def _sharded_group(cfg: TransformerConfig, body, xs: list, ps: list) -> list:
     """``body(xs, ps) -> xs`` for one layer group (``ps[m][pos]`` the
     leaves of shard m's layer at pattern position pos), under the config's
@@ -776,31 +854,25 @@ def _sharded_group(cfg: TransformerConfig, body, xs: list, ps: list) -> list:
     return list(L.RematGroup.apply(fn, *xs, *flat))
 
 
-def _replica_logits(cfg: TransformerConfig, model: ShardedTransformer,
-                    row: list, tokens: list) -> list:
-    """One data replica's vocabulary-sharded logits (B, S, Vp / M) f32,
-    one a model shard, the padded columns at -1e30. ``tokens[m]`` are the
-    replica's rows on shard m's device."""
-    M = len(row)
+def _replica_embed(cfg: TransformerConfig, model: ShardedTransformer,
+                   row: list, tokens: list) -> list:
+    """The embedded rows of one data replica, one a model shard (the
+    vocabulary rows over ``model``, summed on every shard)."""
     p = model.params
     xs = L.gather_rows_sharded([p["embed"].shards[i] for i in row], tokens)
     xs = [x.to(cfg.dtype) for x in xs]
     if cfg.embed_scale:  # sqrt(d_model) rounded to the dtype first
         xs = [x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype,
                                device=x.device) for x in xs]
-    B, S = tokens[0].shape
-    total = B * S * model.mesh.shape["data"]
-    positions = [_positions(B, S, t.device) for t in tokens]
-    local = [_local_layers(cfg, model, i) for i in row]
+    return xs
 
-    def body(xs, ps):
-        for pos in range(cfg.pattern_len):
-            xs = _sharded_layer(cfg, [shard[pos] for shard in ps], xs,
-                                positions, cfg.layer_pattern[pos], total)
-        return xs
 
-    for g in range(cfg.n_groups):
-        xs = _sharded_group(cfg, body, xs, [lay[g] for lay in local])
+def _vocab_logits(cfg: TransformerConfig, model: ShardedTransformer,
+                  row: list, xs: list) -> list:
+    """The final norm and each model shard's vocabulary columns of the
+    logits (..., Vp / M) f32, the padded columns at -1e30."""
+    M = len(row)
+    p = model.params
     Vl = cfg.padded_vocab // M
     out = []
     for m, (i, x) in enumerate(zip(row, xs)):
@@ -816,6 +888,28 @@ def _replica_logits(cfg: TransformerConfig, model: ShardedTransformer,
                                  logits)
         out.append(logits)
     return out
+
+
+def _replica_logits(cfg: TransformerConfig, model: ShardedTransformer,
+                    row: list, tokens: list) -> list:
+    """One data replica's vocabulary-sharded logits (B, S, Vp / M) f32,
+    one a model shard, the padded columns at -1e30. ``tokens[m]`` are the
+    replica's rows on shard m's device."""
+    xs = _replica_embed(cfg, model, row, tokens)
+    B, S = tokens[0].shape
+    total = B * S * model.mesh.shape["data"]
+    positions = [_positions(B, S, t.device) for t in tokens]
+    local = [_local_layers(cfg, model, i) for i in row]
+
+    def body(xs, ps):
+        for pos in range(cfg.pattern_len):
+            xs = _sharded_layer(cfg, [shard[pos] for shard in ps], xs,
+                                positions, cfg.layer_pattern[pos], total)
+        return xs
+
+    for g in range(cfg.n_groups):
+        xs = _sharded_group(cfg, body, xs, [lay[g] for lay in local])
+    return _vocab_logits(cfg, model, row, xs)
 
 
 def _replica_nll(cfg: TransformerConfig, logits: list, tokens: list
@@ -884,3 +978,246 @@ def sharded_loss_fn(cfg: TransformerConfig, model: ShardedTransformer,
     total, ntokens = sum_to(nll_sums, dev), sum_to(counts, dev)
     loss = total / torch.clamp_min(ntokens, 1.0)
     return loss, {"loss": loss, "ntokens": ntokens}
+
+
+# -- sharded serving: prefill and decode ------------------------------------------
+#
+# The reference's serving plans lay the KV cache out (G, B, slen, KV, dh)
+# over P(None, "data", "model", None, None): the batch over ``data`` and
+# the sequence over ``model`` (the 500k decode: one row, the sequence over
+# ("data", "model")). The weights keep their training layout, heads over
+# ``model``. So a prefill's head-sharded keys and values are re-laid out
+# over the sequence (``partition.all_to_all``), and a decode step scores
+# each block of the cache where it lies: every shard of the block's
+# sequence group takes the whole q (gathered over the replica's model
+# shards), scores its block for every head, and the softmax is GSPMD's
+# lowering of the reference's, written out: the block maxima ``all_max``,
+# the exponentials, their sums ``all_sum``, each block's probabilities
+# normalised and cast to the dtype before its PV product, and the f32
+# partial outputs summed in group order. The new token's own column is
+# scored on the group's last shard under the same maximum and sum (the
+# cache is not concatenated). Only the shard holding the written slot
+# writes it.
+
+_PREFILL_CACHE = P(None, "data", "model", None, None)
+
+
+@torch.no_grad()
+def sharded_prefill(cfg: TransformerConfig, model: ShardedTransformer,
+                    tokens, *, pad_to: Optional[int] = None
+                    ) -> Tuple[ShardedTensor, dict]:
+    """``prefill`` on the mesh: (the last position's logits (B, Vp) f32
+    laid out P("data", "model"), the filled KV cache: pos{p} -> {"k",
+    "v"}, each (G, B, slen, KV, dh) laid out P(None, "data", "model",
+    None, None)). ``tokens``: a whole (B, S) tensor or laid out
+    P("data", None). Each data replica runs its rows as ``sharded_logits``
+    does, heads over ``model``; each layer's head-sharded keys and values
+    are cut into the ring or padded to ``pad_to`` on their shard
+    (``_to_cache``), then re-laid out over the sequence, each KV head
+    taken from its first holder."""
+    mesh = model.mesh
+    M = mesh.shape["model"]
+    rows = axis_groups(mesh, "model")
+    toks = _replica_tokens(model, tokens)
+    Bd, S = toks[0][0].shape
+    B = Bd * mesh.shape["data"]
+    lengths = _cache_lengths(cfg, S, pad_to)
+    G, KV, dh = cfg.n_groups, cfg.n_kv_heads, cfg.head_dim
+    check_mesh(cfg, mesh, cache={
+        f"pos{p}": ((G, B, n, KV, dh), _PREFILL_CACHE)
+        for p, n in enumerate(lengths)})
+    cache = {f"pos{p}": {kv: zeros((G, B, n, KV, dh), _PREFILL_CACHE, mesh,
+                                   cfg.dtype) for kv in ("k", "v")}
+             for p, n in enumerate(lengths)}
+    sources = _kv_sources(cfg, M)
+    xs = [_replica_embed(cfg, model, row, t) for row, t in zip(rows, toks)]
+    positions = [[_positions(Bd, S, x.device) for x in r] for r in xs]
+    local = [_local_layers(cfg, model, i) for i in range(mesh.size)]
+    # layer by layer, each replica in turn: one replica's launches do not
+    # queue up behind the other's whole forward
+    for g in range(G):
+        for pos, window in enumerate(cfg.layer_pattern):
+            for d, row in enumerate(rows):
+                kv = []
+                xs[d] = _sharded_layer(cfg, [local[i][g][pos] for i in row],
+                                       xs[d], positions[d], window, B * S,
+                                       kv_out=kv)
+                for name, parts in zip(("k", "v"), kv[0]):
+                    parts = [_to_cache(c, window, pad_to) for c in parts]
+                    leaf = cache[f"pos{pos}"][name]
+                    for i, blk in zip(row, all_to_all(parts, 1, 2, sources)):
+                        leaf.shards[i][g].copy_(blk)
+                del kv
+    logits = [None] * mesh.size
+    for row, x in zip(rows, xs):
+        for i, lg in zip(row, _vocab_logits(cfg, model, row,
+                                            [h[:, -1] for h in x])):
+            logits[i] = lg
+    out = ShardedTensor(mesh, P("data", "model"), (B, cfg.padded_vocab),
+                        torch.float32, logits)
+    return out, cache
+
+
+def _serve_layout(mesh, spec: P) -> tuple:
+    """The batch axes b of a cache ``spec`` P(None, b, s, None, None);
+    raises unless every mesh axis splits one of the batch and the
+    sequence, and the sequence takes ``model``."""
+    b_axes, s_axes = spec.axes(1), spec.axes(2)
+    if (len(spec) > 5 or spec.axes(0) or spec.axes(3) or spec.axes(4)
+            or "model" not in s_axes or set(b_axes) & set(s_axes)
+            or set(b_axes) | set(s_axes) != set(mesh.axis_names)):
+        raise ValueError(f"a decode step takes a cache laid out P(None, "
+                         f"batch axes, sequence axes with 'model', None, "
+                         f"None) over every axis of {mesh.axis_names}; "
+                         f"got {spec}")
+    return b_axes
+
+
+def _sequence_attention(cfg: TransformerConfig, group: list, qs: dict,
+                        knew: dict, vnew: dict, blocks: dict, cache_len: int,
+                        window: int) -> dict:
+    """One decode step's attention for one sequence group (``group``: the
+    positions holding the blocks of one batch block's sequence, in block
+    order). ``qs[i]`` (B, KV, G, dh), the new token's whole ``knew[i]`` /
+    ``vnew[i]`` (B, 1, KV, dh) and ``blocks[i]`` = (k block, v block,
+    kv_pos (B, n)) at position i. Returns the (B, KV, G, dh) f32 output,
+    the same bits on every position of the group."""
+    scale = cfg.head_dim**-0.5
+    kw = dict(window=window, attn_softcap=cfg.attn_softcap, scale=scale)
+    last = group[-1]
+    scores, new = [], None
+    for i in group:
+        k, _, kv_pos = blocks[i]
+        q_pos = torch.full((k.shape[0],), cache_len, device=k.device)
+        scores.append(L.decode_scores(qs[i], k, q_pos, kv_pos, **kw))
+        if i == last:  # the new token's own column
+            new = L.decode_scores(qs[i], knew[i], q_pos, q_pos[:, None], **kw)
+    maxima = [s.amax(-1, keepdim=True) for s in scores]
+    maxima[-1] = torch.maximum(maxima[-1], new)
+    mx = all_max(maxima)
+    exps = [torch.exp(s - m) for s, m in zip(scores, mx)]
+    e_new = torch.exp(new - mx[-1])
+    sums = [e.sum(-1, keepdim=True) for e in exps]
+    sums[-1] = sums[-1] + e_new
+    z = all_sum(sums)
+    outs = []
+    for i, e, zz in zip(group, exps, z):
+        v = blocks[i][1]
+        o = L.decode_values((e / zz).to(v.dtype), v)
+        if i == last:
+            o = o + L.decode_values((e_new / zz).to(v.dtype), vnew[i])
+        outs.append(o)
+    return dict(zip(group, all_sum(outs)))
+
+
+@torch.no_grad()
+def sharded_decode_step(cfg: TransformerConfig, model: ShardedTransformer,
+                        cache: dict, token, cache_len
+                        ) -> Tuple[ShardedTensor, dict]:
+    """``decode_step`` on the mesh against a sequence-sharded cache.
+
+    ``cache``: pos{p} -> {"k", "v"}, each (G, B, slen, KV, dh) laid out
+    P(None, b, s, None, None), the batch over axes b (``data``, or none)
+    and the sequence over axes s (``model``, or ("data", "model") for the
+    500k decode, whose one row every data replica runs). ``token`` (B, 1):
+    whole, or laid out P(b, None). Returns (logits (B, Vp) f32 laid out
+    P(b, "model"), ``cache``), the new token's keys and values written in
+    place into the shard holding the slot, as ``decode_step`` writes its
+    cache: slot ``cache_len % slen`` of a ring buffer, ``min(cache_len,
+    slen - 1)`` of a global cache (past the end the last slot)."""
+    mesh = model.mesh
+    M = mesh.shape["model"]
+    spec = cache["pos0"]["k"].spec
+    b_axes = _serve_layout(mesh, spec)
+    leaves = {f"{name}.{kv}": leaf for name, c in cache.items()
+              for kv, leaf in c.items()}
+    for name, leaf in leaves.items():
+        if leaf.spec != spec:
+            raise ValueError(f"cache leaf {name} is laid out {leaf.spec}, "
+                             f"not {spec}")
+    check_mesh(cfg, mesh, cache={n: (leaf.shape, leaf.spec)
+                                 for n, leaf in leaves.items()})
+    if isinstance(cache_len, ShardedTensor):
+        cache_len = cache_len.shards[0]
+    cache_len = int(cache_len)
+    B = cache["pos0"]["k"].shape[1]
+    if not isinstance(token, ShardedTensor):
+        token = place(token, P(spec[1], None), mesh)
+    elif token.spec.axes(0) != b_axes:
+        raise ValueError(f"the token is laid out {token.spec}; the cache's "
+                         f"batch lies over {b_axes}")
+    rows = axis_groups(mesh, "model")
+    # the sequence groups: the positions of one batch block, in block order
+    keys = [shard_key(spec, mesh, p) for p in range(mesh.size)]
+    groups = {}
+    for p in sorted(range(mesh.size), key=lambda p: keys[p][2]):
+        groups.setdefault(keys[p][1], []).append(p)
+    groups = list(groups.values())
+    seq_block = [k[2] for k in keys]
+    sources = _kv_sources(cfg, M)
+    Hl = cfg.n_heads // M
+    xs, positions, local = {}, {}, {}
+    for row in rows:
+        toks = [token.shards[i] for i in row]
+        for i, x in zip(row, _replica_embed(cfg, model, row, toks)):
+            xs[i] = x
+            positions[i] = torch.full(tuple(x.shape[:2]), cache_len,
+                                      device=x.device)
+            local[i] = _local_layers(cfg, model, i)
+    for g in range(cfg.n_groups):
+        for pos, window in enumerate(cfg.layer_pattern):
+            ck, cv = cache[f"pos{pos}"]["k"], cache[f"pos{pos}"]["v"]
+            slen = ck.shape[2]
+            qs, knew, vnew, blocks = {}, {}, {}, {}
+            for row in rows:
+                ps = [local[i][g][pos] for i in row]
+                hs = [L.rms_norm(xs[i], p["ln1"], cfg.norm_eps,
+                                 plus_one=cfg.norm_plus_one)
+                      for i, p in zip(row, ps)]
+                q, k, v = _sharded_qkv(cfg, ps, hs,
+                                       [positions[i] for i in row])
+                for i, qw, kw, vw in zip(row, all_gather(q, 2),
+                                         all_to_all(k, None, 2, sources),
+                                         all_to_all(v, None, 2, sources)):
+                    Bb = qw.shape[0]
+                    qs[i] = qw.reshape(Bb, cfg.n_kv_heads, -1, cfg.head_dim)
+                    knew[i], vnew[i] = kw, vw
+            for i in range(mesh.size):
+                kb, vb = ck.shards[i][g], cv.shards[i][g]
+                n = kb.shape[1]
+                lo = seq_block[i] * n
+                kv_pos = (_ring_positions(cache_len, slen, kb.shape[0],
+                                          kb.device, lo, n) if window else
+                          _global_positions(cache_len, kb.shape[0],
+                                            kb.device, lo, n))
+                blocks[i] = (kb, vb, kv_pos)
+            attn = {}
+            for group in groups:
+                attn.update(_sequence_attention(cfg, group, qs, knew, vnew,
+                                                blocks, cache_len, window))
+            for row in rows:
+                heads = []
+                for m, i in enumerate(row):
+                    o = attn[i].reshape(attn[i].shape[0], 1, cfg.n_heads, -1)
+                    heads.append(o[:, :, m * Hl:(m + 1) * Hl].to(
+                        cfg.dtype).reshape(o.shape[0], 1, -1))
+                out = _sharded_tail(cfg, [local[i][g][pos] for i in row],
+                                    [xs[i] for i in row], heads, B)
+                for i, x in zip(row, out):
+                    xs[i] = x
+            slot = cache_len % max(slen, 1) if window else min(cache_len,
+                                                               slen - 1)
+            for i in range(mesh.size):
+                kb, vb, _ = blocks[i]
+                lo = seq_block[i] * kb.shape[1]
+                if lo <= slot < lo + kb.shape[1]:
+                    kb[:, slot - lo] = knew[i][:, 0]
+                    vb[:, slot - lo] = vnew[i][:, 0]
+    logits = [None] * mesh.size
+    for row in rows:
+        for i, lg in zip(row, _vocab_logits(cfg, model, row,
+                                            [xs[i][:, 0] for i in row])):
+            logits[i] = lg
+    out = ShardedTensor(mesh, P(spec[1], "model"), (B, cfg.padded_vocab),
+                        torch.float32, logits)
+    return out, cache

@@ -1746,3 +1746,80 @@ def test_sharded_recsys_step_is_the_same_bits_twice_on_card(cuda):
     for t in (*a.params.values(), *a.opt_state.mu.values(),
               *a.opt_state.nu.values()):
         assert partition.replicas_equal(t)
+
+
+# -- the LM's prefill and decode plans on a (data, model) mesh on the card -------
+
+
+@pytest.mark.parametrize("arch,cell,shape", [
+    ("gemma2-2b", "decode_32k", (2, 2)), ("gemma2-2b", "long_500k", (2, 2)),
+    ("granite-8b", "decode_32k", (1, 4)),
+    ("qwen1.5-0.5b", "decode_32k", (1, 4))])
+def test_sharded_decode_plan_on_card_matches_unsharded(cuda, arch, cell,
+                                                       shape):
+    """A reduced bf16 LM's decode plan on ``make_host_mesh(*shape)`` (four
+    cards where there are four, else four logical shards of the card)
+    from the single device's padded prefill cache, laid out by the plan's
+    in specs, against the single device's ``decode_step`` over the same
+    six tokens (the ring wraps, the sequence's blocks each take a slot):
+    each step's logits and the final cache within
+    ``testing.bf16_lm_mismatch``'s logits bounds, the slots no step wrote
+    the prefill's bits; a second run from the same placement is the same
+    bits (logits and every cache shard)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+
+    over = {"dtype": torch.bfloat16}
+    cfg = dataclasses.replace(C.get_arch(arch).make_reduced(), **over)
+    model = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(2)).to(cuda)
+    rows = 1 if cell == "long_500k" else 4
+    S, pad, n_steps = 24, 64, 6
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (rows, S + n_steps)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        _, cache0 = transformer.prefill(cfg, model, toks[:, :S], pad_to=pad)
+    plan = steps.build_plan(arch, cell, reduced=True, overrides=over)
+    mesh = make_host_mesh(*shape)
+    params = steps.place_args(plan, mesh, dict(model.named_parameters()))
+    single = {p: {k: v.clone() for k, v in c.items()}
+              for p, c in cache0.items()}
+    want = []
+    for j in range(n_steps):
+        lg, single = transformer.decode_step(cfg, model, single,
+                                             toks[:, S + j:S + j + 1], S + j)
+        want.append(lg)
+    runs = []
+    for _ in range(2):
+        (cache,) = steps.place_inputs(plan, mesh, cache0)
+        got = []
+        for j in range(n_steps):
+            lg, cache = plan.fn(params, cache, toks[:, S + j:S + j + 1],
+                                S + j)
+            assert lg.spec == plan.out_specs[0]
+            got.append(lg.gather(cuda))
+        runs.append((torch.stack(got), {f"{p}.{k}": st for p, c in
+                                        cache.items()
+                                        for k, st in c.items()}))
+    msg = testing.bf16_lm_mismatch(runs[0][0], 0.0, {}, torch.stack(want),
+                                   0.0, {})
+    assert msg is None, msg
+    written = set(range(S, S + n_steps))
+    for name, st in runs[0][1].items():
+        p, k = name.split(".")
+        whole, w = st.gather(cuda), single[p][k]
+        slots = sorted({n % w.shape[2] if cfg.layer_pattern[int(p[3:])]
+                        else min(n, w.shape[2] - 1) for n in written})
+        msg = testing.bf16_lm_mismatch(whole[:, :, slots], 0.0, {},
+                                       w[:, :, slots], 0.0, {})
+        assert msg is None, (name, msg)
+        rest = [i for i in range(w.shape[2]) if i not in slots]
+        assert torch.equal(whole[:, :, rest], cache0[p][k][:, :, rest]), name
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name, st in runs[0][1].items():
+        assert all(torch.equal(a, b) for a, b in zip(
+            st.shards, runs[1][1][name].shards)), name

@@ -382,16 +382,14 @@ def test_plan_matches_the_reference_plan(arch, shape):
 
 
 def test_plans_not_ported_raise():
-    """The LM prefill and decode plans and the multi-pod mesh raise,
-    naming item 3b; MACE's train plan and every recsys plan are built
+    """The multi-pod mesh raises, naming item 3b; the LM prefill and
+    decode plans, MACE's train plan and every recsys plan are built
     (their steps are held to the reference's in
-    tests/test_torch_sharded_gnn.py and tests/test_torch_sharded_recsys.py)."""
-    decode = next(c.shape for c in tconfigs.get_arch("qwen1.5-0.5b").cells
-                  if c.kind == "decode")
-    for arch, shape in (("qwen1.5-0.5b", "prefill_32k"),
-                        ("qwen1.5-0.5b", decode)):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            tsteps.build_plan(arch, shape, reduced=True)
+    tests/test_torch_sharded_lm_serve.py, tests/test_torch_sharded_gnn.py
+    and tests/test_torch_sharded_recsys.py)."""
+    for cell in tconfigs.get_arch("qwen1.5-0.5b").cells:
+        plan = tsteps.build_plan("qwen1.5-0.5b", cell.shape, reduced=True)
+        assert (plan.kind, plan.skip) == (cell.kind, cell.skip)
     for arch, shape in (("qwen1.5-0.5b", "train_4k"), ("mace", "molecule"),
                         ("dlrm-rm2", "train_batch")):
         with pytest.raises(NotImplementedError, match="item 3b"):
