@@ -12,7 +12,7 @@ kernels.
     python3 chip_smoke.py --sharded  # phases 1-3, the f32 build and serve
                                      # of phase 8, phase 20 (on four
                                      # cards where there are four) and
-                                     # phases 26-29 (on four
+                                     # phases 26-30 (on four
                                      # distinct cards)
     python3 chip_smoke.py --lm-mesh  # phases 1 and 26 alone (with
                                      # --sharded: on four cards)
@@ -21,6 +21,8 @@ kernels.
     python3 chip_smoke.py --recsys-mesh    # phases 1 and 28 alone
     python3 chip_smoke.py --lm-serve-mesh  # phases 1 and 29 alone (each
                                            # with --sharded: four cards)
+    python3 chip_smoke.py --dryrun   # phases 1 and 30 alone, 30 (c) on
+                                     # qwen1.5-0.5b's train_4k
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -262,9 +264,21 @@ Phases:
      same bits; the comparisons with the single device (prefill rows 0-1,
      decode rows 0-7, long_500k against 1 x 1) gated at 2 layers in f32,
      with a planted fault that must read past the gate.
+ 30. the dry-run against the card (check_dryrun): qwen1.5-0.5b's
+     train_4k (2 layers, B = 8), dlrm-rm2's train_batch (B = 8,192) and
+     MACE's molecule through build_plan on make_host_mesh(2, 2), each
+     run on the card under FlopCounterMode and the collective recorder,
+     then traced on fake shards of a 2 x 2 placeholder mesh: FLOPs,
+     collectives and output bytes equal exactly, argument_bytes against
+     the allocator's growth on placement; gemma2-2b and
+     granite-moe-3b-a800m at published width and 2 layers on 1 x 16
+     logical shards (heads that do not split: attention re-laid out over
+     the sequence), a prefill's logits and a step's loss against the
+     single device within bf16_lm_mismatch; the dry-run CLI on a
+     production cell in a subprocess, its wall time and record.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21-29 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-30 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -528,6 +542,30 @@ SERVE_MARGIN = 6e9
 #: four logical shards). The bf16 readings at 26 layers are logged; the
 #: chain is held to forward at 26 layers in bf16 by DECODE_TOL.
 SERVE_CHECK_LAYERS = 2
+#: phase 30 (a): the dry-run held to the card on 2 x 2. The plans run at
+#: published width with their cells cut to what the phase's time allows:
+#: qwen1.5-0.5b's train_4k at DRYRUN_LM_LAYERS layers and a global batch
+#: of DRYRUN_LM_BATCH (S = 4,096), dlrm-rm2's train_batch at
+#: DRYRUN_RECSYS_BATCH (its 8.64 GB table whole), MACE's molecule as
+#: published. The allocator's growth on placement must be argument_bytes
+#: within its rounding: DRYRUN_ROUND a tensor, and a tensor of DRYRUN_LARGE
+#: bytes or more may keep up to DRYRUN_LARGE of its block's remainder
+#: unsplit (measured: 12.6 MB over qwen's 3.63 GB of shards, 5.9 MB over
+#: dlrm-rm2's 51.9 GB); the bytes it was asked for are logged beside.
+DRYRUN_LM_LAYERS, DRYRUN_LM_BATCH, DRYRUN_RECSYS_BATCH = 2, 8, 8_192
+DRYRUN_ROUND, DRYRUN_LARGE = 512, 1 << 20
+#: phase 30 (b): the head repair at published width, DRYRUN_HEADS_LAYERS
+#: layers, on a 1 x DRYRUN_HEADS_M mesh of one card's logical shards
+#: (gemma2-2b's 8 heads and granite-moe-3b-a800m's 24 do not split over
+#: 16): a prefill of DRYRUN_HEADS_B x DRYRUN_HEADS_S tokens and a train
+#: step on one row of them against the single device
+DRYRUN_HEADS_LAYERS, DRYRUN_HEADS_M = 2, 16
+DRYRUN_HEADS_B, DRYRUN_HEADS_S = 2, 4_096
+#: phase 30 (c): the production cell traced in a subprocess: in the whole
+#: run a cheap one (the run's time limit), under --dryrun qwen1.5-0.5b's
+#: train_4k on the 16 x 16 mesh
+DRYRUN_CELL = {False: ("dlrm-rm2", "retrieval_cand"),
+               True: ("qwen1.5-0.5b", "train_4k")}
 
 
 def log(*a):
@@ -6173,6 +6211,227 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
     free_cards(cards)
 
 
+def check_dryrun(dev, smi: str, four_cards: bool, *,
+                 production: bool = False) -> None:
+    """Phase 30: the dry-run (``launch.dryrun``) held to the card, and the
+    head repair at published width.
+
+    (a) qwen1.5-0.5b's train_4k (DRYRUN_LM_LAYERS layers, a global batch
+    of DRYRUN_LM_BATCH), dlrm-rm2's train_batch (DRYRUN_RECSYS_BATCH) and
+    MACE's molecule through ``build_plan``, each on make_host_mesh(2, 2):
+    the plan's step on the card under ``FlopCounterMode`` and the
+    collective recorder (``dryrun.trace(fake=False)``), then the same
+    plan traced on fake shards of a 2 x 2 placeholder mesh: FLOPs,
+    collective counts and bytes and output bytes equal exactly; and
+    ``dryrun.argument_bytes`` (per card: four positions on one card, one
+    on each of four) against the allocator's growth while the state and
+    the batch are placed, within its rounding (DRYRUN_ROUND,
+    DRYRUN_LARGE), the bytes it was asked for logged beside. (b) on one
+    card, gemma2-2b and granite-moe-3b-a800m at published width and
+    DRYRUN_HEADS_LAYERS layers on make_host_mesh(1, DRYRUN_HEADS_M)
+    (their heads do not split over it: attention re-laid out over the
+    sequence): a prefill's logits and a train step's loss against the
+    single device from the same draws, within
+    ``testing.bf16_lm_mismatch``. (c) ``python -m
+    repro_torch.launch.dryrun`` on a production cell (DRYRUN_CELL; qwen1.5-
+    0.5b's train_4k on 16 x 16 under --dryrun), in a subprocess: its wall
+    time and record."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch import testing
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(2, 2)
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    if four_cards and len(cards) != 4:
+        fail(f"--sharded needs a mesh of four distinct cards; "
+             f"make_host_mesh(2, 2) sits on {[str(d) for d in cards]}")
+    log(f"[30] the dry-run against the card; {smi}; make_host_mesh(2, 2) "
+        f"sits on {[str(d) for d in mesh.devices.flat]}")
+    fake_mesh = Mesh(np.array([[torch.device("meta")] * 2] * 2,
+                              dtype=object), ("data", "model"))
+    per_card = mesh.size // len(cards)
+    problems = []
+
+    def allocated():
+        """(bytes handed out, bytes asked for) a card."""
+        return [(torch.cuda.memory_allocated(d), torch.cuda.memory_stats(
+            d).get("requested_bytes.all.current")) for d in cards]
+
+    legs = (("qwen1.5-0.5b", "train_4k",
+             {"n_layers": DRYRUN_LM_LAYERS},
+             {"global_batch": DRYRUN_LM_BATCH}),
+            ("dlrm-rm2", "train_batch", None,
+             {"batch": DRYRUN_RECSYS_BATCH}),
+            ("mace", "molecule", None, None))
+    for arch, shape, over, dims in legs:
+        plan = steps_lib.build_plan(arch, shape, overrides=over, dims=dims)
+        spec = C.get_arch(arch)
+        cell = dataclasses.replace(spec.cell(shape), dims=dict(
+            spec.cell(shape).dims, **(dims or {})))
+        seed_gen = torch.Generator(device=mesh.first_device).manual_seed(0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync_cards(cards)
+        before = allocated()
+        fam = spec.family
+        if fam == "lm":
+            model = transformer.init_sharded(plan.cfg, mesh,
+                                             generator=seed_gen)
+            batch = train.lm_batch_fn(plan.cfg, seed=1,
+                                      batch=cell.dims["global_batch"],
+                                      seq=cell.dims["seq_len"],
+                                      device=dev)(0)
+        elif fam == "recsys":
+            from repro_torch.models import recsys
+            model = recsys.init_sharded(plan.cfg, mesh, generator=seed_gen)
+            batch = train.batch_fn(plan.cfg, seed=1,
+                                   batch=cell.dims["batch"], device=dev)(0)
+        else:
+            from repro_torch.models import mace
+            model = mace.init_sharded(plan.cfg, mesh, generator=seed_gen)
+            batch = gnn_cell_batch(cell, 1, dev)
+        tr = train.ShardedTrainer(model)
+        laid = {k: partition.place(batch[k], plan.in_specs[2][k], mesh)
+                for k in plan.args[2]}
+        del batch
+        slack = sum(
+            DRYRUN_ROUND + (DRYRUN_LARGE if s.nbytes >= DRYRUN_LARGE else 0)
+            for st in (*tr.params.values(), *tr.opt_state.mu.values(),
+                       *tr.opt_state.nu.values(), tr.opt_state.step,
+                       *laid.values())
+            for s in st.shards) // len(cards)  # no list: it would keep them
+        sync_cards(cards)
+        after = allocated()
+        grown = [a[0] - b[0] for a, b in zip(after, before)]
+        asked = [None if a[1] is None else a[1] - b[1]
+                 for a, b in zip(after, before)]
+        want = dryrun.argument_bytes(plan, fake_mesh) * per_card
+        if any(not want <= g <= want + slack for g in grown):
+            problems.append(f"{arch} {shape}: the allocator grew {grown} "
+                            f"bytes a card on placement; argument_bytes x "
+                            f"{per_card} = {want} (+ up to {slack} of "
+                            f"rounding)")
+        t = time.perf_counter()
+        real = dryrun.trace(plan, mesh, fake=False,
+                            args=(tr.params, tr.opt_state, laid))
+        sync_cards(cards)
+        real_s = time.perf_counter() - t
+        del tr, model, laid
+        free_cards(cards)
+        fake = dryrun.trace(plan, fake_mesh)
+        same = (fake["flops"] == real["flops"]
+                and fake["collectives"] == real["collectives"]
+                and fake["output_bytes"] == real["output_bytes"])
+        coll = sum(v["bytes"] for v in real["collectives"].values())
+        log(f"    {arch} {shape} ({fam}) on 2 x 2: card {real_s:.2f} s, "
+            f"fake {fake['seconds']:.2f} s; FLOPs {real['flops']:,} (fake "
+            f"{fake['flops']:,}), collectives "
+            f"{sum(v['count'] for v in real['collectives'].values()):,} "
+            f"receipts {coll:,} bytes (fake "
+            f"{sum(v['bytes'] for v in fake['collectives'].values()):,}), "
+            f"outputs {real['output_bytes']:,} B a position (fake "
+            f"{fake['output_bytes']:,}); argument_bytes {want // per_card:,}"
+            f" a position, allocator +{grown} a card (asked {asked}: "
+            f"{'exactly' if all(a == want for a in asked) else 'not'} "
+            f"argument_bytes); "
+            + ("equal" if same else "DIFFERENT"))
+        log(f"      by kind: {json.dumps(real['collectives'])}")
+        if not same:
+            problems.append(f"{arch} {shape}: the fake trace's counts "
+                            f"{fake['flops']}, {fake['collectives']}, "
+                            f"{fake['output_bytes']} are not the card's "
+                            f"{real['flops']}, {real['collectives']}, "
+                            f"{real['output_bytes']}")
+    del mesh
+
+    # -- (b) heads that do not split over 16 model shards, one card ----------
+    if not four_cards:
+        heads_mesh = make_host_mesh(1, DRYRUN_HEADS_M)
+        for arch in ("gemma2-2b", "granite-moe-3b-a800m"):
+            cfg = dataclasses.replace(C.get_arch(arch).make_config(),
+                                      n_layers=DRYRUN_HEADS_LAYERS)
+            if not transformer._column_attention(cfg, DRYRUN_HEADS_M):
+                fail(f"{arch}'s heads split over {DRYRUN_HEADS_M}")
+            tokens = train.lm_batch_fn(cfg, seed=3, batch=DRYRUN_HEADS_B,
+                                       seq=DRYRUN_HEADS_S,
+                                       device=dev)(0)["tokens"]
+            one = transformer.init_params(
+                cfg, generator=torch.Generator(device=dev).manual_seed(5))
+            with torch.no_grad():
+                want_logits, _ = transformer.prefill(cfg, one, tokens)
+            want_loss, _ = transformer.loss_fn(cfg, one,
+                                               {"tokens": tokens[:1]})
+            want_logits = want_logits[:, :cfg.vocab_size].float().cpu()
+            want_loss = want_loss.item()
+            del one
+            free_cards(cards)
+            t = time.perf_counter()
+            sharded = transformer.init_sharded(
+                cfg, heads_mesh,
+                generator=torch.Generator(device=dev).manual_seed(5))
+            logits, _ = transformer.sharded_prefill(cfg, sharded, tokens)
+            logits = logits.gather()[:, :cfg.vocab_size].float().cpu()
+            loss, _, grads = train.sharded_grads(sharded,
+                                                 {"tokens": tokens[:1]})
+            loss = loss.item()
+            sync_cards(cards)
+            ms = (time.perf_counter() - t) * 1e3
+            del sharded, grads
+            free_cards(cards)
+            why = testing.bf16_lm_mismatch(logits, loss, {}, want_logits,
+                                           want_loss, {})
+            diff = (logits - want_logits).abs()
+            log(f"    {arch} at {DRYRUN_HEADS_LAYERS} layers, {cfg.n_heads} "
+                f"heads on 1 x {DRYRUN_HEADS_M} (one card): prefill of "
+                f"{DRYRUN_HEADS_B} x {DRYRUN_HEADS_S:,} and a step's loss "
+                f"in {ms:.0f} ms; logits max |diff| {float(diff.max()):.4g}"
+                f", mean {float(diff.mean()):.4g} (largest "
+                f"{float(want_logits.abs().max()):.4g}); loss {loss:.6f} "
+                f"against {want_loss:.6f}; "
+                + ("within bf16_lm_mismatch" if why is None else why))
+            if why is not None:
+                problems.append(f"{arch} on 1 x {DRYRUN_HEADS_M}: {why}")
+        del heads_mesh
+
+    # -- (c) a production cell through the CLI ----------------------------
+    arch, shape = DRYRUN_CELL[production]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "dryrun")
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "pod", "--artifact-dir", out_dir],
+        capture_output=True, text=True, env=dict(
+            os.environ, PYTHONPATH=os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "src")))
+    wall = time.perf_counter() - t
+    log(f"    python -m repro_torch.launch.dryrun --arch {arch} --shape "
+        f"{shape} --mesh pod: exit {r.returncode}, {wall:.1f} s wall")
+    for line in r.stdout.strip().splitlines()[-3:]:
+        log(f"      {line}")
+    path = os.path.join(out_dir, f"{arch}__{shape}__pod.json")
+    if r.returncode != 0 or not os.path.exists(path):
+        problems.append(f"the dry-run of {arch} {shape} failed: "
+                        f"{r.stderr[-1500:]}")
+    else:
+        with open(path) as f:
+            rec = json.load(f)
+        log(f"      record: {json.dumps({k: rec[k] for k in ('status', 'trace_s', 'memory', 'cost', 'corrected') if k in rec})}")
+        if rec["status"] != "ok":
+            problems.append(f"the dry-run of {arch} {shape}: {rec}")
+    log(f"    phase 30: {time.perf_counter() - t0:.1f} s")
+    if problems:
+        fail("; ".join(problems))
+
+
 def main() -> None:
     import torch
 
@@ -6215,6 +6474,10 @@ def main() -> None:
     if "--lm-serve-mesh" in sys.argv[1:]:
         check_lm_serve_mesh(dev, smi, four_cards=sharded_only)
         log("lm-serve-mesh run: stopping after phase 29")
+        sys.exit(2)
+    if "--dryrun" in sys.argv[1:]:
+        check_dryrun(dev, smi, four_cards=sharded_only, production=True)
+        log("dryrun run: stopping after phase 30")
         sys.exit(2)
 
     # -- 2. build --------------------------------------------------------
@@ -6370,7 +6633,9 @@ def main() -> None:
         check_recsys_mesh(dev, smi, four_cards=True)
         gc.collect()
         check_lm_serve_mesh(dev, smi, four_cards=True)
-        log(f"sharded run: stopping after phases 8 (f32), 20 and 26-29; "
+        gc.collect()
+        check_dryrun(dev, smi, four_cards=True)
+        log(f"sharded run: stopping after phases 8 (f32), 20 and 26-30; "
             f"{time.perf_counter() - t_start:.0f} s")
         sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
@@ -6623,6 +6888,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     check_lm_serve_mesh(torch.device("cuda"), smi, four_cards=False)
+
+    # -- 30. the dry-run against the card, the head repair ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_dryrun(torch.device("cuda"), smi, four_cards=False)
 
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",

@@ -43,6 +43,13 @@ def get_arch(arch_id: str) -> ArchSpec:
         ) from None
 
 
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch_id, shape) pair in the assignment grid (40 total), in
+    the reference's order: what the dry-run's ``--all`` walks."""
+    return [(aid, cell.shape) for aid in list_archs()
+            for cell in get_arch(aid).cells]
+
+
 __all__ = [
     "ArchSpec",
     "ShapeCell",
@@ -50,4 +57,5 @@ __all__ = [
     "input_specs",
     "get_arch",
     "list_archs",
+    "all_cells",
 ]

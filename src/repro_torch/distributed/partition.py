@@ -25,7 +25,15 @@ process that owns every device of the mesh.
 
 Each collective runs inside a ``torch.profiler.record_function`` range
 named ``mesh.*``, so a profiled step shows what the cross-shard copies and
-sums cost.
+sums cost. Inside :func:`recording` each collective (forward and
+backward) also reports its kind and the bytes each receiving position
+takes in: host arithmetic on shapes, no sync, nothing else changed. The
+kinds take the reference's HLO names where one exists (``all_sum``
+all-reduce, ``all_gather`` all-gather, ``sum_scatter`` reduce-scatter,
+``all_to_all`` all-to-all, ``send`` collective-permute; an all-gather's
+backward is a reduce-scatter and the reverse); ``all_max``, ``sum_to``
+and ``reduce_holders`` keep their own (``sum_to``'s backward is
+autograd's own copies, not recorded).
 
 Autograd spans the devices in one graph. Every cross-device flow of the
 model goes through these functions, whose backward sums in part order, so
@@ -34,7 +42,8 @@ engine's per-device threads happen to finish.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -184,6 +193,37 @@ def synchronize(mesh: Mesh) -> None:
             torch.cuda.synchronize(dev)
 
 
+# -- the collective recorder ------------------------------------------------------
+
+_RECORDS: List[dict] = []
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[dict]:
+    """Within the block, every collective adds to the yielded record:
+    kind -> {"count": receiving positions, "bytes": what they take in},
+    summed over the calls. Off (one list check a call) outside any such
+    block; blocks may nest, each counting everything inside it."""
+    rec: dict = {}
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _note(kind: str, received: Sequence[Tensor]) -> None:
+    """Record one collective: ``received[i]`` is what receiving position i
+    takes in."""
+    if not _RECORDS:
+        return
+    nbytes = sum(int(t.numel()) * t.element_size() for t in received)
+    for rec in _RECORDS:
+        e = rec.setdefault(kind, {"count": 0, "bytes": 0})
+        e["count"] += len(received)
+        e["bytes"] += nbytes
+
+
 # -- collectives ------------------------------------------------------------------
 
 
@@ -201,13 +241,17 @@ class _AllSum(torch.autograd.Function):
         ctx.devices = [p.device for p in parts]
         with record_function("mesh.all_sum"):
             total = _fixed_sum(parts, ctx.devices[0])
-            return tuple(total.to(d, copy=True) for d in ctx.devices)
+            out = tuple(total.to(d, copy=True) for d in ctx.devices)
+        _note("all-reduce", out)
+        return out
 
     @staticmethod
     def backward(ctx, *grads):
         with record_function("mesh.all_sum"):
             total = _fixed_sum(grads, ctx.devices[0])
-            return tuple(total.to(d, copy=True) for d in ctx.devices)
+            out = tuple(total.to(d, copy=True) for d in ctx.devices)
+        _note("all-reduce", out)
+        return out
 
 
 def all_sum(parts: Sequence[Tensor]) -> List[Tensor]:
@@ -235,14 +279,16 @@ class _SumScatter(torch.autograd.Function):
                 for b in blocks[1:]:
                     acc += b.to(d, torch.float32)
                 out.append(acc.to(dtype))
+        _note("reduce-scatter", out)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
         with record_function("mesh.sum_scatter"):
-            return (None, None, *[
-                torch.cat([g.to(d, t) for g in grads], ctx.dim)
-                for d, t in zip(ctx.devices, ctx.dtypes)])
+            out = [torch.cat([g.to(d, t) for g in grads], ctx.dim)
+                   for d, t in zip(ctx.devices, ctx.dtypes)]
+        _note("all-gather", out)
+        return (None, None, *out)
 
 
 def sum_scatter(parts: Sequence[Tensor], dim: int,
@@ -271,7 +317,9 @@ def all_max(parts: Sequence[Tensor]) -> List[Tensor]:
         acc = parts[0].detach().to(dev)
         for p in parts[1:]:
             acc = torch.maximum(acc, p.detach().to(dev))
-        return [acc.to(p.device, copy=True) for p in parts]
+        out = [acc.to(p.device, copy=True) for p in parts]
+    _note("all_max", out)
+    return out
 
 
 class _AllGather(torch.autograd.Function):
@@ -281,8 +329,10 @@ class _AllGather(torch.autograd.Function):
         ctx.devices = [p.device for p in parts]
         ctx.sizes = [p.shape[dim] for p in parts]
         with record_function("mesh.all_gather"):
-            return tuple(torch.cat([p.to(d) for p in parts], dim)
-                         for d in ctx.devices)
+            out = tuple(torch.cat([p.to(d) for p in parts], dim)
+                        for d in ctx.devices)
+        _note("all-gather", out)
+        return out
 
     @staticmethod
     def backward(ctx, *grads):
@@ -292,6 +342,7 @@ class _AllGather(torch.autograd.Function):
                 out.append(_fixed_sum([g.narrow(ctx.dim, lo, w)
                                        for g in grads], d).contiguous())
                 lo += w
+        _note("reduce-scatter", out[1:])
         return tuple(out)
 
 
@@ -302,6 +353,35 @@ def all_gather(parts: Sequence[Tensor], dim: int) -> List[Tensor]:
     if len(parts) == 1:
         return [parts[0]]
     return list(_AllGather.apply(dim, *parts))
+
+
+def _relayout(parts: Sequence[Tensor], split_dim: Optional[int],
+              cat_dim: int, src: Sequence[int]) -> List[Tensor]:
+    """Part m: block m of ``split_dim`` (whole with None) of each of
+    ``src``'s parts, concatenated along ``cat_dim`` on part m's device."""
+    w = None if split_dim is None else parts[0].shape[split_dim] // len(parts)
+    out = []
+    with record_function("mesh.all_to_all"):
+        for m, p in enumerate(parts):
+            blocks = [parts[j] if w is None else
+                      parts[j].narrow(split_dim, m * w, w) for j in src]
+            out.append(torch.cat([b.to(p.device) for b in blocks], cat_dim))
+    _note("all-to-all", out)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, cat_dim, *parts):
+        ctx.dims = split_dim, cat_dim
+        return tuple(_relayout(parts, split_dim, cat_dim,
+                               range(len(parts))))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_dim, cat_dim = ctx.dims
+        return (None, None, *_relayout(grads, cat_dim, split_dim,
+                                       range(len(grads))))
 
 
 def all_to_all(parts: Sequence[Tensor], split_dim: Optional[int],
@@ -316,20 +396,25 @@ def all_to_all(parts: Sequence[Tensor], split_dim: Optional[int],
     part m's device, is block m of ``split_dim`` (``len(parts)`` equal
     blocks) of each source, concatenated along ``cat_dim`` in order; with
     ``split_dim`` None every part takes the sources whole (an all-gather
-    of distinct blocks). Copies only, in a fixed order; no gradient."""
+    of distinct blocks). Copies only, in a fixed order. With every part
+    its own source and a ``split_dim``, the re-layout carries a gradient
+    (its backward the inverse re-layout); otherwise none."""
     n = len(parts)
-    src = list(range(n)) if sources is None else list(sources)
     if split_dim is not None and parts[0].shape[split_dim] % n:
         raise ValueError(f"dimension {split_dim} of {tuple(parts[0].shape)} "
                          f"does not split into {n} blocks")
-    w = None if split_dim is None else parts[0].shape[split_dim] // n
-    out = []
-    with record_function("mesh.all_to_all"):
-        for m, p in enumerate(parts):
-            blocks = [parts[j].detach() if w is None else
-                      parts[j].detach().narrow(split_dim, m * w, w)
-                      for j in src]
-            out.append(torch.cat([b.to(p.device) for b in blocks], cat_dim))
+    if sources is None and split_dim is not None:
+        return list(_AllToAll.apply(split_dim, cat_dim, *parts))
+    src = list(range(n)) if sources is None else list(sources)
+    return _relayout([p.detach() for p in parts], split_dim, cat_dim, src)
+
+
+def send(x: Tensor, device) -> Tensor:
+    """``x`` copied to ``device`` (no gradient): a point-to-point transfer,
+    the reference's collective-permute."""
+    with record_function("mesh.send"):
+        out = x.detach().to(device, copy=True)
+    _note("collective-permute", [out])
     return out
 
 
@@ -337,7 +422,10 @@ def sum_to(parts: Sequence[Tensor], device) -> Tensor:
     """The fixed-order sum of ``parts`` on ``device`` (autograd's own
     copies and adds: each part is read once)."""
     with record_function("mesh.sum_to"):
-        return _fixed_sum(parts, torch.device(device))
+        out = _fixed_sum(parts, torch.device(device))
+    if len(parts) > 1:
+        _note("sum_to", [out])
+    return out
 
 
 # -- holders -------------------------------------------------------------------------
@@ -354,6 +442,7 @@ def reduce_holders_(st: ShardedTensor) -> ShardedTensor:
             total = _fixed_sum([st.shards[p] for p in g], st.device(g[0]))
             for p in g:
                 st.shards[p].copy_(total)
+            _note("reduce_holders", [total] * len(g))
     return st
 
 

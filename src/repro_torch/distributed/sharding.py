@@ -81,6 +81,22 @@ def data_axes(multi_pod: bool):
     return ("pod", "data") if multi_pod else "data"
 
 
+def mesh_data_axes(mesh):
+    """The data axes of ``mesh``: ("pod", "data") on the multi-pod mesh
+    (its ``pod`` axis extends data parallelism), else ``data``."""
+    return data_axes("pod" in mesh.axis_names)
+
+
+def data_replicas(mesh) -> int:
+    """How many data replicas ``mesh`` holds: the product of its data
+    axes' sizes."""
+    axes = mesh_data_axes(mesh)
+    n = 1
+    for a in (axes,) if isinstance(axes, str) else axes:
+        n *= mesh.shape[a]
+    return n
+
+
 def path_of(name: str) -> str:
     """The reference's path form of a port parameter name."""
     return name.replace(".", "/")

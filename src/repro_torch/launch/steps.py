@@ -27,11 +27,10 @@ distances projected (``core.simplex.apex_project``) and scored against
 the reduced index (``core.zen.estimate_pdist``), smallest first. Each
 block of candidates takes its own top 100 on its device and the blocks
 merge in row order (``recsys.sharded_topk``): a tie goes to the lower
-row, as in ``lax.top_k``. The dense candidates lie over ("data",
-"model") (``recsys_input_shardings``: every position scores its own
-block), where the reference's plan lays them over ``data`` alone (10^6
-rows do not split over its 256-way mesh); the reduced index's coords lie
-over ``data`` as the reference's do, its transform replicated. So are
+row, as in ``lax.top_k``. The candidates (dense, or the reduced index's
+coords) lie over the data axes, as the reference's plan lays them (10^6
+rows divide by 16 and 32 but not by the 256- or 512-way mesh), the
+transform replicated. So are
 the LM's prefill and decode plans (``transformer.sharded_prefill``,
 ``sharded_decode_step``): the prompt over ``data``, its logits laid out
 P(dp, "model") and its KV cache P(None, dp, "model", None, None), the
@@ -40,8 +39,11 @@ that cache (the 500k decode's one row replicated, its cache's sequence
 over ("data", "model")), whose new keys and values the step writes in
 place, as the train plans update their state in place. ``place_inputs``
 lays a prefill's tokens or a decode's cache and token out by the plan's
-specs. The multi-pod mesh comes with the dry-run (ROADMAP A, item 3b,
-item 4).
+specs. Every plan is built for the (data, model) mesh and, with
+``multi_pod``, for the reference's (pod, data, model) mesh, whose
+``pod`` axis extends the data axes (``sharding.data_axes``): the batch,
+the edges, the candidates and the cache's batch lie over ("pod",
+"data"), the 500k decode's sequence over all three axes.
 """
 from __future__ import annotations
 
@@ -343,7 +345,9 @@ def _recsys_plan(spec, cfg, cell, multi_pod: bool) -> StepPlan:
             in_specs=(pspecs, in_shard, cand_specs), out_specs=out_specs,
             cfg=cfg, skip=cell.skip)
 
-    cand_spec = in_shard_all["candidates"]
+    # candidates over the data axes (10^6 rows divide by 16 and 32 but not
+    # by the full 256- or 512-way mesh product)
+    cand_spec = shard_lib.P(dp, None)
 
     @torch.no_grad()
     def retrieval_step(params: dict, batch: dict, candidates) -> dict:
@@ -437,20 +441,21 @@ def build_plan(
     reduced: bool = False,
     multi_pod: bool = False,
     overrides: Optional[dict] = None,
+    dims: Optional[dict] = None,
 ) -> StepPlan:
     """overrides: config-field replacements, e.g. ``{"n_microbatches":
-    4}``, ``{"edge_chunks": 32}`` or ``{"retrieval_mode": "zen"}``. Every
-    cell of every family; the multi-pod mesh raises (ROADMAP A, item 3b:
-    it comes with the dry-run, item 4)."""
+    4}``, ``{"edge_chunks": 32}`` or ``{"retrieval_mode": "zen"}``; dims:
+    the cell's sizes replaced, e.g. ``{"global_batch": 8}`` (a cut of
+    scale; the shapes' other dimensions stay). Every cell of every family,
+    on the (data, model) mesh or, with ``multi_pod``, the (pod, data,
+    model) mesh."""
     spec = C.get_arch(arch_id)
     cell = spec.cell(shape)
+    if dims:
+        cell = dataclasses.replace(cell, dims=dict(cell.dims, **dims))
     cfg = spec.make_reduced() if reduced else spec.make_config()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if multi_pod:
-        raise NotImplementedError(
-            "the multi-pod mesh comes with the dry-run (ROADMAP A, item "
-            "3b, item 4)")
     if spec.family == "gnn":
         return _gnn_train_plan(spec, cfg, cell, multi_pod)
     if spec.family == "recsys":

@@ -249,10 +249,12 @@ class ShardedTrainer:
             mu={n: zeros(p) for n, p in self.params.items()},
             nu={n: zeros(p) for n, p in self.params.items()})
         # replica d's error buffers are block d of a (D, *shape) leaf laid
-        # out P("data", *spec): saved and restored like any other leaf
-        D = self.mesh.shape["data"]
+        # out P(dp, *spec), dp the mesh's data axes: saved and restored
+        # like any other leaf
+        D = shard_lib.data_replicas(self.mesh)
+        dp = shard_lib.mesh_data_axes(self.mesh)
         self.comp_state = ({n: partition.zeros(
-            (D,) + p.shape, shard_lib.P("data", *p.spec), self.mesh, f32)
+            (D,) + p.shape, shard_lib.P(dp, *p.spec), self.mesh, f32)
             for n, p in self.params.items()} if compress_grads else None)
 
     def grads(self, batch: dict):
@@ -281,7 +283,7 @@ class ShardedTrainer:
         """In place: the data replicas' error-feedback mean
         (``compression.error_feedback_mean`` with shards)."""
         mesh = self.mesh
-        D = mesh.shape["data"]
+        D = shard_lib.data_replicas(mesh)
         rows = partition.axis_groups(mesh, "model")
         for n, g in grads.items():
             err = self.comp_state[n]

@@ -370,6 +370,18 @@ def fan_out(x: Tensor, n: int) -> list:
 # -- the deterministic row gather --------------------------------------------
 
 
+def run_lengths(sorted_ids: Tensor, n: int) -> Tensor:
+    """(n,) how many times each of 0 .. n - 1 occurs in ``sorted_ids``
+    (ascending): the differences of its ``searchsorted`` bounds. The same
+    integers as ``bincount(minlength=n)`` for ids below n, but of a size
+    known without reading the ids, so the host never waits on the card
+    for it."""
+    bounds = torch.searchsorted(
+        sorted_ids, torch.arange(n + 1, dtype=sorted_ids.dtype,
+                                 device=sorted_ids.device))
+    return bounds[1:] - bounds[:-1]
+
+
 class _GatherRows(torch.autograd.Function):
     """``table[ids]`` whose backward sums each row's gradients in the
     order the ids occur, deterministically on any device."""
@@ -383,17 +395,12 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: Tensor):
         (ids,) = ctx.saved_tensors
-        out = grad.new_zeros((ctx.n_rows, grad.shape[-1]))
         flat = ids.reshape(-1)
-        if flat.numel() == 0:  # a shard none of whose rows were read
-            return out, None
         order = torch.argsort(flat, stable=True)
-        rows, counts = torch.unique_consecutive(flat[order],
-                                                return_counts=True)
-        sums = torch.segment_reduce(
-            grad.reshape(flat.numel(), -1)[order], "sum", lengths=counts)
-        out[rows] = sums  # each row written once
-        return out, None
+        # one segment a table row (a row no id names sums to zeros)
+        return torch.segment_reduce(
+            grad.reshape(flat.numel(), grad.shape[-1])[order], "sum",
+            lengths=run_lengths(flat[order], ctx.n_rows)), None
 
 
 def gather_rows(table: Tensor, ids: Tensor) -> Tensor:
@@ -414,7 +421,8 @@ class _SegmentSum(torch.autograd.Function):
                 order: Optional[Tensor]) -> Tensor:
         ctx.save_for_backward(ids)
         rows = data if order is None else data.index_select(0, order)
-        lengths = torch.bincount(ids, minlength=num_segments)
+        lengths = run_lengths(ids if order is None else ids[order],
+                              num_segments)
         out = torch.segment_reduce(
             rows.reshape(rows.shape[0], math.prod(rows.shape[1:])), "sum",
             lengths=lengths, axis=0)

@@ -24,11 +24,11 @@ over k) and the combine reads the expert outputs through
 from __future__ import annotations
 
 import math
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from repro_torch.distributed.partition import all_gather, all_sum
+from repro_torch.distributed.partition import all_gather, all_sum, send
 
 from . import layers as L
 
@@ -64,15 +64,20 @@ def route(cfg: "TransformerConfig", router: Tensor, xt: Tensor):
     return gate, expert_idx
 
 
-def slots(expert_idx: Tensor, E: int, C: int):
+def slots(expert_idx: Tensor, E: int, C: int,
+          claimed: Optional[Tensor] = None):
     """Slot assignment within each group: (G, gs, k) expert ids -> (slot
     (G, gs*k) in [0, E*C] int64, E*C for a dropped assignment; keep
     (G, gs*k) bool). Assignments claim their expert's slots in token
-    order, the k of one token in rank order."""
+    order, the k of one token in rank order. ``claimed`` (G, E): slots of
+    each expert already claimed by the group's earlier tokens (held
+    elsewhere), which these tokens follow."""
     G = expert_idx.shape[0]
     flat_e = expert_idx.reshape(G, -1)
     onehot = torch.nn.functional.one_hot(flat_e, E).to(torch.int32)
     pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    if claimed is not None:
+        pos = pos + claimed[:, None, :].to(torch.int32)
     pos_in_e = torch.gather(pos, 2, flat_e[..., None])[..., 0].long()
     keep = pos_in_e < C
     slot = torch.where(keep, flat_e * C + pos_in_e,
@@ -124,7 +129,8 @@ def moe_ffn(cfg: "TransformerConfig", p: dict, x: Tensor) -> Tensor:
 
 
 def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
-                    total_tokens: int) -> list:
+                    total_tokens: int, carry: Optional[dict] = None
+                    ) -> list:
     """``moe_ffn`` with the experts split over the model shards (``ps[m]``
     holds experts ``m * E/M .. (m + 1) * E/M - 1`` of the padded E, and
     the router's columns for them); ``xs[m]`` is the same (B, S, D) on
@@ -146,6 +152,15 @@ def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
     unsharded pick), and the combine runs on them as in ``moe_ffn``. No
     contraction is split, so the result is the unsharded one; the price is
     an all-sum of (tokens x top_k, D) picks a layer.
+
+    A replica whose tokens are a part of one group (a decode step's few
+    rows a replica, the group the whole batch's) takes ``carry``: the
+    caller passes one dict to the group's replicas in order within a
+    layer, and each replica's tokens follow the slots its predecessors
+    claimed (their per-expert counts, sent on by ``partition.send``), so
+    every assignment keeps the slot and the drop it has in the whole
+    group. Such a replica fills a whole group's buffer, its own tokens in
+    their slots.
     """
     M = len(ps)
     B, S, D = xs[0].shape
@@ -153,26 +168,39 @@ def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
     E = El * M
     T = B * S
     gs = min(cfg.moe_group_size, total_tokens)
-    if T % gs:
+    part = bool(T % gs)
+    if part and (carry is None or gs % T):
         raise ValueError(f"a data replica's {T} tokens do not hold whole "
                          f"MoE groups of {gs}")
-    G = T // gs
+    G, n = (1, T) if part else (T // gs, gs)
     K = cfg.top_k
     C = capacity(gs, K, E, cfg.capacity_factor)
     act = L.ActFn(cfg.act)
-    xts = [x.reshape(G, gs, D) for x in xs]
+    xts = [x.reshape(G, n, D) for x in xs]
     routers = all_gather([p["router"] for p in ps], -1)
+    if part:  # the first replica of a group starts from no claimed slot
+        first = carry.get("seen", 0) % gs == 0
+        carry["seen"] = carry.get("seen", 0) + T
+        counts = carry.setdefault("counts", {})
     picks, gates = [], []
     for m, (p, xt, router) in enumerate(zip(ps, xts, routers)):
         gate, expert_idx = route(cfg, router, xt)
-        slot, keep = slots(expert_idx, E, C)
-        gates.append(gate.reshape(G, gs * K) * keep.to(gate.dtype))
+        if part:
+            claimed = (None if first
+                       else send(counts[m], xt.device))
+            slot, keep = slots(expert_idx, E, C, claimed)
+            mine = torch.nn.functional.one_hot(
+                expert_idx.reshape(1, -1), E).sum(1, dtype=torch.int32)
+            counts[m] = mine if claimed is None else claimed + mine
+        else:
+            slot, keep = slots(expert_idx, E, C)
+        gates.append(gate.reshape(G, n * K) * keep.to(gate.dtype))
         lo = m * El * C
         inside = (slot >= lo) & (slot < lo + El * C)
         local = torch.where(inside, slot - lo, El * C)
         rows = local + (El * C + 1) * torch.arange(G, device=xt.device)[:,
                                                                         None]
-        xk = xt[:, :, None, :].expand(G, gs, K, D).reshape(G * gs * K, D)
+        xk = xt[:, :, None, :].expand(G, n, K, D).reshape(G * n * K, D)
         buf = xt.new_zeros((G * (El * C + 1), D)).index_copy(
             0, rows.reshape(-1), xk)
         buffers = buf.view(G, El * C + 1, D)[:, :El * C].reshape(G, El, C, D)
@@ -189,7 +217,7 @@ def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
     out = []
     for picked, flat_gate in zip(all_sum(picks), gates):
         w = picked * flat_gate[..., None].to(picked.dtype)
-        out.append(torch.sum(w.reshape(G, gs, K, D), dim=2).reshape(B, S, D))
+        out.append(torch.sum(w.reshape(G, n, K, D), dim=2).reshape(B, S, D))
     return out
 
 

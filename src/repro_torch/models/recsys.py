@@ -39,7 +39,11 @@ from repro_torch.distributed.partition import (
     place,
     sum_to,
 )
-from repro_torch.distributed.sharding import P, recsys_param_specs
+from repro_torch.distributed.sharding import (
+    P,
+    mesh_data_axes,
+    recsys_param_specs,
+)
 from repro_torch.kernels.scoring import merge_topk
 
 from .layers import dense_init, gather_rows, gather_rows_sharded
@@ -675,11 +679,12 @@ def _logits(cfg: RecsysConfig, model: ShardedRecsys, batch: dict) -> list:
     """Every data replica's logits on its first shard's device, in replica
     order, with that device's labels (or None)."""
     rows = axis_groups(model.mesh, "model")
-    data = P("data", None)
+    dp = mesh_data_axes(model.mesh)
+    data = P(dp, None)
     sparse = _laid_out(model, batch["sparse"], data)
     dense = (_laid_out(model, batch["dense"], data)
              if batch.get("dense") is not None else None)
-    labels = (_laid_out(model, batch["labels"], P("data"))
+    labels = (_laid_out(model, batch["labels"], P(dp))
               if batch.get("labels") is not None else None)
     out = []
     for row in rows:

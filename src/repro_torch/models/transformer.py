@@ -59,7 +59,12 @@ from repro_torch.distributed.partition import (
     sum_to,
     zeros,
 )
-from repro_torch.distributed.sharding import P, lm_param_specs
+from repro_torch.distributed.sharding import (
+    P,
+    data_replicas,
+    lm_param_specs,
+    mesh_data_axes,
+)
 
 from . import layers as L
 from . import moe as moe_lib
@@ -624,6 +629,16 @@ def embeddings(cfg: TransformerConfig, model: Transformer,
 #   of n_kv_heads: each shard's q heads share one KV head) every shard
 #   gathers wk/wv whole and takes its KV head's columns; their gradients
 #   are summed back onto the owners in shard order;
+# * when the heads do not split over ``model`` (n_heads % M, or n_kv_heads
+#   and M neither dividing the other: gemma2-2b's 8 heads or
+#   granite-moe's 24 on 16 shards), the leaves keep the same layout,
+#   column blocks of H * dh / M, and attention is re-laid out instead: each
+#   shard's column block of q goes over the sequence
+#   (``partition.all_to_all``: shard m takes rows m S / M .. of every
+#   column), k and v are gathered whole (``all_gather``), each shard runs
+#   whole heads for its rows, and the output comes back as column blocks
+#   for the row-parallel ``wo`` (``all_to_all`` the other way); a decode
+#   step gathers its one token's q, k and v whole;
 # * the FFN: w_gate/w_up (ws_gate/ws_up) column-, w_down (ws_down)
 #   row-parallel; MoE experts over ``model`` (``moe.moe_ffn_sharded``);
 # * the embedding's vocabulary rows over ``model`` (``gather_rows_sharded``)
@@ -647,13 +662,13 @@ def check_mesh(cfg: TransformerConfig, mesh, *,
     splits over its spec's axes. The reference pads a cache length that
     does not split; the port refuses it, naming the dimension."""
     M = mesh.shape["model"]
-    H, KV = cfg.n_heads, cfg.n_kv_heads
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bad = []
-    if H % M:
-        bad.append(f"n_heads % M: {H} heads on {M} model shards")
-    elif KV % M and M % KV:
-        bad.append(f"n_kv_heads % M and M % n_kv_heads: {KV} KV heads on "
-                   f"{M} model shards")
+    if _column_attention(cfg, M):
+        for name, n in (("q", H), ("KV", KV)):
+            if (n * dh) % M:
+                bad.append(f"{name} columns % M: {n} heads of {dh} on {M} "
+                           "model shards")
     if cfg.padded_vocab % M:
         bad.append(f"padded_vocab % M: {cfg.padded_vocab} rows on {M} "
                    "model shards")
@@ -737,15 +752,76 @@ def _kv_columns(cfg: TransformerConfig, ps: list, name: str) -> list:
     return out
 
 
+def _column_attention(cfg: TransformerConfig, M: int) -> bool:
+    """Whether attention on M model shards runs re-laid out over the
+    sequence (the heads do not split over the shards: n_heads % M, or
+    n_kv_heads and M neither dividing the other)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return bool(H % M or (KV % M and M % KV))
+
+
 def _kv_sources(cfg: TransformerConfig, M: int) -> list:
-    """For each KV head in order, the first of M model shards holding it:
-    every shard its own block of KV heads when n_kv_heads % M == 0, else
-    (M a multiple of n_kv_heads) the first of the M / n_kv_heads shards
-    whose q heads share it."""
+    """For each block of KV heads in order, the first of M model shards
+    holding it: every shard its own block of KV heads when n_kv_heads % M
+    == 0; (M a multiple of n_kv_heads) the first of the M / n_kv_heads
+    shards whose q heads share each; and every KV head on shard 0 when
+    attention runs re-laid out (each shard holds them whole)."""
     KV = cfg.n_kv_heads
+    if _column_attention(cfg, M):
+        return [0]
     if KV % M == 0:
         return list(range(M))
     return [kv * (M // KV) for kv in range(KV)]
+
+
+def _column_qkv(cfg: TransformerConfig, ps: list, hs: list) -> tuple:
+    """Each model shard's column blocks of q (B, S, H dh / M) and k, v
+    (B, S, KV dh / M) in the dtype, no RoPE: the column-parallel products
+    of ``_sharded_qkv`` before the heads are cut."""
+    qs, ks, vs = [], [], []
+    for p, h in zip(ps, hs):
+        q = L.matmul_f32(h, p["wq"])
+        k = L.matmul_f32(h, p["wk"])
+        v = L.matmul_f32(h, p["wv"])
+        if cfg.qkv_bias:  # in f32, then one cast
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        qs.append(q.to(cfg.dtype))
+        ks.append(k.to(cfg.dtype))
+        vs.append(v.to(cfg.dtype))
+    return qs, ks, vs
+
+
+def _column_layer_attention(cfg: TransformerConfig, ps: list, hs: list,
+                            positions: list, window: int,
+                            kv_out: Optional[list]) -> list:
+    """Attention of one layer when the heads do not split over the model
+    shards: q re-laid out over the sequence (shard m its S / M rows, every
+    head), k and v gathered whole, whole heads on each shard, and the
+    output re-laid out back into column blocks (B, S, H dh / M) for the
+    row-parallel ``wo``. With ``kv_out``, each shard's whole keys and
+    values (B, S, KV, dh) are appended to it."""
+    M = len(ps)
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qc, kc, vc = _column_qkv(cfg, ps, hs)
+    ks, vs = [], []
+    for k, v, pos in zip(all_gather(kc, 2), all_gather(vc, 2), positions):
+        B, S = k.shape[:2]
+        ks.append(L.rope(k.reshape(B, S, KV, dh), pos, theta=cfg.rope_theta))
+        vs.append(v.reshape(B, S, KV, dh))
+    if kv_out is not None:
+        kv_out.append((ks, vs))
+    heads = []
+    for m, (q, k, v, pos) in enumerate(zip(all_to_all(qc, 1, 2), ks, vs,
+                                           positions)):
+        B, n = q.shape[:2]
+        q_pos = pos[:, m * n:(m + 1) * n]
+        q = L.rope(q.reshape(B, n, H, dh), q_pos, theta=cfg.rope_theta)
+        attn = L.attention(
+            q, k, v, q_positions=q_pos, kv_positions=pos, causal=True,
+            window=window, attn_softcap=cfg.attn_softcap,
+            query_chunk=cfg.query_chunk)
+        heads.append(attn.reshape(B, n, H * dh))
+    return all_to_all(heads, 2, 1)
 
 
 def _sharded_qkv(cfg: TransformerConfig, ps: list, hs: list,
@@ -774,10 +850,13 @@ def _sharded_qkv(cfg: TransformerConfig, ps: list, hs: list,
 
 
 def _sharded_tail(cfg: TransformerConfig, ps: list, xs: list, heads: list,
-                  total_tokens: int) -> list:
+                  total_tokens: int, moe_carry: Optional[dict] = None
+                  ) -> list:
     """The rest of ``_one_layer`` after attention over the model shards:
     ``wo`` row-parallel over each shard's heads (B, S, H / M * dh), the
-    post-norm and residual, then the FFN block."""
+    post-norm and residual, then the FFN block (``moe_carry``: the
+    layer's slot claims passed from replica to replica, for MoE groups
+    that span replicas; ``moe.moe_ffn_sharded``)."""
     act = L.ActFn(cfg.act)
     npo = cfg.norm_plus_one
     attn = L.row_parallel(heads, [p["wo"] for p in ps], cfg.dtype)
@@ -790,7 +869,8 @@ def _sharded_tail(cfg: TransformerConfig, ps: list, xs: list, heads: list,
           for x, p in zip(xs, ps)]
     if cfg.is_moe:
         ffn = moe_lib.moe_ffn_sharded(cfg, ps, hs,
-                                      total_tokens=total_tokens)
+                                      total_tokens=total_tokens,
+                                      carry=moe_carry)
         if cfg.n_shared_experts:
             shared = L.mlp_glu_sharded(
                 hs, [p["ws_gate"] for p in ps], [p["ws_up"] for p in ps],
@@ -816,6 +896,10 @@ def _sharded_layer(cfg: TransformerConfig, ps: list, xs: list,
     and values (lists over the shards) are appended to it."""
     hs = [L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
           for x, p in zip(xs, ps)]
+    if _column_attention(cfg, len(ps)):
+        heads = _column_layer_attention(cfg, ps, hs, positions, window,
+                                        kv_out)
+        return _sharded_tail(cfg, ps, xs, heads, total_tokens)
     qs, ks, vs = _sharded_qkv(cfg, ps, hs, positions)
     if kv_out is not None:
         kv_out.append((ks, vs))
@@ -897,7 +981,7 @@ def _replica_logits(cfg: TransformerConfig, model: ShardedTransformer,
     replica's rows on shard m's device."""
     xs = _replica_embed(cfg, model, row, tokens)
     B, S = tokens[0].shape
-    total = B * S * model.mesh.shape["data"]
+    total = B * S * data_replicas(model.mesh)
     positions = [_positions(B, S, t.device) for t in tokens]
     local = [_local_layers(cfg, model, i) for i in row]
 
@@ -937,10 +1021,12 @@ def _replica_nll(cfg: TransformerConfig, logits: list, tokens: list
 
 def _replica_tokens(model: ShardedTransformer, tokens) -> list:
     """Per data replica, its rows of the batch on each of its model
-    shards' devices (``tokens``: a whole (B, S) tensor, split over data
-    here, or a ``ShardedTensor`` laid out P("data", None))."""
+    shards' devices (``tokens``: a whole (B, S) tensor, split over the
+    data axes here, or a ``ShardedTensor`` laid out P(dp, None), dp the
+    mesh's data axes)."""
     if not isinstance(tokens, ShardedTensor):
-        tokens = place(tokens, P("data", None), model.mesh)
+        tokens = place(tokens, P(mesh_data_axes(model.mesh), None),
+                       model.mesh)
     return [[tokens.shards[i] for i in row]
             for row in axis_groups(model.mesh, "model")]
 
@@ -962,7 +1048,7 @@ def sharded_loss_fn(cfg: TransformerConfig, model: ShardedTransformer,
     """``loss_fn`` on the mesh: the sums of nll x mask and of the mask
     over every data replica, then one division, on the mesh's first
     device. batch: {tokens (B, S), loss_mask (B, S) optional}, whole
-    tensors or laid out P("data", None)."""
+    tensors or laid out P(dp, None)."""
     rows = axis_groups(model.mesh, "model")
     toks = _replica_tokens(model, batch["tokens"])
     masks = (None if batch.get("loss_mask") is None
@@ -999,18 +1085,15 @@ def sharded_loss_fn(cfg: TransformerConfig, model: ShardedTransformer,
 # cache is not concatenated). Only the shard holding the written slot
 # writes it.
 
-_PREFILL_CACHE = P(None, "data", "model", None, None)
-
-
 @torch.no_grad()
 def sharded_prefill(cfg: TransformerConfig, model: ShardedTransformer,
                     tokens, *, pad_to: Optional[int] = None
                     ) -> Tuple[ShardedTensor, dict]:
     """``prefill`` on the mesh: (the last position's logits (B, Vp) f32
-    laid out P("data", "model"), the filled KV cache: pos{p} -> {"k",
-    "v"}, each (G, B, slen, KV, dh) laid out P(None, "data", "model",
-    None, None)). ``tokens``: a whole (B, S) tensor or laid out
-    P("data", None). Each data replica runs its rows as ``sharded_logits``
+    laid out P(dp, "model"), the filled KV cache: pos{p} -> {"k", "v"},
+    each (G, B, slen, KV, dh) laid out P(None, dp, "model", None, None)),
+    dp the mesh's data axes. ``tokens``: a whole (B, S) tensor or laid
+    out P(dp, None). Each data replica runs its rows as ``sharded_logits``
     does, heads over ``model``; each layer's head-sharded keys and values
     are cut into the ring or padded to ``pad_to`` on their shard
     (``_to_cache``), then re-laid out over the sequence, each KV head
@@ -1020,13 +1103,15 @@ def sharded_prefill(cfg: TransformerConfig, model: ShardedTransformer,
     rows = axis_groups(mesh, "model")
     toks = _replica_tokens(model, tokens)
     Bd, S = toks[0][0].shape
-    B = Bd * mesh.shape["data"]
+    B = Bd * data_replicas(mesh)
+    dp = mesh_data_axes(mesh)
+    cache_spec = P(None, dp, "model", None, None)
     lengths = _cache_lengths(cfg, S, pad_to)
     G, KV, dh = cfg.n_groups, cfg.n_kv_heads, cfg.head_dim
     check_mesh(cfg, mesh, cache={
-        f"pos{p}": ((G, B, n, KV, dh), _PREFILL_CACHE)
+        f"pos{p}": ((G, B, n, KV, dh), cache_spec)
         for p, n in enumerate(lengths)})
-    cache = {f"pos{p}": {kv: zeros((G, B, n, KV, dh), _PREFILL_CACHE, mesh,
+    cache = {f"pos{p}": {kv: zeros((G, B, n, KV, dh), cache_spec, mesh,
                                    cfg.dtype) for kv in ("k", "v")}
              for p, n in enumerate(lengths)}
     sources = _kv_sources(cfg, M)
@@ -1053,7 +1138,7 @@ def sharded_prefill(cfg: TransformerConfig, model: ShardedTransformer,
         for i, lg in zip(row, _vocab_logits(cfg, model, row,
                                             [h[:, -1] for h in x])):
             logits[i] = lg
-    out = ShardedTensor(mesh, P("data", "model"), (B, cfg.padded_vocab),
+    out = ShardedTensor(mesh, P(dp, "model"), (B, cfg.padded_vocab),
                         torch.float32, logits)
     return out, cache
 
@@ -1155,7 +1240,8 @@ def sharded_decode_step(cfg: TransformerConfig, model: ShardedTransformer,
     groups = list(groups.values())
     seq_block = [k[2] for k in keys]
     sources = _kv_sources(cfg, M)
-    Hl = cfg.n_heads // M
+    columns = _column_attention(cfg, M)
+    cols = cfg.n_heads * cfg.head_dim // M
     xs, positions, local = {}, {}, {}
     for row in rows:
         toks = [token.shards[i] for i in row]
@@ -1174,6 +1260,18 @@ def sharded_decode_step(cfg: TransformerConfig, model: ShardedTransformer,
                 hs = [L.rms_norm(xs[i], p["ln1"], cfg.norm_eps,
                                  plus_one=cfg.norm_plus_one)
                       for i, p in zip(row, ps)]
+                if columns:  # whole q, k and v, then RoPE
+                    q, k, v = (all_gather(c, 2)
+                               for c in _column_qkv(cfg, ps, hs))
+                    for i, qw, kw, vw in zip(row, q, k, v):
+                        Bb, dh = qw.shape[0], cfg.head_dim
+                        qs[i] = L.rope(qw.reshape(Bb, 1, -1, dh),
+                                       positions[i], theta=cfg.rope_theta
+                                       ).reshape(Bb, cfg.n_kv_heads, -1, dh)
+                        knew[i] = L.rope(kw.reshape(Bb, 1, -1, dh),
+                                         positions[i], theta=cfg.rope_theta)
+                        vnew[i] = vw.reshape(Bb, 1, -1, dh)
+                    continue
                 q, k, v = _sharded_qkv(cfg, ps, hs,
                                        [positions[i] for i in row])
                 for i, qw, kw, vw in zip(row, all_gather(q, 2),
@@ -1195,14 +1293,16 @@ def sharded_decode_step(cfg: TransformerConfig, model: ShardedTransformer,
             for group in groups:
                 attn.update(_sequence_attention(cfg, group, qs, knew, vnew,
                                                 blocks, cache_len, window))
+            carry = {}  # MoE slots claimed by earlier replicas' tokens
             for row in rows:
                 heads = []
-                for m, i in enumerate(row):
-                    o = attn[i].reshape(attn[i].shape[0], 1, cfg.n_heads, -1)
-                    heads.append(o[:, :, m * Hl:(m + 1) * Hl].to(
-                        cfg.dtype).reshape(o.shape[0], 1, -1))
+                for m, i in enumerate(row):  # shard m's columns of wo's rows
+                    o = attn[i].reshape(attn[i].shape[0], 1, -1)
+                    heads.append(o[:, :, m * cols:(m + 1) * cols].to(
+                        cfg.dtype))
                 out = _sharded_tail(cfg, [local[i][g][pos] for i in row],
-                                    [xs[i] for i in row], heads, B)
+                                    [xs[i] for i in row], heads, B,
+                                    moe_carry=carry)
                 for i, x in zip(row, out):
                     xs[i] = x
             slot = cache_len % max(slen, 1) if window else min(cache_len,

@@ -1823,3 +1823,44 @@ def test_sharded_decode_plan_on_card_matches_unsharded(cuda, arch, cell,
     for name, st in runs[0][1].items():
         assert all(torch.equal(a, b) for a, b in zip(
             st.shards, runs[1][1][name].shards)), name
+
+
+def _old_gather_backward(grad, ids, n_rows):
+    """The row gather's backward before its lengths came from
+    ``searchsorted``: ``unique_consecutive`` counts, read on the host."""
+    out = grad.new_zeros((n_rows, grad.shape[-1]))
+    flat = ids.reshape(-1)
+    if flat.numel() == 0:
+        return out
+    order = torch.argsort(flat, stable=True)
+    rows, counts = torch.unique_consecutive(flat[order], return_counts=True)
+    out[rows] = torch.segment_reduce(grad.reshape(flat.numel(), -1)[order],
+                                     "sum", lengths=counts)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_static_run_lengths_keep_the_cards_bits(cuda, dtype):
+    """On the card, the gather's backward and ``segment_sum`` with their
+    lengths from ``layers.run_lengths`` (no host read) give the bits of
+    the ``unique_consecutive`` / ``bincount`` forms they replaced:
+    repeated, absent and out-of-order rows, an empty shard, a table of a
+    million rows."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for n_ids, n_rows, width in ((200_000, 37, 64), (0, 9, 8),
+                                 (50_000, 1_000_000, 16)):
+        ids = torch.randint(0, n_rows, (n_ids,), generator=gen, device=cuda)
+        grad = torch.randn((n_ids, width), generator=gen,
+                           device=cuda).to(dtype)
+        table = torch.zeros((n_rows, width), dtype=dtype, device=cuda,
+                            requires_grad=True)
+        (got,) = torch.autograd.grad(L.gather_rows(table, ids), table, grad)
+        assert torch.equal(got, _old_gather_backward(grad, ids, n_rows))
+        data = torch.randn((n_ids, width), generator=gen,
+                           device=cuda).to(dtype)
+        want = torch.segment_reduce(
+            data[torch.argsort(ids, stable=True)], "sum",
+            lengths=torch.bincount(ids, minlength=n_rows))
+        assert torch.equal(L.segment_sum(data, ids, n_rows), want)

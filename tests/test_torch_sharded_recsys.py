@@ -375,9 +375,10 @@ def _integer_weights(seed):
 
 @pytest.mark.parametrize("mode", ["dense", "zen"])
 def test_plan_retrieval_matches_the_reference_plan(mode):
-    """``retrieval_cand``'s plan on 2 x 2 (dense candidates over ("data",
-    "model"): four blocks; the zen index's coords over ``data``: two)
-    against the reference plan's: ids and scores equal, ties included.
+    """``retrieval_cand``'s plan on 2 x 2 (dense candidates and the zen
+    index's coords over ``data``, as the reference's plan lays them: two
+    blocks) against the reference plan's: ids and scores equal, ties
+    included.
     Candidate rows repeat across block boundaries, so an exact tie spans
     two shards and must go to the lower id. Zen: the reduced index fitted
     by the reference (k = zen_k references), the coords its projection of
@@ -386,8 +387,8 @@ def test_plan_retrieval_matches_the_reference_plan(mode):
     rng = np.random.default_rng(4)
     n = 400
     cands = rng.integers(-3, 4, (n, jcfg.embed_dim)).astype(np.float32)
-    cands[100:110] = cands[95:105]     # straddle blocks 0 | 1 (of 100)
-    cands[200:210] = cands[:10]        # block 0 again in block 2
+    cands[100:110] = cands[95:105]     # repeats inside block 0 (of 200)
+    cands[200:210] = cands[:10]        # block 0 again in block 1
     cands[395:400] = cands[300:305]
     batch = {k: v for k, v in _batch(jcfg, 4, 3).items() if k != "labels"}
     over = {"retrieval_mode": mode}
@@ -410,7 +411,7 @@ def test_plan_retrieval_matches_the_reference_plan(mode):
         assert plan.in_specs[2]["coords"] == P("data", None)
     else:
         index = cands
-        assert plan.in_specs[2] == P(("data", "model"), None)
+        assert plan.in_specs[2] == P("data", None)
     with jmesh.make_host_mesh(1, 1):
         want = _np(jax.jit(jplan.fn)(jax.tree.map(jnp.asarray, params),
                                      jax.tree.map(jnp.asarray, batch),

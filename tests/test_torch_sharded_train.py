@@ -180,9 +180,19 @@ def test_sharded_init_is_init_params(arch, shape):
 
 
 def test_granite_moe_does_not_split_over_four_model_shards():
-    with pytest.raises(ValueError, match=r"n_heads % M"):
-        ttrain.sharded_lm_trainer(_cfg("granite-moe-3b-a800m"),
-                                  mesh=_mesh((1, 4)), seed=0)
+    """granite-moe-reduced's 6 heads do not split over 4 model shards: the
+    leaves keep the reference's layout and attention runs re-laid out over
+    the sequence; the step's loss and gradients are the reference's."""
+    arch, shape = "granite-moe-3b-a800m", (1, 4)
+    cfg = _cfg(arch)
+    assert cfg.n_heads % 4 and ttfm._column_attention(cfg, 4)
+    params, toks, _, _, loss_j, g_j = _reference_step(arch)
+    model = convert.transformer_from_arrays(cfg, params, mesh=_mesh(shape))
+    loss, _, grads = ttrain.ShardedTrainer(model).reduced_grads(
+        {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(loss.item(), loss_j, rtol=1e-5)
+    _assert_grads_close({n: g.gather().numpy() for n, g in grads.items()},
+                        g_j)
 
 
 @pytest.mark.parametrize("arch,shape", CASES)
@@ -382,18 +392,21 @@ def test_plan_matches_the_reference_plan(arch, shape):
 
 
 def test_plans_not_ported_raise():
-    """The multi-pod mesh raises, naming item 3b; the LM prefill and
-    decode plans, MACE's train plan and every recsys plan are built
-    (their steps are held to the reference's in
-    tests/test_torch_sharded_lm_serve.py, tests/test_torch_sharded_gnn.py
-    and tests/test_torch_sharded_recsys.py)."""
+    """Nothing raises any more: the multi-pod plans are built, their
+    inputs over ("pod", "data"); the LM prefill and decode plans, MACE's
+    train plan and every recsys plan are built (their steps are held to
+    the reference's in tests/test_torch_sharded_lm_serve.py,
+    tests/test_torch_sharded_gnn.py, tests/test_torch_sharded_recsys.py
+    and, on the (pod, data, model) mesh, tests/test_torch_dryrun.py)."""
     for cell in tconfigs.get_arch("qwen1.5-0.5b").cells:
         plan = tsteps.build_plan("qwen1.5-0.5b", cell.shape, reduced=True)
         assert (plan.kind, plan.skip) == (cell.kind, cell.skip)
-    for arch, shape in (("qwen1.5-0.5b", "train_4k"), ("mace", "molecule"),
-                        ("dlrm-rm2", "train_batch")):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            tsteps.build_plan(arch, shape, reduced=True, multi_pod=True)
+    dp = ("pod", "data")
+    for arch, shape, key in (("qwen1.5-0.5b", "train_4k", "tokens"),
+                             ("mace", "molecule", "senders"),
+                             ("dlrm-rm2", "train_batch", "sparse")):
+        plan = tsteps.build_plan(arch, shape, reduced=True, multi_pod=True)
+        assert plan.in_specs[2][key].axes(0) == dp
     plan = tsteps.build_plan("mace", "molecule", reduced=True)
     assert (plan.kind, plan.cfg.d_feat, plan.cfg.edge_chunks) == (
         "train", 16, 1)
