@@ -12,7 +12,7 @@ kernels.
     python3 chip_smoke.py --sharded  # phases 1-3, the f32 build and serve
                                      # of phase 8, phase 20 (on four
                                      # cards where there are four) and
-                                     # phases 26-30 (on four
+                                     # phases 26-31 (on four
                                      # distinct cards)
     python3 chip_smoke.py --lm-mesh  # phases 1 and 26 alone (with
                                      # --sharded: on four cards)
@@ -23,6 +23,8 @@ kernels.
                                            # with --sharded: four cards)
     python3 chip_smoke.py --dryrun   # phases 1 and 30 alone, 30 (c) on
                                      # qwen1.5-0.5b's train_4k
+    python3 chip_smoke.py --multihost  # phases 1 and 31 alone (with
+                                       # --sharded: on four cards)
 
 Phases:
   1. the device, and its name and power limit as nvidia-smi reports them;
@@ -275,10 +277,22 @@ Phases:
      logical shards (heads that do not split: attention re-laid out over
      the sequence), a prefill's logits and a step's loss against the
      single device within bf16_lm_mismatch; the dry-run CLI on a
-     production cell in a subprocess, its wall time and record.
+     production cell in a subprocess, its wall time and record;
+ 31. the trainer's mesh over two processes (--multihost: ``python -m
+     torch.distributed.run --nproc-per-node 2`` started by this script,
+     each worker writing its results to a file): on one card two
+     processes of two logical shards over gloo, qwen1.5-0.5b at
+     published width and 2 layers, B = 4, S = 4,096, on 1 x 4 and on 2 x
+     2 with --compress-grads; on four cards (--sharded) two processes of
+     two cards over NCCL, granite-8b at 36 layers, B = 8, S = 4,096 on 1
+     x 4, then twice with a seeded random delay in one card's backward,
+     and a checkpoint leg both ways. Every run 3 steps, its losses and an
+     integer fingerprint of every leaf a position equal to the
+     one-process run's; ms a step and tokens/s beside it, peaks, and the
+     share of a step in the mesh.* ranges.
 
 Phases 7, 11 and 14 run right after phase 3 (so ``--quick`` covers every
-kernel); phases 17-20 run after phase 12, phases 21-30 last. Phase 3
+kernel); phases 17-20 run after phase 12, phases 21-31 last. Phase 3
 also holds zen_topk at widths up to 16,384 (lists in global memory) and
 k = 300, phase 7 the probes at widths up to 16,384 and PQ at M = 256,
 phase 14 zen_estimate at k = 300 and 600 and every dense kernel past
@@ -566,6 +580,30 @@ DRYRUN_HEADS_B, DRYRUN_HEADS_S = 2, 4_096
 #: train_4k on the 16 x 16 mesh
 DRYRUN_CELL = {False: ("dlrm-rm2", "retrieval_cand"),
                True: ("qwen1.5-0.5b", "train_4k")}
+
+#: phase 31: the trainer's mesh over two processes (--multihost), each
+#: started by ``python -m torch.distributed.run --nproc-per-node 2``. One
+#: card: two processes of two logical shards each over gloo, MH_ONE_CARD's
+#: LM at published width, MH_ONE_LAYERS layers, B x S = MH_ONE_BATCH x
+#: MH_ONE_SEQ, on each of MH_ONE_LEGS ((data, model), --compress-grads);
+#: four cards (--sharded): two processes of two cards over NCCL, MH_FOUR's
+#: LM at MH_FOUR_LAYERS layers (phase 26's four-card leg), B x S =
+#: MH_FOUR_BATCH x MH_FOUR_SEQ on 1 x 4, then MH_DELAY_RUNS reruns with a
+#: seeded random delay (up to MH_DELAY_MS a hit, host and card) in one
+#: card's backward; and the checkpoint leg (MH_ONE_CARD at MH_ONE_LAYERS
+#: layers, MH_CKPT_BATCH x MH_ONE_SEQ on 1 x 4) both ways. Every run is
+#: MH_STEPS steps, held to the one-process run of the same phase: every
+#: loss, and an exact integer fingerprint of every leaf's bytes a
+#: position, computed on its card. A spawn's wall limit is MH_WALL_S.
+MH_ONE_CARD, MH_ONE_LAYERS, MH_ONE_BATCH, MH_ONE_SEQ = \
+    "qwen1.5-0.5b", 2, 4, 4_096
+MH_ONE_LEGS = (((1, 4), False), ((2, 2), True))
+MH_FOUR, MH_FOUR_LAYERS, MH_FOUR_BATCH, MH_FOUR_SEQ = \
+    "granite-8b", 36, 8, 4_096
+MH_DELAY_RUNS, MH_DELAY_MS, MH_CKPT_BATCH = 2, 20.0, 2
+MH_STEPS, MH_WALL_S = 3, 900
+#: where the phase's runs train (a CPU rehearsal sets "cpu")
+MH_DEVICE = "cuda"
 
 
 def log(*a):
@@ -6432,6 +6470,307 @@ def check_dryrun(dev, smi: str, four_cards: bool, *,
         fail("; ".join(problems))
 
 
+# -- 31. the trainer's mesh over processes ------------------------------------------
+
+
+def leaf_fingerprints(tree, mesh) -> dict:
+    """An exact integer fingerprint of every leaf's bytes at each of this
+    process's positions, computed on its card: sum_i b_i (i mod 1,000,003
+    + 1) over the leaf's elements read as integers of their width, in
+    int64 (wrapping, so the order of the sum does not matter)."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import leaf_paths
+
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+    out = {}
+    for name, st in leaf_paths(tree):
+        for pos in mesh.local_positions:
+            t = st.shards[pos].detach().contiguous().reshape(-1)
+            flat = t.view(ints[t.element_size()])
+            total = torch.zeros((), dtype=torch.int64, device=t.device)
+            for lo in range(0, flat.numel(), 1 << 26):
+                x = flat[lo:lo + (1 << 26)].to(torch.int64)
+                w = torch.arange(lo, lo + x.numel(), device=t.device)
+                total += (x * (w % 1_000_003 + 1)).sum()
+            out[f"{name}@{pos}"] = int(total)
+    return out
+
+
+def mh_argv(arch: str, layers: int, batch: int, seq: int, shape,
+            compress: bool, steps: int = MH_STEPS) -> list:
+    return ["--arch", arch, "--layers", str(layers), "--batch", str(batch),
+            "--seq", str(seq), "--data-shards", str(shape[0]),
+            "--model-shards", str(shape[1]), "--steps", str(steps),
+            "--fixed-batch"] + (["--compress-grads"] if compress else [])
+
+
+def mh_run(spec: dict) -> dict:
+    """One trainer run of ``spec`` (``argv``; ``device``; ``multihost``;
+    ``profile``: the last step under the profiler; ``delay``: (seed, card)
+    a random delay in that card's backward) in this process: its losses,
+    step times, peaks, backend and leaf fingerprints."""
+    import torch
+
+    from repro_torch.distributed import partition, process
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+
+    device = spec.get("device", "cuda")
+    if spec.get("multihost"):
+        process.initialize(device, timeout_s=MH_WALL_S - 60)
+    delay, orig_mm, hits = spec.get("delay"), L.matmul_f32, [0]
+    if delay:
+        rng = np.random.default_rng(delay[0])
+        card = torch.device("cuda", delay[1])
+
+        def late(g):
+            hits[0] += 1
+            ms = float(rng.uniform(0, MH_DELAY_MS))
+            time.sleep(ms / 1e3)
+            with torch.cuda.device(card):
+                torch.cuda._sleep(int(ms * 1e6))   # ~1 GHz cycles
+            return g
+
+        def matmul_f32(a, b):
+            out = orig_mm(a, b)
+            if out.requires_grad and out.device == card:
+                out.register_hook(late)
+            return out
+
+        L.matmul_f32 = matmul_f32
+    orig_step, calls, prof_rec = train.ShardedTrainer.step, [0], {}
+
+    def step(self, batch):
+        calls[0] += 1
+        if not (spec.get("profile") and calls[0] == MH_STEPS):
+            return orig_step(self, batch)
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = orig_step(self, batch)
+            partition.synchronize(self.mesh)
+        prof_rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        mesh_us = nccl_us = 0.0
+        for e in prof.key_averages():
+            if e.key.startswith("mesh."):
+                mesh_us += e.cpu_time_total
+            if "nccl" in e.key.lower():
+                nccl_us += getattr(e, "device_time_total", 0.0) or \
+                    getattr(e, "cuda_time_total", 0.0)
+        prof_rec["mesh_ms"] = mesh_us / 1e3
+        prof_rec["nccl_device_ms"] = nccl_us / 1e3
+        return out
+
+    train.ShardedTrainer.step = step
+    try:
+        out = train.train(train.parse_args(spec["argv"] + [
+            "--device", device] + (["--multihost"] if spec.get("multihost")
+                                   else [])))
+    finally:
+        train.ShardedTrainer.step = orig_step
+        L.matmul_f32 = orig_mm
+    mesh = out["mesh"]
+    rec = {"losses": out["losses"], "step_s": out["step_s"],
+           "peaks": out["peak_bytes_by_device"], "backend": out["backend"],
+           "local": list(mesh.local_positions), "delay_hits": hits[0],
+           "fingerprints": leaf_fingerprints(out["trainer"].state_tree(),
+                                             mesh), **prof_rec}
+    del out
+    free_cards([d for d in dict.fromkeys(mesh.devices.flat)
+                if d.type == "cuda"])
+    return rec
+
+
+def mh_worker(spec_path: str) -> None:
+    """The worker of phase 31 (one process of ``torch.distributed.run``):
+    ``mh_run`` of each of the spec's runs in turn, in one process group,
+    the records written to ``<out>.<rank>.json``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import repro_torch  # noqa: F401  (the TF32 switches)
+    from repro_torch.distributed import process
+
+    recs = [mh_run(dict(run, device=spec["device"], multihost=True))
+            for run in spec["runs"]]
+    rank = process.process_index()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(recs, f)
+    process.barrier()
+    process.shutdown()
+
+
+def mh_spawn(runs: list, work: str, label: str) -> list:
+    """``mh_run`` of each of ``runs`` in turn in two processes started by
+    ``python -m torch.distributed.run --nproc-per-node 2``: for each run,
+    the two processes' records. Any process failing fails the phase."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    path = os.path.join(work, f"{label}.json")
+    spec = {"runs": runs, "out": os.path.join(work, label),
+            "device": MH_DEVICE}
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+             "--master-port", str(port), os.path.abspath(__file__),
+             "--mh-worker", path], capture_output=True, text=True,
+            timeout=MH_WALL_S)
+    except subprocess.TimeoutExpired as e:
+        fail(f"phase 31 {label}: the two processes did not end within "
+             f"{MH_WALL_S} s: {str(e.stdout)[-3000:]}")
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"phase 31 {label}: the two processes exited "
+             f"{r.returncode}:\n{r.stdout[-6000:]}\n{r.stderr[-6000:]}")
+    for line in r.stdout.splitlines():
+        if line.startswith("[process") and ("backend" in line
+                                            or "mesh" in line):
+            log(f"      {line[:200]}")
+    recs = []
+    for rank in range(2):
+        with open(f"{spec['out']}.{rank}.json") as f:
+            recs.append(json.load(f))
+    log(f"    {label}: two processes, {len(runs)} run(s), {wall:.1f} s wall")
+    return [list(pair) for pair in zip(*recs)]
+
+
+def mh_compare(label: str, one: dict, two: list, backend: str) -> None:
+    """Fail unless both processes' losses and the union of their
+    fingerprints equal the one-process run's, over ``backend``."""
+    for rank, rec in enumerate(two):
+        if rec["backend"] != backend:
+            fail(f"phase 31 {label}: process {rank} ran over "
+                 f"{rec['backend']}, not {backend}")
+        if rec["losses"] != one["losses"]:
+            fail(f"phase 31 {label}: process {rank}'s losses "
+                 f"{rec['losses']} against one process's {one['losses']}")
+    got = {**two[0]["fingerprints"], **two[1]["fingerprints"]}
+    if set(got) != set(one["fingerprints"]):
+        fail(f"phase 31 {label}: fingerprints of {len(got)} leaves a "
+             f"position against {len(one['fingerprints'])}")
+    bad = sorted(k for k, v in one["fingerprints"].items() if got[k] != v)
+    if bad:
+        fail(f"phase 31 {label}: {len(bad)} leaves differ from one "
+             f"process's, first {bad[:5]}")
+    log(f"    {label}: losses {one['losses']} on both processes and "
+        f"{len(got)} leaf fingerprints (a leaf a position) equal to one "
+        "process's, bit for bit")
+
+
+def _dir_files(d: str) -> dict:
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            with open(os.path.join(root, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(root, f), d)] = fh.read()
+    return out
+
+
+def check_multihost(smi: str, four_cards: bool) -> None:
+    """Phase 31: the trainer's mesh over two processes against one."""
+    import torch
+
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    log(f"[31] the trainer's mesh over two processes (--multihost, python "
+        f"-m torch.distributed.run --nproc-per-node 2) against one "
+        f"process; {smi}; {len(cards)} card(s)")
+    if four_cards and len(cards) < 4:
+        fail(f"--sharded needs four cards for phase 31; found {len(cards)}")
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "multihost")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if not four_cards:
+        legs = []
+        for shape, compress in MH_ONE_LEGS:
+            argv = mh_argv(MH_ONE_CARD, MH_ONE_LAYERS, MH_ONE_BATCH,
+                           MH_ONE_SEQ, shape, compress)
+            legs.append((f"{MH_ONE_CARD} {MH_ONE_LAYERS} layers "
+                         f"{shape[0]} x {shape[1]}"
+                         + (" --compress-grads" if compress else ""),
+                         argv, mh_run({"argv": argv, "device": MH_DEVICE})))
+        twos = mh_spawn([{"argv": argv} for _, argv, _ in legs], work,
+                        "one_card")
+        tok = MH_ONE_BATCH * MH_ONE_SEQ
+        for (label, _, one), two in zip(legs, twos):
+            mh_compare(label, one, two, "gloo")
+            t1, t2 = one["step_s"][1], max(r["step_s"][1] for r in two)
+            log(f"    {label}: step 1 {t1 * 1e3:.1f} ms one process "
+                f"({tok / t1:,.0f} tokens/s), {t2 * 1e3:.1f} ms two "
+                f"processes ({tok / t2:,.0f} tokens/s)")
+        log(f"    phase 31: {time.perf_counter() - t0:.1f} s")
+        return
+    argv = mh_argv(MH_FOUR, MH_FOUR_LAYERS, MH_FOUR_BATCH, MH_FOUR_SEQ,
+                   (1, 4), False)
+    label = f"{MH_FOUR} {MH_FOUR_LAYERS} layers 1 x 4"
+    one = mh_run({"argv": argv, "device": MH_DEVICE})
+    runs = [{"argv": argv, "profile": True}] + [
+        {"argv": argv, "delay": [100 + i, 1]} for i in range(MH_DELAY_RUNS)]
+    two, *delayed = mh_spawn(runs, work, "four")
+    mh_compare(label, one, two, "nccl")
+    tok = MH_FOUR_BATCH * MH_FOUR_SEQ
+    t1, t2 = one["step_s"][1], max(r["step_s"][1] for r in two)
+    peak1 = max(one["peaks"].values(), default=0) / 1e9
+    peak2 = max((v for r in two for v in r["peaks"].values()),
+                default=0) / 1e9
+    log(f"    {label}: step 1 {t1 * 1e3:.1f} ms one process "
+        f"({tok / t1:,.0f} tokens/s), {t2 * 1e3:.1f} ms two processes "
+        f"({tok / t2:,.0f} tokens/s); every step one {one['step_s']}, two "
+        f"{[r['step_s'] for r in two]}; peak {peak1:.2f} against "
+        f"{peak2:.2f} GB a card")
+    for rank, r in enumerate(two):
+        log(f"    process {rank}'s profiled step {MH_STEPS - 1}: wall "
+            f"{r['wall_ms']:.1f} ms, mesh.* ranges {r['mesh_ms']:.1f} ms "
+            f"({r['mesh_ms'] / r['wall_ms']:.1%} of the step, host), NCCL "
+            f"kernels {r['nccl_device_ms']:.1f} ms on the card; peaks "
+            f"{ {k: round(v / 1e9, 2) for k, v in r['peaks'].items()} }")
+    for i, recs in enumerate(delayed):
+        mh_compare(f"{label}, random delays in cuda:1's backward (seed "
+                   f"{100 + i}, {recs[0]['delay_hits']} hits)", one, recs,
+                   "nccl")
+    del one, two, delayed
+    # the checkpoint leg: two processes save, one restores; and the reverse
+    ck = mh_argv(MH_ONE_CARD, MH_ONE_LAYERS, MH_CKPT_BATCH, MH_ONE_SEQ,
+                 (1, 4), False, steps=2)
+    full = mh_argv(MH_ONE_CARD, MH_ONE_LAYERS, MH_CKPT_BATCH, MH_ONE_SEQ,
+                   (1, 4), False, steps=4)
+    whole = mh_run({"argv": full, "device": MH_DEVICE})  # uninterrupted
+    d2, d1 = os.path.join(work, "ck_two"), os.path.join(work, "ck_one")
+    mh_run({"argv": ck + ["--ckpt-dir", d1, "--ckpt-every", "2"],
+            "device": MH_DEVICE})
+    shutil.copytree(d1, d1 + "_r")
+    _, two_r = mh_spawn([
+        {"argv": ck + ["--ckpt-dir", d2, "--ckpt-every", "2"]},
+        {"argv": full + ["--resume", "--ckpt-dir", d1 + "_r"]}], work,
+        "checkpoints")
+    a, b = _dir_files(d2), _dir_files(d1)
+    if sorted(a) != sorted(b) or any(a[n] != b[n] for n in a):
+        fail("phase 31: the two processes' checkpoint files differ from "
+             "one process's")
+    shutil.copytree(d2, d2 + "_r")
+    one_r = mh_run({"argv": full + ["--resume", "--ckpt-dir", d2 + "_r"],
+                    "device": MH_DEVICE})
+    mh_compare("one process resumed from two's save, against two resumed "
+               "from one's", one_r, two_r, "nccl")
+    if one_r["losses"] != whole["losses"][2:]:
+        fail(f"phase 31: the resumed losses {one_r['losses']} against the "
+             f"uninterrupted run's {whole['losses'][2:]}")
+    log(f"    checkpoint leg ({MH_ONE_CARD} {MH_ONE_LAYERS} layers, 1 x 4): "
+        f"{len(a)} files byte-equal; each layout resumed the other's save "
+        f"at step 2 to the uninterrupted run's losses {whole['losses'][2:]}")
+    log(f"    phase 31: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -6478,6 +6817,10 @@ def main() -> None:
     if "--dryrun" in sys.argv[1:]:
         check_dryrun(dev, smi, four_cards=sharded_only, production=True)
         log("dryrun run: stopping after phase 30")
+        sys.exit(2)
+    if "--multihost" in sys.argv[1:]:
+        check_multihost(smi, four_cards=sharded_only)
+        log("multihost run: stopping after phase 31")
         sys.exit(2)
 
     # -- 2. build --------------------------------------------------------
@@ -6635,7 +6978,10 @@ def main() -> None:
         check_lm_serve_mesh(dev, smi, four_cards=True)
         gc.collect()
         check_dryrun(dev, smi, four_cards=True)
-        log(f"sharded run: stopping after phases 8 (f32), 20 and 26-30; "
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_multihost(smi, four_cards=True)
+        log(f"sharded run: stopping after phases 8 (f32), 20 and 26-31; "
             f"{time.perf_counter() - t_start:.0f} s")
         sys.exit(2)
     dense_err = check_dense_kernels(corpus, coords, gen)
@@ -6894,6 +7240,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_dryrun(torch.device("cuda"), smi, four_cards=False)
 
+    # -- 31. the trainer's mesh over two processes ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_multihost(smi, four_cards=False)
+
     kernels = [dict(name="zen_topk", route="cuda",
                     source="src/repro_torch/kernels/csrc/zen_topk.cu",
                     replaces="src/repro/kernels/zen_topk.py:92",
@@ -6941,4 +7292,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--mh-worker" in sys.argv[1:]:
+        mh_worker(sys.argv[sys.argv.index("--mh-worker") + 1])
+    else:
+        main()

@@ -13,7 +13,15 @@ checkpoint either package writes the other restores.
   shards when it lives on a mesh) with its partition spec in the manifest;
   ``restore(mesh=)`` lays each leaf out on the given mesh by its stored
   spec, so a run restarted on another mesh resumes the same state;
-* retention — keeps the newest ``keep`` checkpoints.
+* retention — keeps the newest ``keep`` checkpoints;
+* **processes** — on a mesh several processes hold (``--multihost``),
+  every process calls ``save``/``save_async``/``wait``/``restore`` alike:
+  the gather of the distinct shards is a collective, run on the calling
+  thread in leaf order before any writer thread starts; process 0 writes
+  the files (the one-process run's bytes) and the others wait at a
+  barrier in ``save`` or ``wait``; ``restore(mesh=)`` reads the directory
+  in every process (one host's disk, or a shared filesystem) and each
+  places its own blocks.
 
 Format: one ``.npy`` per leaf and a ``manifest.json`` (``step``,
 ``leaves``: name, file, dtype, shape, spec; ``treedef``). A tree is nested
@@ -37,6 +45,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import process
 from repro_torch.distributed.partition import ShardedTensor, place
 from repro_torch.distributed.sharding import spec_from_json, spec_to_json
 
@@ -135,9 +144,12 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     """A host copy of one leaf and its dtype's name (a copy even of a CPU
     tensor: training changes the tensors in place while a save is being
     written). bf16 comes back as its u2 bits (numpy has no bf16 without
-    ml_dtypes)."""
+    ml_dtypes). Across processes only process 0 gets the array (the
+    others None)."""
     if isinstance(leaf, ShardedTensor):
-        leaf = leaf.gather("cpu")
+        leaf = leaf.gather("cpu", root=0)
+        if leaf is None:
+            return None, ""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -171,12 +183,19 @@ class CheckpointManager:
         """Synchronous atomic save of a tree of tensors, arrays and
         ``ShardedTensor`` (gathered). ``specs``: a matching tree of
         ``sharding.P`` (None: every leaf replicated, ``[]``)."""
-        return self._write(step, self._host_leaves(tree, specs))
+        host = self._host_leaves(tree, specs)
+        path = (self._write(step, host) if process.process_index() == 0
+                else os.path.join(self.directory, f"step_{step:010d}"))
+        process.barrier()
+        return path
 
     def save_async(self, step: int, tree: Any, specs: Any = None) -> None:
-        """Host copies now; the disk write in a background thread."""
+        """Host copies now; the disk write in a background thread (process
+        0's)."""
         self.wait()
         host = self._host_leaves(tree, specs)
+        if process.process_index() != 0:
+            return
         self._thread = threading.Thread(
             target=self._write_in_thread, args=(step, host), daemon=True)
         self._thread.start()
@@ -202,10 +221,12 @@ class CheckpointManager:
             self._error = e
 
     def wait(self) -> None:
-        """Join the background write; raise what it raised."""
+        """Join the background write (across processes, then wait for
+        every process); raise what it raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        process.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -240,7 +240,7 @@ def _placed(params: dict, dtype, mesh, specs: dict) -> dict:
     leaves = {}
     for k, v in flat_state(params).items():
         dt = dtype[k] if isinstance(dtype, dict) else dtype
-        leaves[k] = place(_leaf_tensor(v, dt, mesh.first_device),
+        leaves[k] = place(_leaf_tensor(v, dt, mesh.local_device),
                           specs[k], mesh)
         for s in leaves[k].shards:
             s.requires_grad_(True)

@@ -1,13 +1,16 @@
 """Fault-tolerance & straggler-mitigation runtime hooks.
 
 PyTorch counterpart of ``repro.distributed.fault`` (pure Python). The
-cross-host signals are modelled as in-process hooks with the same
-contracts a multi-process deployment uses (``torch.distributed`` and its
-store):
+hooks themselves are per process; the multi-process trainer
+(``launch.train --multihost``) agrees their inputs across processes every
+step (``distributed.process.all_gather_object``): each process's
+``StepMonitor`` is fed the slowest process's step time and the
+preemption flags are OR'd, so every process saves, escalates or stops at
+the same step. The serving tier's signals stay in-process hooks:
 
 * **StepMonitor** — per-step wall-time EMA; flags a straggler when a step
   exceeds ``threshold x`` the EMA. On a real pod the per-host step times are
-  all-gathered (a tiny f32 collective piggybacked on the step); the slowest
+  all-gathered (a tiny host-side all-gather after the step); the slowest
   host is reported and, past a patience budget, the policy asks the runner to
   (a) rebalance input shards away from the slow host, then (b) checkpoint and
   re-launch without it (elastic restart).

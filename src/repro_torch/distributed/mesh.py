@@ -1,4 +1,4 @@
-"""A device mesh for single-controller sharded retrieval.
+"""A device mesh for sharded retrieval and training.
 
 PyTorch counterpart of what the serving path reads from
 ``jax.sharding.Mesh`` (``devices``, ``devices.size``, ``axis_names``,
@@ -6,6 +6,12 @@ PyTorch counterpart of what the serving path reads from
 owns every device of the mesh, as in the reference: the per-shard kernels
 launch on each shard's device and the candidate lists meet on the first
 (``distributed.retrieval``).
+
+A mesh may also span processes (``--multihost``: one process a host,
+:func:`make_process_mesh`): each position has an owning process
+(``owner(pos)``), laid out process-major, and a position another process
+owns is listed on the ``meta`` device, a placeholder. The serving path's
+meshes stay single-controller.
 
 A mesh may list one device more than once. :func:`make_mesh` puts S
 logical shards on one device (one card, or the CPU) when fewer cards than
@@ -31,11 +37,15 @@ class Mesh:
 
     Attributes:
       devices:    numpy object array of ``torch.device``, shaped as the mesh
-                  (one axis a name).
+                  (one axis a name); ``meta`` at another process's position.
       axis_names: the axes' names, in the order of ``devices``' axes.
+      owners:     the process owning each position (row-major; all 0 on
+                  one process).
+      process:    this process's index.
     """
 
-    def __init__(self, devices, axis_names: AxisNames):
+    def __init__(self, devices, axis_names: AxisNames, *,
+                 owners: Optional[Sequence[int]] = None, process: int = 0):
         names = (axis_names,) if isinstance(axis_names, str) \
             else tuple(axis_names)
         arr = np.asarray(devices, dtype=object)
@@ -48,6 +58,29 @@ class Mesh:
             raise ValueError("a mesh needs at least one device")
         self.devices = flat.reshape(arr.shape)
         self.axis_names = names
+        self.owners = (np.zeros(arr.size, dtype=np.int64) if owners is None
+                       else np.asarray(owners, dtype=np.int64).reshape(-1))
+        self.process = process
+        self.process_count = int(self.owners.max()) + 1
+
+    def owner(self, pos: int) -> int:
+        """The process owning mesh position ``pos``."""
+        return int(self.owners[pos])
+
+    def is_local(self, pos: int) -> bool:
+        return int(self.owners[pos]) == self.process
+
+    @property
+    def local_positions(self) -> Tuple[int, ...]:
+        """The positions this process owns, in order."""
+        return tuple(int(p) for p in
+                     np.flatnonzero(self.owners == self.process))
+
+    @property
+    def local_device(self) -> torch.device:
+        """This process's first device (the mesh's first device on one
+        process): where it draws weights and batches."""
+        return self.devices.flat[self.local_positions[0]]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -83,8 +116,10 @@ class Mesh:
         return tuple(arr[:, 0])
 
     def __repr__(self) -> str:
+        extra = (f", process {self.process} of {self.process_count}"
+                 if self.process_count > 1 else "")
         return (f"Mesh({dict(self.shape)}, devices="
-                f"{[str(d) for d in self.devices.flat]})")
+                f"{[str(d) for d in self.devices.flat]}{extra})")
 
 
 def make_mesh(shape: Union[int, Sequence[int]] = 1, axis: AxisNames = "shard",
@@ -112,3 +147,26 @@ def make_mesh(shape: Union[int, Sequence[int]] = 1, axis: AxisNames = "shard",
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(shape), names)
+
+
+def make_process_mesh(shape: Sequence[int], axis: AxisNames, *, process: int,
+                      count: int, devices: Sequence[torch.device]) -> Mesh:
+    """A mesh of ``shape`` over ``count`` processes, this one ``process``
+    owning ``devices``: positions laid out process-major, as
+    ``jax.devices()`` orders them (process r owns positions r L .. (r + 1)
+    L - 1, L = positions / count). Its L positions go over its devices by
+    :func:`make_mesh`'s rule: distinct devices when it has that many,
+    else logical shards of the first; another process's positions are
+    ``meta``."""
+    n = math.prod(shape)
+    if n % count:
+        raise ValueError(f"a mesh of {tuple(shape)} ({n} positions) does not "
+                         f"split over {count} processes")
+    L = n // count
+    devices = list(devices)
+    mine = devices[:L] if len(devices) >= L else [devices[0]] * L
+    flat = np.empty(n, dtype=object)
+    flat[:] = [torch.device("meta")] * n
+    flat[process * L:(process + 1) * L] = mine
+    return Mesh(flat.reshape(tuple(shape)), axis,
+                owners=np.arange(n) // L, process=process)

@@ -1,6 +1,7 @@
 """Tensors laid out on a mesh by a partition spec, and the collectives
-between their shards: what GSPMD does for the JAX package, done by one
-process that owns every device of the mesh.
+between their shards: what GSPMD does for the JAX package, done by the
+process that owns every device of the mesh, or by one process a host
+(``--multihost``), each owning its own positions.
 
 * **placement**: a leaf of spec ``P(None, "model")`` on a (data, model)
   mesh is cut along its second dimension into ``model`` equal blocks; the
@@ -39,6 +40,20 @@ Autograd spans the devices in one graph. Every cross-device flow of the
 model goes through these functions, whose backward sums in part order, so
 no gradient is accumulated across devices in the order the autograd
 engine's per-device threads happen to finish.
+
+**Across processes** (a mesh whose positions several processes own,
+``launch.mesh.make_host_mesh`` after ``distributed.process.initialize``)
+every function here is called by every process alike; a position another
+process owns is a ``process.Remote`` placeholder. A sum is still taken
+once, on its first part's device, in part order and dtype, by that
+device's process; only the copies cross processes, as point-to-point
+transfers (``process.send``/``recv``) keyed by the collective's sequence
+number (counted alike in every process) and the copy's index in it, in
+forward and backward. So the bits are the one-process mesh's.
+:func:`place` and :func:`zeros` make only this process's blocks (``place``
+takes a value every process holds: weights drawn from one seed, a batch
+from (seed, step), a checkpoint's file); :func:`everywhere` copies a
+value to every process (the loss, the clip's scale).
 """
 from __future__ import annotations
 
@@ -49,6 +64,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from . import process
 from .mesh import Mesh
 from .sharding import P
 
@@ -148,14 +164,31 @@ class ShardedTensor:
         """One shard of each group of holders (its first holder's)."""
         return [self.shards[g[0]] for g in self.holders()]
 
-    def gather(self, device=None) -> Tensor:
+    def gather(self, device=None, *, root: Optional[int] = None
+               ) -> Optional[Tensor]:
         """The whole tensor on ``device`` (the first position's device by
-        default), assembled from the first holder of each shard."""
-        dev = self.device(0) if device is None else torch.device(device)
-        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        for g in self.holders():
-            out[block(self.shape, self.spec, self.mesh, g[0])] = \
-                self.shards[g[0]].detach().to(dev)
+        default; across processes this process's first device),
+        assembled from the first holder of each shard. Across processes
+        every process calls it; each gets the whole tensor, or with
+        ``root`` only that process does (the others get None)."""
+        mesh, me = self.mesh, self.mesh.process
+        dev = mesh.local_device if device is None else torch.device(device)
+        takers = range(mesh.process_count) if root is None else [root]
+        out = (torch.empty(self.shape, dtype=self.dtype, device=dev)
+               if me in takers else None)
+        keys = _Keys()
+        with record_function("mesh.gather"):
+            for g in self.holders():
+                blk = block(self.shape, self.spec, mesh, g[0])
+                src, shard = mesh.owner(g[0]), self.shards[g[0]].detach()
+                for r in takers:
+                    key = keys()
+                    if r == src == me:
+                        out[blk] = shard.to(dev)
+                    elif src == me:
+                        _send(shard, r, key)
+                    elif r == me:
+                        out[blk] = _recv(shard, dev, src, key)
         return out
 
     def map(self, fn, dtype: Optional[torch.dtype] = None
@@ -167,30 +200,43 @@ class ShardedTensor:
                              [fn(s) for s in self.shards])
 
 
+def _block_shape(shape, spec: P, mesh: Mesh, pos: int) -> tuple:
+    return tuple(b.stop - b.start for b in block(shape, spec, mesh, pos))
+
+
 def zeros(shape, spec: P, mesh: Mesh, dtype: torch.dtype) -> ShardedTensor:
     """Zeros laid out on ``mesh`` by ``spec``, each block made where it
-    lives."""
+    lives (another process's a placeholder)."""
     return ShardedTensor(mesh, spec, shape, dtype, [
-        torch.zeros(tuple(b.stop - b.start for b in block(shape, spec, mesh,
-                                                           pos)),
-                    dtype=dtype, device=mesh.devices.flat[pos])
+        torch.zeros(_block_shape(shape, spec, mesh, pos), dtype=dtype,
+                    device=mesh.devices.flat[pos]) if mesh.is_local(pos)
+        else process.remote(_block_shape(shape, spec, mesh, pos), dtype,
+                            mesh.owner(pos))
         for pos in range(mesh.size)])
 
 
 def place(x: Tensor, spec: P, mesh: Mesh) -> ShardedTensor:
     """``x`` laid out on ``mesh`` by ``spec``: every position gets its own
-    copy of its block, on its device."""
+    copy of its block, on its device. Across processes ``x`` is a value
+    every process holds, and each makes only its own positions' blocks."""
     shards = [x[block(x.shape, spec, mesh, pos)].to(
         mesh.devices.flat[pos], copy=True).contiguous()
+        if mesh.is_local(pos) else
+        process.remote(_block_shape(x.shape, spec, mesh, pos), x.dtype,
+                       mesh.owner(pos))
         for pos in range(mesh.size)]
     return ShardedTensor(mesh, spec, x.shape, x.dtype, shards)
 
 
 def synchronize(mesh: Mesh) -> None:
-    """Wait for every card of the mesh."""
+    """Wait for every card of the mesh (this process's); across processes
+    also for every process, checking that each pair matched its
+    transfers in order."""
     for dev in dict.fromkeys(mesh.devices.flat):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+    if mesh.process_count > 1:
+        process.check_transfers()
 
 
 # -- the collective recorder ------------------------------------------------------
@@ -224,32 +270,111 @@ def _note(kind: str, received: Sequence[Tensor]) -> None:
         e["bytes"] += nbytes
 
 
+# -- copies within and between processes -------------------------------------------
+
+#: collectives called so far: the same count in every process, since every
+#: process calls them alike
+_SEQ = [0]
+
+#: a place: (device, the process owning it); another process's device is
+#: ``meta``
+Place = Tuple[torch.device, int]
+
+
+class _Keys:
+    """The keys of one collective's copies: its sequence number (taken in
+    the forward, where every process takes them in one order), the
+    direction (0 forward, 1 backward) and the copy's index. Every process
+    draws a key for every copy, whether it sends, receives or neither."""
+
+    def __init__(self, seq: Optional[int] = None, direction: int = 0):
+        if seq is None:
+            seq = _SEQ[0]
+            _SEQ[0] += 1
+        self.seq = seq
+        self.base = (seq * 2 + direction) * 8192
+        self.i = 0
+
+    def __call__(self) -> int:
+        self.i += 1
+        return self.base + self.i - 1
+
+    def backward(self) -> "_Keys":
+        return _Keys(self.seq, 1)
+
+
+def _place_of(t: Tensor) -> Place:
+    return t.device, process.owner(t)
+
+
+def _send(x: Tensor, dst: int, key: int) -> None:
+    if x.numel():
+        process.send(x, dst, key)
+
+
+def _recv(like: Tensor, device, src: int, key: int) -> Tensor:
+    """What ``src`` sends under ``key``, shaped as ``like``."""
+    if not like.numel():
+        return torch.empty(like.shape, dtype=like.dtype, device=device)
+    return process.recv(like.shape, like.dtype, device, src, key)
+
+
+def _move(x: Tensor, src: int, dst: Place, keys: _Keys,
+          dtype: Optional[torch.dtype] = None, copy: bool = False) -> Tensor:
+    """``x`` (held by process ``src``) at place ``dst``: ``Tensor.to``
+    within a process, a transfer between two, and a placeholder where
+    this process holds neither end."""
+    key = keys()
+    dev, owner = dst
+    me = process.process_index()
+    if src == owner == me:
+        return (x.to(dev, copy=copy) if dtype is None
+                else x.to(dev, dtype, copy=copy))
+    if src == me:
+        _send(x, owner, key)
+    elif owner == me:
+        out = _recv(x, dev, src, key)
+        return out if dtype is None else out.to(dtype)
+    return process.remote(x.shape, x.dtype if dtype is None else dtype,
+                          owner)
+
+
 # -- collectives ------------------------------------------------------------------
 
 
-def _fixed_sum(parts: Sequence[Tensor], dev: torch.device) -> Tensor:
-    """((p0 + p1) + p2) + ... on ``dev``."""
-    acc = parts[0].to(dev)
-    for p in parts[1:]:
-        acc = acc + p.to(dev)
+def _fixed_sum(parts: Sequence[Tensor], owners: Sequence[int], dst: Place,
+               keys: _Keys) -> Tensor:
+    """((p0 + p1) + p2) + ... at ``dst``."""
+    acc = _move(parts[0], owners[0], dst, keys)
+    for p, o in zip(parts[1:], owners[1:]):
+        acc = acc + _move(p, o, dst, keys)
     return acc
+
+
+def _owners(places: Sequence[Place]) -> List[int]:
+    return [o for _, o in places]
 
 
 class _AllSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *parts):
-        ctx.devices = [p.device for p in parts]
+        ctx.places = [_place_of(p) for p in parts]
+        ctx.keys = keys = _Keys()
+        owners = _owners(ctx.places)
         with record_function("mesh.all_sum"):
-            total = _fixed_sum(parts, ctx.devices[0])
-            out = tuple(total.to(d, copy=True) for d in ctx.devices)
+            total = _fixed_sum(parts, owners, ctx.places[0], keys)
+            out = tuple(_move(total, owners[0], pl, keys, copy=True)
+                        for pl in ctx.places)
         _note("all-reduce", out)
         return out
 
     @staticmethod
     def backward(ctx, *grads):
+        keys, owners = ctx.keys.backward(), _owners(ctx.places)
         with record_function("mesh.all_sum"):
-            total = _fixed_sum(grads, ctx.devices[0])
-            out = tuple(total.to(d, copy=True) for d in ctx.devices)
+            total = _fixed_sum(grads, owners, ctx.places[0], keys)
+            out = tuple(_move(total, owners[0], pl, keys, copy=True)
+                        for pl in ctx.places)
         _note("all-reduce", out)
         return out
 
@@ -268,25 +393,30 @@ class _SumScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dim, dtype, *parts):
         ctx.dim = dim
-        ctx.devices = [p.device for p in parts]
+        ctx.places = [_place_of(p) for p in parts]
         ctx.dtypes = [p.dtype for p in parts]
+        ctx.keys = keys = _Keys()
+        owners = _owners(ctx.places)
         w = parts[0].shape[dim] // len(parts)
         out = []
         with record_function("mesh.sum_scatter"):
-            for j, d in enumerate(ctx.devices):
+            for j, pl in enumerate(ctx.places):
                 blocks = [p.narrow(dim, j * w, w) for p in parts]
-                acc = blocks[0].to(d, torch.float32, copy=True)
-                for b in blocks[1:]:
-                    acc += b.to(d, torch.float32)
+                acc = _move(blocks[0], owners[0], pl, keys, torch.float32,
+                            copy=True)
+                for b, o in zip(blocks[1:], owners[1:]):
+                    acc += _move(b, o, pl, keys, torch.float32)
                 out.append(acc.to(dtype))
         _note("reduce-scatter", out)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
+        keys, owners = ctx.keys.backward(), _owners(ctx.places)
         with record_function("mesh.sum_scatter"):
-            out = [torch.cat([g.to(d, t) for g in grads], ctx.dim)
-                   for d, t in zip(ctx.devices, ctx.dtypes)]
+            out = [torch.cat([_move(g, o, pl, keys, t)
+                              for g, o in zip(grads, owners)], ctx.dim)
+                   for pl, t in zip(ctx.places, ctx.dtypes)]
         _note("all-gather", out)
         return (None, None, *out)
 
@@ -312,12 +442,13 @@ def all_max(parts: Sequence[Tensor]) -> List[Tensor]:
     gradient)."""
     if len(parts) == 1:
         return [parts[0].detach()]
-    dev = parts[0].device
+    places = [_place_of(p) for p in parts]
+    owners, keys = _owners(places), _Keys()
     with record_function("mesh.all_max"):
-        acc = parts[0].detach().to(dev)
-        for p in parts[1:]:
-            acc = torch.maximum(acc, p.detach().to(dev))
-        out = [acc.to(p.device, copy=True) for p in parts]
+        acc = _move(parts[0].detach(), owners[0], places[0], keys)
+        for p, o in zip(parts[1:], owners[1:]):
+            acc = torch.maximum(acc, _move(p.detach(), o, places[0], keys))
+        out = [_move(acc, owners[0], pl, keys, copy=True) for pl in places]
     _note("all_max", out)
     return out
 
@@ -326,21 +457,26 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dim, *parts):
         ctx.dim = dim
-        ctx.devices = [p.device for p in parts]
+        ctx.places = [_place_of(p) for p in parts]
         ctx.sizes = [p.shape[dim] for p in parts]
+        ctx.keys = keys = _Keys()
+        owners = _owners(ctx.places)
         with record_function("mesh.all_gather"):
-            out = tuple(torch.cat([p.to(d) for p in parts], dim)
-                        for d in ctx.devices)
+            out = tuple(torch.cat([_move(p, o, pl, keys)
+                                   for p, o in zip(parts, owners)], dim)
+                        for pl in ctx.places)
         _note("all-gather", out)
         return out
 
     @staticmethod
     def backward(ctx, *grads):
+        keys, owners = ctx.keys.backward(), _owners(ctx.places)
         out, lo = [None], 0
         with record_function("mesh.all_gather"):
-            for d, w in zip(ctx.devices, ctx.sizes):
+            for pl, w in zip(ctx.places, ctx.sizes):
                 out.append(_fixed_sum([g.narrow(ctx.dim, lo, w)
-                                       for g in grads], d).contiguous())
+                                       for g in grads], owners, pl,
+                                      keys).contiguous())
                 lo += w
         _note("reduce-scatter", out[1:])
         return tuple(out)
@@ -356,16 +492,19 @@ def all_gather(parts: Sequence[Tensor], dim: int) -> List[Tensor]:
 
 
 def _relayout(parts: Sequence[Tensor], split_dim: Optional[int],
-              cat_dim: int, src: Sequence[int]) -> List[Tensor]:
+              cat_dim: int, src: Sequence[int], places: Sequence[Place],
+              keys: _Keys) -> List[Tensor]:
     """Part m: block m of ``split_dim`` (whole with None) of each of
-    ``src``'s parts, concatenated along ``cat_dim`` on part m's device."""
+    ``src``'s parts, concatenated along ``cat_dim`` at part m's place."""
     w = None if split_dim is None else parts[0].shape[split_dim] // len(parts)
+    owners = _owners(places)
     out = []
     with record_function("mesh.all_to_all"):
-        for m, p in enumerate(parts):
-            blocks = [parts[j] if w is None else
-                      parts[j].narrow(split_dim, m * w, w) for j in src]
-            out.append(torch.cat([b.to(p.device) for b in blocks], cat_dim))
+        for m, pl in enumerate(places):
+            out.append(torch.cat([
+                _move(parts[j] if w is None else
+                      parts[j].narrow(split_dim, m * w, w), owners[j], pl,
+                      keys) for j in src], cat_dim))
     _note("all-to-all", out)
     return out
 
@@ -374,14 +513,17 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, split_dim, cat_dim, *parts):
         ctx.dims = split_dim, cat_dim
+        ctx.places = [_place_of(p) for p in parts]
+        ctx.keys = _Keys()
         return tuple(_relayout(parts, split_dim, cat_dim,
-                               range(len(parts))))
+                               range(len(parts)), ctx.places, ctx.keys))
 
     @staticmethod
     def backward(ctx, *grads):
         split_dim, cat_dim = ctx.dims
         return (None, None, *_relayout(grads, cat_dim, split_dim,
-                                       range(len(grads))))
+                                       range(len(grads)), ctx.places,
+                                       ctx.keys.backward()))
 
 
 def all_to_all(parts: Sequence[Tensor], split_dim: Optional[int],
@@ -406,26 +548,112 @@ def all_to_all(parts: Sequence[Tensor], split_dim: Optional[int],
     if sources is None and split_dim is not None:
         return list(_AllToAll.apply(split_dim, cat_dim, *parts))
     src = list(range(n)) if sources is None else list(sources)
-    return _relayout([p.detach() for p in parts], split_dim, cat_dim, src)
+    return _relayout([p.detach() for p in parts], split_dim, cat_dim, src,
+                     [_place_of(p) for p in parts], _Keys())
 
 
-def send(x: Tensor, device) -> Tensor:
-    """``x`` copied to ``device`` (no gradient): a point-to-point transfer,
-    the reference's collective-permute."""
+def _dest(to) -> Place:
+    """The place of ``to``: a tensor at the destination position, or a
+    device of this process."""
+    if isinstance(to, Tensor):
+        return _place_of(to)
+    return torch.device(to), process.process_index()
+
+
+def send(x: Tensor, to, *, copy: bool = True) -> Tensor:
+    """``x`` copied to ``to`` (no gradient): a point-to-point transfer,
+    the reference's collective-permute. ``to``: a tensor at the
+    destination position (across processes), or a device of this
+    process. ``copy=False`` returns ``x`` itself where it already is
+    there."""
     with record_function("mesh.send"):
-        out = x.detach().to(device, copy=True)
+        out = _move(x.detach(), process.owner(x), _dest(to), _Keys(),
+                    copy=copy)
     _note("collective-permute", [out])
     return out
 
 
+class _SumTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dst_device, dst_owner, *parts):
+        ctx.places = [_place_of(p) for p in parts]
+        ctx.dtypes = [p.dtype for p in parts]
+        ctx.dst = (dst_device, dst_owner)
+        ctx.keys = _Keys()
+        with record_function("mesh.sum_to"):
+            return _fixed_sum(parts, _owners(ctx.places), ctx.dst, ctx.keys)
+
+    @staticmethod
+    def backward(ctx, g):
+        keys = ctx.keys.backward()
+        with record_function("mesh.sum_to"):
+            out = [_move(g, ctx.dst[1], pl, keys, t)
+                   for pl, t in zip(ctx.places, ctx.dtypes)]
+        _note("sum_to", out)
+        return (None, None, *out)
+
+
 def sum_to(parts: Sequence[Tensor], device) -> Tensor:
-    """The fixed-order sum of ``parts`` on ``device`` (autograd's own
-    copies and adds: each part is read once)."""
-    with record_function("mesh.sum_to"):
-        out = _fixed_sum(parts, torch.device(device))
+    """The fixed-order sum of ``parts`` on ``device`` (each part is read
+    once); its backward copies the cotangent to every part. ``device``: a
+    device of this process, or a tensor at the destination; a device
+    another process owns (``meta``) is the first part's position."""
+    if isinstance(device, Tensor):
+        dev, owner = _place_of(device)
+    else:
+        dev = torch.device(device)
+        owner = (process.owner(parts[0]) if dev.type == "meta"
+                 else process.process_index())
+    if len(parts) == 1 and process.owner(parts[0]) == owner:
+        return parts[0].to(dev)
+    out = _SumTo.apply(dev, owner, *parts)
     if len(parts) > 1:
         _note("sum_to", [out])
     return out
+
+
+def everywhere(x: Tensor, mesh: Mesh) -> Tensor:
+    """``x`` (one position's value) on every process, on its first device
+    (no gradient): the value a process reads where another holds it,
+    such as the loss. On a one-process mesh ``x`` itself."""
+    if mesh.process_count == 1:
+        return x
+    src, me, keys = process.owner(x), mesh.process, _Keys()
+    with record_function("mesh.everywhere"):
+        for r in range(mesh.process_count):
+            key = keys()
+            if r == src:
+                continue
+            if src == me:
+                _send(x.detach(), r, key)
+            elif r == me:
+                out = _recv(x, mesh.local_device, src, key)
+        if src == me:
+            out = x.detach().to(mesh.local_device, copy=True)
+    return out
+
+
+@torch.no_grad()
+def copy_into(dst: Tensor, x: Tensor, mesh: Mesh, pos: int) -> None:
+    """In place: ``dst`` (mesh position ``pos``'s tensor) takes ``x`` (one
+    position's value), copied across processes where they differ; a
+    no-op where this process does not own ``pos``."""
+    keys = _Keys()
+    src, owner = process.owner(x), mesh.owner(pos)
+    if src == owner == mesh.process:
+        dst.copy_(x)
+        return
+    moved = _move(x.detach(), src, (mesh.devices.flat[pos], owner), keys)
+    if owner == mesh.process:
+        dst.copy_(moved)
+
+
+def held(x: Tensor, mesh: Mesh, pos: int) -> Tensor:
+    """A value every process holds (``x``, on one of its devices) at mesh
+    position ``pos``: a copy there, or another process's placeholder."""
+    if mesh.is_local(pos):
+        return x.to(mesh.devices.flat[pos])
+    return process.remote(x.shape, x.dtype, mesh.owner(pos))
 
 
 # -- holders -------------------------------------------------------------------------
@@ -435,23 +663,38 @@ def sum_to(parts: Sequence[Tensor], device) -> Tensor:
 def reduce_holders_(st: ShardedTensor) -> ShardedTensor:
     """In place: every shard becomes the fixed-order sum (ascending
     position) of what its holders hold, the same bits on each."""
+    mesh, me = st.mesh, st.mesh.process
     with record_function("mesh.reduce_holders"):
         for g in st.holders():
             if len(g) == 1:
                 continue
-            total = _fixed_sum([st.shards[p] for p in g], st.device(g[0]))
-            for p in g:
-                st.shards[p].copy_(total)
+            keys = _Keys()
+            places = [(st.device(p), mesh.owner(p)) for p in g]
+            owners = _owners(places)
+            total = _fixed_sum([st.shards[p] for p in g], owners, places[0],
+                               keys)
+            for p, pl in zip(g, places):
+                if pl[1] == owners[0] == me:
+                    keys()
+                    st.shards[p].copy_(total)
+                    continue
+                moved = _move(total, owners[0], pl, keys)
+                if pl[1] == me:
+                    st.shards[p].copy_(moved)
             _note("reduce_holders", [total] * len(g))
     return st
 
 
 def replicas_equal(st: ShardedTensor) -> bool:
-    """Whether every holder of each shard holds the same bits."""
+    """Whether every holder of each shard holds the same bits (across
+    processes: every process's answer, agreed)."""
+    mesh = st.mesh
+    ok = True
     for g in st.holders():
-        first = st.shards[g[0]].detach()
+        keys, src = _Keys(), mesh.owner(g[0])
         for p in g[1:]:
-            if not torch.equal(st.shards[p].detach().to(first.device),
-                               first):
-                return False
-    return True
+            pl = (st.device(p), mesh.owner(p))
+            first = _move(st.shards[g[0]].detach(), src, pl, keys)
+            if pl[1] == mesh.process:
+                ok = ok and torch.equal(st.shards[p].detach(), first)
+    return all(process.all_gather_object(ok))

@@ -5,7 +5,10 @@ of ``repro.launch.mesh``).
 ``("data", "model")`` over the cards there are (``distributed.mesh.
 make_mesh``): on data x model distinct cards when there are that many,
 else as logical shards of the current card, or of the CPU with
-``device="cpu"``.
+``device="cpu"``. After ``distributed.process.initialize`` (``--multihost``)
+it spans every process: process r owns positions r L .. (r + 1) L - 1
+(L = data x model / processes), on its own cards by the same rule
+(``distributed.mesh.make_process_mesh``).
 
 ``make_production_mesh`` is the reference's production mesh: (16, 16) =
 256 cards with axes ("data", "model"), or with ``multi_pod`` (2, 16, 16)
@@ -25,11 +28,18 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.distributed.mesh import Mesh, make_mesh
+from repro_torch.distributed import process
+from repro_torch.distributed.mesh import Mesh, make_mesh, make_process_mesh
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
-    """A (data, model) mesh over whatever devices exist."""
+    """A (data, model) mesh over whatever devices exist (every process's,
+    after ``process.initialize``)."""
+    w = process.world()
+    if w is not None:
+        return make_process_mesh(
+            (data, model), ("data", "model"), process=w.index,
+            count=w.count, devices=w.cards or [w.device])
     return make_mesh((data, model), ("data", "model"), device=device)
 
 

@@ -372,7 +372,7 @@ def _whole(x, mesh) -> torch.Tensor:
     ``ShardedTensor``)."""
     if isinstance(x, ShardedTensor):
         return x.gather()
-    return x.to(mesh.first_device)
+    return partition.held(x, mesh, 0)
 
 
 def _rows_of(x, spec, mesh) -> ShardedTensor:

@@ -36,7 +36,23 @@ laid out over ``data`` as drawn) split over ``data``; the step is the
 unsharded ``Trainer.step``'s function (``ShardedTrainer``). Checkpoints
 carry every leaf's spec in the reference's manifest format, and
 ``--resume`` restores onto the current mesh whatever mesh saved.
-``--multihost`` raises (ROADMAP A, item 3b).
+
+``--multihost`` (the reference's ``jax.distributed.initialize()``) makes
+the run one process a host, started by ``python -m
+torch.distributed.run``: each process owns its host's cards
+(``distributed.process``), and together they hold the ``--data-shards D
+--model-shards M`` mesh, process r positions r L .. (r + 1) L - 1. Each
+process draws the weights and the global batch itself (the same seed, on
+its first device) and lays out only its own blocks; copies between
+processes are point-to-point transfers and every sum is the one-process
+mesh's, so losses, state and checkpoints are the one-process run's bits.
+The step time fed to the straggler monitor is the slowest process's, and
+a preemption flagged on any process stops them all at the same step.
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --multihost --device cpu \\
+        --arch granite-8b --reduced --data-shards 1 --model-shards 4 \\
+        --steps 3
 
 Beyond the reference's options: ``--device``, ``--fixed-batch`` (every
 step takes step 0's batch) and, for the LM family, ``--layers`` (the
@@ -73,7 +89,7 @@ from repro_torch.checkpoint.checkpoint import (
 )
 from repro_torch.data import synthetic as syn
 from repro_torch.data.pipeline import PrefetchPipeline
-from repro_torch.distributed import partition
+from repro_torch.distributed import partition, process
 from repro_torch.distributed import sharding as shard_lib
 from repro_torch.distributed.fault import PreemptionGuard, StepMonitor
 from repro_torch.distributed.partition import ShardedTensor
@@ -163,14 +179,16 @@ def state_specs(pspecs: dict):
 def _assign(dst: ShardedTensor, src) -> None:
     """Copy ``src`` (a tensor, or a ``ShardedTensor`` on any mesh and
     spec) into ``dst``'s shards."""
+    local = dst.mesh.local_positions
     if isinstance(src, ShardedTensor) and src.spec == dst.spec and \
             src.mesh.devices.shape == dst.mesh.devices.shape:
-        for d, s in zip(dst.shards, src.shards):
-            d.copy_(s)
+        for pos in local:
+            dst.shards[pos].copy_(src.shards[pos])
         return
     full = src.gather() if isinstance(src, ShardedTensor) else src
-    for pos, d in enumerate(dst.shards):
-        d.copy_(full[partition.block(dst.shape, dst.spec, dst.mesh, pos)])
+    for pos in local:
+        dst.shards[pos].copy_(
+            full[partition.block(dst.shape, dst.spec, dst.mesh, pos)])
 
 
 def sharded_loss(model) -> Callable:
@@ -238,14 +256,10 @@ class ShardedTrainer:
         f32 = torch.float32
 
         def zeros(st):
-            return st.map(lambda s: torch.zeros(s.shape, dtype=f32,
-                                                device=s.device), f32)
+            return st.map(lambda s: torch.zeros_like(s, dtype=f32), f32)
 
-        first = self.mesh.first_device
         self.opt_state = opt_state if opt_state is not None else AdamWState(
-            step=partition.place(torch.zeros((), dtype=torch.int32,
-                                             device=first),
-                                 shard_lib.P(), self.mesh),
+            step=partition.zeros((), shard_lib.P(), self.mesh, torch.int32),
             mu={n: zeros(p) for n, p in self.params.items()},
             nu={n: zeros(p) for n, p in self.params.items()})
         # replica d's error buffers are block d of a (D, *shape) leaf laid
@@ -276,7 +290,11 @@ class ShardedTrainer:
             loss, aux, grads = self.grads(batch)
             self._compress(grads)
         self.apply(grads)
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        # across processes the loss lives on the first position's: every
+        # process reads a copy of the same bits
+        return (partition.everywhere(loss.detach(), self.mesh),
+                {k: partition.everywhere(v.detach(), self.mesh)
+                 for k, v in aux.items()})
 
     @torch.no_grad()
     def _compress(self, grads: dict) -> None:
@@ -303,13 +321,13 @@ class ShardedTrainer:
                 for k, r, e in zip(keys, rec, resid):
                     recs.setdefault(k, []).append(r)
                     for p in groups[k]:
-                        err.shards[p][0].copy_(e)
+                        partition.copy_into(err.shards[p][0], e, mesh, p)
             means = {k: comp_lib.replica_mean(r).to(g.dtype)
                      for k, r in recs.items()}
             with record_function("mesh.replica_mean"):
                 for pos in range(mesh.size):
-                    g.shards[pos].copy_(means[partition.shard_key(
-                        g.spec, mesh, pos)])
+                    partition.copy_into(g.shards[pos], means[
+                        partition.shard_key(g.spec, mesh, pos)], mesh, pos)
 
     @torch.no_grad()
     def apply(self, grads: dict) -> None:
@@ -319,7 +337,7 @@ class ShardedTrainer:
         if self.opt.clip_norm is not None:
             clip_by_global_norm_sharded(grads, self.opt.clip_norm)
         st = self.opt_state
-        for pos in range(self.mesh.size):
+        for pos in self.mesh.local_positions:
             local = AdamWState(
                 step=st.step.shards[pos],
                 mu={n: m.shards[pos] for n, m in st.mu.items()},
@@ -376,8 +394,9 @@ def sharded_lm_trainer(cfg: transformer.TransformerConfig, *, mesh,
                        seed: int, compress_grads: bool = False
                        ) -> ShardedTrainer:
     """``lm_trainer``'s weights (drawn from ``seed`` on the mesh's first
-    device, leaf by leaf) laid out on ``mesh``."""
-    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    device, this process's across processes, leaf by leaf) laid out on
+    ``mesh``."""
+    gen = torch.Generator(device=mesh.local_device).manual_seed(seed)
     return ShardedTrainer(transformer.init_sharded(cfg, mesh, generator=gen),
                           compress_grads=compress_grads)
 
@@ -385,8 +404,9 @@ def sharded_lm_trainer(cfg: transformer.TransformerConfig, *, mesh,
 def sharded_mace_trainer(cfg: mace.MACEConfig, *, mesh, seed: int,
                          compress_grads: bool = False) -> ShardedTrainer:
     """``mace_trainer``'s weights (drawn from ``seed`` on the mesh's first
-    device, leaf by leaf) laid out on ``mesh``."""
-    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    device, this process's across processes, leaf by leaf) laid out on
+    ``mesh``."""
+    gen = torch.Generator(device=mesh.local_device).manual_seed(seed)
     return ShardedTrainer(mace.init_sharded(cfg, mesh, generator=gen),
                           compress_grads=compress_grads)
 
@@ -394,8 +414,9 @@ def sharded_mace_trainer(cfg: mace.MACEConfig, *, mesh, seed: int,
 def sharded_recsys_trainer(cfg: recsys.RecsysConfig, *, mesh, seed: int,
                            compress_grads: bool = False) -> ShardedTrainer:
     """``recsys_trainer``'s weights (drawn from ``seed`` on the mesh's
-    first device, leaf by leaf) laid out on ``mesh``."""
-    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    first device, this process's across processes, leaf by leaf) laid out
+    on ``mesh``."""
+    gen = torch.Generator(device=mesh.local_device).manual_seed(seed)
     return ShardedTrainer(recsys.init_sharded(cfg, mesh, generator=gen),
                           compress_grads=compress_grads)
 
@@ -527,11 +548,12 @@ def train(args: argparse.Namespace, log=print) -> dict:
     first batch (a tensor's shape and dtype; any other entry, such as a
     graph batch's ``n_graphs``, as it is), the ``trainer`` and the
     ``mesh`` (None on one device)."""
-    dev = resolve_device(args.device)
+    world = None
     if args.multihost:
-        raise NotImplementedError(
-            "--multihost (one process a host) is ROADMAP A, item 3b; the "
-            "port's mesh is one process owning every card")
+        # first, as the reference calls jax.distributed.initialize()
+        world = process.initialize(args.device, log=log)
+        log = functools.partial(_process_log, log, world.index)
+    dev = resolve_device(args.device)
     spec = C.get_arch(args.arch)
     cfg = spec.make_reduced() if args.reduced else spec.make_config()
     if args.layers is not None:
@@ -539,9 +561,11 @@ def train(args: argparse.Namespace, log=print) -> dict:
             raise ValueError("--layers cuts an LM's depth")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mesh = None
-    if args.data_shards * args.model_shards > 1:
+    if args.data_shards * args.model_shards > 1 or world is not None:
         mesh = make_host_mesh(args.data_shards, args.model_shards,
                               device=args.device)
+    if world is not None:  # batches are drawn on this process's first device
+        dev = mesh.local_device
     cards = ([] if mesh is None and dev.type != "cuda" else
              [dev] if mesh is None else
              [d for d in dict.fromkeys(mesh.devices.flat)
@@ -613,6 +637,9 @@ def train(args: argparse.Namespace, log=print) -> dict:
             dt = time.perf_counter() - t0
             losses.append(loss)
             step_s.append(dt)
+            # every process takes the same decisions: the slowest step time
+            # and any process's preemption flag
+            dt, preempt = _agreed(dt, guard.should_save())
             ev = monitor.record(step, dt)
             if ev:
                 log(f"straggler flagged at step {step}: "
@@ -625,11 +652,9 @@ def train(args: argparse.Namespace, log=print) -> dict:
                 raise FloatingPointError(f"loss diverged at step {step}")
             if step % 5 == 0 or step == args.steps - 1:
                 log(f"step {step}: loss={loss:.4f} ({dt * 1e3:.0f} ms)")
-            if ckpt and (
-                (step + 1) % args.ckpt_every == 0 or guard.should_save()
-            ):
+            if ckpt and ((step + 1) % args.ckpt_every == 0 or preempt):
                 ckpt.save_async(step + 1, trainer.state_tree(), specs)
-                if guard.should_save():
+                if preempt:
                     ckpt.wait()
                     log(f"preemption save at step {step + 1}")
                     break
@@ -648,11 +673,28 @@ def train(args: argparse.Namespace, log=print) -> dict:
     log("done")
     return {"losses": losses, "step_s": step_s, "start_step": start_step,
             "peak_bytes": peak, "peak_bytes_by_device": peaks,
-            "batch_shapes": batch_shapes, "trainer": trainer, "mesh": mesh}
+            "batch_shapes": batch_shapes, "trainer": trainer, "mesh": mesh,
+            "backend": None if world is None else world.backend}
+
+
+def _process_log(log, index: int, msg: str) -> None:
+    log(f"[process {index}] {msg}")
+
+
+def _agreed(step_s: float, preempt: bool) -> Tuple[float, bool]:
+    """(the slowest process's step time, whether any process is being
+    preempted): one host-side all-gather across processes."""
+    got = process.all_gather_object((step_s, bool(preempt)))
+    return max(t for t, _ in got), any(p for _, p in got)
 
 
 def main(argv=None) -> dict:
-    return train(parse_args(argv))
+    args = parse_args(argv)
+    try:
+        return train(args)
+    finally:
+        if args.multihost:
+            process.shutdown()
 
 
 if __name__ == "__main__":

@@ -509,8 +509,13 @@ def _mse(pred: Tensor, batch: dict) -> Tuple[Tensor, dict]:
 
 def _on(x, device) -> Tensor:
     """A batch entry (a tensor, or a ``ShardedTensor``) whole on
-    ``device``."""
+    ``device``. Across processes each process holds the whole batch (it
+    draws it itself), and another process's position (``meta``) takes a
+    placeholder of it."""
     if isinstance(x, ShardedTensor):
+        if x.mesh.process_count > 1:
+            raise ValueError("a MACE step across processes takes whole "
+                             "batches (every process draws its own)")
         return x.gather(device)
     return x.to(device)
 

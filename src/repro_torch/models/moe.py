@@ -187,7 +187,7 @@ def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
         gate, expert_idx = route(cfg, router, xt)
         if part:
             claimed = (None if first
-                       else send(counts[m], xt.device))
+                       else send(counts[m], xt))
             slot, keep = slots(expert_idx, E, C, claimed)
             mine = torch.nn.functional.one_hot(
                 expert_idx.reshape(1, -1), E).sum(1, dtype=torch.int32)

@@ -55,6 +55,7 @@ from repro_torch.distributed.partition import (
     all_to_all,
     axis_groups,
     place,
+    send,
     shard_key,
     sum_to,
     zeros,
@@ -618,8 +619,9 @@ def embeddings(cfg: TransformerConfig, model: Transformer,
 
 # -- sharded: a (data, model) mesh ----------------------------------------------
 #
-# The reference's GSPMD lowering of the same function, written out for one
-# process that owns every device of the mesh (``distributed.partition``).
+# The reference's GSPMD lowering of the same function, written out for the
+# process that owns every device of the mesh, or for each of the processes
+# that own its positions (``distributed.partition``).
 # The leaves are laid out by ``distributed.sharding.lm_param_specs``; each
 # data replica runs its rows of the batch through its model shards:
 #
@@ -1037,9 +1039,12 @@ def sharded_logits(cfg: TransformerConfig, model: ShardedTransformer,
     device (a check's view of the sharded forward; no gradient)."""
     rows = axis_groups(model.mesh, "model")
     with torch.no_grad():
-        parts = [torch.cat([x.to(model.mesh.first_device) for x in
-                            _replica_logits(cfg, model, row, toks)], -1)
-                 for row, toks in zip(rows, _replica_tokens(model, tokens))]
+        parts = []
+        for row, toks in zip(rows, _replica_tokens(model, tokens)):
+            lg = _replica_logits(cfg, model, row, toks)
+            at0 = parts[0] if parts else lg[0]   # at mesh position 0
+            parts.append(torch.cat([send(x, at0, copy=False) for x in lg],
+                                   -1))
     return torch.cat(parts, 0)
 
 

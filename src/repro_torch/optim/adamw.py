@@ -21,6 +21,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import partition
+
 Tensor = torch.Tensor
 
 #: elements of one slice of the elementwise update (64 MiB of f32)
@@ -148,16 +150,19 @@ def clip_by_global_norm_sharded(grads: dict, max_norm: float) -> Tensor:
     shard's norm, so a leaf sharded over the model axis counts each of its
     shards once and a replicated leaf counts once, not once a holder. It
     is taken once, on the mesh's first device, and every shard of every
-    holder is scaled by the same scale. Returns the global norm."""
+    holder is scaled by the same scale (across processes, every shard of
+    this process's positions, the scale copied to each process). Returns
+    the global norm (on the mesh's first device)."""
     first = next(iter(grads.values()))
-    dev = first.device(0)
-    norms = [torch.linalg.vector_norm(s.float()).to(dev)
+    mesh, at0 = first.mesh, first.shards[0]   # at mesh position 0
+    norms = [partition.send(torch.linalg.vector_norm(s.float()), at0)
              for g in grads.values() for s in g.distinct()]
     gn = torch.linalg.vector_norm(torch.stack(norms))
-    scale = _clip_scale(gn, max_norm)
+    scale = partition.everywhere(_clip_scale(gn, max_norm), mesh)
     per_device = {}
     for g in grads.values():
-        for s in g.shards:
+        for pos in mesh.local_positions:
+            s = g.shards[pos]
             if s.device not in per_device:
                 per_device[s.device] = scale.to(s.device)
             _scale_(s, per_device[s.device])

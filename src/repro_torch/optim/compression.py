@@ -18,6 +18,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch.distributed import partition
+
 Tensor = torch.Tensor
 
 
@@ -54,17 +56,16 @@ def compress_decompress(x: Tensor) -> Tuple[Tensor, Tensor]:
 def compress_decompress_shards(shards: Sequence[Tensor]
                                ) -> Tuple[List[Tensor], List[Tensor]]:
     """``compress_decompress`` of one tensor given as its shards (on any
-    devices): one scale, the largest |x| over every shard (a max, exact in
-    any order, taken on the first shard's device), then each shard's
+    devices, of any process): one scale, the largest |x| over every shard
+    (a max, exact in any order, taken on the first shard's device, and
+    the scale computed there and copied), then each shard's
     reconstruction and residual where it lives."""
     xs = [s.float() for s in shards]
-    amax = torch.max(torch.abs(xs[0]))
-    for x in xs[1:]:
-        amax = torch.maximum(amax, torch.max(torch.abs(x)).to(amax.device))
+    amax = partition.all_max([torch.max(torch.abs(x)) for x in xs])[0]
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     recs, resids = [], []
     for x in xs:
-        rec = _dequantize(*_quantize(x, scale.to(x.device)))
+        rec = _dequantize(*_quantize(x, partition.send(scale, x)))
         recs.append(rec)
         resids.append(x - rec)
     return recs, resids
@@ -74,12 +75,9 @@ def replica_mean(parts: Sequence[Tensor]) -> Tensor:
     """sum(parts) / len(parts) on the first part's device, summed in part
     order (the reference's ``pmean``: a psum, then the division), inside
     a ``mesh.replica_mean`` profiler range: the parts may lie on other
-    cards."""
+    cards, or other processes (``partition.sum_to``)."""
     with record_function("mesh.replica_mean"):
-        acc = parts[0].to(parts[0].device)
-        for p in parts[1:]:
-            acc = acc + p.to(acc.device)
-        return acc / len(parts)
+        return partition.sum_to(parts, parts[0]) / len(parts)
 
 
 @torch.no_grad()

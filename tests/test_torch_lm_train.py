@@ -221,7 +221,7 @@ def test_lm_cli_resume_is_bit_exact(tmp_path):
         assert torch.equal(resumed["trainer"].params[name], p), name
 
 
-def test_lm_cli_refuses_what_is_not_ported():
+def test_lm_cli_refuses_what_is_not_ported(monkeypatch):
     # the GNN family is ported: one reduced step on the CPU
     out = ttrain.main(["--arch", "mace", "--reduced", "--device", "cpu",
                        "--steps", "1", "--batch", "2"])
@@ -229,8 +229,12 @@ def test_lm_cli_refuses_what_is_not_ported():
     assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
     # every family trains on a mesh (tests/test_torch_sharded_train.py,
     # tests/test_torch_sharded_gnn.py, tests/test_torch_sharded_recsys.py);
-    # one process a host is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 3"):
+    # one process a host needs the launcher's environment
+    # (tests/test_torch_multihost.py)
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="needs RANK"):
         ttrain.main(["--arch", "dlrm-rm2", "--reduced", "--device", "cpu",
                      "--model-shards", "2", "--multihost"])
 

@@ -540,12 +540,17 @@ def test_cli_with_compression_on_a_mesh(tmp_path):
     assert out["trainer"].comp_state is not None
 
 
-def test_shards_for_other_families_and_multihost_raise():
-    """--multihost raises for every family, naming item 3b; MACE and the
-    recsys family train on a mesh (their runs are held in
-    tests/test_torch_sharded_gnn.py and tests/test_torch_sharded_recsys.py)."""
+def test_shards_for_other_families_and_multihost_raise(monkeypatch):
+    """--multihost without the launcher's environment raises for every
+    family, naming the missing variables (its runs are held in
+    tests/test_torch_multihost.py); MACE and the recsys family train on a
+    mesh (their runs are held in tests/test_torch_sharded_gnn.py and
+    tests/test_torch_sharded_recsys.py)."""
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
     for arch in ("qwen1.5-0.5b", "mace", "dlrm-rm2"):
-        with pytest.raises(NotImplementedError, match="item 3b"):
+        with pytest.raises(RuntimeError, match="MASTER_ADDR, MASTER_PORT"):
             ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
                          "--multihost"])
     for arch in ("mace", "dlrm-rm2"):

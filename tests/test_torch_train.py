@@ -449,13 +449,19 @@ def test_train_cli_with_resume(tmp_path):
         line2[0].split(" (")[0]
 
 
-def test_train_cli_refuses_what_is_not_ported_and_has_no_fallback():
+def test_train_cli_refuses_what_is_not_ported_and_has_no_fallback(
+        monkeypatch):
     handler = signal.getsignal(signal.SIGTERM)
     base = ["--arch", "dlrm-rm2", "--reduced", "--steps", "1"]
     # the recsys family trains on a mesh (tests/test_torch_sharded_recsys.py)
     out = ttrain.main(base + ["--device", "cpu", "--data-shards", "2"])
     assert out["mesh"].shape == {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 3"):
+    # --multihost needs the launcher's environment, and names what is
+    # missing (tests/test_torch_multihost.py runs it)
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE"):
         ttrain.main(base + ["--device", "cpu", "--multihost"])
     # the GNN family is ported: one reduced step on the CPU
     out = ttrain.main(["--arch", "mace", "--reduced", "--device", "cpu",
