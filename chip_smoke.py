@@ -254,18 +254,24 @@ Phases:
      (check_recsys_mesh): dlrm-rm2 and xDeepFM against the single device,
      the recsys plans (train, serve, retrieval) through build_plan.
  29. the LM's prefill and decode plans on a (data, model) mesh
-     (check_lm_serve_mesh): gemma2-2b at published width through
-     build_plan("gemma2-2b", cell) on make_host_mesh(2, 2), one placed set
-     of weights: prefill_32k (S = 32,768, B = 2 on one card, 8 on four),
-     decode_32k (B = 128 where the cache fits, else the largest even
-     batch; the cache drawn shard by shard) and long_500k (B = 1, the
-     sequence over all four positions), 16 steps each: ms beside the
-     bytes bound, peak GB a card, the bf16-peak share of the prefill; the
-     single device's readings at 26 layers in bf16; a 6,000-token prompt
-     padded to 6,016 then 16 steps held to forward (DECODE_TOL), rerun the
-     same bits; the comparisons with the single device (prefill rows 0-1,
-     decode rows 0-7, long_500k against 1 x 1) gated at 2 layers in f32,
-     with a planted fault that must read past the gate.
+     (check_lm_serve_mesh): gemma2-2b, qwen2-moe-a2.7b and
+     granite-moe-3b-a800m (with --sharded also granite-8b and
+     qwen1.5-0.5b) at published width through build_plan(arch, cell) on
+     make_host_mesh(2, 2), one placed set of weights an architecture:
+     prefill_32k (S = 32,768, B = 2 on one card, 8 on four), decode_32k
+     (B = 128 where the cache fits, else the largest even batch; the
+     cache drawn shard by shard; an MoE decode's slot hand-offs between
+     the data replicas and its dropped assignments) and long_500k where
+     the plan runs it (gemma2-2b: B = 1, the sequence over all four
+     positions), 16 steps each: ms beside the bytes bound, peak GB a
+     card, the bf16-peak share of the prefill; the single device's
+     readings at published depth in bf16 (on one card the depth cut,
+     alone); a prompt and 16 steps held to the single device, rerun the
+     same bits; the comparisons with the single device (prefill rows
+     0-1, an MoE prefill's on the mesh's experts beside C7's check of
+     the tokens routed otherwise; decode rows 0-7, an MoE decode's every
+     row at the cell's B; long_500k against 1 x 1) gated at 2 layers in
+     f32, with a planted fault that must read past the gate.
  30. the dry-run against the card (check_dryrun): qwen1.5-0.5b's
      train_4k (2 layers, B = 8), dlrm-rm2's train_batch (B = 8,192) and
      MACE's molecule through build_plan on make_host_mesh(2, 2), each
@@ -282,7 +288,7 @@ Phases:
      torch.distributed.run --nproc-per-node 2`` started by this script,
      each worker writing its results to a file): on one card two
      processes of two logical shards over gloo, qwen1.5-0.5b at
-     published width and 2 layers, B = 4, S = 4,096, on 1 x 4 and on 2 x
+     published width and 2 layers, B = 2, S = 2,048, on 1 x 4 and on 2 x
      2 with --compress-grads; on four cards (--sharded) two processes of
      two cards over NCCL, granite-8b at 36 layers, B = 8, S = 4,096 on 1
      x 4, then twice with a seeded random delay in one card's backward,
@@ -437,15 +443,16 @@ GNN_BF16_TOL = 0.01
 #: phase 25: the descriptor leg: queries (8 batches of 64 descriptor rows),
 #: k, the re-rank factor and n
 GNN_Q, GNN_K, GNN_RERANK, GNN_NN = 512, 16, 4, 10
-#: phase 26: the LM trainer on a (data, model) mesh at published width.
-#: The one-card run puts 4 logical shards on the card and cuts the depth
-#: to what one card holds twice (the sharded run beside the single-device
-#: one): granite-8b 4 of 36 layers at B = 4, qwen2-moe-a2.7b 2 of 24 at B
-#: = 2; --sharded on four cards runs granite-8b at 36 layers, B = 8 and
-#: qwen2-moe-a2.7b at 24, B = 4 (the train_4k cell's global batch is 256:
-#: a pod's). S is the cell's 4,096; each run takes MESH_STEPS steps, the
-#: step time the median of the last 4; a second sharded run takes
-#: MESH_AGAIN steps, which must be the first run's bits.
+#: phase 26: the LM trainer on a (data, model) mesh at published width. The
+#: one-card run puts 4 logical shards on the card and cuts the depth to
+#: what one card holds twice (the sharded run beside the single-device one)
+#: and the smoke run's time limit: granite-8b 2 of 36 layers at B = 4,
+#: qwen2-moe-a2.7b 2 of 24 at B = 2; --sharded on four cards runs
+#: granite-8b at 36 layers, B = 8 and qwen2-moe-a2.7b at 24, B = 4 (the
+#: train_4k cell's global batch is 256: a pod's). S is the cell's 4,096;
+#: each run takes MESH_STEPS steps, the step time the median of the last 4;
+#: a second sharded run takes MESH_AGAIN steps, which must be the first
+#: run's bits.
 MESH_STEPS, MESH_AGAIN, MESH_SEQ = 5, 3, 4_096
 #: phase 26: on four cards every run takes step 0's batch at every step
 #: (``--fixed-batch``), and its loss must fall on data the model has
@@ -456,13 +463,18 @@ MESH_STEPS, MESH_AGAIN, MESH_SEQ = 5, 3, 4_096
 #: fresh batches: there the single device's trajectory is the check (a
 #: memorised batch's loss falls to ~1 in four steps, where two bf16
 #: trajectories part by more than the loss rtol).
-MESH_LEGS = {False: {"granite-8b": (4, 4), "qwen2-moe-a2.7b": (2, 2)},
+MESH_LEGS = {False: {"granite-8b": (2, 4), "qwen2-moe-a2.7b": (2, 2)},
              True: {"granite-8b": (36, 8), "qwen2-moe-a2.7b": (24, 4)}}
 #: phase 26 (c): qwen1.5-0.5b at full width and depth with
 #: --compress-grads: MESH_QWEN_ROWS sequences a data replica (B = 2 on 2 x
 #: 2, 4 on 4 x 1; one card holds the f32 logits over the 152,064-row
 #: vocabulary and both replicas' error buffers beside four shards)
 MESH_QWEN_ROWS = 1
+#: phase 26 (c): qwen1.5-0.5b's depth (None: its published 24 layers). One
+#: card runs a cut (the smoke run's time limit: at 24 layers, its step-3
+#: checkpoint of weights, moments and error buffers written and read back
+#: twice, (c) was the phase's longest part)
+MESH_QWEN_LAYERS = {False: 4, True: None}
 #: phase 26 (b): the share of step 0's expert assignments of the sharded
 #: run that equal the single-device run's, layer by layer. The routers see
 #: the same function of the weights but not the same bits: the row-
@@ -512,50 +524,91 @@ OGB_STEPS, OGB_CHUNKS = 5, (16, 32, 64)
 RECSYS_TIMED, RECSYS_STEPS = 3, 6
 RECSYS_LOSS_RTOL, RECSYS_GRAD_TOL, RECSYS_GRAD_FLOOR = 1e-5, 1e-4, 1e-6
 #: phase 29: the LM's prefill and decode plans on a (data, model) mesh,
-#: gemma2-2b at published width on 2 x 2 (four cards, or four logical
+#: SERVE_ARCHS at published width on 2 x 2 (four cards, or four logical
 #: shards of one). prefill_32k at S = 32,768 and SERVE_PREFILL_B rows a
 #: call (one card, four cards; the cell's global batch of 32 cut for the
-#: phase's time: each row is independent, no shape of a row changes), and
-#: SERVE_PREFILL_BIG too on four cards when that took under SERVE_BIG_S;
-#: decode_32k at the cell's B = 128, or the largest even batch whose cache
-#: fits with SERVE_MARGIN bytes left free a card, from cache_len
-#: SERVE_DECODE_LEN, rows 0..SERVE_REF_ROWS - 1 against the single device;
-#: long_500k (B = 1) from SERVE_LONG_LEN; SERVE_STEPS steps each; the
-#: chain: a SERVE_CHAIN_PROMPT-token prompt of SERVE_CHAIN_B rows padded to
-#: SERVE_CHAIN_PAD, then SERVE_STEPS steps. The cache is drawn a (leaf,
-#: layer group, row, 1 / SERVE_UNITS of the sequence) at a time, the
-#: finest split of the phase's meshes, so a shard's block and the single
-#: device's rows hold the same values.
+#: phase's time: each row is independent, an MoE row holding whole groups
+#: of 4,096, no shape of a row changes), and SERVE_PREFILL_BIG too on four
+#: cards when that took under SERVE_BIG_S; decode_32k at the cell's B =
+#: 128, or the largest even batch whose cache fits with SERVE_MARGIN bytes
+#: left free a card, from cache_len SERVE_DECODE_LEN, a dense model's rows
+#: 0..SERVE_REF_ROWS - 1 against the single device (an MoE model's every
+#: row: its group is the batch); long_500k (B = 1) from SERVE_LONG_LEN
+#: where the plan runs it; SERVE_STEPS steps each; the chain: a
+#: SERVE_CHAIN_PROMPT-token prompt of SERVE_CHAIN_B rows padded to
+#: SERVE_CHAIN_PAD (an MoE model's SERVE_MOE_CHAIN_PROMPT and
+#: SERVE_MOE_CHAIN_PAD: a data replica's prompt holds whole MoE groups),
+#: then SERVE_STEPS steps. The cache is drawn a (leaf, layer group, row,
+#: 1 / SERVE_UNITS of the sequence) at a time, the finest split of the
+#: phase's meshes, so a shard's block and the single device's rows hold
+#: the same values.
 SERVE_MESH = (2, 2)
+SERVE_ARCHS = {False: ("gemma2-2b", "qwen2-moe-a2.7b",
+                       "granite-moe-3b-a800m"),
+               True: ("qwen2-moe-a2.7b", "granite-moe-3b-a800m", "granite-8b",
+                      "qwen1.5-0.5b", "gemma2-2b")}
 SERVE_PREFILL_B = {False: 2, True: 8}
 SERVE_PREFILL_BIG, SERVE_BIG_S = 32, 20.0
 SERVE_STEPS, SERVE_REF_ROWS, SERVE_UNITS = 16, 8, 4
 #: phase 29 on one card (the stand-in for four): the bf16 cells run at
-#: this depth of gemma2-2b's 26 layers (the smoke run's time limit; 26
-#: layers took 97.9 s of a 1,114 s run), without the single device beside
-#: them (its comparisons, the chain's rerun and the planted fault run at
-#: SERVE_CHECK_LAYERS)
-SERVE_ONE_CARD_LAYERS = 8
+#: this depth of each architecture's layers (the smoke run's time limit:
+#: gemma2-2b's 26 layers took 97.9 s of a 1,114 s run; with the MoE
+#: architectures beside it, the phase took 103.7 s at 8, 4 and 4 layers in
+#: a 1,107 s run), without the single
+#: device beside them (its comparisons, the chain's rerun and the planted
+#: fault run at SERVE_CHECK_LAYERS)
+SERVE_ONE_CARD_LAYERS = {"gemma2-2b": 4, "qwen2-moe-a2.7b": 3,
+                         "granite-moe-3b-a800m": 3}
 SERVE_DECODE_LEN, SERVE_LONG_LEN = 32_752, 524_272
 SERVE_CHAIN_PROMPT, SERVE_CHAIN_PAD, SERVE_CHAIN_B = 6_000, 6_016, 2
+SERVE_MOE_CHAIN_PROMPT, SERVE_MOE_CHAIN_PAD = 4_096, 4_112
+#: phase 29: the gated MoE decode's cache length (the cell's 32,768 cut):
+#: its group is the whole batch, so the single device beside the mesh
+#: decodes all B rows and holds their cache whole, with copies of a
+#: layer's keys and values; at this length both hold the cell's B = 128
+SERVE_MOE_GATE_SEQ = 4_096
+#: phase 29: DECODE_TOL's bf16 bounds were read on this architecture's
+#: decode against its forward (phase 23): its chain is held to them in
+#: bf16 too; the other architectures' bf16 chains are logged (each is
+#: gated in f32 at SERVE_CHECK_LAYERS)
+SERVE_BF16_CHAIN = "gemma2-2b"
 SERVE_MARGIN = 6e9
 #: phase 29: the comparisons with the single device are gated on a cut of
-#: the model to SERVE_CHECK_LAYERS (one local and one global layer: both
-#: caches) in f32, where the mesh and the single device differ by f32
-#: roundings alone: every compared tensor within ``testing.
+#: the model to SERVE_CHECK_LAYERS (gemma2-2b's one local and one global
+#: layer: both caches) in f32, where the mesh and the single device differ
+#: by f32 roundings alone: every compared tensor within ``testing.
 #: bf16_lm_mismatch``'s bounds and DECODE_TOL's f32 bounds (max 0.05, mean
 #: 0.005: phase 23's for gemma's decode against forward in f32), and a
-#: planted fault (long_500k's steps at a position one ahead) must read past
-#: them. In bf16 no change of summation order holds ``bf16_lm_mismatch``'s
-#: max (2^-7 of the largest |logit|, 0.234 at 30) at published width: the
-#: single device's own decode against its forward reads max 1.0231 (phase
-#: 23); the mesh against the single device read max 0.886-1.285, mean
-#: 0.0747-0.0880 at 26 layers and, at 2 layers, max 0.1117 (prefill),
-#: 0.1849 (long_500k) and 0.2461 (decode_32k, the max over 32.8 million
-#: logits), mean 0.0085-0.0115 (NVIDIA H100 80GB HBM3, 700 W, one card as
-#: four logical shards). The bf16 readings at 26 layers are logged; the
-#: chain is held to forward at 26 layers in bf16 by DECODE_TOL.
+#: planted fault (long_500k's steps at a position one ahead; decode_32k's
+#: where the plan skips long_500k) must read past them. An MoE decode runs
+#: there at the cell's B = 128 over SERVE_MOE_GATE_SEQ positions: its group
+#: is the batch's 128 tokens, every expert's capacity max(8, ceil(128 top_k
+#: / padded experts x 1.25)) rounded up to 8 (qwen2-moe 16 against ~8.5
+#: assignments an expert a step, granite-moe 32 against ~25.6), and some
+#: assignments drop (in bf16 at 4 layers and B = 58, qwen2-moe dropped 84
+#: of 14,848 over 16 steps). An MoE prefill's single device takes the
+#: mesh's experts (``testing.routed_as``): in f32 at 2 layers 1-2 of a
+#: row's 32,768 tokens route otherwise a layer, each a near-tie within 1e-6
+#: (C7's check, logged). In bf16 no change of summation order holds
+#: ``bf16_lm_mismatch``'s max (2^-7 of the largest |logit|, 0.234 at 30) at
+#: published width: the single device's own decode against its forward
+#: reads max 1.0231 (phase 23); the mesh against the single device read max
+#: 0.886-1.285, mean 0.0747-0.0880 at 26 layers and, at 2 layers, max
+#: 0.1117 (prefill), 0.1849 (long_500k) and 0.2461 (decode_32k, the max
+#: over 32.8 million logits), mean 0.0085-0.0115 (NVIDIA H100 80GB HBM3,
+#: 700 W, one card as four logical shards). The bf16 readings at 26 layers
+#: are logged (the reference's own decode spreads from its forward as far:
+#: C11, tools/c11_decode_spread.py); the chain is held to forward at 26
+#: layers in bf16 by DECODE_TOL.
 SERVE_CHECK_LAYERS = 2
+#: phase 29: DECODE_TOL's bounds hold a tensor whose largest |value| is
+#: this (gemma2-2b's logit softcap, where they were read) or more; one of
+#: smaller values is held to them scaled by its largest |value| over this.
+#: At 2 layers in f32 granite-8b's logits reach 5.3: its planted fault
+#: (positions one ahead) read max 0.00997, mean 0.00149 on four H100s,
+#: past the scaled bounds (0.0088, 0.00088) and within the unscaled ones,
+#: the mesh against the single device 4.8e-06 and 6.9e-07
+SERVE_TOL_SCALE = 30.0
 #: phase 30 (a): the dry-run held to the card on 2 x 2. The plans run at
 #: published width with their cells cut to what the phase's time allows:
 #: qwen1.5-0.5b's train_4k at DRYRUN_LM_LAYERS layers and a global batch
@@ -596,7 +649,7 @@ DRYRUN_CELL = {False: ("dlrm-rm2", "retrieval_cand"),
 #: loss, and an exact integer fingerprint of every leaf's bytes a
 #: position, computed on its card. A spawn's wall limit is MH_WALL_S.
 MH_ONE_CARD, MH_ONE_LAYERS, MH_ONE_BATCH, MH_ONE_SEQ = \
-    "qwen1.5-0.5b", 2, 4, 4_096
+    "qwen1.5-0.5b", 2, 2, 2_048
 MH_ONE_LEGS = (((1, 4), False), ((2, 2), True))
 MH_FOUR, MH_FOUR_LAYERS, MH_FOUR_BATCH, MH_FOUR_SEQ = \
     "granite-8b", 36, 8, 4_096
@@ -606,7 +659,14 @@ MH_STEPS, MH_WALL_S = 3, 900
 MH_DEVICE = "cuda"
 
 
+#: the run's start: each phase's header line carries the seconds since
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    if a and isinstance(a[0], str) and a[0][:1] == "[" and \
+            a[0][1:2].isdigit():
+        a = (*a, f"(t = {time.perf_counter() - _T0:.0f} s)")
     print(*a, flush=True)
 
 
@@ -4412,9 +4472,10 @@ def _parents(e):
         p = p.cpu_parent
 
 
-def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes
-                      ) -> None:
-    """Phase 26 (b), layer by layer: the mesh's step-0 routing is the
+def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes,
+                      labels=None) -> None:
+    """Phases 26 (b) and 29, layer by layer (``labels``: each entry's
+    name; by default its layer): the mesh's step-0 routing is the
     unsharded router's (``moe.route``) on the mesh's own router inputs,
     exactly; and every token the mesh routes otherwise than the single
     device is a near-tie that the inputs' difference explains. For such a
@@ -4431,12 +4492,13 @@ def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes
     K = cfg.top_k
     for l, ((xm, w), idx_m, (xs, ws), idx_s) in enumerate(zip(
             mesh_in, mesh_routes, single_in, single_routes)):
+        name = labels[l] if labels else f"layer {l}"
         if not torch.equal(w, ws):
-            fail(f"C7 layer {l}: the mesh's gathered router is not the "
+            fail(f"C7 {name}: the mesh's gathered router is not the "
                  "single device's")
         again = moe.route(cfg, w, xm)[1]
         if not torch.equal(again, idx_m):
-            fail(f"C7 layer {l}: the mesh's expert assignments are not the "
+            fail(f"C7 {name}: the mesh's expert assignments are not the "
                  "unsharded router's on the mesh's own inputs")
         E, D = cfg.n_experts, xs.shape[-1]
         logits = layers.matmul_f32(xs, w)[..., :E].double()
@@ -4444,7 +4506,7 @@ def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes
         flipped = differ.any(-1)
         n = int(flipped.sum())
         if n == 0:
-            log(f"    C7 layer {l}: no token routed otherwise")
+            log(f"    C7 {name}: no token routed otherwise")
             continue
         j = differ.int().argmax(-1, keepdim=True)
         pick = lambda t, i: torch.gather(t, -1, i)[..., 0]  # noqa: E731
@@ -4457,7 +4519,7 @@ def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes
                                           @ w[:, :E].double().abs())
         bound = (2 * delta.amax(-1) + 2 * rounding.amax(-1))[flipped]
         ratio = margin / bound
-        log(f"    C7 layer {l}: {n} of {flipped.numel()} tokens routed "
+        log(f"    C7 {name}: {n} of {flipped.numel()} tokens routed "
             f"otherwise; their single-device margins (its expert's logit "
             f"minus the mesh's at the first differing rank) max "
             f"{float(margin.max()):.4g}, median {float(margin.median()):.4g}"
@@ -4467,7 +4529,7 @@ def check_route_flips(cfg, mesh_in, mesh_routes, single_in, single_routes
             f"{float(ratio.max()):.3f}; layer inputs max |dx| "
             f"{float((xm.float() - xs.float()).abs().max()):.4g}")
         if float(ratio.max()) > 1.0:
-            fail(f"C7 layer {l}: {int((ratio > 1).sum())} of {n} tokens "
+            fail(f"C7 {name}: {int((ratio > 1).sum())} of {n} tokens "
                  f"route otherwise past what the inputs' difference "
                  f"explains (margin over allowance {float(ratio.max()):.3f})")
 
@@ -4489,7 +4551,8 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
     cards the loss of a repeated batch falling (``--fixed-batch``). After
     the last step every holder of every shard of the parameters and
     moments holds the same bits. (c) qwen1.5-0.5b at
-    full width and depth with --compress-grads on 2 x 2 (one card: a
+    full width, MESH_QWEN_LAYERS' depth, with --compress-grads on 2 x 2
+    (one card: a
     restart on 2 x 2 from a step-3 checkpoint is the uninterrupted run's
     bits, one on 1 x 4 within the loss rtol, and the manifest carries the
     rules' specs; four cards: 2 x 2 and 4 x 1). (d) one card: granite-8b's
@@ -4500,7 +4563,7 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
     and a profiled step's busy share and cross-shard share.
 
     With ``four_cards`` (``--sharded``) the mesh must be four distinct
-    cards, and the 4-layer granite-8b runs on them and on four logical
+    cards, and the one-card leg's granite-8b runs on them and on four logical
     shards of card 0 from one seed: losses within the rtol, the bits'
     equality reported.
     """
@@ -4703,16 +4766,21 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
             f"losses the same bits ({time.perf_counter() - t0:.0f} s into "
             "the phase)")
 
-    # -- (c): qwen1.5-0.5b at full width and depth, compressed ---------------
+    # -- (c): qwen1.5-0.5b at full width, compressed -------------------------
     arch = "qwen1.5-0.5b"
     cfg = C.get_arch(arch).make_config()
+    q_layers = MESH_QWEN_LAYERS[four_cards]
+    if q_layers is not None:
+        log(f"    {arch}: {q_layers} of its {cfg.n_layers} layers (cut for "
+            "the smoke run's time limit)")
+        cfg = dataclasses.replace(cfg, n_layers=q_layers)
     comp = ("--compress-grads",)
     shapes = [(2, 2), (4, 1)] if four_cards else [(2, 2)]
     with tempfile.TemporaryDirectory() as d:
         for shape in shapes:
             free()
             Bq = MESH_QWEN_ROWS * shape[0]
-            out = cli(arch, shape, Bq, None, MESH_STEPS, *comp,
+            out = cli(arch, shape, Bq, q_layers, MESH_STEPS, *comp,
                       "--ckpt-dir", os.path.join(d, f"w{shape}"),
                       "--ckpt-every", "3")
             falling(arch, out["losses"])
@@ -4753,7 +4821,7 @@ def check_lm_mesh(dev, smi: str, four_cards: bool) -> None:
                                              "step_0000000003"),
                                 os.path.join(r, "step_0000000003"))
                 free()
-                res = cli(arch, mesh_shape, Bq, None, MESH_STEPS,
+                res = cli(arch, mesh_shape, Bq, q_layers, MESH_STEPS,
                           *comp,
                           "--ckpt-dir", r, "--ckpt-every", "100",
                           "--resume")
@@ -5837,59 +5905,80 @@ def drawn_cache(cfg, mesh, spec, batch: int, seq_len: int) -> dict:
 
 def check_lm_serve_mesh(dev, smi: str, four_cards: bool) -> None:
     """Phase 29: the LM's prefill and decode plans on a (data, model) mesh
-    (``launch.steps.build_plan("gemma2-2b", cell)``, ``transformer.
-    sharded_prefill`` / ``sharded_decode_step``), gemma2-2b at published
-    width on 2 x 2, one placed set of weights for every cell
-    (``serve_legs``), at the published 26 layers in bf16 (on one card at
-    SERVE_ONE_CARD_LAYERS), then at SERVE_CHECK_LAYERS in f32.
+    (``launch.steps.build_plan(arch, cell)``, ``transformer.
+    sharded_prefill`` / ``sharded_decode_step``, ``moe.moe_ffn_sharded``)
+    for each of SERVE_ARCHS at published width on 2 x 2, one placed set of
+    weights an architecture for every cell (``serve_legs``): in bf16 at
+    the published depth (on one card at SERVE_ONE_CARD_LAYERS), then at
+    SERVE_CHECK_LAYERS in f32.
 
     prefill_32k at S = 32,768 and SERVE_PREFILL_B rows (B = 32 too on four
     cards when that took under SERVE_BIG_S): ms a call, the bf16-peak
     share (``launch/model_flops.py``'s prefill term over 989 TFLOP/s a
     card), peak GB a card; rows 0-1's logits and cache against the single
-    device's ``transformer.prefill``. long_500k: B = 1, SERVE_STEPS steps
-    from SERVE_LONG_LEN, against the same plan on a 1 x 1 mesh on card 0.
-    decode_32k at the cell's B = 128 (or the largest even batch whose
-    cache fits with SERVE_MARGIN left, the cut logged), its cache drawn
-    shard by shard on its card, SERVE_STEPS steps from cache_len
-    SERVE_DECODE_LEN: rows 0..SERVE_REF_ROWS - 1 against the single
-    device's ``decode_step`` on their slice of the same cache. Each decode
-    cell's ms a step beside its bytes bound (a card's cache block and
-    weights over 3.35 TB/s) and peak GB a card. At 26 layers a prompt of
-    SERVE_CHAIN_PROMPT tokens through ``sharded_prefill(pad_to=
-    SERVE_CHAIN_PAD)`` and SERVE_STEPS steps of the decode plan, each
-    step's logits against the single device's forward at that position
-    (DECODE_TOL, phase 23's), run twice: the same bits.
+    device's ``transformer.prefill``. long_500k, where the plan runs it
+    (gemma2-2b; the full-attention architectures' plan carries a skip):
+    B = 1, SERVE_STEPS steps from SERVE_LONG_LEN, against the same plan on
+    a 1 x 1 mesh on card 0. decode_32k at the cell's B = 128 (or the
+    largest even batch whose cache fits with SERVE_MARGIN left, the cut
+    logged), its cache drawn shard by shard on its card, SERVE_STEPS steps
+    from cache_len SERVE_DECODE_LEN: a dense model's rows 0..SERVE_REF_ROWS
+    - 1 against the single device's ``decode_step`` on their slice of the
+    same cache; an MoE model's every row against the single device
+    decoding the same B rows (its group is the whole batch; at
+    SERVE_CHECK_LAYERS), with the slot hand-offs between the data replicas
+    and the dropped assignments logged. Each decode cell's ms a step beside
+    its bytes bound (a card's cache block and weights over 3.35 TB/s) and
+    peak GB a card. A prompt through ``sharded_prefill(pad_to=)`` and
+    SERVE_STEPS steps of the decode plan, each step's logits against the
+    single device's forward at that position (an MoE model's: against the
+    single device's own prefill -> decode chain), run twice: the same bits.
 
     The comparisons with the single device, the chain's rerun and a
     planted fault are gated at SERVE_CHECK_LAYERS in f32 (see there); at
-    26 layers in bf16 the readings are logged, on four cards. On one card
-    the bf16 cells run at SERVE_ONE_CARD_LAYERS, without the single device.
-    With ``four_cards`` the mesh must be four distinct cards."""
+    the published depth in bf16 the readings are logged, on four cards.
+    On one card the bf16 cells run at a cut depth, without the single
+    device. With ``four_cards`` the mesh must be four distinct cards."""
     import torch
     from repro_torch import configs as C
     from repro_torch.launch.mesh import make_host_mesh
 
     t0 = time.perf_counter()
-    spec = C.get_arch("gemma2-2b")
-    cfg = spec.make_config()
     mesh = make_host_mesh(*SERVE_MESH)
     cards = list(dict.fromkeys(mesh.devices.flat))
     if four_cards and len(cards) != 4:
         fail(f"--sharded needs a mesh of four distinct cards; "
              f"make_host_mesh{SERVE_MESH} sits on {[str(d) for d in cards]}")
+    archs = SERVE_ARCHS[four_cards]
     log(f"[29] the LM's prefill and decode plans on a (data, model) mesh, "
-        f"gemma2-2b at published width (d_model {cfg.d_model}, "
-        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, {cfg.dtype}); "
-        f"{smi}; make_host_mesh{SERVE_MESH} sits on "
+        f"{', '.join(archs)} at published width; {smi}; "
+        f"make_host_mesh{SERVE_MESH} sits on "
         f"{[str(d) for d in mesh.devices.flat]}")
     problems = []
-    serve_legs(spec, cfg if four_cards else dataclasses.replace(
-        cfg, n_layers=SERVE_ONE_CARD_LAYERS), mesh, four_cards, problems,
-        gate=False)
-    serve_legs(spec, dataclasses.replace(cfg, n_layers=SERVE_CHECK_LAYERS,
-                                         dtype=torch.float32),
-               mesh, four_cards, problems, gate=True)
+    for arch in archs:
+        ta = time.perf_counter()
+        spec = C.get_arch(arch)
+        cfg = spec.make_config()
+        ffn = (f"MoE {cfg.n_experts} experts of {cfg.moe_d_ff}, top-"
+               f"{cfg.top_k}, groups of {cfg.moe_group_size}, capacity "
+               f"factor {cfg.capacity_factor}" if cfg.is_moe
+               else f"dense FFN of {cfg.d_ff}")
+        depth = cfg.n_layers if four_cards else SERVE_ONE_CARD_LAYERS[arch]
+        log(f"    {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+            f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, {ffn}, "
+            f"{cfg.dtype}; the bf16 cells at {depth} of its "
+            f"{cfg.n_layers} layers"
+            + ("" if four_cards else " (cut for the smoke run's time "
+               "limit)"))
+        serve_legs(spec, dataclasses.replace(cfg, n_layers=depth), mesh,
+                   four_cards, problems, gate=False)
+        tb = time.perf_counter()
+        serve_legs(spec, dataclasses.replace(
+            cfg, n_layers=SERVE_CHECK_LAYERS, dtype=torch.float32),
+            mesh, four_cards, problems, gate=True)
+        log(f"    {arch}: {time.perf_counter() - ta:.1f} s ({tb - ta:.1f} "
+            f"in bf16, {time.perf_counter() - tb:.1f} at "
+            f"{SERVE_CHECK_LAYERS} layers in f32)")
     log(f"    phase 29: {time.perf_counter() - t0:.1f} s")
     if problems:
         fail("; ".join(problems))
@@ -5903,13 +5992,25 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
     appended to ``problems``, and so is a planted fault that reads within
     them; without, the readings against ``bf16_lm_mismatch`` are logged.
     Without ``gate`` on one card the cells run alone (the chain once, no
-    single device beside them)."""
+    single device beside them).
+
+    An MoE decode step's group is the batch's B tokens, spread over the
+    data replicas, so its capacity and its drops are the whole batch's: the
+    single device decodes the mesh's B rows (with ``gate``, after the mesh,
+    from the same drawn cache), the chain is held to the single device's
+    own prefill -> decode chain (forward groups a sequence's tokens
+    instead) and the mesh's slot hand-offs and dropped assignments are
+    logged (``moe.recording``): hand-offs > 0 always, drops > 0 with
+    ``gate``. Where the long_500k plan carries a ``skip`` the cell does not
+    run, and the planted fault is decode_32k's steps at a position one
+    ahead."""
     import torch
     from repro_torch import testing
     from repro_torch.distributed import partition
     from repro_torch.launch import model_flops
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
 
     arch = spec.arch_id
@@ -5920,6 +6021,16 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
     single_too = gate or four_cards
     steps = SERVE_STEPS
     tol_max, tol_mean = DECODE_TOL[str(cfg.dtype)]
+
+    def tolerance(want) -> tuple:
+        """DECODE_TOL's bounds, read on gemma2-2b's logits (at most
+        SERVE_TOL_SCALE, its softcap), scaled down by the largest |want|
+        where that is smaller: a tensor of smaller values is held as
+        tightly for its scale, never looser (granite-8b's logits at 2
+        layers reach 5.3)."""
+        f = min(1.0, float(want.abs().max()) / SERVE_TOL_SCALE)
+        return tol_max * f, tol_mean * f
+    glob = f"pos{cfg.layer_pattern.index(0)}"  # a global layer's cache
     free_cards(cards)
 
     def reset():
@@ -5937,17 +6048,26 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
         sync_cards(cards)
         return out, (time.perf_counter() - t) * 1e3
 
+    def real(logits):
+        """The vocabulary's columns of (..., padded vocabulary) logits (the
+        padding's are -1e30 on both sides)."""
+        return logits[..., :cfg.vocab_size]
+
     def compare(label, got, want, record: bool = True):
         """``testing.bf16_lm_mismatch``'s logits bounds on any two tensors
         and, with ``gate``, DECODE_TOL's; the readings (max |diff|, mean
-        |diff|, max |want|) and why they are outside, or None."""
+        |diff|, max |want|) and why they are outside, or None. Logits are
+        compared over the vocabulary's columns."""
+        if got.shape[-1] == cfg.padded_vocab:
+            got, want = real(got), real(want)
         mx, mean, scale, _ = testing._max_and_mean_diff(got, want)
         msg = testing.bf16_lm_mismatch(got, 0.0, {}, want, 0.0, {})
-        if msg is None and gate and not (mx <= tol_max and mean <= tol_mean):
-            msg = (f"max |diff| {mx:.4g} (tolerance {tol_max}), mean "
-                   f"{mean:.4g} (tolerance {tol_mean})")
+        t_max, t_mean = tolerance(want)
+        if msg is None and gate and not (mx <= t_max and mean <= t_mean):
+            msg = (f"max |diff| {mx:.4g} (tolerance {t_max:.4g}), mean "
+                   f"{mean:.4g} (tolerance {t_mean:.4g})")
         if msg and gate and record:
-            problems.append(f"{label} at {depth}: {msg}")
+            problems.append(f"{arch} {label} at {depth}: {msg}")
         return (mx, mean, scale), msg
 
     def verdict(msg) -> str:
@@ -5975,13 +6095,75 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
         return out
 
     def single_model():
-        m = transformer.init_params(cfg, generator=torch.Generator(
-            device=card0).manual_seed(29))
+        """The single device's model on card 0: the mesh's weights
+        gathered whole (no f32 draw beside them: qwen2-moe's 28.6 GB at
+        24 layers and a 17.7 GB f32 expert leaf do not fit beside its
+        shard)."""
+        m = transformer.Transformer(cfg, device="meta")
+        m.load_state_dict({n: st.gather(card0) for n, st in params.items()},
+                          assign=True)
         return m.requires_grad_(False)
+
+    def fault_verdict(label, rf, msg):
+        log(f"    {label} at {depth}, a planted fault (each step's "
+            f"position one ahead): max |diff| {rf[0]:.4g}, mean "
+            f"{rf[1]:.4g}: " + ("past the bounds" if msg else
+                                "WITHIN the bounds: FAILS"))
+        if msg is None:
+            problems.append(f"{arch} {label} at {depth}: the comparison "
+                            "cannot see a planted fault (positions one "
+                            "ahead)")
+
+    def prefill_routes(routes, inputs, toks):
+        """An MoE prefill's comparison at the gated depth, whose data
+        replicas hold a row each (``toks``): the mesh's expert assignments
+        layer by layer (each replica's, its model shards' equal) against
+        the single device's own on the same rows (C7's check: every token
+        routed otherwise a near-tie the inputs' difference explains);
+        returns ``testing.routed_as`` for the single device, so that the
+        compared prefill takes the mesh's experts (and so its drops) and
+        differs by arithmetic alone."""
+        M, D_ = mesh.shape["model"], mesh.shape["data"]
+        per = M * D_
+        if len(routes) != per * cfg.n_layers or len(toks) != D_:
+            fail(f"{arch}: {len(routes)} routings of {len(toks)} rows on "
+                 f"the mesh, not {per * cfg.n_layers} of {D_}")
+        single_in = []
+        with testing.recorded_routes([], single_in) as own, torch.no_grad():
+            transformer.prefill(cfg, single, toks.to(card0))
+        mine, entries, labels = [], ([], [], [], []), []
+        for layer in range(cfg.n_layers):
+            calls = routes[layer * per:(layer + 1) * per]
+            if not all(torch.equal(calls[d * M + m].to(card0),
+                                   calls[d * M].to(card0))
+                       for d in range(D_) for m in range(M)):
+                fail(f"{arch}: the model shards route differently")
+            mine.append(torch.cat([calls[d * M].to(card0)
+                                   for d in range(D_)]))
+            n = len(mine[-1]) // D_  # a row's groups
+            xs, w = single_in[layer]
+            for d in range(D_):
+                x, wm = inputs[layer * per + d * M]
+                for e, t in zip(entries, ((x.to(card0), wm.to(card0)),
+                                          mine[-1][d * n:(d + 1) * n],
+                                          (xs[d * n:(d + 1) * n], w),
+                                          own[layer][d * n:(d + 1) * n])):
+                    e.append(t)
+                labels.append(f"layer {layer} row {d}")
+        agree = [float((m == r).float().mean()) for m, r in zip(mine, own)]
+        log(f"    prefill_32k at {depth}, rows 0-{D_ - 1}: the mesh's expert "
+            f"assignments (tokens x top-{cfg.top_k}) against the single "
+            f"device's own, layer by layer: {[f'{a:.6f}' for a in agree]} "
+            "equal; the single device compared below takes the mesh's "
+            "experts")
+        check_route_flips(cfg, *entries, labels=labels)
+        return testing.routed_as(single, mine)
 
     bounds = (f"bounds {testing.BF16_LOGITS_TOL:.4g} and mean "
               f"{testing.BF16_LOGITS_MEAN_TOL:.4g} of the largest"
-              + (f", max {tol_max} and mean {tol_mean}" if gate else ""))
+              + (f", max {tol_max} and mean {tol_mean} scaled by the "
+                 f"largest |value| / {SERVE_TOL_SCALE:g} where under 1"
+                 if gate else ""))
     model = transformer.init_sharded(cfg, mesh, generator=torch.Generator(
         device=card0).manual_seed(29))
     params = model.params
@@ -5990,7 +6172,7 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
             s.requires_grad_(False)
     w_card = [card_bytes([s for st in params.values() for s in st.shards], c)
               for c in cards]
-    single = single_model()
+    single = None  # built where first needed: after the mesh's prefill
 
     # -- prefill_32k ---------------------------------------------------------
     S = spec.cell("prefill_32k").dims["seq_len"]
@@ -5998,29 +6180,47 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
     plan = steps_lib.build_plan(arch, "prefill_32k", overrides=depth_of)
     flops = model_flops.estimate(arch, "prefill_32k", cfg)[
         "model_flops_global"]
-    sizes = [SERVE_PREFILL_B[four_cards]]
+    sizes = [SERVE_PREFILL_B[four_cards and not gate]]
     for B in sizes:
         toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(B))
         (tokens,) = steps_lib.place_inputs(plan, mesh, toks)
         free_cards(cards)
         reset()
+        # the gated MoE comparison: the mesh's routes and router inputs
+        forced = gate and cfg.is_moe and B == sizes[0]
+        mesh_in = []
         try:
-            (logits, cache), ms = run_timed(lambda: plan.fn(params, tokens))
+            with (testing.recorded_routes([], mesh_in) if forced
+                  else contextlib.nullcontext([])) as routes:
+                (logits, cache), ms = run_timed(lambda: plan.fn(params,
+                                                                tokens))
         except torch.OutOfMemoryError as e:
             log(f"    prefill_32k at {depth}, B = {B}: does not fit 2 x 2 "
                 f"({str(e).splitlines()[0]})")
             free_cards(cards)
             continue
         share = flops * B / cell_b / (ms / 1e3 * PEAK_BF16_FLOPS * len(cards))
-        log(f"    prefill_32k at {depth}: B = {B} (the cell's {cell_b} cut "
-            f"for the phase's time), S = {S:,}: {ms:.1f} ms a call, "
+        log(f"    prefill_32k at {depth}: B = {B} "
+            + (f"(the cell's {cell_b} cut for the phase's time)"
+               if B < cell_b else "(the cell's)")
+            + f", S = {S:,}: {ms:.1f} ms a call, "
             f"{B * S / ms * 1e3:,.0f} tokens/s, {share:.2%} of the bf16 "
             f"peak, peak GB a card {peaks()}; logits {logits.spec}, cache "
-            f"{cache['pos1']['k'].spec}, a card's global-layer k block "
-            f"{tuple(cache['pos1']['k'].shards[0].shape)}")
-        if B == sizes[0] and single_too:
-            with torch.no_grad():
+            f"{cache[glob]['k'].spec}, a card's global-layer k block "
+            f"{tuple(cache[glob]['k'].shards[0].shape)}")
+        if B == sizes[0] and single_too and cfg.is_moe and not gate:
+            log(f"    prefill_32k at {depth}: not against the single device "
+                "(its model does not fit beside the mesh's prefill on card "
+                "0 at this depth; in bf16 its tokens route otherwise too)")
+        elif B == sizes[0] and single_too:
+            if single is None:
+                single = single_model()
+            routing = contextlib.nullcontext()
+            if forced:
+                routing = prefill_routes(routes, mesh_in, toks)
+            del routes, mesh_in
+            with routing, torch.no_grad():
                 w_lg, w_cache = transformer.prefill(cfg, single,
                                                     toks[:2].to(card0))
             r, msg = compare("prefill_32k rows 0-1 logits",
@@ -6047,89 +6247,108 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
             sizes.append(SERVE_PREFILL_BIG)
         del logits, cache, tokens
     free_cards(cards)
+    if single is None:
+        single = single_model()
 
     # -- long_500k: the 1 x 1 mesh on card 0, then 2 x 2 ---------------------
     plan = steps_lib.build_plan(arch, "long_500k", overrides=depth_of)
-    L0, Sl = SERVE_LONG_LEN, spec.cell("long_500k").dims["seq_len"]
-    toks = torch.randint(0, cfg.vocab_size, (steps, 1, 1),
-                         dtype=torch.int32,
-                         generator=torch.Generator().manual_seed(500))
-    mesh11 = make_host_mesh(1, 1)
-    params11 = {n: partition.ShardedTensor(
-        mesh11, plan.in_specs[0][n], tuple(t.shape), t.dtype, [t])
-        for n, t in single.named_parameters()}
-    out = {}
-    legs = (("1 x 1", mesh11, params11), ("2 x 2", mesh, params))
-    for label, m_, prm in legs[0 if single_too else 1:]:
-        m_cards = list(dict.fromkeys(m_.devices.flat))
+    long_skip = plan.skip
+    if long_skip:
+        log(f"    long_500k: not run, the plan's skip: "
+            f"{long_skip.split(':')[0]}")
+    else:
+        L0, Sl = SERVE_LONG_LEN, spec.cell("long_500k").dims["seq_len"]
+        toks = torch.randint(0, cfg.vocab_size, (steps, 1, 1),
+                             dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(500))
+        mesh11 = make_host_mesh(1, 1)
+        params11 = {n: partition.ShardedTensor(
+            mesh11, plan.in_specs[0][n], tuple(t.shape), t.dtype, [t])
+            for n, t in single.named_parameters()}
+        out = {}
+        legs = (("1 x 1", mesh11, params11), ("2 x 2", mesh, params))
+        for label, m_, prm in legs[0 if single_too else 1:]:
+            m_cards = list(dict.fromkeys(m_.devices.flat))
+            free_cards(cards)
+            cache = drawn_cache(cfg, m_, plan.in_specs[1]["pos0"]["k"], 1,
+                                Sl)
+            reset()
+            got, step_ms = [], []
+            for j in range(steps):
+                (lg, cache), ms = run_timed(lambda: plan.fn(
+                    prm, cache, toks[j], L0 + j))
+                got.append(first_rows(lg, 1).to("cpu"))
+                step_ms.append(ms)
+            pk = peaks()[:len(m_cards)]
+            c_bytes = [card_bytes([s for c in cache.values()
+                                   for st in c.values() for s in st.shards],
+                                  c) for c in m_cards]
+            w_bytes = [card_bytes([s for st in prm.values()
+                                   for s in st.shards], c) for c in m_cards]
+            bound = max(c + w for c, w in zip(c_bytes, w_bytes)) / \
+                PEAK_BYTES_S
+            prof = (_mesh_profile(lambda: plan.fn(prm, cache, toks[-1],
+                                                  L0 + steps - 1),
+                                  f"one long_500k step on {label} at {depth}",
+                                  m_cards)
+                    if label == "2 x 2" and not gate else None)
+            out[label] = torch.stack(got)
+            log(f"    long_500k at {depth} on {label}: B = 1, the cache's "
+                f"{Sl:,} positions ({sum(c_bytes) / 1e9:.2f} GB, "
+                f"{max(c_bytes) / 1e9:.2f} GB a card) from cache_len "
+                f"{L0:,}, {steps} steps: {np.median(step_ms):.2f} ms a step "
+                f"(median; {min(step_ms):.2f}-{max(step_ms):.2f}) against "
+                f"its bytes bound {bound * 1e3:.3f} ms (a card's cache block "
+                f"and weights over 3.35 TB/s), peak GB a card {pk}"
+                + (f"; busy share {prof['busy_share']:.1%}" if prof else ""))
+            del cache, lg
+        if single_too:
+            r, msg = compare("long_500k 2 x 2 against 1 x 1", out["2 x 2"],
+                             out["1 x 1"])
+            log(f"    long_500k at {depth}: 2 x 2 against 1 x 1 over {steps} "
+                f"steps: max |diff| {r[0]:.4g}, mean {r[1]:.4g} (largest "
+                f"|logit| {r[2]:.4g}; {bounds}): {verdict(msg)}")
+        if gate:
+            cache = drawn_cache(cfg, mesh, plan.in_specs[1]["pos0"]["k"], 1,
+                                Sl)
+            got = []
+            for j in range(steps):
+                lg, cache = plan.fn(params, cache, toks[j], L0 + j + 1)
+                got.append(first_rows(lg, 1).to("cpu"))
+            rf, msg = compare("", torch.stack(got), out["1 x 1"],
+                              record=False)
+            fault_verdict("long_500k", rf, msg)
+            del cache, lg
+        del params11, out
         free_cards(cards)
-        cache = drawn_cache(cfg, m_, plan.in_specs[1]["pos0"]["k"], 1, Sl)
-        reset()
-        got, step_ms = [], []
-        for j in range(steps):
-            (lg, cache), ms = run_timed(lambda: plan.fn(prm, cache, toks[j],
-                                                        L0 + j))
-            got.append(first_rows(lg, 1).to("cpu"))
-            step_ms.append(ms)
-        pk = peaks()[:len(m_cards)]
-        c_bytes = [card_bytes([s for c in cache.values() for st in c.values()
-                               for s in st.shards], c) for c in m_cards]
-        w_bytes = [card_bytes([s for st in prm.values() for s in st.shards],
-                              c) for c in m_cards]
-        bound = max(c + w for c, w in zip(c_bytes, w_bytes)) / PEAK_BYTES_S
-        prof = (_mesh_profile(lambda: plan.fn(prm, cache, toks[-1],
-                                              L0 + steps - 1),
-                              f"one long_500k step on {label} at {depth}",
-                              m_cards)
-                if label == "2 x 2" and not gate else None)
-        out[label] = torch.stack(got)
-        log(f"    long_500k at {depth} on {label}: B = 1, the cache's "
-            f"{Sl:,} positions ({sum(c_bytes) / 1e9:.2f} GB, "
-            f"{max(c_bytes) / 1e9:.2f} GB a card) from cache_len {L0:,}, "
-            f"{steps} steps: {np.median(step_ms):.2f} ms a step "
-            f"(median; {min(step_ms):.2f}-{max(step_ms):.2f}) against its "
-            f"bytes bound {bound * 1e3:.3f} ms (a card's cache block and "
-            f"weights over 3.35 TB/s), peak GB a card {pk}"
-            + (f"; busy share {prof['busy_share']:.1%}" if prof else ""))
-        del cache, lg
-    if single_too:
-        r, msg = compare("long_500k 2 x 2 against 1 x 1", out["2 x 2"],
-                         out["1 x 1"])
-        log(f"    long_500k at {depth}: 2 x 2 against 1 x 1 over {steps} "
-            f"steps: max |diff| {r[0]:.4g}, mean {r[1]:.4g} (largest "
-            f"|logit| {r[2]:.4g}; {bounds}): {verdict(msg)}")
-    if gate:
-        # a planted fault: every step at a position one ahead
-        cache = drawn_cache(cfg, mesh, plan.in_specs[1]["pos0"]["k"], 1, Sl)
-        got = []
-        for j in range(steps):
-            lg, cache = plan.fn(params, cache, toks[j], L0 + j + 1)
-            got.append(first_rows(lg, 1).to("cpu"))
-        rf, msg = compare("", torch.stack(got), out["1 x 1"], record=False)
-        log(f"    long_500k at {depth}, a planted fault (each step's "
-            f"position one ahead): max |diff| {rf[0]:.4g}, mean "
-            f"{rf[1]:.4g}: " + ("past the bounds" if msg else
-                                "WITHIN the bounds: FAILS"))
-        if msg is None:
-            problems.append(f"long_500k at {depth}: the comparison cannot "
-                            "see a planted fault (positions one ahead)")
-        del cache, lg
-    del params11, out
-    free_cards(cards)
 
     # -- prefill -> decode on the mesh ----------------------------------------
     plan = steps_lib.build_plan(arch, "decode_32k", overrides=depth_of)
-    Pn, Pad, Bc = SERVE_CHAIN_PROMPT, SERVE_CHAIN_PAD, SERVE_CHAIN_B
+    Pn, Pad = ((SERVE_MOE_CHAIN_PROMPT, SERVE_MOE_CHAIN_PAD) if cfg.is_moe
+               else (SERVE_CHAIN_PROMPT, SERVE_CHAIN_PAD))
+    Bc = SERVE_CHAIN_B
     toks = torch.randint(0, cfg.vocab_size, (Bc, Pad), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(6000))
     with torch.no_grad():
-        x = transformer._embed(cfg, single, toks.to(card0))
-        x = transformer._final_hidden(
-            cfg, single, x, transformer._positions(Bc, Pad, card0),
-            remat=False)
-        want = transformer._lm_logits(cfg, single,
-                                      x[:, Pn - 1:Pn + steps])
-        del x
+        if cfg.is_moe:  # the single device's own prefill -> decode chain
+            lg, c = transformer.prefill(cfg, single, toks[:, :Pn].to(card0),
+                                        pad_to=Pad)
+            want = [lg]
+            for j in range(steps):
+                lg, c = transformer.decode_step(
+                    cfg, single, c, toks[:, Pn + j:Pn + j + 1].to(card0),
+                    Pn + j)
+                want.append(lg)
+            want = torch.stack(want, 1)
+            del c, lg
+        else:
+            x = transformer._embed(cfg, single, toks.to(card0))
+            x = transformer._final_hidden(
+                cfg, single, x, transformer._positions(Bc, Pad, card0),
+                remat=False)
+            want = transformer._lm_logits(cfg, single,
+                                          x[:, Pn - 1:Pn + steps])
+            del x
     runs = []
     for _ in range(2 if single_too else 1):
         (lg, cache), pre_ms = run_timed(
@@ -6146,90 +6365,138 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
             f"{p}.{k}": [s.to("cpu", copy=True) for s in st.shards]
             for p, c in cache.items() for k, st in c.items()}))
         del cache, lg
-    got = runs[0][0]
+    got, want = real(runs[0][0]), real(want)
     diff = (got - want).abs()
     same = len(runs) == 2 and torch.equal(runs[0][0], runs[1][0]) and all(
         torch.equal(a, b) for k in runs[0][1]
         for a, b in zip(runs[0][1][k], runs[1][1][k]))
+    c_max, c_mean = tolerance(want)
+    sound = bool(torch.isfinite(got).all() and diff.max() <= c_max
+                 and diff.mean() <= c_mean)
+    chain_gated = gate or arch == SERVE_BF16_CHAIN
     log(f"    prefill -> decode at {depth} on 2 x 2: a {Pn:,}-token prompt "
         f"(B = {Bc}) through sharded_prefill(pad_to={Pad:,}) in "
         f"{pre_ms:.1f} ms, then {steps} decode steps "
         f"({np.median(step_ms):.2f} ms a step, median): logits against the "
-        f"single device's forward at each position max |diff| "
-        f"{float(diff.max()):.4g} (tolerance {tol_max}), mean "
-        f"{float(diff.mean()):.4g} (tolerance {tol_mean}), the same argmax "
-        f"at {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+        + ("single device's own prefill -> decode chain" if cfg.is_moe
+           else "single device's forward")
+        + f" at each position max |diff| {float(diff.max()):.4g} "
+        f"(tolerance {c_max:.4g}), mean {float(diff.mean()):.4g} (tolerance "
+        f"{c_mean:.4g}), the same argmax at "
+        f"{int((got.argmax(-1) == want.argmax(-1)).sum())} of "
         f"{got.shape[0] * got.shape[1]}"
+        + ("" if chain_gated else (" (logged: DECODE_TOL's bf16 bounds "
+                                   f"were read on {SERVE_BF16_CHAIN})"))
         + ("" if len(runs) == 1 else "; a rerun " + (
             "the same bits (logits and cache)" if same else
             "NOT the same bits")))
-    if not (torch.isfinite(got).all() and diff.max() <= tol_max
-            and diff.mean() <= tol_mean):
-        problems.append(f"the chain's logits at {depth} differ from "
-                        f"forward's: max {float(diff.max()):.4g}, mean "
-                        f"{float(diff.mean()):.4g}")
+    if chain_gated and not sound:
+        problems.append(f"{arch} the chain's logits at {depth} differ from "
+                        f"the single device's: max {float(diff.max()):.4g}, "
+                        f"mean {float(diff.mean()):.4g}")
     if len(runs) == 2 and not same:
-        problems.append(f"the chain's rerun at {depth} is not the same bits")
+        problems.append(f"{arch} the chain's rerun at {depth} is not the "
+                        "same bits")
     del runs, got, want, diff
 
-    # -- decode_32k: the single device's rows first, then the mesh -------------
+    # -- decode_32k -----------------------------------------------------------
     dcell = spec.cell("decode_32k")
     Sd, Bcell = dcell.dims["seq_len"], dcell.dims["global_batch"]
     D0 = SERVE_DECODE_LEN
+    # a dense model's rows are independent: the single device decodes the
+    # first SERVE_REF_ROWS first; an MoE model's group is the batch: the
+    # single device decodes the mesh's B rows after it (with ``gate``), at
+    # SERVE_MOE_GATE_SEQ, so that it holds the cell's batch
+    same_rows = cfg.is_moe and gate
+    if same_rows:
+        Sd, D0 = SERVE_MOE_GATE_SEQ, SERVE_MOE_GATE_SEQ - (Sd - D0)
     lengths = [min(w, Sd) if w else Sd for w in cfg.layer_pattern]
     toks = torch.randint(0, cfg.vocab_size, (steps, Bcell, 1),
                          dtype=torch.int32,
                          generator=torch.Generator().manual_seed(128))
-    want, ref_ms = [], []
-    if single_too:
-        # the single device on rows 0..SERVE_REF_ROWS - 1 of the same cache
+    row_bytes = sum(2 * cfg.n_groups * n * cfg.n_kv_heads * cfg.head_dim
+                    * cfg.dtype.itemsize for n in lengths)
+
+    def whole_cache(rows: int) -> dict:
+        """The single device's cache of rows 0..rows - 1 on card 0, drawn
+        as the mesh's (``draw_cache``)."""
         ref = {}
         for p, n in enumerate(lengths):
             for kv, name in enumerate(("k", "v")):
-                t = torch.empty((cfg.n_groups, SERVE_REF_ROWS, n,
-                                 cfg.n_kv_heads, cfg.head_dim),
-                                dtype=cfg.dtype, device=card0)
+                t = torch.empty((cfg.n_groups, rows, n, cfg.n_kv_heads,
+                                 cfg.head_dim), dtype=cfg.dtype, device=card0)
                 for g in range(cfg.n_groups):
-                    draw_cache(t[g], p, kv, g, range(SERVE_REF_ROWS), 0, n)
+                    draw_cache(t[g], p, kv, g, range(rows), 0, n)
                 ref.setdefault(f"pos{p}", {})[name] = t
-        for j in range(steps):
-            (lg, ref), ms = run_timed(lambda: transformer.decode_step(
-                cfg, single, ref, toks[j, :SERVE_REF_ROWS].to(card0),
-                D0 + j))
-            want.append(lg.to("cpu"))
-            ref_ms.append(ms)
-        del ref, lg
-    del single
+        return ref
+
+    def single_decode(rows: int):
+        """The single device's SERVE_STEPS steps on rows 0..rows - 1:
+        (logits a step on the CPU, ms a step, its MoE record)."""
+        ref = whole_cache(rows)
+        want, ms_ = [], []
+        with moe_lib.recording() as rec:
+            for j in range(steps):
+                (lg, ref), ms = run_timed(lambda: transformer.decode_step(
+                    cfg, single, ref, toks[j, :rows].to(card0), D0 + j))
+                want.append(lg.to("cpu"))
+                ms_.append(ms)
+        return torch.stack(want), ms_, rec
+
+    want = ref_ms = None
+    if single_too and not cfg.is_moe:
+        want, ref_ms, _ = single_decode(SERVE_REF_ROWS)
+    if not same_rows:
+        del single
     free_cards(cards)
-    row_bytes = sum(2 * cfg.n_groups * n * cfg.n_kv_heads * cfg.head_dim
-                    * cfg.dtype.itemsize for n in lengths)
     free_b = min(torch.cuda.mem_get_info(c)[0] for c in cards)
     per_card = row_bytes * (mesh.size // len(cards)) / mesh.size
-    B = int(min(Bcell, (free_b - SERVE_MARGIN) / per_card)) // 2 * 2
-    if B < SERVE_REF_ROWS:
-        fail(f"decode_32k: 2 x 2 holds {B} rows of its cache at {depth}, "
-             f"fewer than the {SERVE_REF_ROWS} compared")
+    B = min(Bcell, (free_b - SERVE_MARGIN) / per_card)
+    if same_rows:  # and its whole cache on card 0 once the mesh's is
+        # freed, with copies of a layer's keys and values (decode_step)
+        B = min(B, (torch.cuda.mem_get_info(card0)[0] - SERVE_MARGIN)
+                / (row_bytes * (1 + 2 / cfg.n_layers)))
+    B = int(B) // 2 * 2
+    R = B if same_rows else SERVE_REF_ROWS
+    if (single_too and B < R) or B < 2:
+        fail(f"decode_32k: 2 x 2 holds {B} rows of {arch}'s cache at "
+             f"{depth}, fewer than the {R} compared")
     toks = toks[:, :B]
-    cache = drawn_cache(cfg, mesh, plan.in_specs[1]["pos0"]["k"], B, Sd)
+
+    def mesh_decode(ahead: int = 0):
+        """The plan's SERVE_STEPS steps on the mesh from a freshly drawn
+        cache (each at a position ``ahead`` past its own): (rows 0..R - 1
+        of each step's logits on the CPU, ms a step, the cache, its MoE
+        record)."""
+        cache = drawn_cache(cfg, mesh, plan.in_specs[1]["pos0"]["k"], B, Sd)
+        reset()
+        got, step_ms = [], []
+        with moe_lib.recording() as rec:
+            for j in range(steps):
+                (lg, cache), ms = run_timed(lambda: plan.fn(
+                    params, cache, toks[j], D0 + j + ahead))
+                got.append(first_rows(lg, R).to("cpu"))
+                step_ms.append(ms)
+        return torch.stack(got), step_ms, cache, rec
+
+    got, step_ms, cache, rec = mesh_decode()
+    pk = peaks()
     c_bytes = [card_bytes([s for c in cache.values() for st in c.values()
                            for s in st.shards], c) for c in cards]
     bound = max(c + w for c, w in zip(c_bytes, w_card)) / PEAK_BYTES_S
-    reset()
-    got, step_ms = [], []
-    for j in range(steps):
-        (lg, cache), ms = run_timed(lambda: plan.fn(params, cache, toks[j],
-                                                    D0 + j))
-        got.append(first_rows(lg, SERVE_REF_ROWS).to("cpu"))
-        step_ms.append(ms)
-    pk = peaks()
     prof = (None if gate else _mesh_profile(
         lambda: plan.fn(params, cache, toks[-1], D0 + steps - 1),
         f"one decode_32k step on 2 x 2 at {depth}", cards))
+    del cache
     line = (f"    decode_32k at {depth}: B = {B}"
             + (f" (the cell's {Bcell} cut: 2 x 2 on {len(cards)} card(s) "
                f"holds no more with {SERVE_MARGIN / 1e9:.0f} GB left free)"
                if B < Bcell else " (the cell's)")
-            + f", S = {Sd:,}, the cache {sum(c_bytes) / 1e9:.2f} GB "
+            + f", S = {Sd:,}"
+            + (f" (the cell's {dcell.dims['seq_len']:,} cut: the single "
+               "device beside it holds the whole batch)" if same_rows
+               else "")
+            + f", the cache {B * row_bytes / 1e9:.2f} GB "
             f"({max(c_bytes) / 1e9:.2f} GB a card) drawn on its cards, "
             f"{steps} steps from cache_len {D0:,}: "
             f"{np.median(step_ms):.2f} ms a step (median; "
@@ -6237,15 +6504,47 @@ def serve_legs(spec, cfg, mesh, four_cards: bool, problems: list, *,
             f"bound {bound * 1e3:.3f} ms (a card's cache block and weights "
             f"over 3.35 TB/s), peak GB a card {pk}"
             + (f", busy share {prof['busy_share']:.1%}" if prof else ""))
-    if single_too:
-        r, msg = compare(f"decode_32k rows 0-{SERVE_REF_ROWS - 1}",
-                         torch.stack(got), torch.stack(want))
-        line += (f"; rows 0-{SERVE_REF_ROWS - 1} against the single device's "
-                 f"decode_step ({np.median(ref_ms):.2f} ms a step): max "
-                 f"|diff| {r[0]:.4g}, mean {r[1]:.4g} (largest |logit| "
-                 f"{r[2]:.4g}; {bounds}): {verdict(msg)}")
+    if cfg.is_moe:
+        E = moe_lib.padded_experts(cfg.n_experts)
+        cap = moe_lib.capacity(min(cfg.moe_group_size, B), cfg.top_k, E,
+                               cfg.capacity_factor)
+        line += (f"; MoE (a step's group: the batch's {B} tokens over "
+                 f"{mesh.shape['data']} data replicas, capacity {cap} an "
+                 f"expert): {rec.handoffs // steps} slot hand-offs a step "
+                 f"between the replicas, {rec.dropped} of "
+                 f"{rec.assignments:,} assignments dropped over the {steps} "
+                 f"steps")
+        if mesh.shape["data"] > 1 and rec.handoffs == 0:
+            problems.append(f"{arch} decode_32k at {depth}: no slot "
+                            "hand-off between the data replicas")
+        if gate and rec.dropped == 0:
+            problems.append(f"{arch} decode_32k at {depth}: B = {B} drops "
+                            "no assignment: the capacity never binds")
+    if same_rows:
+        free_cards(cards)
+        want, ref_ms, srec = single_decode(B)
+        line += (f" (the single device on the same rows: {srec.dropped} "
+                 "dropped)")
+    if want is not None:
+        r, msg = compare(f"decode_32k rows 0-{R - 1}", got, want)
+        line += (f"; rows 0-{R - 1} against the single device's decode_step "
+                 f"({np.median(ref_ms):.2f} ms a step): max |diff| "
+                 f"{r[0]:.4g}, mean {r[1]:.4g} (largest |logit| {r[2]:.4g}; "
+                 f"{bounds}): {verdict(msg)}")
+    elif single_too:
+        line += ("; not against the single device at this depth (an MoE "
+                 "step's group is the whole batch: the single device would "
+                 "hold all B rows)")
     log(line)
-    del cache, lg, model, params
+    if gate and long_skip:
+        free_cards(cards)
+        bad, _, cache, _ = mesh_decode(ahead=1)
+        del cache
+        rf, msg = compare("", bad, want, record=False)
+        fault_verdict("decode_32k", rf, msg)
+    del model, params
+    if same_rows:
+        del single
     free_cards(cards)
 
 

@@ -23,8 +23,10 @@ over k) and the combine reads the expert outputs through
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Iterator, List, Optional
 
 import torch
 
@@ -36,6 +38,49 @@ if TYPE_CHECKING:  # pragma: no cover
     from .transformer import TransformerConfig
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class Dispatch:
+    """What the MoE FFN did within a ``recording()`` block: ``handoffs``,
+    the per-expert slot counts a data replica received from the earlier
+    replicas of its group (``carry=``), one a model shard; ``assignments``,
+    the token-expert assignments routed; ``dropped``, those past their
+    expert's capacity (a replica's counted once, on its first model
+    shard; read on the host)."""
+
+    handoffs: int = 0
+    assignments: int = 0
+    kept: List[Tensor] = dataclasses.field(default_factory=list)
+
+    @property
+    def dropped(self) -> int:
+        return self.assignments - sum(int(k) for k in self.kept)
+
+
+_RECORDS: List[Dispatch] = []
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dispatch]:
+    """Within the block, ``moe_ffn`` and ``moe_ffn_sharded`` add to the
+    yielded record. Off (one list check a call) outside any such block;
+    blocks may nest, each counting everything inside it."""
+    rec = Dispatch()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _note(keep: Tensor, handoffs: int) -> None:
+    """Record one call's slot claims: ``keep`` the assignments given a
+    slot, ``handoffs`` the counts it received from an earlier replica."""
+    for rec in _RECORDS:
+        rec.handoffs += handoffs
+        rec.assignments += keep.numel()
+        rec.kept.append(keep.sum())
 
 
 def padded_experts(n_experts: int, multiple: int = 16) -> int:
@@ -100,6 +145,8 @@ def moe_ffn(cfg: "TransformerConfig", p: dict, x: Tensor) -> Tensor:
 
     gate, expert_idx = route(cfg, p["router"], xt)
     slot, keep = slots(expert_idx, E, C)
+    if _RECORDS:
+        _note(keep, 0)
 
     # dispatch: each token's k copies (an expand, whose backward sums over
     # k in a fixed order) copied to their slots, every group's E*C + 1 rows
@@ -194,6 +241,8 @@ def moe_ffn_sharded(cfg: "TransformerConfig", ps: list, xs: list, *,
             counts[m] = mine if claimed is None else claimed + mine
         else:
             slot, keep = slots(expert_idx, E, C)
+        if _RECORDS and m == 0:
+            _note(keep, 0 if not part or first else M)
         gates.append(gate.reshape(G, n * K) * keep.to(gate.dtype))
         lo = m * El * C
         inside = (slot >= lo) & (slot < lo + El * C)

@@ -1,6 +1,6 @@
 """The trainer's mesh spread over processes (``--multihost``) on the CPU:
-two processes of two logical shards each, over gloo, against one process
-of four shards, and against the JAX package's step.
+two processes of two logical shards each, and four of one, over gloo,
+against one process of four shards, and against the JAX package's step.
 
 The processes are spawned once for the file (the ``runs`` fixture): a
 ``torch.multiprocessing`` pair through a ``file://`` store runs every job
@@ -15,7 +15,8 @@ a wall-clock limit below the process group's timeout.
   axis crosses the processes) and 2 x 2 (the data axis crosses), the
   latter also with ``--compress-grads``: every loss on both processes
   and every leaf of the final ``state_tree`` ``torch.equal`` to one
-  process's;
+  process's; granite-8b on 1 x 4 and 2 x 2 and qwen2-moe-a2.7b on 1 x 4
+  also on four processes (a second spawn, beside the first);
 * **the reference**: one 1 x 4 step on the reference's weights
   (``convert.transformer_from_arrays``) against its value_and_grad +
   AdamW step, at ``tests/test_torch_sharded_train.py``'s tolerances (loss
@@ -82,6 +83,8 @@ BIT_CASES = {
     "dlrm-2x2-compressed": ["--arch", "dlrm-rm2", "--data-shards", "2",
                             "--model-shards", "2", "--compress-grads"],
 }
+#: the cases also run on four processes of one logical shard each
+FOUR_CASES = ("granite-1x4", "granite-2x2", "moe-1x4")
 COMMON = ["--reduced", "--device", "cpu", "--steps", "3"]
 CKPT = BIT_CASES["granite-1x4"]
 REF_ARCH, REF_B, REF_S = "granite-8b", 4, 32
@@ -183,12 +186,15 @@ def _finish(procs, deadline):
     return outs
 
 
-def _spawn_workers(jobs, tmp):
+def _spawn_workers(jobs, tmp, count=2):
+    """``count`` worker processes of one gloo group (its store and the
+    workers' result files in ``tmp``)."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     init = f"file://{tmp}/store"
-    procs = [ctx.Process(target=worker.run, args=(r, 2, init, jobs, str(tmp),
-                                                  q)) for r in range(2)]
+    procs = [ctx.Process(target=worker.run, args=(r, count, init, jobs,
+                                                  str(tmp), q))
+             for r in range(count)]
     for p in procs:
         p.start()
     return procs, q
@@ -202,7 +208,7 @@ def _collect(procs, q, tmp, deadline):
         for p in procs:
             p.join(timeout=max(deadline - time.time(), 1))
         return [torch.load(tmp / f"{r}.pt", weights_only=False)
-                for r in range(2)]
+                for r in range(len(procs))]
     finally:
         for p in procs:
             if p.is_alive():
@@ -210,7 +216,27 @@ def _collect(procs, q, tmp, deadline):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def four_started(tmp_path_factory):
+    """Four worker processes of one logical shard each, started before
+    ``runs`` so they run beside it: FOUR_CASES with ``--multihost``."""
+    tmp = tmp_path_factory.mktemp("four")
+    jobs = [{"name": c, "kind": "train", "argv": _argv(c, "--multihost")}
+            for c in FOUR_CASES]
+    procs, q = _spawn_workers(jobs, tmp, count=4)
+    yield procs, q, tmp, time.time() + WALL_S
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def four(four_started):
+    """The four workers' results by rank."""
+    return _collect(*four_started)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, four_started):
     """Every spawned layout, run once: (the workers' results by rank, the
     one-process results, the reference, the CLI's outputs, dirs)."""
     tmp = tmp_path_factory.mktemp("multihost")
@@ -351,6 +377,25 @@ def test_two_processes_are_one_process_bits(runs, case):
     assert not bad, bad
     if "compressed" in case:
         assert any(n.startswith("2__") for n in leaves)
+
+
+@pytest.mark.parametrize("case", FOUR_CASES)
+def test_four_processes_are_one_process_bits(runs, four, case):
+    """Four processes, one position each: every transfer pairs processes
+    by its key (gloo's tag), whichever pairs are busy, and the sums keep
+    the one-process order."""
+    want = runs[1][case]
+    for rank in range(4):
+        got = four[rank][case]
+        assert got["losses"] == want["losses"], rank
+        assert got["backend"] == "gloo"
+        assert got["local"] == [rank]
+    leaves = four[0][case]["leaves"]
+    assert set(leaves) == set(want["leaves"])
+    assert not any(four[r][case]["leaves"] for r in (1, 2, 3))
+    bad = [n for n, w in want["leaves"].items()
+           if not torch.equal(leaves[n], w)]
+    assert not bad, bad
 
 
 def test_two_process_step_matches_the_reference(runs):

@@ -9,7 +9,11 @@ passed to both) and numpy tokens, at reduced width and small B and S;
 each reference function is compiled once. gemma2-2b covers the rolled
 ring buffer (a 24-token prompt past its 16-token window) and both
 softcaps; granite-8b (2 KV heads) on 1 x 4 the shards that hold copies
-of one KV head; qwen2-moe-a2.7b the MoE FFN on 1 x 2. A decode step
+of one KV head; qwen2-moe-a2.7b and granite-moe-3b-a800m the MoE FFN on
+1 x 2 and 2 x 2, where a decode step's MoE group (the batch's 16 tokens)
+spans both data replicas: the second replica's tokens follow the slots
+the first claimed (``moe.moe_ffn_sharded(carry=)``), and the capacity
+binds (some assignments drop, counted by ``moe.recording``). A decode step
 starts from the reference's ``prefill(pad_to=)`` cache laid out by the
 plan's ``in_specs``, at cache lengths whose slots fall in every shard's
 block of the global and the ring caches, wrap the ring and reach (and
@@ -37,18 +41,21 @@ from repro.launch import mesh as jmesh  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint.checkpoint import flat_state, nest_state  # noqa: E402,E501
 from repro_torch.distributed import partition  # noqa: E402
 from repro_torch.distributed.sharding import P  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 
-LM_ARCHS = ["gemma2-2b", "qwen1.5-0.5b", "granite-8b", "qwen2-moe-a2.7b"]
+MOE_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-3b-a800m")
+LM_ARCHS = ["gemma2-2b", "qwen1.5-0.5b", "granite-8b", *MOE_ARCHS]
 CELLS = ["prefill_32k", "decode_32k", "long_500k"]
 MESHES = [(1, 2), (2, 2), (1, 4)]
 SERVE_CASES = ([(a, m) for a in ("gemma2-2b", "granite-8b") for m in MESHES]
-               + [("qwen2-moe-a2.7b", (1, 2))])
+               + [(a, m) for a in MOE_ARCHS for m in ((1, 2), (2, 2))])
 LOGITS = dict(rtol=1e-5, atol=1e-5)
 CACHE = dict(rtol=1e-5, atol=1e-6)
 #: prompt rows and length (past gemma's 16-token window), the global
@@ -58,8 +65,10 @@ CACHE = dict(rtol=1e-5, atol=1e-6)
 #: the last global slot (63) and past it (70: written at 63)
 B, S, PAD = 4, 24, 64
 CACHE_LENS = (24, 35, 63, 70)
-#: qwen2-moe's MoE groups are 64 tokens: its prompt fills 2
-MOE_B, MOE_S = 2, 64
+#: the MoE architectures' groups are 64 tokens: a prompt row fills one; a
+#: decode step's group is the batch's 16 tokens, whose 64 assignments
+#: exceed the 8 slots of some of the 8 experts (capacity(16, 4, 16, 1.25))
+MOE_B, MOE_S = 16, 64
 
 
 @pytest.fixture(autouse=True)
@@ -111,7 +120,7 @@ def _weights(arch):
 
 
 def _prompt(arch, seed=5):
-    b, s = (MOE_B, MOE_S) if arch == "qwen2-moe-a2.7b" else (B, S)
+    b, s = (MOE_B, MOE_S) if arch in MOE_ARCHS else (B, S)
     cfg = tconfigs.get_arch(arch).make_reduced()
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -239,11 +248,28 @@ def _check_decode(arch, cell, shape, rows):
     cfg = plan.cfg
     mesh = _mesh(shape)
     params = _placed_params(plan, arch, mesh)
+    carried = arch in MOE_ARCHS and shape[0] > 1
+    if carried:  # the unsharded decode drops the same assignments
+        alone = convert.transformer_from_arrays(cfg, _weights(arch)[1],
+                                                device="cpu")
+    dropped = 0
     for n in CACHE_LENS:
         whole = jax.tree.map(_t, cache0)
         cache, tok, length = tsteps.place_inputs(
             plan, mesh, whole, _t(token), torch.tensor(n, dtype=torch.int32))
-        logits, cache = plan.fn(params, cache, tok, length)
+        with tmoe.recording() as rec:
+            logits, cache = plan.fn(params, cache, tok, length)
+        if carried:
+            # each layer: the second replica takes the first's counts,
+            # one a model shard; the group's capacity binds
+            assert rec.handoffs == cfg.n_layers * shape[1] * (shape[0] - 1)
+            assert rec.assignments == rows * cfg.top_k * cfg.n_layers
+            with tmoe.recording() as one:
+                ttfm.decode_step(cfg, alone, jax.tree.map(_t, cache0),
+                                 _t(token), n)
+            assert (one.handoffs, one.assignments, one.dropped) == (
+                0, rec.assignments, rec.dropped)
+            dropped += rec.dropped
         assert logits.spec == plan.out_specs[0]
         want_logits, want_cache = want[n]
         np.testing.assert_allclose(logits.gather().numpy(), want_logits,
@@ -259,6 +285,8 @@ def _check_decode(arch, cell, shape, rows):
                     err_msg=f"pos{p}.{kv} slot {slot} at cache_len {n}")
                 rest = np.delete(np.arange(g.shape[2]), slot)
                 np.testing.assert_array_equal(g[:, :, rest], w0[:, :, rest])
+    if carried:
+        assert dropped > 0
 
 
 @pytest.mark.parametrize("arch,shape", SERVE_CASES)
